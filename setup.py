@@ -52,7 +52,8 @@ setup(
     description=("TPU-native Horovod-style data-parallel training: XLA "
                  "collectives over ICI, custom groups as replica_groups, "
                  "DistributedOptimizer, sequence parallelism."),
-    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*"]),
+    packages=find_packages(include=["horovod_tpu", "horovod_tpu.*",
+                                    "horovod_tpu_torch*"]),
     package_data={"horovod_tpu.core.native": ["hvd_core.cc"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy"],
