@@ -11,6 +11,10 @@ Pallas kernels are CUDA kernels written for Hopper (``csrc/``).
                                                    momentum=0.9))
     trainer = hvd.Trainer(model, loss_fn, opt, has_aux=True)
 
+The long-context LM (``models/transformer.py``) trains the same way, with
+``ops.optim.AdamW`` and ``make_loss_fn(config, fused_head=True)``; its
+attention above 2048 tokens runs on the flash kernels B3/B4.
+
 The package imports no JAX and nothing of ``horovod_tpu``.
 """
 
@@ -36,6 +40,12 @@ from horovod_tpu_torch.ops.collectives import (  # noqa: F401
     broadcast,
     gather,
 )
+from horovod_tpu_torch.ops.flash_attention import (  # noqa: F401
+    blockwise_attention,
+    flash_attention,
+    flash_attention_lse,
+)
+from horovod_tpu_torch.parallel.sequence import local_attention  # noqa: F401
 from horovod_tpu_torch.parallel.optimizer import (  # noqa: F401
     DistributedOptimizer,
     allreduce_gradients,

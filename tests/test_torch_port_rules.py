@@ -1,10 +1,11 @@
 """The port's ground rules, checked on this CPU-only host.
 
 * No module of ``horovod_tpu_torch`` — nor ``chip_smoke.py`` or
-  ``tools/profile_torch_step.py`` — imports JAX,
-  flax, optax or the JAX package (AST walk, and a clean-interpreter import).
-* Entry points run on the GPU by default: ``hvd.init()`` without
-  ``device="cpu"`` raises where CUDA is absent instead of drifting to the CPU.
+  ``tools/profile_torch_step.py`` — imports JAX, flax, optax or the JAX
+  package (AST walk, and a clean-interpreter import).
+* Entry points run on the GPU by default: ``hvd.init()``, the LM's
+  ``init_params`` and ``synthetic_tokens`` without ``device="cpu"`` raise
+  where CUDA is absent instead of drifting to the CPU.
 * Kernel wrappers dispatch on the tensor's device alone: a CPU tensor takes
   the plain version; any other tensor launches the kernel or raises — there
   is no fallback, and no launch is counted that did not happen.
@@ -24,6 +25,7 @@ import torch
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.core import state as tstate
 from horovod_tpu_torch.ops import batchnorm as tbn
+from horovod_tpu_torch.ops import flash_attention as tfa
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "horovod_tpu"}
@@ -78,6 +80,23 @@ def test_init_without_device_raises_without_cuda(monkeypatch):
     assert not hvd.is_initialized()
 
 
+@pytest.mark.parametrize("entry", ["init_params", "synthetic_tokens"])
+def test_lm_entry_points_default_to_the_gpu(monkeypatch, entry):
+    """The LM's entry points build on the GPU unless the caller passes
+    ``device='cpu'``: without CUDA they raise rather than train on the CPU."""
+    from horovod_tpu_torch.models import transformer as tt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tt.TransformerConfig(vocab_size=17, num_layers=1, num_heads=2,
+                               embed_dim=8, mlp_dim=16, max_seq_len=8)
+    call = {"init_params": lambda: tt.init_params(cfg),
+            "synthetic_tokens": lambda: tt.synthetic_tokens(1, 8, 17)}[entry]
+    with pytest.raises((RuntimeError, AssertionError)) as err:
+        call()
+    if entry == "init_params":
+        assert "device='cpu'" in str(err.value)
+
+
 def test_unsupported_device_raises():
     with pytest.raises(hvd.HorovodError, match="unsupported device"):
         tstate._resolve_device("meta", 0)
@@ -121,6 +140,49 @@ def test_non_cpu_tensor_never_falls_back(which):
         else:
             tbn.channel_grad_sums(x, x, c, c)
     assert tbn.LAUNCHES[which] == 0
+
+
+@pytest.fixture
+def no_flash_build(monkeypatch):
+    def refuse():
+        raise AssertionError("the kernel path was taken")
+
+    monkeypatch.setattr(tfa, "_kernels", refuse)
+    tfa.reset_launch_counts()
+    yield
+    tfa.reset_launch_counts()
+
+
+def test_cpu_tensors_take_the_plain_flash_path(no_flash_build):
+    q = torch.randn(1, 40, 2, 16, requires_grad=True)
+    out, lse = tfa.flash_attention_lse(q, q, q)
+    (out.sum() + lse.sum()).backward()
+    assert q.grad is not None
+    assert tfa.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0}
+
+
+@pytest.mark.parametrize("which", ["flash_fwd", "flash_bwd"])
+def test_non_cpu_flash_tensor_never_falls_back(which):
+    """A flash operand that is not on the CPU reaches B3/B4 or raises."""
+    tfa.reset_launch_counts()
+    x = torch.empty(1, 40, 2, 16, device="meta")
+    lse = torch.empty(1, 2, 40, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        if which == "flash_fwd":
+            tfa.flash_fwd(x, x, x)
+        else:
+            tfa.flash_bwd(x, x, x, x, lse, x)
+    assert tfa.LAUNCHES[which] == 0
+
+
+def test_flash_kernels_refuse_other_head_dims():
+    """The CUDA kernels are built for head dims 16/32/64/128 (ROADMAP §C);
+    another head dim raises before any launch."""
+    tfa.reset_launch_counts()
+    x = torch.empty(1, 40, 2, 48, device="meta")
+    with pytest.raises(ValueError, match=r"head dims \(16, 32, 64, 128\)"):
+        tfa.flash_fwd(x, x, x)
+    assert tfa.LAUNCHES["flash_fwd"] == 0
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):
