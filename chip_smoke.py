@@ -6,8 +6,9 @@
 Phases, one line of output each:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every CUDA source of the main path (``horovod_tpu_torch/csrc``)
-   with ``nvcc`` for ``sm_90a``, all builds started together;
+2. build every CUDA source of the main paths (``horovod_tpu_torch/csrc``:
+   ``batchnorm.cu``, ``flash_fwd.cu``, ``flash_bwd.cu``) with ``nvcc`` for
+   ``sm_90a``, all builds started together;
 3. each kernel against its plain PyTorch version on the card, in bf16 and
    fp32, at every distinct (N, C) the main path gives it (ResNet-50, batch
    128, 224 px — read off the model's BatchNorm inputs) plus one ragged N;
@@ -24,13 +25,16 @@ Phases, one line of output each:
    each kernel's launch count must grow by exactly 53 per step (53
    BatchNorm layers);
 6. the flash kernels B3/B4 against their plain versions on the card, row
-   by row, at small shapes for every masking mode (GQA, ragged lengths,
-   offsets, dead rows, window, segment ids, an LSE cotangent, fp32
-   operands) and at the LM's shape (B=2, T=8192, H=8, Hkv=4, D=128,
-   causal, bf16); five planted faults, confined to late tiles or to di,
-   must fail that check; kernel, plain, bound and library times at the LM's
-   shape (``scaled_dot_product_attention``: its forward for B3, forward +
-   backward for B4);
+   by row, at small shapes for every masking mode (GQA, ragged lengths
+   crossing the kernels' tiles, offsets, dead rows, window, segment ids, an
+   LSE cotangent, fp32 operands) and at the LM's shape (B=2, T=8192, H=8,
+   Hkv=4, D=128, causal, bf16); every case run twice, and the two runs must
+   agree bit for bit (B4 uses no float atomics); five planted faults,
+   confined to late tiles or to di, must fail that check; kernel, plain,
+   bound and library times at the LM's shape
+   (``scaled_dot_product_attention``: its forward for B3, forward +
+   backward for B4, and its backward alone, ``library_bwd_ms``), with each
+   kernel's achieved TFLOP/s and share of its bound;
 7. one step of the full-width LM (E=1024, H=8, Hkv=4, mlp 4096, V=32768),
    depth cut to 2 layers, B=1, T=2304, fused head, through
    ``Trainer.train_step`` on the card (B3/B4, fp32 and bf16) against the
@@ -127,7 +131,10 @@ LIBRARY_FLASH_TOL = 2e-2
 # The planted faults' first q or kv tile (64 rows or keys a tile) at the
 # first small case (T=192) and at the LM's shape (T=8192).
 FAULT_TILE = {"small": 2, "LM": 64}
-FLASH_REPS = 5
+# Launches timed at the LM's shape, a mean as everywhere: now and then one
+# SDPA launch stalls (SDPA's forward read 0.48 ms in most calls and 1.05 ms
+# in one as a mean of 5), so its mean takes 10.
+FLASH_REPS = 10
 # The LM: bench.py's full-width config (_lm_extra) and its main-path batch.
 LM_LAYERS = 8
 LM_BATCH = 2
@@ -167,6 +174,10 @@ FLASH_CASES = (
      dict(causal=True, g_lse=True), True),
     ("fp32 operands", (1, 200, 200, 8, 4, 128), torch.float32,
      dict(causal=True), False),
+    # Crosses the kernels' 128-row q and kv tiles (and B4's 64-row ones) in
+    # both lengths, with four q heads to a kv head.
+    ("GQA tile edges", (1, 257, 257, 8, 2, 128), torch.bfloat16,
+     dict(causal=False), False),
 )
 
 
@@ -379,15 +390,28 @@ def _max_rel_err(outs, wants) -> float:
                for a, b in zip(outs, wants))
 
 
+def _flash_kernels(q, k, v, g_out, g_lse, kw):
+    """(out, lse, dq, dk, dv) of B3 then B4."""
+    out, lse = fa.flash_fwd_kernel(q, k, v, **kw)
+    return (out, lse, *fa.flash_bwd_kernel(q, k, v, out, lse, g_out, g_lse,
+                                           **kw))
+
+
 def _flash_run(q, k, v, g_out, g_lse, kw):
     """(out, lse, dq, dk, dv) of B3/B4 and of their plain versions on the
-    same card inputs."""
-    out, lse = fa.flash_fwd_kernel(q, k, v, **kw)
-    grads = fa.flash_bwd_kernel(q, k, v, out, lse, g_out, g_lse, **kw)
+    same card inputs. B3/B4 run twice and must give the same bits: every
+    sum stays in one block, in a fixed order."""
+    got = _flash_kernels(q, k, v, g_out, g_lse, kw)
+    again = _flash_kernels(q, k, v, g_out, g_lse, kw)
     p_out, p_lse = fa.flash_fwd_plain(q, k, v, **kw)
     p_grads = fa.flash_bwd_plain(q, k, v, p_out, p_lse, g_out, g_lse, **kw)
     torch.cuda.synchronize()
-    return (out, lse, *grads), (p_out, p_lse, *p_grads)
+    differ = [n for n, a, b in zip(("O", "lse") + FLASH_OUTPUTS[1:], got,
+                                   again) if not torch.equal(a, b)]
+    if differ:
+        raise RuntimeError(f"B3/B4 are not deterministic: a second run on "
+                           f"the same inputs changed {differ}")
+    return got, (p_out, p_lse, *p_grads)
 
 
 def _flash_errors(got, want) -> dict:
@@ -474,10 +498,11 @@ def _planted_faults(q, k, v, g_out, kw, got, want, tile: int) -> dict:
 
 
 def _flash_bounds(b, t, h, hkv, d):
-    """(B3, B4) bounds in ms and what bounds each, at a causal
-    same-offset (T, T) call: the visible pairs are T(T+1)/2 per (b, h);
-    B3 does 2 products on them, B4 at least 5, at the dense bf16 rate; the
-    bytes are each input read once and each output written once."""
+    """(B3, B4) bounds in ms, what bounds each, and the operations counted,
+    at a causal same-offset (T, T) call: the visible pairs are T(T+1)/2 per
+    (b, h); B3 does 2 products on them, B4 at least 5, at the dense bf16
+    rate; the bytes are each input read once and each output written
+    once."""
     pairs = b * h * t * (t + 1) // 2
     q_bytes = 2 * b * t * h * d
     kv_bytes = 2 * b * t * hkv * d
@@ -491,17 +516,18 @@ def _flash_bounds(b, t, h, hkv, d):
         terms = {"bytes": nbytes / HBM_BYTES_PER_S,
                  "operations": flops / BF16_FLOPS_PER_S}
         by = max(terms, key=terms.get)
-        out[name] = (terms[by] * 1e3, by)
+        out[name] = (terms[by] * 1e3, by, flops)
     return out
 
 
 def phase_flash_kernels(device):
     """B3/B4 against their plain versions on the card at small shapes for
     every masking mode (GQA, ragged lengths, offsets, dead rows, window,
-    segment ids, g_lse, fp32 operands) and at the LM's shape, then kernel,
-    plain, bound and library (SDPA) times at the LM's shape. Planted
-    faults (``_planted_faults``) must fail the check at the first small
-    case and at the LM's shape."""
+    segment ids, g_lse, fp32 operands) and at the LM's shape, each run
+    twice and bit-identical, then kernel, plain, bound and library (SDPA)
+    times at the LM's shape, with SDPA's backward alone for B4
+    (``library_bwd_ms``). Planted faults (``_planted_faults``) must fail
+    the check at the first small case and at the LM's shape."""
     worst = dict.fromkeys(FLASH_OUTPUTS + ("lse",), 0.0)
     abs_err = {"flash_fwd": 0.0, "flash_bwd": 0.0}
     faults = {}
@@ -536,7 +562,9 @@ def phase_flash_kernels(device):
     del got, want
     # The library call timed beside each kernel: SDPA (cuDNN / flash
     # backends) on the same inputs — forward for B3, forward + backward for
-    # B4 — checked against the plain version first.
+    # B4, and its backward alone from one saved forward (no single PyTorch
+    # call computes B4's function with GQA) — checked against the plain
+    # version first.
     qT, kT, vT = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     gT = g_out.transpose(1, 2)
@@ -548,27 +576,42 @@ def phase_flash_kernels(device):
     def sdpa_fwd_bwd():
         return torch.autograd.grad(sdpa(), (qT, kT, vT), gT)
 
+    sdpa_out = sdpa()
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qT, kT, vT), gT,
+                                   retain_graph=True)
+
     lib_err = _row_err(sdpa().detach().transpose(1, 2), p_out)
     if not lib_err <= LIBRARY_FLASH_TOL:
         raise RuntimeError(f"SDPA disagrees with flash_fwd_plain: row err "
                            f"{lib_err:.3e} > {LIBRARY_FLASH_TOL}")
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
     bounds = _flash_bounds(b, t, h, hkv, d)
+    # The plain versions (≈ 0.1-0.2 s a call) are timed last: timed after
+    # their seconds of load, SDPA's backward alone read slower than SDPA's
+    # forward and backward together.
     times = {
         ("flash_fwd", "ms"): lambda: fa.flash_fwd_kernel(q, k, v, **kw),
-        ("flash_fwd", "plain_ms"): lambda: fa.flash_fwd_plain(q, k, v, **kw),
         ("flash_fwd", "library_ms"): sdpa,
         ("flash_bwd", "ms"): lambda: fa.flash_bwd_kernel(
             q, k, v, out, lse, g_out, None, **kw),
+        ("flash_bwd", "library_ms"): sdpa_fwd_bwd,
+        ("flash_bwd", "library_bwd_ms"): sdpa_bwd,
+        ("flash_fwd", "plain_ms"): lambda: fa.flash_fwd_plain(q, k, v, **kw),
         ("flash_bwd", "plain_ms"): lambda: fa.flash_bwd_plain(
             q, k, v, p_out, p_lse, g_out, None, **kw),
-        ("flash_bwd", "library_ms"): sdpa_fwd_bwd,
     }
     rec = {name: {"max_abs_err": abs_err[name], "bound_ms": bounds[name][0],
                   "bound_by": bounds[name][1]} for name in bounds}
     for (name, field), fn in times.items():
         rec[name][field] = cuda_time_ms(fn, flush, reps=FLASH_REPS)
-    del flush
+    for name, r in rec.items():
+        # The bound's operations (B3: 2 products, B4: the 5-product
+        # minimum) over the kernel's time, and the bound over that time.
+        r["tflops"] = bounds[name][2] / (r["ms"] * 1e-3) / 1e12
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+    del flush, sdpa_out
     torch.cuda.empty_cache()
     return rec, worst, full, lib_err, faults
 
@@ -823,7 +866,7 @@ def main() -> int:
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    libs = _build.build(["batchnorm", "flash_attention"])
+    libs = _build.build(["batchnorm", "flash_fwd", "flash_bwd"])
     say(f"phase 2 build: ok in {time.perf_counter() - t0:.1f} s: "
         f"{sorted(os.path.relpath(p, HERE) for p in libs.values())}")
 
@@ -862,8 +905,9 @@ def main() -> int:
         return ", ".join(f"{n} {errs[n]:.2e}" for n in FLASH_OUTPUTS)
 
     say(f"phase 6 flash kernels: ok at {len(FLASH_CASES)} small shapes (every "
-        f"masking mode, g_lse, fp32 operands) and the LM's {LM_ATTN_SHAPE} "
-        f"causal bf16; worst row err |kernel-plain|/|plain| (limit "
+        f"masking mode, g_lse, fp32 operands, tile edges) and the LM's "
+        f"{LM_ATTN_SHAPE} causal bf16, each run twice with bit-identical O, "
+        f"LSE, dq, dk, dv; worst row err |kernel-plain|/|plain| (limit "
         f"{FLASH_ROW_TOL}): all cases {row_errs(f_worst)}; at the LM shape "
         f"{row_errs(f_full)}; worst lse err {f_worst['lse']:.2e} (limit "
         f"{LSE_TOL}); SDPA vs plain row err {f_lib:.2e} (limit "
@@ -873,8 +917,13 @@ def main() -> int:
             for where, fs in f_faults.items() for name, r in fs.items())
         + "; per call at the LM shape: " + "; ".join(
             f"{k} {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
-            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (by "
-            f"{r['bound_by']})" for k, r in frec.items()))
+            f"{r['library_ms']:.4f} ms"
+            + (f" (backward alone {r['library_bwd_ms']:.4f} ms)"
+               if "library_bwd_ms" in r else "")
+            + f", bound {r['bound_ms']:.4f} ms (by {r['bound_by']}), "
+            f"{r['tflops']:.1f} TFLOP/s at the bound's operation count, "
+            f"{100 * r['bound_share']:.1f}% of the bound"
+            for k, r in frec.items()) + f", on {ident}")
 
     lm_cpu_loss, lm_errs = phase_lm_step_vs_cpu(device)
     say(f"phase 7 LM step vs cpu: ok; E=1024 H=8 Hkv=4 mlp 4096 V=32768, "
@@ -903,9 +952,9 @@ def main() -> int:
              launches),
             ("channel_grad_sums", "batchnorm.cu", "batchnorm.py:115", rec,
              launches),
-            ("flash_fwd", "flash_attention.cu", "flash_attention.py:234",
+            ("flash_fwd", "flash_fwd.cu", "flash_attention.py:234",
              frec, lm_launches),
-            ("flash_bwd", "flash_attention.cu", "flash_attention.py:447",
+            ("flash_bwd", "flash_bwd.cu", "flash_attention.py:447",
              frec, lm_launches)):
         r = r[name]
         kernels.append({
@@ -916,6 +965,8 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+        if "library_bwd_ms" in r:
+            kernels[-1]["library_bwd_ms"] = r["library_bwd_ms"]
     say(json.dumps({"kernels": kernels}))
     hvd.shutdown()
     say(json.dumps({"ok": True, "device": {

@@ -3,9 +3,11 @@
 Each source has a plain C interface and is compiled by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library under ``horovod_tpu_torch/_build/``, at
 first use, then loaded with ``ctypes``. The library's file name carries a
-hash of the source and flags, so an edited source is rebuilt and a stale
-library is never loaded. Nothing here runs at import: the CPU tests import
-every module, and this host may have no ``nvcc``.
+hash of the source, of every header under ``csrc/`` (``*.cuh``) and of
+the flags, so an edited source or header is rebuilt and a stale library is
+never loaded (a header edit rebuilds every source, the ones that do not
+include it too). Nothing here runs at import: the CPU tests import every
+module, and this host may have no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -45,8 +47,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for rel in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            digest.update(rel.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -3,7 +3,10 @@
 Counterpart of ``horovod_tpu/ops/flash_attention.py``. The TPU package runs
 attention above 2048 tokens through a Pallas forward kernel and one fused
 Pallas backward kernel; here the same two functions are CUDA C++ kernels
-written for Hopper (``horovod_tpu_torch/csrc/flash_attention.cu``):
+written for Hopper (``horovod_tpu_torch/csrc/flash_fwd.cu`` and
+``flash_bwd.cu``, on the TMA/mbarrier/wgmma machinery of
+``flash_common.cuh``): a producer warp streams tiles into a shared-memory
+ring by TMA while two consumer warpgroups multiply them with ``wgmma``.
 
 * **B3** (forward) — online-softmax attention: O and the per-row natural-log
   LSE, never materializing the (Tq, Tk) scores;
@@ -13,7 +16,8 @@ written for Hopper (``horovod_tpu_torch/csrc/flash_attention.cu``):
   q tiles) and a dq kernel (one block per q tile, looping over the kv
   tiles): Hopper's blocks run in no order, and this split sums every
   gradient inside one block in a fixed order, with no float atomics and no
-  fp32 dq partials to reduce afterwards, so B4 is deterministic.
+  fp32 dq partials to reduce afterwards, so B4 is deterministic: the same
+  inputs give the same bits.
 
 :func:`flash_attention` and :func:`flash_attention_lse` are
 ``torch.autograd.Function``\\ s: B3 in the forward, which saves O and the LSE,
@@ -45,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from types import SimpleNamespace
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -78,15 +83,18 @@ def reset_launch_counts() -> None:
 
 
 def _kernels():
+    """The entry points ``hvd_flash_fwd`` (``csrc/flash_fwd.cu``) and
+    ``hvd_flash_bwd`` (``csrc/flash_bwd.cu``), built at first use."""
     global _lib
     if _lib is None:
-        lib = _build.load("flash_attention")
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.hvd_flash_fwd.argtypes = [vp] * 7 + [i] * 10 + [f, i, vp]
-        lib.hvd_flash_fwd.restype = i
-        lib.hvd_flash_bwd.argtypes = [vp] * 11 + [i] * 10 + [f, i, vp]
-        lib.hvd_flash_bwd.restype = i
-        _lib = lib
+        fwd = _build.load("flash_fwd").hvd_flash_fwd
+        fwd.argtypes = [vp] * 7 + [i] * 10 + [f, i, vp]
+        fwd.restype = i
+        bwd = _build.load("flash_bwd").hvd_flash_bwd
+        bwd.argtypes = [vp] * 11 + [i] * 10 + [f, i, vp]
+        bwd.restype = i
+        _lib = SimpleNamespace(hvd_flash_fwd=fwd, hvd_flash_bwd=bwd)
     return _lib
 
 
@@ -242,7 +250,8 @@ def _raise_on(err: int, name: str) -> None:
 
 def _kernel_operand(name: str, t: torch.Tensor, device) -> torch.Tensor:
     """A contiguous, 16-byte-aligned bf16 copy (or the tensor itself) for the
-    kernels, which read 16 bytes at a time."""
+    kernels, whose TMA tensor maps need a 16-byte-aligned base (every row
+    stride, heads · D · 2 bytes, is a multiple of 16)."""
     if t.device != device:
         raise ValueError(f"{name}: every operand must be on {device}, got "
                          f"{t.device}.")

@@ -55,6 +55,9 @@ CASES = [
     ("offsets_ragged", (1, 80, 112, 4, 2, 16),
      dict(causal=True, q_offset=48, kv_offset=16), None),
     ("window", (1, 80, 80, 4, 2, 16), dict(causal=True, window=24), None),
+    # Lengths past one 128-row kernel tile with four q heads to a kv head,
+    # as chip_smoke.py's "GQA tile edges" case at a smaller head dim.
+    ("gqa_tile_edges", (1, 130, 130, 8, 2, 16), dict(causal=False), None),
     # q ids (0, 1, 2) against kv ids (0, 1, 3): the last 16 q rows see no
     # key — dead rows (out 0, LSE very negative, zero gradients).
     ("segments_dead_rows", (1, 80, 80, 2, 1, 16), dict(causal=True),

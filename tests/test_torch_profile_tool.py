@@ -8,6 +8,7 @@ exceeds 1. cuBLAS's Hopper GEMMs (``nvjet_*``) are matrix products.
 
 import importlib.util
 import pathlib
+import re
 from types import SimpleNamespace
 
 import pytest
@@ -44,6 +45,12 @@ def test_user_annotations_and_host_events_are_left_out(tool):
 @pytest.mark.parametrize("name,category", [
     ("void (anonymous namespace)::flash_bwd_dq_kernel<128, bf16>",
      "flash_attention"),
+    ("void (anonymous namespace)::flash_fwd_kernel<128, __nv_bfloat16>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "(anonymous namespace)::FwdArgs)", "flash_attention"),
+    ("void (anonymous namespace)::flash_bwd_dkdv_kernel<128, float>("
+     "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     "(anonymous namespace)::BwdArgs)", "flash_attention"),
     ("void (anonymous namespace)::channel_sums_kernel<bf16, 8>",
      "bn_channel_sums"),
     ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT", "conv_and_matmul"),
@@ -52,3 +59,21 @@ def test_user_annotations_and_host_events_are_left_out(tool):
 ])
 def test_categories(tool, name, category):
     assert tool._category(name) == category
+
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "horovod_tpu_torch" / \
+    "csrc"
+
+
+@pytest.mark.parametrize("source", sorted(p.name for p in CSRC.glob("*.cu")))
+def test_every_port_kernel_has_its_category(tool, source):
+    """Each ``__global__`` kernel of the port's sources falls in one of the
+    tool's own categories, whatever its template arguments."""
+    text = (CSRC / source).read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                       r"\s*)?(\w+)\s*\(", text)
+    assert len(names) == text.count("__global__"), (source, names)
+    own = {cat for cat, _ in tool._OWN}
+    for name in names:
+        assert tool._category(f"void (anonymous namespace)::{name}<128, "
+                              f"float>(int)") in own, name
