@@ -7,14 +7,19 @@ Phases, one line of output each:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA source of the main paths (``horovod_tpu_torch/csrc``:
-   ``batchnorm.cu``, ``flash_fwd.cu``, ``flash_bwd.cu``) with ``nvcc`` for
-   ``sm_90a``, all builds started together;
+   ``batchnorm.cu``, ``bn_sums.cu``, ``flash_fwd.cu``, ``flash_bwd.cu``)
+   with ``nvcc`` for ``sm_90a``, all builds started together;
 3. each kernel against its plain PyTorch version on the card, in bf16 and
    fp32, at every distinct (N, C) the main path gives it (ResNet-50, batch
    128, 224 px — read off the model's BatchNorm inputs) plus one ragged N;
-   kernel, plain, bound and library-call times (``torch.batch_norm_stats``
-   for B1, ``torch.batch_norm_backward_reduce`` for B2, which is checked
-   against B2's plain version);
+   B1 also at its edge cases (``B1_EDGE_CASES``: N below one stage, odd C,
+   unaligned bases, N = 0, ragged N across its stages and blocks, C wider
+   than a stage), every B1 call run twice and bit-identical, a planted B1
+   fault (one ring stage left out) that must fail the check, and one device
+   kernel a B1 call (profiler trace); kernel, plain, bound and library-call
+   times (``torch.batch_norm_stats`` for B1, ``torch.batch_norm_backward_
+   reduce`` for B2, which is checked against B2's plain version), B1 and
+   its library call also as medians and under a clean-L2 flush;
 4. one full-width ResNet-50 ``Trainer`` step (224 px, 1000 classes, batch 2)
    on the card with the kernels (bf16) against the same step on the CPU
    with the plain path (fp32): loss and every gradient;
@@ -63,6 +68,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -90,6 +96,22 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12   # H100 SXM, fp32 outside the tensor cores
 KERNEL_TOL = 1e-5          # |kernel − plain| ≤ KERNEL_TOL · Σ|term|, per channel
 LIBRARY_TOL = 1e-4         # the same, for the library call timed beside B2
+# B1's inputs beside the ResNet-50 shapes, each in bf16 and fp32: (name, N,
+# C, elements the base lies into its allocation). Odd C and a base off 16
+# bytes take the kernel's ordinary loads (C = 2500 in tiles of 1024
+# channels), the rest its bulk-copy ring (C = 9000 and the wide ResNet rows
+# in tiles of 512 bytes); the ragged N cross its stage and block edges.
+B1_EDGE_CASES = (
+    ("N below one stage", 3, 64, 0),
+    ("odd C", 1001, 3, 0),
+    ("rows 1.. of an (N+1, 12) tensor", 4097, 12, 12),
+    ("base one element off", 4097, 16, 1),
+    ("N = 0", 0, 64, 0),
+    ("ragged N at C = 64", 100003, 64, 0),
+    ("ragged N at C = 2048", 6271, 2048, 0),
+    ("C wider than a stage", 7, 9000, 0),
+    ("base one element off, C wider than a tile", 5, 2500, 1),
+)
 # Phase 4 limits (relative loss error, relative L2 error of all gradients)
 # against the CPU fp32 step. fp32 on the card differs from the CPU only in
 # summation order. bf16 keeps 8 significant bits, and the error of each
@@ -208,22 +230,46 @@ def seeded_resnet50(dtype, device):
     return model.to(device)
 
 
-def cuda_time_ms(fn, flush, reps: int = REPS) -> float:
-    """Mean device time of ``fn()`` over ``reps`` launches, each after a
-    write of a buffer larger than L2, so every launch finds its input cold."""
+def cuda_times(fn, flush, reps: int = REPS, clean=None) -> list[float]:
+    """Device time of each of ``reps`` launches of ``fn()``, in ms, each
+    launch after a write of ``flush``, a buffer larger than L2, so every
+    launch finds its input cold. That write leaves L2 full of dirty lines,
+    which the timed launch pays to write back; with ``clean`` (a second
+    buffer larger than L2) that buffer is read after the write, so the
+    launch finds L2 holding clean lines only."""
     for _ in range(3):
         fn()
-    total = 0.0
+    times = []
     for _ in range(reps):
         flush.zero_()
+        if clean is not None:
+            clean.sum()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def cuda_time_ms(fn, flush, reps: int = REPS) -> float:
+    """Mean device time of ``fn()`` over ``reps`` launches, each after a
+    write of a buffer larger than L2, so every launch finds its input cold."""
+    times = cuda_times(fn, flush, reps)
+    return sum(times) / len(times)
+
+
+def time_fields(fn, flush, clean, field: str) -> dict:
+    """``field`` (the mean under :func:`cuda_time_ms`'s dirty flush) with
+    its median, and the mean and median under the clean flush."""
+    dirty = cuda_times(fn, flush)
+    tidy = cuda_times(fn, flush, clean=clean)
+    return {field: sum(dirty) / len(dirty),
+            f"{field}_median": statistics.median(dirty),
+            f"{field}_clean": sum(tidy) / len(tidy),
+            f"{field}_clean_median": statistics.median(tidy)}
 
 
 def bn_shapes(model, images):
@@ -242,8 +288,90 @@ def bn_shapes(model, images):
     return shapes
 
 
+def _sums_rel(got, want, xf) -> tuple[float, float]:
+    """B1's worst |got − want| / Σ|term| over channels (terms x and x²) and
+    its largest absolute error."""
+    rel, err = 0.0, 0.0
+    for g, w, mag in ((got[0], want[0], xf.abs()), (got[1], want[1], xf * xf)):
+        diff = (g - w).abs()
+        rel = max(rel, float((diff / mag.sum(0).clamp_min(1e-30)).max()))
+        err = max(err, float(diff.max()))
+    return rel, err
+
+
+def check_b1(x, what: str) -> tuple[float, float]:
+    """B1 on ``x`` twice against its plain version: the two runs must give
+    the same bits, and each channel must agree within KERNEL_TOL of Σ|term|.
+    Returns (relative, absolute) error."""
+    got = bn.channel_sums(x)
+    again = bn.channel_sums(x)
+    want = bn.channel_sums_plain(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        raise RuntimeError(f"channel_sums is not deterministic at {what}: a "
+                           f"second run on the same input changed its bits")
+    rel, err = _sums_rel(got, want, x.reshape(-1, x.shape[-1]).float())
+    if not rel <= KERNEL_TOL:
+        raise RuntimeError(f"channel_sums disagrees with its plain version at "
+                           f"{what}: {rel:.3e} > {KERNEL_TOL} of the summed "
+                           f"magnitude")
+    return rel, err
+
+
+def b1_planted_fault(x) -> float:
+    """B1's result with one ring stage of one block left out (that stage's
+    rows, summed by the plain version, taken off the kernel's sums) must
+    fail the check; returns its relative error."""
+    n, c = x.shape
+    plan = bn.launch_plan(x)
+    r0, r1 = bn.block_rows(plan, n, plan.gx // 2)
+    step = plan.rows_per_stage or (r1 - r0)
+    lo = r0 + step if r1 - r0 > step else r0
+    rows = x[lo:min(r1, lo + step)]
+    got = bn.channel_sums(x)
+    cut = bn.channel_sums_plain(rows)
+    bad = (got[0] - cut[0], got[1] - cut[1])
+    rel, _ = _sums_rel(bad, bn.channel_sums_plain(x), x.float())
+    if rel <= KERNEL_TOL:
+        raise RuntimeError(f"planted fault passed the channel_sums check: "
+                           f"rows {lo}..{lo + len(rows)} of ({n}, {c}) left "
+                           f"out read {rel:.3e}")
+    return rel
+
+
+def b1_kernels_per_call(x, calls: int = 3) -> list[str]:
+    """The device kernels ``calls`` calls of B1 run, by profiler trace: one
+    each, all B1's own. Raises otherwise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    bn.channel_sums(x)  # the stream's barrier word exists from here on
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            bn.channel_sums(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    if len(names) != calls or not all(
+            "channel_sums_ring_kernel" in k for k in names):
+        raise RuntimeError(f"{calls} channel_sums calls ran {len(names)} "
+                           f"device kernels, expected one each: {names}")
+    return names
+
+
+def _edge_input(n, c, offset, dtype, g, device):
+    """An (n, c) input whose base lies ``offset`` elements into its
+    allocation (so ``offset`` · size bytes past a 16-byte boundary when
+    that is not a multiple of 16)."""
+    flat = (torch.randn(offset + n * c, generator=g, device=device) * 3
+            + 2).to(dtype)
+    return flat[offset:].view(n, c)
+
+
 def phase_kernels(model, device):
-    """Phase 3: B1/B2 against their plain versions, and their times."""
+    """Phase 3: B1/B2 against their plain versions, B1's edge cases,
+    determinism, planted fault and one launch a call, and their times."""
     g = torch.Generator(device=device).manual_seed(SEED)
     images = torch.randn((BATCH, IMAGE, IMAGE, 3), generator=g, device=device)
     layer_shapes = bn_shapes(model, images)
@@ -253,12 +381,13 @@ def phase_kernels(model, device):
     distinct = sorted(set(layer_shapes))
     ragged = (25087, 1024)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
-    rec = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-               "bound_ms": 0.0, "library_ms": 0.0,
+    clean = torch.empty_like(flush).fill_(1.0)
+    rec = {k: {"max_abs_err": 0.0, "bound_ms": 0.0,
                "bound_terms": {"bytes": 0.0, "operations": 0.0}}
            for k in ("channel_sums", "channel_grad_sums")}
     worst_rel = 0.0
     worst_library_rel = 0.0
+    fault_rel = None
     for dtype in (torch.bfloat16, torch.float32):
         for (n, c) in distinct + [ragged]:
             x = (torch.randn((n, c), generator=g, device=device) * 3 + 2) \
@@ -267,27 +396,30 @@ def phase_kernels(model, device):
             xf, dyf = x.float(), dy.float()
             mean = xf.mean(0)
             rstd = torch.rsqrt(xf.var(0, unbiased=False) + 1e-5)
-            s1, s2 = bn.channel_sums(x)
-            p1, p2 = bn.channel_sums_plain(x)
+            rel, err = check_b1(x, f"({n}, {c}) {dtype}")
+            worst_rel = max(worst_rel, rel)
+            rec["channel_sums"]["max_abs_err"] = max(
+                rec["channel_sums"]["max_abs_err"], err)
+            if fault_rel is None and dtype == torch.bfloat16 \
+                    and (n, c) == (25088, 256):
+                fault_rel = b1_planted_fault(x)
             sdy, sdx = bn.channel_grad_sums(dy, x, mean, rstd)
             q1, q2 = bn.channel_grad_sums_plain(dy, x, mean, rstd)
             torch.cuda.synchronize()
             term = dyf * (xf - mean) * rstd
-            for key, pairs in (
-                    ("channel_sums", ((s1, p1, xf.abs()), (s2, p2, xf * xf))),
-                    ("channel_grad_sums", ((sdy, q1, dyf.abs()),
-                                           (sdx, q2, term.abs())))):
-                for got, want, mag in pairs:
-                    diff = (got - want).abs()
-                    rel = float((diff / mag.sum(0).clamp_min(1e-30)).max())
-                    worst_rel = max(worst_rel, rel)
-                    rec[key]["max_abs_err"] = max(rec[key]["max_abs_err"],
-                                                  float(diff.max()))
-                    if not rel <= KERNEL_TOL:
-                        raise RuntimeError(
-                            f"{key} disagrees with its plain version at "
-                            f"({n}, {c}) {dtype}: {rel:.3e} > {KERNEL_TOL} "
-                            f"of the summed magnitude")
+            for got, want, mag in ((sdy, q1, dyf.abs()),
+                                   (sdx, q2, term.abs())):
+                diff = (got - want).abs()
+                rel = float((diff / mag.sum(0).clamp_min(1e-30)).max())
+                worst_rel = max(worst_rel, rel)
+                rec["channel_grad_sums"]["max_abs_err"] = max(
+                    rec["channel_grad_sums"]["max_abs_err"],
+                    float(diff.max()))
+                if not rel <= KERNEL_TOL:
+                    raise RuntimeError(
+                        f"channel_grad_sums disagrees with its plain version "
+                        f"at ({n}, {c}) {dtype}: {rel:.3e} > {KERNEL_TOL} of "
+                        f"the summed magnitude")
             if dtype != torch.bfloat16 or (n, c) == ragged:
                 del xf, dyf, term
                 continue
@@ -304,24 +436,29 @@ def phase_kernels(model, device):
                      / mag.sum(0).clamp_min(1e-30)).max()))
             del xf, dyf, term
             # Per-step times: each distinct shape weighted by how many of
-            # the 53 layers have it (bf16, the main path's dtype).
+            # the 53 layers have it (bf16, the main path's dtype). B1 and
+            # its library call also under the clean flush, each with its
+            # median.
             count = layer_shapes.count((n, c))
             elem = n * c
-            times = {
-                ("channel_sums", "ms"): lambda: bn.channel_sums(x),
-                ("channel_sums", "plain_ms"): lambda: bn.channel_sums_plain(x),
-                ("channel_sums", "library_ms"):
-                    lambda: torch.batch_norm_stats(x, 1e-5),
-                ("channel_grad_sums", "ms"):
-                    lambda: bn.channel_grad_sums(dy, x, mean, rstd),
-                ("channel_grad_sums", "plain_ms"):
-                    lambda: bn.channel_grad_sums_plain(dy, x, mean, rstd),
-                ("channel_grad_sums", "library_ms"):
-                    lambda: torch.batch_norm_backward_reduce(
-                        dy, x, mean, rstd, ones, False, True, True),
-            }
-            for (key, field), fn in times.items():
-                rec[key][field] += count * cuda_time_ms(fn, flush)
+            fields = {}
+            fields.update(time_fields(lambda: bn.channel_sums(x), flush,
+                                      clean, "ms"))
+            fields.update(time_fields(lambda: torch.batch_norm_stats(x, 1e-5),
+                                      flush, clean, "library_ms"))
+            fields["plain_ms"] = cuda_time_ms(
+                lambda: bn.channel_sums_plain(x), flush)
+            for f, v in fields.items():
+                rec["channel_sums"][f] = rec["channel_sums"].get(f, 0.0) \
+                    + count * v
+            for field, fn in (
+                    ("ms", lambda: bn.channel_grad_sums(dy, x, mean, rstd)),
+                    ("plain_ms",
+                     lambda: bn.channel_grad_sums_plain(dy, x, mean, rstd)),
+                    ("library_ms", lambda: torch.batch_norm_backward_reduce(
+                        dy, x, mean, rstd, ones, False, True, True))):
+                r = rec["channel_grad_sums"]
+                r[field] = r.get(field, 0.0) + count * cuda_time_ms(fn, flush)
             # Bounds: bytes read once and written once over the memory
             # rate, or fp32 operations over the fp32 rate, the larger; the
             # term that wins at each shape is credited with its time.
@@ -334,17 +471,33 @@ def phase_kernels(model, device):
                 by = max(terms, key=terms.get)
                 rec[key]["bound_ms"] += count * terms[by] * 1e3
                 rec[key]["bound_terms"][by] += count * terms[by] * 1e3
-    del flush
+    # B1's edge cases: in both dtypes, each run twice and bit-identical;
+    # N = 0 must give zeros.
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, n, c, offset in B1_EDGE_CASES:
+            x = _edge_input(n, c, offset, dtype, g, device)
+            rel, err = check_b1(x, f"{name} ({n}, {c}) {dtype}")
+            worst_rel = max(worst_rel, rel)
+            rec["channel_sums"]["max_abs_err"] = max(
+                rec["channel_sums"]["max_abs_err"], err)
+            if n == 0 and any(bool(s.any()) for s in bn.channel_sums(x)):
+                raise RuntimeError(f"channel_sums of an empty {dtype} input "
+                                   f"is not zero")
+    b1_kernels_per_call(
+        torch.randn((25088, 256), generator=g, device=device).bfloat16())
+    del flush, clean
     torch.cuda.empty_cache()
     if not worst_library_rel <= LIBRARY_TOL:
         raise RuntimeError(
             f"batch_norm_backward_reduce disagrees with channel_grad_sums_"
             f"plain: {worst_library_rel:.3e} > {LIBRARY_TOL} of the summed "
             f"magnitude, so it is not B2's function")
+    if fault_rel is None:
+        raise RuntimeError("no (25088, 256) shape to plant B1's fault in")
     for r in rec.values():
         terms = r.pop("bound_terms")
         r["bound_by"] = max(terms, key=terms.get)
-    return rec, distinct, worst_rel, worst_library_rel
+    return rec, distinct, worst_rel, worst_library_rel, fault_rel
 
 
 # -- flash attention (B3/B4) ------------------------------------------------------
@@ -866,22 +1019,34 @@ def main() -> int:
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    libs = _build.build(["batchnorm", "flash_fwd", "flash_bwd"])
+    libs = _build.build(["batchnorm", "bn_sums", "flash_fwd", "flash_bwd"])
     say(f"phase 2 build: ok in {time.perf_counter() - t0:.1f} s: "
         f"{sorted(os.path.relpath(p, HERE) for p in libs.values())}")
 
     model = seeded_resnet50(torch.bfloat16, device)
-    rec, distinct, worst_rel, worst_library_rel = phase_kernels(model, device)
+    rec, distinct, worst_rel, worst_library_rel, fault_rel = phase_kernels(
+        model, device)
     del model
     torch.cuda.empty_cache()
+    b1 = rec["channel_sums"]
     say(f"phase 3 kernels: ok at {len(distinct)} ResNet-50 shapes + 1 ragged, "
-        f"bf16 and fp32; worst |kernel-plain|/sum|term| {worst_rel:.2e} "
-        f"(limit {KERNEL_TOL}); batch_norm_backward_reduce vs plain "
+        f"bf16 and fp32, and B1 at {len(B1_EDGE_CASES)} edge cases in both "
+        f"(each B1 run twice, bit-identical; one device kernel a call); "
+        f"worst |kernel-plain|/sum|term| {worst_rel:.2e} (limit "
+        f"{KERNEL_TOL}); B1 with one stage left out {fault_rel:.2e} "
+        f"(caught); batch_norm_backward_reduce vs plain "
         f"{worst_library_rel:.2e} (limit {LIBRARY_TOL}); per step (53 "
         f"layers, bf16): " + "; ".join(
             f"{k} {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
             f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms (by "
-            f"{r['bound_by']})" for k, r in rec.items()))
+            f"{r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% of the "
+            f"bound" for k, r in rec.items())
+        + f"; B1 median {b1['ms_median']:.4f} ms, clean flush mean "
+        f"{b1['ms_clean']:.4f} / median {b1['ms_clean_median']:.4f} ms "
+        f"({100 * b1['bound_ms'] / b1['ms_clean']:.1f}% of the bound); "
+        f"batch_norm_stats median {b1['library_ms_median']:.4f} ms, clean "
+        f"flush mean {b1['library_ms_clean']:.4f} / median "
+        f"{b1['library_ms_clean_median']:.4f} ms, on {ident}")
 
     cpu_loss, errs = phase_step_vs_cpu(device)
     say(f"phase 4 step vs cpu: ok; ResNet-50 224 px batch 2, CPU fp32 loss "
@@ -948,7 +1113,7 @@ def main() -> int:
 
     kernels = []
     for name, source, replaces, r, n in (
-            ("channel_sums", "batchnorm.cu", "batchnorm.py:53", rec,
+            ("channel_sums", "bn_sums.cu", "batchnorm.py:53", rec,
              launches),
             ("channel_grad_sums", "batchnorm.cu", "batchnorm.py:115", rec,
              launches),
@@ -965,8 +1130,9 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
-        if "library_bwd_ms" in r:
-            kernels[-1]["library_bwd_ms"] = r["library_bwd_ms"]
+        kernels[-1].update({k: v for k, v in r.items()
+                            if k.startswith(("ms_", "library_ms_"))
+                            or k == "library_bwd_ms"})
     say(json.dumps({"kernels": kernels}))
     hvd.shutdown()
     say(json.dumps({"ok": True, "device": {

@@ -1,25 +1,24 @@
-// BatchNorm channel sums for Hopper (sm_90a): kernels B1 and B2.
+// BatchNorm channel sums for Hopper (sm_90a): kernel B2 (B1, the forward
+// sums, is csrc/bn_sums.cu).
 //
-// Replaces the TPU's Pallas kernels in horovod_tpu/ops/batchnorm.py:
-//   B1 channel_sums_kernel      <- _sums_kernel       (Σx and Σx² per channel)
+// Replaces the TPU's Pallas kernel in horovod_tpu/ops/batchnorm.py:
 //   B2 channel_grad_sums_kernel <- _grad_sums_kernel  (Σdy and Σdy·x̂ per channel,
 //                                                      x̂ = (x - mean)·rstd)
-// Both read a channels-last (N, C) matrix, bf16 or fp32, row-major with C
-// contiguous, and produce two (C,) fp32 vectors.
+// It reads two channels-last (N, C) matrices, bf16 or fp32, row-major with C
+// contiguous, and produces two (C,) fp32 vectors.
 //
-// Bound. Each is a column reduction that does ~2-4 flops per element it
-// reads, far below the card's ~295 flops/byte balance point, so device
-// memory bounds it: B1 reads N·C·2 bytes (bf16), B2 reads 2·N·C·2 bytes. At
-// 3.35 TB/s (H100 SXM data sheet) and ResNet-50's 53 BatchNorm layers at
-// batch 128 (≈1.42e9 elements a step), that is ≈0.85 ms a step for B1 and
-// ≈1.7 ms for B2 — data-sheet bounds, not measurements.
+// Bound. A column reduction that does ~5 flops per element pair it reads,
+// far below the card's ~295 flops/byte balance point, so device memory
+// bounds it: 2·N·C·2 bytes (bf16). At 3.35 TB/s (H100 SXM data sheet) and
+// ResNet-50's 53 BatchNorm layers at batch 128 (≈1.42e9 elements a step),
+// that is ≈1.7 ms a step — a data-sheet bound, not a measurement.
 //
 // Design against that bound.
 //  * Threads run along C, the contiguous dim, each loading 16 bytes at a time
 //    (8 bf16 or 4 fp32 channels); a warp covers up to 512 contiguous bytes of
-//    a row. Rows are strided over threadIdx.y. Squares and x̂ are formed in
-//    fp32 after the load (the TPU kernel squared in the input dtype; this
-//    matches the JAX CPU path instead, see ROADMAP §C).
+//    a row. Rows are strided over threadIdx.y. x̂ is formed in fp32 after
+//    the load (the TPU kernel formed it in the input dtype; this matches the
+//    JAX CPU path instead, see ROADMAP §C).
 //  * The TPU kernel walks a sequential grid and carries its accumulator in
 //    VMEM from step to step. Hopper's blocks run in parallel in no order, so
 //    the rows are cut into slabs, one block column each, with enough blocks
@@ -133,32 +132,6 @@ __device__ __forceinline__ void block_reduce_store(const float* a1,
   }
 }
 
-// B1: Σx and Σx² of one slab of rows, for one tile of channels.
-template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
-channel_sums_kernel(const T* __restrict__ x, float* __restrict__ partial,
-                    long long n, int c, long long rows_per_slab) {
-  const int c0 = (blockIdx.y * blockDim.x + threadIdx.x) * VEC;
-  const long long r0 = (long long)blockIdx.x * rows_per_slab;
-  const long long r1 = min(n, r0 + rows_per_slab);
-  float a1[VEC], a2[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) a1[i] = a2[i] = 0.f;
-  if (c0 < c) {
-#pragma unroll 4
-    for (long long r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
-      float v[VEC];
-      Loader<T, VEC>::load(x + r * c + c0, v);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        a1[i] += v[i];
-        a2[i] = fmaf(v[i], v[i], a2[i]);
-      }
-    }
-  }
-  block_reduce_store<VEC>(a1, a2, partial, c);
-}
-
 // B2: Σdy and Σdy·(x - mean)·rstd of one slab of rows, x̂ formed in fp32.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -237,9 +210,9 @@ int finalize(const float* partial, float* out1, float* out2, int slabs, int c,
 
 extern "C" {
 
-// Number of row slabs (blocks along N) the two kernels use for an (n, c)
-// input read `vec` channels at a time; the caller sizes the (slabs, 2, c)
-// fp32 scratch buffer from it.
+// Number of row slabs (blocks along N) B2 uses for an (n, c) input read
+// `vec` channels at a time; the caller sizes the (slabs, 2, c) fp32 scratch
+// buffer from it.
 int hvd_bn_slabs(long long n, int c, int vec) {
   if (c <= 0 || vec <= 0) return 1;
   const Plan p = make_plan(c, vec);
@@ -248,42 +221,6 @@ int hvd_bn_slabs(long long n, int c, int vec) {
   if (slabs > most) slabs = most;
   if (slabs < 1) slabs = 1;
   return (int)slabs;
-}
-
-int hvd_channel_sums(const void* x, void* partial, void* s1, void* s2,
-                     long long n, int c, int dtype, int vec, int slabs,
-                     void* stream) {
-  if (c <= 0 || n < 0 || slabs < 1 || !valid_vec(dtype, vec, c))
-    return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(c, vec);
-  const dim3 block(p.tx, p.ty);
-  const dim3 grid(slabs, p.ctiles);
-  const long long rows = (n + slabs - 1) / slabs;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(partial);
-  if (dtype == kBF16) {
-    const __nv_bfloat16* xp = static_cast<const __nv_bfloat16*>(x);
-    if (vec == 8)
-      channel_sums_kernel<__nv_bfloat16, 8><<<grid, block, 0, st>>>(
-          xp, part, n, c, rows);
-    else
-      channel_sums_kernel<__nv_bfloat16, 1><<<grid, block, 0, st>>>(
-          xp, part, n, c, rows);
-  } else if (dtype == kF32) {
-    const float* xp = static_cast<const float*>(x);
-    if (vec == 4)
-      channel_sums_kernel<float, 4><<<grid, block, 0, st>>>(xp, part, n, c,
-                                                            rows);
-    else
-      channel_sums_kernel<float, 1><<<grid, block, 0, st>>>(xp, part, n, c,
-                                                            rows);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  return finalize(part, static_cast<float*>(s1), static_cast<float*>(s2),
-                  slabs, c, st);
 }
 
 int hvd_channel_grad_sums(const void* dy, const void* x, const void* mean,

@@ -2,12 +2,16 @@
 
 Counterpart of ``horovod_tpu/ops/batchnorm.py``. The TPU package reduces the
 (batch·spatial) dimension with two Pallas kernels; here the same two
-reductions are CUDA C++ kernels written for Hopper
-(``horovod_tpu_torch/csrc/batchnorm.cu``):
+reductions are CUDA C++ kernels written for Hopper:
 
-* **B1** :func:`channel_sums` — Σx and Σx² per channel, fp32, one pass;
+* **B1** :func:`channel_sums` — Σx and Σx² per channel, fp32, one pass and
+  one launch (``horovod_tpu_torch/csrc/bn_sums.cu``: a bulk-copy ring, a
+  grid barrier, and a combine spread over the grid; its plan is
+  :func:`sums_plan`);
 * **B2** :func:`channel_grad_sums` — Σdy and Σdy·x̂ per channel with
-  x̂ = (x − mean)·rstd recomputed on the fly, never written to memory.
+  x̂ = (x − mean)·rstd recomputed on the fly, never written to memory
+  (``horovod_tpu_torch/csrc/batchnorm.cu``, slab partials and a second
+  pass).
 
 :func:`batch_norm_train` ties them into a training-mode batch norm as a
 ``torch.autograd.Function``: B1 in the forward, B2 in the backward. The
@@ -28,6 +32,7 @@ compare against, does them in fp32 — ROADMAP §C).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -40,8 +45,10 @@ LAUNCHES = {"channel_sums": 0, "channel_grad_sums": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}  # elements per 16-byte load
+_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
-_lib = None
+_lib = None   # batchnorm.cu: B2
+_sums = None  # bn_sums.cu: B1
 
 
 def reset_launch_counts() -> None:
@@ -56,8 +63,6 @@ def _kernels():
         vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.hvd_bn_slabs.argtypes = [ll, i, i]
         lib.hvd_bn_slabs.restype = i
-        lib.hvd_channel_sums.argtypes = [vp, vp, vp, vp, ll, i, i, i, i, vp]
-        lib.hvd_channel_sums.restype = i
         lib.hvd_channel_grad_sums.argtypes = [vp, vp, vp, vp, vp, vp, vp, ll,
                                               i, i, i, i, vp]
         lib.hvd_channel_grad_sums.restype = i
@@ -103,6 +108,114 @@ def _raise_on(err: int, name: str) -> None:
 
 # -- B1 ----------------------------------------------------------------------
 
+# The launch plan of B1's kernel (csrc/bn_sums.cu), mirrored from its
+# constants: 256 consumer threads a block, each owning at most 4 channel
+# vectors of 16 bytes; a ring stage of 16 KB. The plan's own choices: rows
+# cut into channel tiles of at most SUMS_TILE_BYTES on the bulk-copy path,
+# and at least SUMS_MIN_BLOCK_BYTES of input a block.
+SUMS_THREADS = 256
+SUMS_MAX_VECS = 4
+SUMS_STAGE_BYTES = 16384
+SUMS_TILE_BYTES = 512
+SUMS_MIN_BLOCK_BYTES = 32768
+
+
+class SumsPlan(NamedTuple):
+    """B1's grid ``(gx, gy)``, its channel tile ``ct`` (channels a block
+    along y sums), the whole rows a ring stage holds (``rows_per_stage``, 0
+    when the rows are read with ordinary loads) and the fp32 scratch it
+    needs: Σx, Σx², then one (2, C) partial row per block along x. Its grid
+    barrier takes one 64-bit word per channel tile."""
+    gx: int
+    gy: int
+    ct: int
+    rows_per_stage: int
+    scratch: int
+
+
+def sums_plan(n: int, c: int, elem_bytes: int, vec: int,
+              max_blocks: int) -> SumsPlan:
+    """B1's launch plan for an (n, c) input of ``elem_bytes`` per element
+    read ``vec`` elements at a time, on a card that keeps ``max_blocks``
+    blocks resident at once. ``vec`` > 1 (a 16-byte aligned input, C a
+    multiple of ``vec``; the wrapper passes ``vec`` = 1 otherwise) takes
+    the bulk-copy ring, the rows cut into tiles of SUMS_TILE_BYTES so that
+    wide rows leave fewer partial rows. Blocks own rows ``block_rows``; no
+    block is empty when n > 0."""
+    bulk = vec > 1
+    ct = min(c, SUMS_TILE_BYTES // elem_bytes if bulk
+             else SUMS_MAX_VECS * SUMS_THREADS * vec)
+    gy = -(-c // ct)
+    gx = max(1, min(n, max(1, max_blocks // gy),
+                    n * ct * elem_bytes // SUMS_MIN_BLOCK_BYTES))
+    return SumsPlan(gx=gx, gy=gy, ct=ct,
+                    rows_per_stage=SUMS_STAGE_BYTES // (ct * elem_bytes)
+                    if bulk else 0,
+                    scratch=2 * c + gx * 2 * c)
+
+
+def block_rows(plan: SumsPlan, n: int, b: int) -> tuple[int, int]:
+    """Rows [r0, r1) of block ``b`` along x, as the kernel computes them."""
+    return b * n // plan.gx, (b + 1) * n // plan.gx
+
+
+_plans: dict[tuple, SumsPlan] = {}
+_barriers: dict[tuple[int, int], torch.Tensor] = {}
+_max_blocks: dict[int, int] = {}
+
+
+def _sums_lib():
+    global _sums
+    if _sums is None:
+        lib = _build.load("bn_sums")
+        vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.hvd_bn_sums_max_blocks.argtypes = [i]
+        lib.hvd_bn_sums_max_blocks.restype = i
+        lib.hvd_channel_sums.argtypes = [vp, vp, vp, ll, i, i, i, i, i, i, i,
+                                         i, vp]
+        lib.hvd_channel_sums.restype = i
+        _sums = lib
+    return _sums
+
+
+def _plan(lib, n: int, c: int, dtype: torch.dtype, vec: int,
+          device: int) -> SumsPlan:
+    key = (n, c, dtype, vec, device)
+    plan = _plans.get(key)
+    if plan is None:
+        most = _max_blocks.get(device)
+        if most is None:
+            most = lib.hvd_bn_sums_max_blocks(device)
+            if most <= 0:
+                raise RuntimeError(f"channel_sums: CUDA error {-most} sizing "
+                                   f"the grid on cuda:{device}.")
+            _max_blocks[device] = most
+        plan = _plans[key] = sums_plan(n, c, _ELEM_BYTES[dtype], vec, most)
+    return plan
+
+
+def _barrier(plan: SumsPlan, device: torch.device,
+             stream: int) -> torch.Tensor:
+    """B1's grid-barrier words on ``stream`` (a raw CUDA stream handle), one
+    64-bit word per channel tile of ``plan``, the arrival counts zero: the
+    kernel leaves them so, and calls on one stream run in order, so two
+    calls in flight never share one."""
+    key = (device.index, stream)
+    t = _barriers.get(key)
+    if t is None or t.numel() < plan.gy:
+        t = _barriers[key] = torch.zeros(max(32, plan.gy), dtype=torch.int64,
+                                         device=device)
+    return t
+
+
+def launch_plan(x: torch.Tensor) -> SumsPlan:
+    """The plan B1 launches for the CUDA tensor ``x`` (which must be one
+    :func:`channel_sums` takes)."""
+    _check_kernel_input("channel_sums", x)
+    n, c = _rows(x)
+    return _plan(_sums_lib(), n, c, x.dtype, _vec(x, c), x.device.index)
+
+
 def channel_sums_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch B1: (Σx, Σx²) over all leading dims, fp32 (C,) each."""
     xf = x.reshape(-1, x.shape[-1]).float()
@@ -112,24 +225,28 @@ def channel_sums_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def channel_sums(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(Σx, Σx²) over all leading dims of a channels-last ``(..., C)`` tensor,
     fp32 ``(C,)`` each. CPU tensors take :func:`channel_sums_plain`; CUDA
-    tensors launch kernel B1."""
+    tensors launch kernel B1, one launch a call."""
     if x.device.type == "cpu":
         return channel_sums_plain(x)
     _check_kernel_input("channel_sums", x)
     n, c = _rows(x)
-    lib = _kernels()
+    if c == 0:
+        raise ValueError("channel_sums: the kernel needs at least one "
+                         "channel, got shape " f"{tuple(x.shape)}.")
+    lib = _sums_lib()
     vec = _vec(x, c)
-    slabs = lib.hvd_bn_slabs(n, c, vec)
-    partial = torch.empty((slabs, 2, c), dtype=torch.float32, device=x.device)
-    s1 = torch.empty(c, dtype=torch.float32, device=x.device)
-    s2 = torch.empty(c, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.hvd_channel_sums(
-            x.data_ptr(), partial.data_ptr(), s1.data_ptr(), s2.data_ptr(),
-            n, c, _DTYPE_CODES[x.dtype], vec, slabs, _stream(x))
+    device = x.device.index
+    plan = _plan(lib, n, c, x.dtype, vec, device)
+    buf = torch.empty(plan.scratch, dtype=torch.float32, device=x.device)
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    err = lib.hvd_channel_sums(
+        x.data_ptr(), buf.data_ptr(),
+        _barrier(plan, x.device, stream).data_ptr(), n, c,
+        _DTYPE_CODES[x.dtype], vec, plan.gx, plan.gy, plan.ct,
+        plan.rows_per_stage, device, stream)
     _raise_on(err, "channel_sums")
     LAUNCHES["channel_sums"] += 1
-    return s1, s2
+    return buf[:c], buf[c:2 * c]
 
 
 # -- B2 ----------------------------------------------------------------------

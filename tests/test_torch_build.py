@@ -9,6 +9,9 @@ flash-attention sources are made of, checked on this CPU-only host (no
   ``setmaxnreg`` exist only there).
 * B3 and both B4 kernels are built from TMA loads behind mbarriers and
   ``wgmma``; no ``mma.sync`` kernel is left.
+* B1 is one kernel launch a call, fed by 1-D bulk copies into an mbarrier
+  ring and combined across blocks after an integer grid barrier of a
+  cooperative launch; no BatchNorm source uses a float atomic.
 """
 
 import pathlib
@@ -120,3 +123,51 @@ def test_flash_ptx_is_hopper_ptx():
 def test_no_mma_sync_kernel_is_left():
     for path in pathlib.Path(_build.CSRC).iterdir():
         assert "mma.sync" not in path.read_text(), path.name
+
+
+def test_b1_entry_launches_one_kernel():
+    """B1's C entry dispatches to one launch of one kernel and nothing else
+    (no second pass, no memset)."""
+    src = _read("bn_sums.cu")
+    entry = src[src.index("int hvd_channel_sums("):]
+    assert entry.count("::launch(") == 6  # one per (dtype, load) instance
+    assert src.count("cudaLaunchKernelEx(") == 1 and "<<<" not in src
+    assert "cudaMemset" not in src and "finalize" not in entry
+    assert re.findall(r"__global__\s+void\s+__launch_bounds__\([^)]*\)\s*"
+                      r"(\w+)\(", src) == ["channel_sums_ring_kernel"]
+
+
+@pytest.mark.parametrize("source", ["batchnorm.cu", "bn_sums.cu"])
+def test_batchnorm_sources_use_no_float_atomics(source):
+    """Every atomic of the BatchNorm kernels is on B1's 64-bit integer
+    grid-barrier word; no float is added atomically (the sums keep one
+    order, so their bits)."""
+    src = _read(source)
+    for op in ("atomicAdd_block", "atomicAdd_system", "red.global",
+               "cp.reduce.async", "atom.global.add.f32"):
+        assert op not in src, op
+    assert re.findall(r"atomic\w+\(([^,]+),", src) == (
+        ["bar", "bar"] if source == "bn_sums.cu" else [])
+    if source == "bn_sums.cu":
+        assert "unsigned long long* __restrict__ bar" in src
+        assert "grid_barrier(tile_bar, gx, gen)" in src
+
+
+def test_b1_kernel_is_a_bulk_copy_ring_with_a_grid_combine():
+    """B1 streams whole rows by 1-D bulk copies into a ring behind full and
+    empty mbarriers, writes one partial row a block, meets the grid at a
+    barrier (a cooperative launch keeps every block resident) and adds the
+    partial rows, each block a slice of the channels, in row order."""
+    src = _read("bn_sums.cu")
+    body = _kernel_body(src, "channel_sums_ring_kernel")
+    for call in ("bulk_load(", "mbar_arrive_tx(&full[", "mbar_wait(&full[",
+                 "mbar_wait(&empty[", "mbar_arrive(&empty[", "grid_barrier(",
+                 "__ldcg(p + q * stride)"):
+        assert call in body, call
+    assert ("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+            in src)
+    assert "attr.id = cudaLaunchAttributeCooperative;" in src
+    assert "attr.val.cooperative = 1;" in src
+    assert '#include "flash_common.cuh"' in src
+    barrier = src[src.index("void grid_barrier("):src.index("// B1. Block")]
+    assert "__trap()" in barrier and "__shfl_xor_sync(" in body

@@ -53,6 +53,11 @@ def test_user_annotations_and_host_events_are_left_out(tool):
      "(anonymous namespace)::BwdArgs)", "flash_attention"),
     ("void (anonymous namespace)::channel_sums_kernel<bf16, 8>",
      "bn_channel_sums"),
+    ("void (anonymous namespace)::channel_sums_ring_kernel<__nv_bfloat16, "
+     "8, true>(__nv_bfloat16 const*, float*, unsigned long long*, long long, "
+     "int, int, int)", "bn_channel_sums"),
+    ("void (anonymous namespace)::channel_sums_ring_kernel<float, 1, false>",
+     "bn_channel_sums"),
     ("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NNT", "conv_and_matmul"),
     ("sm90_xmma_fprop_implicit_gemm_bf16", "conv_and_matmul"),
     ("void at::native::vectorized_elementwise_kernel<4>", "elementwise"),

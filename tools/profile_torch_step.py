@@ -42,8 +42,8 @@ from horovod_tpu_torch.models import resnet, transformer
 from horovod_tpu_torch.ops.optim import AdamW
 
 _OWN = (  # the port's kernels, by category
-    ("bn_channel_sums", ("channel_sums_kernel", "channel_grad_sums_kernel",
-                         "finalize_kernel")),
+    ("bn_channel_sums", ("channel_sums_ring_kernel", "channel_sums_kernel",
+                         "channel_grad_sums_kernel", "finalize_kernel")),
     ("flash_attention", ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
                          "flash_bwd_dq_kernel")),
 )
