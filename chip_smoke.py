@@ -48,7 +48,32 @@ Phases, one line of output each:
 8. the LM's main path: bench.py's config (8 layers, T=8192, B=2, bf16,
    fused head), ``DistributedOptimizer(AdamW(3e-4, weight_decay=0.1))``,
    ``Trainer.fit`` for 10 steps on a repeated seeded batch; the loss must be
-   finite and fall, and B3 and B4 must launch exactly 8 times a step.
+   finite and fall, and B3 and B4 must launch exactly 8 times a step;
+9. LM serving: bench.py's LM at full width and depth (bf16 weights from
+   ``init_params``, bf16 KV pages, block size 16, ``max_seq_len`` 2048 =
+   the engine's view length) through ``serving.Engine``:
+   (a) a one-slot engine serves a 256-token prompt for 64 greedy tokens,
+   which must equal ``transformer.generate``'s token for token, and its
+   pool pages must equal the dense cache bit for bit; (b) an 8-slot engine
+   with the prefix cache serves 12 requests (prompts 128-512 tokens, 32-128
+   new, two tenants, 4 sharing a 64-token prefix), the pool passing
+   ``check_invariants`` after every step; the rows are compared with their
+   solo runs in an engine of the same shape (the count of equal rows, and
+   each other row's first differing step with its top-2 logit margin);
+   (c) a pool too small for 8 slots forces preemptions, and every
+   preempted request must equal its solo run; (d) the 12 requests under
+   ``kv_dtype="int8_block"`` finish, and the share of tokens that agree
+   with bf16 is printed; (e) a planted fault — one step's fresh K/V
+   scattered one position late — must fail (a)'s check; (g) teacher-forced
+   ``decode_step`` logits over a 256-token prompt must agree with the
+   training forward ``model(tokens)`` (plain attention, no decode code
+   shared) within ``SERVE_FWD_TOL``, and the same comparison with each
+   query's visibility frontier moved one position on must fail it;
+   (f) decode tokens/s at B=1 and B=8 (several timed windows each),
+   prefill tokens/s (several admissions), p50 and maximum request latency
+   of a short open-loop load (12 requests: too few for a p99), peak
+   memory (``tools/serve_bench_torch.py``). No kernel of the port lies on
+   this path, and none may launch in it.
 
 Each main path (5 and 8) runs with its kernels' launch counts set to 0
 just before it and read just after. Then a JSON line with each kernel's
@@ -77,6 +102,7 @@ import torch
 import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch import serving
 from horovod_tpu_torch.models import resnet, transformer
 from horovod_tpu_torch.models.layers import FusedBatchNorm
 from horovod_tpu_torch.ops import _build
@@ -86,6 +112,9 @@ from horovod_tpu_torch.ops.optim import AdamW
 from horovod_tpu_torch.training.callbacks import Callback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(HERE, "tools"))
+import serve_bench_torch  # noqa: E402  (tools/serve_bench_torch.py)
+
 SEED = 0
 BATCH = 128
 IMAGE = 224
@@ -1003,6 +1032,290 @@ def phase_lm_main_path(device):
     return losses, launches, tokens_per_s, steady, n_params, peak_gib
 
 
+# -- LM serving (phase 9) ------------------------------------------------------
+
+# bench.py's LM at full width and depth; the engine's view (max_blocks ·
+# block_size) equals max_seq_len, so its decode attend and generate's run at
+# the same shapes and the one-slot engine must match generate bit for bit.
+SERVE_BLOCK = 16
+SERVE_SEQ = 2048
+SERVE_SLOTS = 8
+SERVE_B1 = (256, 64)          # (prompt, new tokens) of the one-slot check
+SERVE_REQUESTS = 12
+SERVE_PROMPTS = (128, 512)
+SERVE_NEW = (32, 128)
+SERVE_PREFIX = 64             # tokens shared by every third request
+# The planted fault: the fresh K/V of this pool scatter (a prefill step of
+# the one-slot check, position FAULT_SCATTER - 1) land one position late.
+FAULT_SCATTER = 200
+# Decode against the training forward: the largest relative L2 error of
+# a position's logits, ‖decode − forward‖₂ / ‖forward‖₂, over the
+# SERVE_B1[0]-token prompt, bf16 weights and activations on both sides.
+# An H100 read 9.5e-3 (argmax equal at 97.3% of positions) and 0.63 with
+# the planted frontier fault: the limit is about three times the reading.
+SERVE_FWD_TOL = 3e-2
+# Serving numbers: SERVE_WINDOWS windows of decode steps timed at B=1 and
+# B=8 after a 128-token prompt; SERVE_PREFILL_WINDOWS admissions of 8
+# prompts of 256 tokens; an open-loop load of 12 requests at 0.5
+# requests/s, prompts 32-128 tokens, 16-64 new (below the engine's
+# capacity, so the latencies are not all queueing).
+SERVE_DECODE_STEPS = 32
+SERVE_DECODE_PROMPT = 128
+SERVE_WINDOWS = 5
+SERVE_PREFILL_PROMPT = 256
+SERVE_PREFILL_WINDOWS = 3
+SERVE_LOAD = dict(n=12, rate=0.5, prompt_range=(32, 128),
+                  output_range=(16, 64))
+
+
+def serve_config():
+    return serve_bench_torch.lm_config(LM_LAYERS, SERVE_SEQ)
+
+
+def serve_workload(vocab: int):
+    """The 12 requests of phase 9b: (prompt, max_new, tenant), seeded;
+    requests 0, 3, 6 and 9 start with the same 64 tokens."""
+    g = torch.Generator().manual_seed(SEED + 9)
+    prefix = torch.randint(0, vocab, (SERVE_PREFIX,), generator=g)
+    out = []
+    for i in range(SERVE_REQUESTS):
+        plen = int(torch.randint(SERVE_PROMPTS[0], SERVE_PROMPTS[1] + 1, (1,),
+                                 generator=g))
+        new = int(torch.randint(SERVE_NEW[0], SERVE_NEW[1] + 1, (1,),
+                                generator=g))
+        prompt = torch.randint(0, vocab, (plen,), generator=g)
+        if i % 3 == 0:
+            prompt[:SERVE_PREFIX] = prefix
+        out.append((prompt.numpy().astype("int32"), new, f"tenant{i % 2}"))
+    return out
+
+
+def keep_tables(engine) -> dict:
+    """Record each request's block table as the engine releases it (the
+    pages stay intact until reused)."""
+    tables = {}
+    release = engine.scheduler.release
+
+    def release_and_keep(req):
+        if req.blocks:
+            tables[req.request_id] = list(req.blocks)
+        release(req)
+
+    engine.scheduler.release = release_and_keep
+    return tables
+
+
+def pages_vs_dense(engine, blocks, cache, n: int) -> bool:
+    """Do the first ``n`` positions of a one-row dense cache equal the
+    engine's pool pages behind ``blocks`` bit for bit?"""
+    for pool, dense in zip(engine._pools, (cache.k, cache.v)):
+        paged = pool[:, blocks].flatten(1, 2)[:, :n]
+        if not torch.equal(paged, dense[:, 0, :n]):
+            return False
+    return True
+
+
+def serve_one(cfg, model, device, prompt, fault: bool = False):
+    """Phase 9a (and, with ``fault``, 9e): a one-slot engine against
+    ``generate`` — tokens equal, pool pages equal the dense cache."""
+    plen, new = SERVE_B1
+    engine = serving.Engine(cfg, model, block_size=SERVE_BLOCK, max_batch=1,
+                            device=device)
+    tables = keep_tables(engine)
+    if fault:
+        scatter, calls = engine._scatter, [0]
+
+        def late(tables_, lengths, active, fresh):
+            calls[0] += 1
+            if calls[0] == FAULT_SCATTER:
+                lengths = lengths + 1
+            scatter(tables_, lengths, active, fresh)
+
+        engine._scatter = late
+    req = engine.submit(prompt, new)
+    engine.run_until_idle()
+    got = torch.as_tensor(req.full_sequence(), dtype=torch.long)
+    want = transformer.generate(cfg, model, prompt[None], new,
+                                device=device)[0].cpu()
+    cache, _ = transformer.prefill(cfg, model, got[None, :-1], device=device)
+    same_tokens = torch.equal(got, want)
+    same_pages = pages_vs_dense(engine, tables[req.request_id], cache,
+                                plen + new - 1)
+    return same_tokens, same_pages
+
+
+def decode_vs_forward(cfg, model, device, tokens,
+                      shift_frontier: bool = False) -> tuple[float, float]:
+    """Phase 9g: teacher-forced ``decode_step`` logits at every position of
+    ``tokens`` against the training forward ``model(tokens)`` — the largest
+    relative L2 error of a position's logits, and the share of positions
+    whose argmax agrees. ``shift_frontier`` plants a fault in the decode
+    side only: every query also sees the key one position past it."""
+    with torch.no_grad():
+        want = model(tokens[None].to(device))[0]
+    visibility = transformer._visibility
+    if shift_frontier:
+        transformer._visibility = (
+            lambda frontier, k_len, window: visibility(frontier + 1, k_len,
+                                                       window))
+    try:
+        cache = transformer.init_cache(cfg, 1, device)
+        got = torch.empty_like(want)
+        for t in range(tokens.shape[0]):
+            got[t], cache = transformer.decode_step(cfg, model, cache,
+                                                    tokens[t:t + 1])
+    finally:
+        transformer._visibility = visibility
+    rel = (got - want).norm(dim=-1) / want.norm(dim=-1)
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean()
+    return float(rel.max()), float(agree)
+
+
+def top2_margin(cfg, model, device, seq) -> float:
+    """The top-2 logit margin of the next token after ``seq``."""
+    _, logits = transformer.prefill(cfg, model, seq[None], device=device)
+    top = logits[0].topk(2).values
+    return float(top[0] - top[1])
+
+
+def serve_all(cfg, model, device, work, check_each_step=False, **kw):
+    """Serve ``work`` in one 8-slot engine; returns the engine and each
+    request's generated tokens."""
+    engine = serving.Engine(cfg, model, block_size=SERVE_BLOCK,
+                            max_batch=SERVE_SLOTS, device=device, **kw)
+    reqs = [engine.submit(p, new, tenant=t) for p, new, t in work]
+    while engine.has_work():
+        engine.step()
+        if check_each_step:
+            engine.pool.check_invariants()
+    unfinished = [r.request_id for r in reqs
+                  if r.state is not serving.RequestState.FINISHED
+                  or len(r.output) != r.max_new_tokens]
+    if unfinished:
+        raise RuntimeError(f"requests {unfinished} did not finish")
+    return engine, [list(r.output) for r in reqs], reqs
+
+
+def phase_serving(device):
+    """Phase 9: the LM's serving path at full width (module docstring)."""
+    t0 = time.perf_counter()
+    cfg = serve_config()
+    model = transformer.init_params(cfg, seed=SEED, device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    bn.reset_launch_counts()
+    fa.reset_launch_counts()
+    out = {}
+
+    # (a) one slot against generate.
+    g = torch.Generator().manual_seed(SEED + 8)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_B1[0],), generator=g)
+    same_tokens, same_pages = serve_one(cfg, model, device, prompt)
+    if not (same_tokens and same_pages):
+        raise RuntimeError(
+            f"one-slot engine vs generate: tokens equal {same_tokens}, pool "
+            f"pages equal the dense cache {same_pages}")
+
+    # (b) continuous batching with the prefix cache, against solo runs.
+    work = serve_workload(cfg.vocab_size)
+    engine, batched, reqs = serve_all(cfg, model, device, work,
+                                      check_each_step=True,
+                                      prefix_cache=True)
+    hits = engine.stats["prefix_hit_tokens"]
+    if hits < SERVE_PREFIX:
+        raise RuntimeError(f"the shared prefix was never hit ({hits} "
+                           f"tokens from the prefix cache)")
+    traces = (engine.decode_trace_count, engine.prefill_trace_count)
+    if traces != (1, 1):
+        raise RuntimeError(f"decode/prefill signatures {traces}, expected 1")
+    solo_engine = serving.Engine(cfg, model, block_size=SERVE_BLOCK,
+                                 max_batch=SERVE_SLOTS, device=device)
+    solo = [list(solo_engine.generate_batch([p], new)[0][len(p):])
+            for p, new, _ in work]
+    differ = []
+    for i, ((p, _, _), a, b) in enumerate(zip(work, batched, solo)):
+        if a != b:
+            k = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            seq = torch.as_tensor(list(p) + b[:k], dtype=torch.long)
+            differ.append((i, k, top2_margin(cfg, model, device, seq)))
+    out["batched"] = (SERVE_REQUESTS - len(differ), differ, hits,
+                      sum(len(o) for o in batched))
+
+    # (c) preemption: a pool that backs the first 8 prompts and 2 blocks.
+    need = sum(-(-len(p) // SERVE_BLOCK) for p, _, _ in work[:SERVE_SLOTS])
+    engine, pre, reqs = serve_all(cfg, model, device, work,
+                                  check_each_step=True,
+                                  num_blocks=need + 2 + 1)
+    preempted = [r.request_id for r in reqs if r.preemptions]
+    if not preempted:
+        raise RuntimeError("the small pool preempted no request")
+    wrong = [i for i in preempted if pre[i] != solo[i]]
+    if wrong:
+        raise RuntimeError(f"preempted requests {wrong} differ from their "
+                           f"unpreempted runs")
+    out["preempt"] = (preempted, engine.stats["preemptions"],
+                      sum(a == b for a, b in zip(pre, solo)))
+
+    # (d) int8_block pages.
+    _, q8, _ = serve_all(cfg, model, device, work, check_each_step=True,
+                         prefix_cache=True, kv_dtype="int8_block")
+    agree = sum(x == y for a, b in zip(q8, batched) for x, y in zip(a, b))
+    out["int8"] = agree / sum(len(b) for b in batched)
+
+    # (e) the planted fault must fail (a)'s check.
+    fault = serve_one(cfg, model, device, prompt, fault=True)
+    if all(fault):
+        raise RuntimeError("planted fault (one K/V scattered a position "
+                           "late) passed the one-slot check")
+    out["fault"] = fault
+
+    # (g) decode against the training forward, and a planted frontier fault.
+    fwd = decode_vs_forward(cfg, model, device, prompt)
+    if not fwd[0] <= SERVE_FWD_TOL:
+        raise RuntimeError(
+            f"teacher-forced decode vs the training forward: worst "
+            f"position's logits rel L2 err {fwd[0]:.3e} (limit "
+            f"{SERVE_FWD_TOL})")
+    fwd_fault = decode_vs_forward(cfg, model, device, prompt,
+                                  shift_frontier=True)
+    if fwd_fault[0] <= SERVE_FWD_TOL:
+        raise RuntimeError(
+            f"planted fault (visibility frontier one position on) passed "
+            f"the decode-vs-forward check: {fwd_fault[0]:.3e}")
+    out["forward"] = fwd + fwd_fault
+
+    # (f) the card's numbers.
+    sb = serve_bench_torch
+    out["decode"] = {b: sb.decode_rates(
+        cfg, model, b, steps=SERVE_DECODE_STEPS,
+        prompt_len=SERVE_DECODE_PROMPT, block_size=SERVE_BLOCK,
+        windows=SERVE_WINDOWS, device=device) for b in (1, SERVE_SLOTS)}
+    out["prefill"] = sb.prefill_rates(
+        cfg, model, SERVE_SLOTS, SERVE_PREFILL_PROMPT,
+        block_size=SERVE_BLOCK, windows=SERVE_PREFILL_WINDOWS,
+        device=device)
+    load_engine = serving.Engine(cfg, model, block_size=SERVE_BLOCK,
+                                 max_batch=SERVE_SLOTS, device=device)
+    sb.warm_engine(load_engine)
+    out["load"] = sb.run_load(load_engine, sb.sample_workload(
+        SERVE_LOAD["n"], SERVE_LOAD["rate"],
+        prompt_range=SERVE_LOAD["prompt_range"],
+        output_range=SERVE_LOAD["output_range"], vocab=cfg.vocab_size,
+        seed=SEED))
+    if out["load"]["completed"] != SERVE_LOAD["n"]:
+        raise RuntimeError(f"open-loop load: {out['load']}")
+    torch.cuda.synchronize()
+    # The serving path runs none of the port's kernels (its attend is plain
+    # torch, as the reference's is outside Pallas).
+    launched = {**bn.LAUNCHES, **fa.LAUNCHES}
+    if any(launched.values()):
+        raise RuntimeError(f"the serving path launched kernels: {launched}")
+    out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    out["seconds"] = time.perf_counter() - t0
+    del model, engine, solo_engine, load_engine
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -1109,6 +1422,50 @@ def main() -> int:
         f"(steps 3-{STEPS}, mean step "
         f"{1e3 * sum(lm_steady) / len(lm_steady):.2f} ms), peak memory "
         f"{peak_gib:.1f} GiB, on {ident}; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+
+    sv = phase_serving(device)
+    n_same, differ, hits, n_tok = sv["batched"]
+    pre_ids, n_pre, pre_same = sv["preempt"]
+    load = sv["load"]
+
+    def spread(rates):
+        return (f"{statistics.median(rates):.1f} (min {min(rates):.1f}, max "
+                f"{max(rates):.1f} over {len(rates)})")
+
+    say(f"phase 9 serving: ok; bench.py's LM ({LM_LAYERS} layers, E=1024 "
+        f"H=8 Hkv=4 mlp 4096 V=32768), bf16 weights and KV pages, block "
+        f"{SERVE_BLOCK}, max_seq_len {SERVE_SEQ}; one-slot engine = "
+        f"generate for {SERVE_B1[0]}+{SERVE_B1[1]} tokens, pool pages = "
+        f"dense cache bit for bit; {SERVE_SLOTS} slots, {SERVE_REQUESTS} "
+        f"requests ({n_tok} tokens, {hits} prompt tokens from the prefix "
+        f"cache), pool invariants after every step, one decode and one "
+        f"prefill signature: {n_same}/{SERVE_REQUESTS} rows equal their "
+        f"solo runs" + "".join(
+            f"; row {i} differs first at step {k} (top-2 margin {m:.4f})"
+            for i, k, m in differ)
+        + f"; small pool: {n_pre} preemptions of requests {pre_ids}, each "
+        f"equal to its solo run ({pre_same}/{SERVE_REQUESTS} rows equal); "
+        f"int8_block pages: {100 * sv['int8']:.2f}% of tokens agree with "
+        f"bf16; planted fault caught (tokens equal {sv['fault'][0]}, pages "
+        f"equal {sv['fault'][1]}); teacher-forced decode vs the training "
+        f"forward over {SERVE_B1[0]} positions: worst logits rel L2 err "
+        f"{sv['forward'][0]:.3e} (limit {SERVE_FWD_TOL}), argmax agrees at "
+        f"{100 * sv['forward'][1]:.1f}%; planted frontier fault "
+        f"{sv['forward'][2]:.3e} (caught; argmax agrees at "
+        f"{100 * sv['forward'][3]:.1f}%); decode tokens/s, median of "
+        f"{SERVE_DECODE_STEPS}-step windows: B=1 {spread(sv['decode'][1])}, "
+        f"B={SERVE_SLOTS} {spread(sv['decode'][SERVE_SLOTS])}; prefill "
+        f"tokens/s ({SERVE_SLOTS} x {SERVE_PREFILL_PROMPT} a window) "
+        f"{spread(sv['prefill'])}; open-loop "
+        f"load ({SERVE_LOAD['n']} requests at {SERVE_LOAD['rate']}/s, "
+        f"prompts {SERVE_LOAD['prompt_range']}, new "
+        f"{SERVE_LOAD['output_range']}): p50 {load['serve_p50_ms']:.1f} ms, "
+        f"max of {load['completed']} {load['serve_max_ms']:.1f} ms (too "
+        f"few for a p99), {load['gen_tokens_per_sec']:.1f}"
+        f" tokens/s; peak memory {sv['peak_gib']:.2f} GiB; phase "
+        f"{sv['seconds']:.1f} s (no kernel of the port launched), on "
+        f"{ident}; total "
         f"{time.perf_counter() - t_start:.0f} s")
 
     kernels = []

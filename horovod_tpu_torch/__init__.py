@@ -13,7 +13,9 @@ Pallas kernels are CUDA kernels written for Hopper (``csrc/``).
 
 The long-context LM (``models/transformer.py``) trains the same way, with
 ``ops.optim.AdamW`` and ``make_loss_fn(config, fused_head=True)``; its
-attention above 2048 tokens runs on the flash kernels B3/B4.
+attention above 2048 tokens runs on the flash kernels B3/B4. The same LM
+serves through ``hvd.serving.Engine`` (paged KV cache, continuous batching)
+and ``models.transformer.generate`` (dense KV cache).
 
 The package imports no JAX and nothing of ``horovod_tpu``.
 """
@@ -54,6 +56,14 @@ from horovod_tpu_torch.parallel.optimizer import (  # noqa: F401
     broadcast_variables,
 )
 from horovod_tpu_torch.run import run  # noqa: F401
+from horovod_tpu_torch import serving  # noqa: F401
+from horovod_tpu_torch.serving import (  # noqa: F401
+    AdmissionError,
+    BlockPool,
+    Engine,
+    EngineStalled,
+    RequestJournal,
+)
 from horovod_tpu_torch.training.callbacks import (  # noqa: F401
     BroadcastGlobalVariablesCallback,
     Callback,

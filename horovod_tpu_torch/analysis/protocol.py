@@ -1,8 +1,11 @@
-"""Request validation for the negotiation layer — a copy of the subset of
-``horovod_tpu/analysis/protocol.py`` that the port's runtime calls.
+"""Pure protocol judgements — a copy of the subset of
+``horovod_tpu/analysis/protocol.py`` that the port's runtime calls: request
+validation for the negotiation layer, the fault-injection grammar
+(``HOROVOD_FAULT_INJECT``) and the serving judgements (deadlines, the
+journal's committed-token fold, stall and accept-rate verdicts).
 
-Stdlib-only and side-effect free: ``validate_requests`` is a pure transition
-function (requests in, verdict out). The port keeps its own copy rather than
+Stdlib-only and side-effect free: every function is a pure transition
+(inputs in, verdict out). The port keeps its own copy rather than
 importing the JAX package, whose ``__init__`` pulls in jax. The error strings
 are byte-identical to the reference's (``tests/test_torch_collectives.py``
 compares them with the JAX package's ``validate_py``).
@@ -11,7 +14,7 @@ compares them with the JAX package's ``validate_py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Any, Mapping, Optional, Sequence
 
 OP_ALLREDUCE = 0
 OP_ALLGATHER = 1
@@ -155,3 +158,221 @@ def validate_requests(requests: Sequence[Req], group_size: int) -> Verdict:
 
     return Verdict(name=name, op=op, dtype=first.dtype,
                    tensor_sizes=tensor_sizes, root_rank=root_rank)
+
+
+# ---------------------------------------------------------------------------
+# Fault-injection grammar (HOROVOD_FAULT_INJECT)
+# ---------------------------------------------------------------------------
+
+FAULT_ATTRS: dict[str, set[str]] = {
+    "kv_timeout": {"seq", "times"},
+    "crash": {"rank", "step"},
+    "torn_write": {"epoch"},
+    # Elastic join event: previously-dropped rank(s) rejoin at the step
+    # boundary S (rank omitted = every dropped rank rejoins). Not a
+    # fault in the failure sense — it shares the injection grammar so
+    # one deterministic spec scripts a whole shrink->continue->regrow
+    # drill: "crash@rank=2,step=5;regrow@step=9".
+    "regrow": {"rank", "step"},
+    # Serving-engine faults: engine_crash kills the serving process at engine step S
+    # (the continuous-batching twin of crash@step); stuck_decode freezes
+    # the decode dispatch at step S for ms milliseconds (default: past
+    # the watchdog timeout) so the Watchdog must convict it;
+    # deadline_storm force-expires every in-flight deadline at step S.
+    "engine_crash": {"step"},
+    "stuck_decode": {"step", "ms"},
+    "deadline_storm": {"step"},
+}
+FAULT_REQUIRED: dict[str, set[str]] = {
+    "kv_timeout": {"seq"},
+    "crash": {"step"},
+    "torn_write": {"epoch"},
+    "regrow": {"step"},
+    "engine_crash": {"step"},
+    "stuck_decode": {"step"},
+    "deadline_storm": {"step"},
+}
+
+
+class Fault:
+    """One parsed fault-spec entry: a kind plus integer attrs."""
+
+    def __init__(self, kind: str, attrs: Mapping[str, int]):
+        self.kind = kind
+        self.attrs = dict(attrs)
+
+    def describe(self) -> str:
+        attrs = ",".join(f"{k}={v}" for k, v in sorted(self.attrs.items()))
+        return f"{self.kind}@{attrs}" if attrs else self.kind
+
+    def __repr__(self) -> str:  # test/debug readability
+        return f"Fault({self.describe()})"
+
+
+def parse_fault_spec(raw: Optional[str]) -> tuple[Fault, ...]:
+    """Parse ``"kv_timeout@seq=3;crash@rank=1,step=5;torn_write@epoch=2"``.
+
+    Grammar: ``entry (';' entry)*`` where ``entry := kind '@' name=int
+    (',' name=int)*``. Unknown kinds/attrs and non-integer values raise
+    ``ValueError`` — a typo'd injection spec must not silently run a
+    fault-free drill that then "passes". The port injects only the
+    serving kinds (``core/resilience.py``); the others parse as the
+    reference parses them.
+    """
+    faults: list[Fault] = []
+    for entry in (raw or "").split(";"):
+        entry = entry.strip()
+        if not entry:
+            continue
+        kind, _, attrstr = entry.partition("@")
+        kind = kind.strip()
+        if kind not in FAULT_ATTRS:
+            raise ValueError(
+                f"HOROVOD_FAULT_INJECT: unknown fault kind {kind!r} in "
+                f"{entry!r}; valid kinds: {sorted(FAULT_ATTRS)}")
+        attrs: dict[str, int] = {}
+        for item in attrstr.split(","):
+            item = item.strip()
+            if not item:
+                continue
+            name, eq, val = item.partition("=")
+            name = name.strip()
+            if not eq or name not in FAULT_ATTRS[kind]:
+                raise ValueError(
+                    f"HOROVOD_FAULT_INJECT: bad attribute {item!r} for "
+                    f"{kind!r}; valid attributes: "
+                    f"{sorted(FAULT_ATTRS[kind])} (name=int)")
+            try:
+                attrs[name] = int(val)
+            except ValueError:
+                raise ValueError(
+                    f"HOROVOD_FAULT_INJECT: attribute {name!r} must be an "
+                    f"integer, got {val.strip()!r}") from None
+        missing = FAULT_REQUIRED[kind] - attrs.keys()
+        if missing:
+            raise ValueError(
+                f"HOROVOD_FAULT_INJECT: {kind!r} requires attribute(s) "
+                f"{sorted(missing)} (got {entry!r})")
+        faults.append(Fault(kind, attrs))
+    return tuple(faults)
+
+
+def serve_fault_matching(faults: Sequence[Fault], kind: str, step: int,
+                         span: int = 1) -> Optional[Fault]:
+    """The matching serving-engine fault of ``kind`` (``engine_crash``,
+    ``stuck_decode``, or ``deadline_storm``) for the engine steps
+    ``step <= s < step + span``, or None: a spec'd step the loop skips
+    past still fires at the covering boundary instead of silently never
+    firing."""
+    for f in faults:
+        if f.kind == kind and step <= f.attrs["step"] < step + span:
+            return f
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Serving judgements
+# ---------------------------------------------------------------------------
+
+
+def deadline_expired(now_ms: float, deadline_ms: Optional[float]) -> bool:
+    """The deadline judgement the engine applies at every step boundary
+    and the scheduler at admission: a request with an
+    absolute monotonic deadline is expired once ``now_ms`` reaches it.
+    ``None`` = no deadline, never expires."""
+    if deadline_ms is None:
+        return False
+    return now_ms >= deadline_ms
+
+
+def admission_feasible(prompt_tokens: int, budget_ms: Optional[float],
+                       prefill_tokens_per_ms: float) -> bool:
+    """The scheduler's deadline admission gate: can ``prompt_tokens`` of
+    prefill finish inside ``budget_ms`` at the measured prefill rate? A request that cannot make its own deadline is
+    refused at submit time — pages it would pin are never backed.
+    ``budget_ms`` None = no deadline; a non-positive budget is already
+    expired; an unmeasured rate (<= 0) admits (no evidence to refuse)."""
+    if budget_ms is None:
+        return True
+    if budget_ms <= 0:
+        return False
+    if prefill_tokens_per_ms <= 0:
+        return True
+    return prompt_tokens / prefill_tokens_per_ms <= budget_ms
+
+
+def journal_committed(records: Sequence[Mapping[str, Any]],
+                      *, include_torn: bool = False
+                      ) -> tuple[dict[int, tuple[int, ...]], bool]:
+    """Fold an ordered serve-journal record stream into the committed
+    per-request token runs — the replay decision ``Engine.recover``
+    (``serving/resilience.py::load_journal``) trusts.
+
+    A ``torn`` marker (a record whose CRC or shape failed — the torn
+    tail a crash mid-append leaves) ENDS the committed stream: it and
+    everything after it are refused, never replayed as committed
+    tokens. ``include_torn=True`` consumes the marker and keeps folding
+    (the reference's deliberately broken variant, kept so the two
+    folds stay identical). Returns ``(committed, used_torn)``. Malformed
+    streams — duplicate or missing admissions, emits after
+    finish/evict, non-monotone emit runs — raise ``ValueError`` naming
+    the record index."""
+    committed: dict[int, list[int]] = {}
+    closed: set[int] = set()
+    used_torn = False
+    for i, rec in enumerate(records):
+        kind = rec.get("kind")
+        if kind == "torn":
+            if not include_torn:
+                break
+            used_torn = True
+            continue
+        if kind in ("header", "recover"):
+            continue
+        if kind not in ("admit", "emit", "finish", "evict"):
+            raise ValueError(
+                f"record {i}: unknown journal record kind {kind!r}")
+        rid = int(rec.get("rid", -1))
+        if kind == "admit":
+            if rid in committed:
+                raise ValueError(
+                    f"record {i}: duplicate admission of request {rid}")
+            committed[rid] = []
+            continue
+        if rid not in committed:
+            raise ValueError(
+                f"record {i}: {kind} for request {rid} before its "
+                f"admission")
+        if kind == "emit":
+            if rid in closed:
+                raise ValueError(
+                    f"record {i}: emit for request {rid} after its "
+                    f"finish/evict record")
+            run = committed[rid]
+            start = int(rec.get("start", -1))
+            if start != len(run):
+                raise ValueError(
+                    f"record {i}: non-monotone emit run for request "
+                    f"{rid}: start={start} but {len(run)} token(s) "
+                    f"committed so far")
+            run.extend(int(t) for t in rec.get("tokens", ()))
+        else:  # finish / evict
+            closed.add(rid)
+    return {rid: tuple(run) for rid, run in committed.items()}, used_torn
+
+
+def judge_dead(cached: Mapping[int, Optional[float]], now: float,
+               timeout: float) -> list[tuple[int, float]]:
+    """``(pid, age)`` for every peer whose last cached heartbeat is older
+    than ``timeout`` (the serving watchdog judges its one open dispatch
+    as peer 0). A peer that has NEVER heartbeat is given startup
+    grace (None sightings are skipped — the caller's own timeout bounds
+    that wait)."""
+    dead: list[tuple[int, float]] = []
+    for p, t_pub in sorted(cached.items()):
+        if t_pub is None:
+            continue
+        age = now - t_pub
+        if age > timeout:
+            dead.append((p, age))
+    return dead

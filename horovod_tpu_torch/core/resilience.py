@@ -1,0 +1,86 @@
+"""Fault injection for the serving engine — the part of
+``horovod_tpu/core/resilience.py`` that serving reads.
+
+``HOROVOD_FAULT_INJECT="engine_crash@step=5;stuck_decode@step=3,ms=9000"``
+threads synthetic faults through ``Engine.step`` (``serving/engine.py``):
+
+* ``engine_crash@step=S`` — hard ``os._exit(CRASH_EXIT_CODE)`` at engine
+  step S, the stand-in for a killed serving process (the journal's last
+  per-step flush is what ``Engine.recover`` replays);
+* ``stuck_decode@step=S[,ms=M]`` — the watchdog's open stamp is aged by M
+  ms and judged, so the conviction is immediate and never a real hang;
+* ``deadline_storm@step=S`` — every in-flight deadline expires at step S.
+
+The grammar is the reference's (``analysis/protocol.py::parse_fault_spec``):
+a typo'd spec raises instead of running a fault-free drill. The training
+faults (``kv_timeout``, ``crash``, ``torn_write``, ``regrow``) parse but
+nothing in the port injects them yet (ROADMAP §A item 15).
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+
+from horovod_tpu_torch.analysis import protocol as _proto
+
+# The exit code an injected crash dies with — distinct from Python's 1 so a
+# drill can tell an injected crash from an ordinary error.
+CRASH_EXIT_CODE = 43
+
+Fault = _proto.Fault
+parse_fault_spec = _proto.parse_fault_spec
+
+
+class FaultInjector:
+    """The parsed ``HOROVOD_FAULT_INJECT`` spec, with consume-once matching
+    of the serving faults."""
+
+    def __init__(self, faults: tuple[Fault, ...] = ()):
+        self._faults = tuple(faults)
+        self._serve_consumed: set[int] = set()
+        self._lock = threading.Lock()
+
+    @property
+    def active(self) -> bool:
+        return bool(self._faults)
+
+    def serve_fault_due(self, kind: str, step: int,
+                        span: int = 1) -> Fault | None:
+        """The matching serving-engine fault (``engine_crash``,
+        ``stuck_decode``, ``deadline_storm``) for engine steps ``step <= s
+        < step + span``, consumed once — a deadline storm hits exactly one
+        step boundary, and a stuck decode must not re-freeze the restarted
+        engine."""
+        with self._lock:
+            f = _proto.serve_fault_matching(self._faults, kind, step, span)
+            if f is None:
+                return None
+            i = self._faults.index(f)
+            if i in self._serve_consumed:
+                return None
+            self._serve_consumed.add(i)
+            return f
+
+
+_injector: FaultInjector | None = None
+_injector_lock = threading.Lock()
+
+
+def injector() -> FaultInjector:
+    """The process's injector, parsed from ``HOROVOD_FAULT_INJECT`` on first
+    use (the env is read once; :func:`reset_injector` re-reads it)."""
+    global _injector
+    with _injector_lock:
+        if _injector is None:
+            _injector = FaultInjector(
+                parse_fault_spec(os.environ.get("HOROVOD_FAULT_INJECT")))
+        return _injector
+
+
+def reset_injector() -> None:
+    """Drop the cached injector so the next :func:`injector` re-reads the
+    environment."""
+    global _injector
+    with _injector_lock:
+        _injector = None

@@ -142,6 +142,7 @@ def init(group_ranks: Sequence[Sequence[int]] | None = None, *,
         if _state.initialized:
             return
         _env.warn_unknown_env()
+        _env.validate_serving_knobs()
         local_rank = int(os.environ.get("LOCAL_RANK", "0"))
         dev = _resolve_device(device, local_rank)
         backend = "nccl" if dev.type == "cuda" else "gloo"

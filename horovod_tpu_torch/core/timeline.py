@@ -12,6 +12,12 @@ clock, and the file flushes at most once a second. Activity names:
                              the collective itself
     MEMCPY_OUT_FUSION_BUFFER unpack
 
+The serving engine writes one ``serving`` row: PREFILL and DECODE spans
+around its two forwards, and instant ticks ADMIT (a request took a slot),
+EVICT (finished or preempted), DEADLINE (evicted or refused past its
+deadline), SHED (the load-shedding latch closed), STALL (the watchdog
+convicted a dispatch) and RECOVER (a journaled request resumed).
+
 On the GPU these are enqueue times: the host stamps them around calls that
 return before the device finishes.
 """

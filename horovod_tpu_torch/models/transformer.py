@@ -19,15 +19,33 @@ input to the compute ``dtype`` (bf16 by default), as flax's ``dtype`` does:
 runs in fp32; the logits come out fp32. Rotary tables are computed per call,
 not kept as buffers, so ``Trainer`` has no buffers to average.
 
+The decode side (``horovod_tpu/models/transformer.py:112-257``,
+``:444-590``): one-token steps against a KV cache, through one attend for
+both cache carriers, so :func:`generate` and the serving engine
+(``horovod_tpu_torch.serving``) compute the same bits:
+
+* a dense :class:`DecodeCache` ``(layers, B, max_seq_len, Hkv, d)`` in the
+  compute dtype with one shared write index — :func:`init_cache`,
+  :func:`decode_step`, :func:`prefill` and :func:`generate`;
+* a paged ``kv_view`` per layer, gathered by the engine from its block pool:
+  ``(k, v)`` raw pages or ``(k, v, k_scale, v_scale)`` quantized ones, with
+  per-row ``(B, W)`` positions. The fresh K/V of the step (quantized once,
+  on write) go into the view before the attend and come back from
+  :meth:`Transformer.decode` for the engine's pool scatter — where flax
+  ``sow``s them into a ``paged_kv`` collection.
+
+The attend runs in fp32: GQA grouped as ``bqhgd,bkhd`` without expanding
+the cache, positions past each query's frontier (and outside ``window``)
+written as -1e30 before the softmax.
+
 Not ported yet: sequence-parallel attention (``attention='ring'`` /
-``'ulysses'``, the ``'zigzag'`` layout — ROADMAP §A item 13) and the
-decode side (``decode=True``, the KV cache, ``generate``/``prefill``/
-``decode_step``, paged ``kv_view`` — ROADMAP §A items 10 and 14); those
-raise ``NotImplementedError``.
+``'ulysses'``, the ``'zigzag'`` layout — ROADMAP §A item 13); those raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -38,6 +56,9 @@ from torch import nn
 from horovod_tpu_torch.models.resnet import lecun_normal_
 from horovod_tpu_torch.ops.losses import default_chunk, fused_cross_entropy
 from horovod_tpu_torch.parallel.sequence import local_attention
+from horovod_tpu_torch.serving.kv_cache import (dequantize_kv, kv_quantized,
+                                                quantize_kv,
+                                                resolve_kv_dtype)
 
 
 class TransformerConfig(NamedTuple):
@@ -52,8 +73,10 @@ class TransformerConfig(NamedTuple):
     sp_group: int = 0
     num_kv_heads: int | None = None  # GQA/MQA: fewer K/V heads (None = MHA)
     sp_layout: str = "contiguous"
-    decode: bool = False
+    decode: bool = False          # one-token KV-cache decoding
     window: int | None = None     # sliding-window attention (causal SWA)
+    kv_dtype: str = "model"       # paged-KV pool format ('model' = dtype;
+                                  # fp32|bf16|int8_block|int4 — serving)
 
 
 def _not_ported(config: TransformerConfig) -> None:
@@ -68,25 +91,25 @@ def _not_ported(config: TransformerConfig) -> None:
         raise NotImplementedError(
             f"sp_layout={config.sp_layout!r} belongs to ring attention, "
             f"which is not ported yet: ROADMAP §A item 13.")
-    if config.decode:
-        raise NotImplementedError(
-            "decode=True (KV-cache generation, prefill/decode_step, paged "
-            "kv_view) is not ported to horovod_tpu_torch yet: ROADMAP §A "
-            "items 10 and 14. The port trains only.")
 
 
-def _rotary(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """Rotary position embedding on (B, T, H, D), in fp32, cast back.
-    ``positions``: (T,) shared across the batch or (B, T) per row."""
-    half = x.shape[-1] // 2
+def _rotary_tables(positions: torch.Tensor, d: int):
+    """fp32 ``(cos, sin)`` for head dim ``d``, shaped to broadcast over
+    (B, T, H, d/2). ``positions``: (T,) shared across the batch or (B, T)
+    per row."""
+    half = d // 2
     freqs = 1.0 / (10000.0 ** (torch.arange(half, dtype=torch.float32,
-                                            device=x.device) / half))
+                                            device=positions.device) / half))
     angles = positions[..., None].float() * freqs
     cos, sin = angles.cos(), angles.sin()
     if angles.ndim == 2:
-        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
-    else:
-        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+        return cos[None, :, None, :], sin[None, :, None, :]
+    return cos[:, :, None, :], sin[:, :, None, :]
+
+
+def _apply_rotary(x: torch.Tensor, cos, sin) -> torch.Tensor:
+    """Rotary position embedding on (B, T, H, D), in fp32, cast back."""
+    half = x.shape[-1] // 2
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
@@ -96,6 +119,41 @@ def _dense(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
     """flax Dense/DenseGeneral without bias: x and the fp32 kernel, both cast
     to ``dtype``, contracted over x's last dim and w's leading dims."""
     return x.to(dtype) @ w.to(dtype).reshape(x.shape[-1], -1)
+
+
+class _Step(NamedTuple):
+    """What every layer of one decode step shares: whether the carrier is
+    a paged view, the view's write coordinates ``rows`` (B, 1) and ``pos``
+    (B, W), and ``visible`` (B, 1, 1, W, K), the keys each query may see."""
+    paged: bool
+    rows: torch.Tensor | None
+    pos: torch.Tensor | None
+    visible: torch.Tensor
+
+
+def _visibility(frontier: torch.Tensor, k_len: int,
+                window: int | None) -> torch.Tensor:
+    """(B, 1, 1, W, K): key position ≤ each query's frontier (B, W), and
+    within ``window`` of it when one is set."""
+    kpos = torch.arange(k_len, device=frontier.device)
+    vis = kpos[None, None, :] <= frontier[:, :, None]
+    if window is not None:
+        vis = vis & (kpos[None, None, :] > frontier[:, :, None] - window)
+    return vis[:, None, None]
+
+
+def _attend(q, kc, vc, visible) -> torch.Tensor:
+    """The decode attend, in fp32: q (B, W, H, d) against the cache or
+    view (B, K, Hkv, d), GQA grouped as ``bqhgd,bkhd`` (the cache is never
+    expanded), invisible scores written as -1e30 before the softmax.
+    Returns (B, W, H, d) in q's dtype."""
+    b, w, h, d = q.shape
+    hkv = kc.shape[2]
+    qg = q.reshape(b, w, hkv, h // hkv, d).float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc.float()) * (1.0 / d ** 0.5)
+    p = torch.softmax(torch.where(visible, s, -1e30), dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, vc.float())
+    return out.reshape(b, w, h, d).to(q.dtype)
 
 
 class RMSNorm(nn.Module):
@@ -144,19 +202,67 @@ class Attention(nn.Module):
         self.value = kernel((e, hkv, d), e)
         self.out = kernel((h, d, e), h * d)
 
+    def _qkv(self, x, rot):
+        cfg = self.config
+        b, t, _ = x.shape
+        q = _apply_rotary(_dense(x, self.query, cfg.dtype).reshape(
+            b, t, self.h, self.d), *rot)
+        k = _apply_rotary(_dense(x, self.key, cfg.dtype).reshape(
+            b, t, self.hkv, self.d), *rot)
+        v = _dense(x, self.value, cfg.dtype).reshape(b, t, self.hkv, self.d)
+        return q, k, v
+
     def forward(self, x, positions, segment_ids=None):
         cfg = self.config
         b, t, _ = x.shape
-        q = _rotary(_dense(x, self.query, cfg.dtype).reshape(
-            b, t, self.h, self.d), positions)
-        k = _rotary(_dense(x, self.key, cfg.dtype).reshape(
-            b, t, self.hkv, self.d), positions)
-        v = _dense(x, self.value, cfg.dtype).reshape(b, t, self.hkv, self.d)
+        q, k, v = self._qkv(x, _rotary_tables(positions, self.d))
         out = local_attention(q, k, v, causal=True, window=cfg.window,
                               q_segment_ids=segment_ids,
                               kv_segment_ids=segment_ids)
         return _dense(out.reshape(b, t, self.h * self.d), self.out,
                       cfg.dtype)
+
+    def decode(self, x, rot, step, carrier, kv_dtype: str):
+        """One decode step of attention. ``rot``: rotary tables of the
+        step's positions; ``step``: :class:`_Step` (frontiers and
+        visibility, shared by every layer); ``carrier``: this layer's
+        ``(k_cache, v_cache, index)`` dense cache (written in place at
+        ``index``) or its paged view, 2 or 4 planes (written in place at
+        the step's positions — the view is the caller's gathered scratch).
+        Returns the attention output and, for a paged view, the fresh
+        K/V as written (and their scales), squeezed to (B, Hkv, ...) when
+        W == 1; None for the dense cache."""
+        cfg = self.config
+        b, w, _ = x.shape
+        q, k, v = self._qkv(x, rot)
+        fresh = None
+        if step.paged:
+            if kv_quantized(kv_dtype):
+                kview, vview, kscale, vscale = carrier
+                kw, ku = quantize_kv(k, kv_dtype)
+                vw, vu = quantize_kv(v, kv_dtype)
+                kview[step.rows, step.pos] = kw
+                vview[step.rows, step.pos] = vw
+                kscale[step.rows, step.pos] = ku
+                vscale[step.rows, step.pos] = vu
+                fresh = (kw, vw, ku, vu)
+                kc = dequantize_kv(kview, kscale, kv_dtype)
+                vc = dequantize_kv(vview, vscale, kv_dtype)
+            else:
+                kc, vc = carrier
+                kw, vw = k.to(kc.dtype), v.to(vc.dtype)
+                kc[step.rows, step.pos] = kw
+                vc[step.rows, step.pos] = vw
+                fresh = (kw, vw)
+            if w == 1:
+                fresh = tuple(f[:, 0] for f in fresh)
+        else:
+            kc, vc, i = carrier
+            kc[:, i] = k[:, 0].to(kc.dtype)
+            vc[:, i] = v[:, 0].to(vc.dtype)
+        out = _attend(q, kc, vc, step.visible)
+        return _dense(out.reshape(b, w, self.h * self.d), self.out,
+                      cfg.dtype), fresh
 
 
 class Block(nn.Module):
@@ -174,11 +280,19 @@ class Block(nn.Module):
         self.mlp_out = nn.Parameter(lecun_normal_(torch.empty(m, e), m,
                                                   generator))
 
-    def forward(self, x, positions, segment_ids=None):
-        x = x + self.attn(self.norm1(x), positions, segment_ids)
+    def _mlp(self, x):
         y = _dense(self.norm2(x), self.mlp_in, self.dtype)
         y = F.gelu(y, approximate="tanh")
         return x + _dense(y, self.mlp_out, self.dtype)
+
+    def forward(self, x, positions, segment_ids=None):
+        return self._mlp(x + self.attn(self.norm1(x), positions,
+                                       segment_ids))
+
+    def decode(self, x, rot, step, carrier, kv_dtype: str):
+        a, fresh = self.attn.decode(self.norm1(x), rot, step, carrier,
+                                    kv_dtype)
+        return self._mlp(x + a), fresh
 
 
 class Transformer(nn.Module):
@@ -188,7 +302,9 @@ class Transformer(nn.Module):
     ``shard_offset``: global position of the first token; ``positions``:
     explicit (T,) positions overriding it. Weights are initialised as flax
     initialises the reference (LeCun-normal kernels, N(0, 0.02) embedding,
-    unit norm scales), drawing from ``generator``."""
+    unit norm scales), drawing from ``generator``. :meth:`decode` is one
+    decode step against a KV cache (the reference's ``decode=True``
+    apply)."""
 
     def __init__(self, config: TransformerConfig,
                  generator: torch.Generator | None = None) -> None:
@@ -206,6 +322,11 @@ class Transformer(nn.Module):
 
     def forward(self, tokens, shard_offset: int = 0, segment_ids=None,
                 positions=None, return_hidden: bool = False):
+        if self.config.decode:
+            raise ValueError(
+                "decode=True runs one-token steps against a KV cache: call "
+                "decode(tokens, cache=init_cache(...)) or decode(tokens, "
+                "kv_views=...) (the serving engine's paged views).")
         if positions is None:
             positions = shard_offset + torch.arange(tokens.shape[1],
                                                     device=tokens.device)
@@ -217,6 +338,110 @@ class Transformer(nn.Module):
             return x
         return _dense(x, self.lm_head, self.config.dtype).float()
 
+    def decode(self, tokens, shard_offset: int = 0, positions=None,
+               kv_views=None, cache: "DecodeCache | None" = None,
+               kv_dtype: str | None = None):
+        """One decode step against one of two cache carriers:
+
+        * ``cache``: the dense :class:`DecodeCache`; ``tokens`` (B, 1) at
+          position ``shard_offset`` (or ``positions`` (1,)) are written at
+          ``cache.index``, which then advances. Returns (B, 1, V) fp32
+          logits.
+        * ``kv_views``: one paged view per layer — ``(k, v)`` raw pages or
+          ``(k, v, k_scale, v_scale)`` when ``kv_dtype`` (default
+          ``config.kv_dtype``) is quantized — each (B, K, Hkv, ...) and
+          written in place; ``positions`` (B, W) per row. Returns the
+          logits (B, W, V) and the fresh K/V as written, one tensor per
+          plane stacked over layers: (layers, B, Hkv, ...) when W == 1,
+          else (layers, B, W, Hkv, ...) — what flax ``sow``s into the
+          reference's ``paged_kv`` collection.
+        """
+        cfg = self.config
+        if cfg.attention != "local":
+            raise ValueError(
+                "decode=True supports attention='local' (generation "
+                "runs on the full cached sequence per chip).")
+        if (kv_views is None) == (cache is None):
+            raise ValueError("a decode step takes one carrier: cache= or "
+                             "kv_views=")
+        b, w = tokens.shape
+        d = cfg.embed_dim // cfg.num_heads
+        kvd = None
+        if kv_views is not None:
+            if len(kv_views) != cfg.num_layers:
+                raise ValueError(
+                    f"kv_views must carry one (k_view, v_view) pair per "
+                    f"layer: got {len(kv_views)} for num_layers="
+                    f"{cfg.num_layers}.")
+            kvd = resolve_kv_dtype(kv_dtype or cfg.kv_dtype, cfg.dtype)
+            planes = len(kv_views[0])
+            if kv_quantized(kvd) and planes != 4:
+                raise ValueError(
+                    f"kv_dtype={kvd!r} pages carry scale "
+                    f"planes: kv_view must be (k, v, k_scale, "
+                    f"v_scale), got a {planes}-tuple.")
+            if not kv_quantized(kvd) and planes != 2:
+                raise ValueError(
+                    f"kv_dtype={kvd!r} pages are raw (k, v) "
+                    f"— a {planes}-tuple kv_view looks like "
+                    f"quantized pools passed to an unquantized "
+                    f"config (fresh K/V would be written into the "
+                    f"int8 payload view as garbage).")
+            if (positions is None or positions.ndim != 2
+                    or tuple(positions.shape) != (b, w)):
+                got = None if positions is None else tuple(positions.shape)
+                raise ValueError(
+                    "paged decode (kv_view=) needs per-row positions "
+                    f"shaped (B, W) matching the tokens, got "
+                    f"{got} for (B, W)=({b}, {w}).")
+            pos = positions.long()
+            step = _Step(True, torch.arange(b, device=tokens.device)[:, None],
+                         pos, _visibility(pos, kv_views[0][0].shape[1],
+                                          cfg.window))
+            carriers = kv_views
+        else:
+            if w != 1:
+                raise ValueError(
+                    f"decode=True processes ONE token per call (got "
+                    f"{w}); feed the prompt token-by-token as "
+                    f"generate() does.")
+            i = cache.index
+            if not 0 <= i < cache.k.shape[2]:
+                raise ValueError(
+                    f"the dense cache is full: write index {i} of "
+                    f"{cache.k.shape[2]} positions (max_seq_len).")
+            if positions is None:
+                positions = shard_offset + torch.arange(1,
+                                                        device=tokens.device)
+            step = _Step(False, None, None, _visibility(
+                torch.full((b, 1), i, device=tokens.device),
+                cache.k.shape[2], cfg.window))
+            carriers = [(cache.k[layer], cache.v[layer], i)
+                        for layer in range(cfg.num_layers)]
+        rot = _rotary_tables(positions, d)
+        x = F.embedding(tokens, self.embed.to(cfg.dtype))
+        fresh = []
+        for block, carrier in zip(self.blocks, carriers):
+            x, f = block.decode(x, rot, step, carrier, kvd)
+            fresh.append(f)
+        logits = _dense(self.norm(x), self.lm_head, cfg.dtype).float()
+        if cache is not None:
+            cache.index = i + 1
+            return logits
+        return logits, tuple(torch.stack(p) for p in zip(*fresh))
+
+
+def _require_device(device, who: str, what: str) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device on a host without
+    CUDA raises instead of falling back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who}: CUDA is not available on this host. The port "
+            f"runs on the GPU by default; pass device='cpu' to {what} "
+            f"on the CPU.")
+    return device
+
 
 def init_params(config: TransformerConfig, seed: int = 0,
                 device: str | torch.device = "cuda"):
@@ -226,12 +451,7 @@ def init_params(config: TransformerConfig, seed: int = 0,
     on the CPU. The weights are drawn on the CPU, so they are the same on
     every device. (The JAX package's ``init_params`` returns a parameter
     tree; here the module holds its parameters.)"""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "init_params: CUDA is not available on this host. The port "
-            "runs on the GPU by default; pass device='cpu' to build the "
-            "model on the CPU.")
+    device = _require_device(device, "init_params", "build the model")
     g = torch.Generator().manual_seed(seed)
     return Transformer(config, generator=g).to(device)
 
@@ -271,6 +491,185 @@ def synthetic_tokens(batch_size: int, seq_len: int, vocab_size: int = 32_000,
     g = torch.Generator(device=device).manual_seed(seed)
     return torch.randint(0, vocab_size, (batch_size, seq_len), generator=g,
                          device=device)
+
+
+# -- the decode side -------------------------------------------------------------
+
+def decode_config(config: TransformerConfig) -> TransformerConfig:
+    """The cached-decode variant of a training config: one-token steps,
+    local attention, contiguous layout — what :func:`generate`, the
+    :func:`prefill`/:func:`decode_step` pair and the serving engine run."""
+    return config._replace(decode=True, attention="local",
+                           sp_layout="contiguous")
+
+
+_ARCH_FIELDS = ("vocab_size", "num_layers", "num_heads", "embed_dim",
+                "mlp_dim", "dtype", "window")
+
+
+def check_model(config: TransformerConfig, model: Transformer) -> None:
+    """Raise unless ``model`` was built for ``config``'s network (the decode
+    entry points take both, as the reference takes a config and a
+    parameter tree)."""
+    have = model.config
+    for field in _ARCH_FIELDS:
+        if getattr(have, field) != getattr(config, field):
+            raise ValueError(
+                f"the model was built with {field}={getattr(have, field)!r}"
+                f" but the config has {getattr(config, field)!r}")
+    if (have.num_kv_heads or have.num_heads) != (config.num_kv_heads
+                                                 or config.num_heads):
+        raise ValueError(
+            f"the model has {have.num_kv_heads or have.num_heads} K/V "
+            f"heads but the config {config.num_kv_heads or config.num_heads}")
+
+
+@dataclasses.dataclass
+class DecodeCache:
+    """The dense KV cache :func:`generate` runs on: ``k`` and ``v``
+    (layers, B, max_seq_len, Hkv, d) in the compute dtype, and ``index``,
+    the next write position, shared by every layer (the reference keeps
+    one per layer, always equal). A decode step writes it in place."""
+    k: torch.Tensor
+    v: torch.Tensor
+    index: int = 0
+
+
+def init_cache(config: TransformerConfig, batch_size: int,
+               device: str | torch.device = "cuda") -> DecodeCache:
+    """A zeroed :class:`DecodeCache` for ``batch_size`` rows on ``device``
+    — the GPU unless the caller passes ``device='cpu'``."""
+    device = _require_device(device, "init_cache", "build the cache")
+    hkv = config.num_kv_heads or config.num_heads
+    shape = (config.num_layers, batch_size, config.max_seq_len, hkv,
+             config.embed_dim // config.num_heads)
+    return DecodeCache(torch.zeros(shape, dtype=config.dtype, device=device),
+                       torch.zeros(shape, dtype=config.dtype, device=device))
+
+
+def decode_step(config: TransformerConfig, params: Transformer,
+                cache: DecodeCache, token, t: int | None = None):
+    """One cached decode step: ``token`` (B,) or (B, 1) at position ``t``
+    (default: the cache's own write index) → ((B, V) fp32 logits, the
+    cache, advanced in place). The same path :func:`generate` and
+    :func:`prefill` run, step by step; the model and the cache must be on
+    one device."""
+    check_model(config, params)
+    token = torch.as_tensor(token, device=cache.k.device).long()
+    if token.ndim == 1:
+        token = token[:, None]
+    if t is None:
+        t = cache.index
+    with torch.no_grad():
+        logits = params.decode(token, shard_offset=t, cache=cache)
+    return logits[:, 0], cache
+
+
+def prefill(config: TransformerConfig, params: Transformer, tokens,
+            device: str | torch.device = "cuda"):
+    """Ingest a whole prompt through the cached decode path: ``tokens``
+    (B, P) → (cache, (B, V) logits at the last prompt position). One
+    one-token step a position, as the reference's ``lax.scan`` does, so
+    prefill-then-decode equals feeding the prompt token by token."""
+    device = _require_device(device, "prefill", "decode")
+    check_model(config, params)
+    tokens = torch.as_tensor(tokens, device=device).long()
+    b, plen = tokens.shape
+    if plen > config.max_seq_len:
+        raise ValueError(
+            f"prompt ({plen}) exceeds max_seq_len ({config.max_seq_len}) "
+            f"— the KV cache's capacity.")
+    cache = init_cache(config, b, device)
+    with torch.no_grad():
+        for t in range(plen):
+            logits = params.decode(tokens[:, t:t + 1], shard_offset=t,
+                                   cache=cache)
+    return cache, logits[:, 0]
+
+
+def generate(config: TransformerConfig, params: Transformer, prompt,
+             max_new_tokens: int, temperature: float = 0.0, seed: int = 0,
+             device: str | torch.device = "cuda") -> torch.Tensor:
+    """Autoregressive generation with a dense KV cache: ``prompt`` (B, P)
+    → (B, P + max_new_tokens) int64, the prompt then the generated tokens.
+    One token a step against the cache (teacher-forced inside the prompt);
+    ``temperature=0`` is greedy, otherwise :func:`sample_tokens` keyed by
+    (``seed``, batch row, position). The serving engine
+    (``horovod_tpu_torch.serving.Engine``) runs the same attend over a
+    paged cache, so its greedy tokens are bit-identical at equal shapes."""
+    device = _require_device(device, "generate", "decode")
+    check_model(config, params)
+    prompt = torch.as_tensor(prompt, device=device).long()
+    b, plen = prompt.shape
+    total = plen + max_new_tokens
+    if total > config.max_seq_len:
+        raise ValueError(
+            f"prompt ({plen}) + max_new_tokens ({max_new_tokens}) exceeds "
+            f"max_seq_len ({config.max_seq_len}) — the KV cache's capacity.")
+    cache = init_cache(config, b, device)
+    out = torch.empty((b, total), dtype=torch.long, device=device)
+    out[:, :plen] = prompt
+    rows = torch.arange(b, device=device)
+    with torch.no_grad():
+        for t in range(total - 1):
+            logits = params.decode(out[:, t:t + 1], shard_offset=t,
+                                   cache=cache)
+            if t + 1 >= plen:
+                out[:, t + 1] = sample_tokens(logits[:, 0], temperature,
+                                              seed, rows, t)
+    return out
+
+
+# Counter-based sampling: splitmix64 over int64 tensors (two's-complement
+# wrap-around; ``>>`` on int64 is arithmetic, so logical shifts mask).
+def _i64(c: int) -> int:
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+_GOLDEN = _i64(0x9E3779B97F4A7C15)
+_MIX1 = _i64(0xBF58476D1CE4E5B9)
+_MIX2 = _i64(0x94D049BB133111EB)
+
+
+def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _splitmix64(x: torch.Tensor) -> torch.Tensor:
+    z = x + _GOLDEN
+    z = (z ^ _srl(z, 30)) * _MIX1
+    z = (z ^ _srl(z, 27)) * _MIX2
+    return z ^ _srl(z, 31)
+
+
+def sample_tokens(logits: torch.Tensor, temperature: float, seed: int,
+                  streams, positions) -> torch.Tensor:
+    """Next tokens (B,) int64 from (B, V) logits. ``temperature == 0`` is
+    greedy (``argmax``, as the reference). Otherwise Gumbel-max: the
+    token maximising ``logits / temperature + g`` with ``g = -log(-log u)``
+    and ``u`` uniform in (0, 1) from splitmix64 over (``seed``, stream,
+    position, vocabulary id) — deterministic, independent of the batch a
+    row rides in and of the device, and stable under recompute. ``streams``
+    and ``positions``: ints or (B,) integer tensors (the serving engine
+    passes each request's seed and position). The reference draws from
+    ``jax.random``, which torch cannot reproduce: sampled tokens differ
+    from it, greedy ones do not (ROADMAP §C)."""
+    if temperature == 0.0:
+        return logits.argmax(dim=-1)
+    b, v = logits.shape
+    dev = logits.device
+
+    def col(x):
+        return torch.as_tensor(x, dtype=torch.long, device=dev).expand(b)
+
+    h = _splitmix64(torch.full((b,), int(seed), dtype=torch.long,
+                               device=dev))
+    h = _splitmix64(h ^ col(streams))
+    h = _splitmix64(h ^ col(positions))
+    h = _splitmix64(h[:, None] ^ torch.arange(v, device=dev))
+    u = (_srl(h, 11).double() + 0.5) * 2.0 ** -53
+    g = -torch.log(-torch.log(u))
+    return (logits.double() / temperature + g).argmax(dim=-1)
 
 
 # -- weights carried across from flax ------------------------------------------

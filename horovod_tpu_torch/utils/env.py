@@ -1,10 +1,13 @@
-"""Environment-variable configuration — the main-path knobs.
+"""Environment-variable configuration — the knobs the port reads.
 
-Same variable names as the reference (``HOROVOD_FUSION_THRESHOLD`` sizes the
-gradient fusion buffer, default 64 MB; ``HOROVOD_TIMELINE`` names a
-Chrome-tracing output file), so job scripts carry over. The port reads only
-these two; any other ``HOROVOD_*`` variable in the environment is most likely
-a typo'd knob name and draws a warning at ``hvd.init``.
+Same variable names as the reference, so job scripts carry over:
+``HOROVOD_FUSION_THRESHOLD`` sizes the gradient fusion buffer (default
+64 MB), ``HOROVOD_TIMELINE`` names a Chrome-tracing output file, the
+``HOROVOD_SERVE_*`` knobs configure the serving engine
+(``horovod_tpu_torch.serving``) and ``HOROVOD_FAULT_INJECT`` arms its
+serving faults (``core/resilience.py``). Any other ``HOROVOD_*`` variable
+in the environment is most likely a typo'd knob name and draws a warning
+at ``hvd.init``. A typo'd *value* raises, with the reference's message.
 """
 
 from __future__ import annotations
@@ -15,7 +18,18 @@ import warnings
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024  # bytes
 
 KNOWN_ENV_VARS = frozenset({
+    "HOROVOD_FAULT_INJECT",
     "HOROVOD_FUSION_THRESHOLD",
+    "HOROVOD_SERVE_BLOCK_SIZE",
+    "HOROVOD_SERVE_DEADLINE_MS",
+    "HOROVOD_SERVE_DRAFT_KV_DTYPE",
+    "HOROVOD_SERVE_JOURNAL",
+    "HOROVOD_SERVE_KV_DTYPE",
+    "HOROVOD_SERVE_MAX_BATCH",
+    "HOROVOD_SERVE_MIN_ACCEPT",
+    "HOROVOD_SERVE_PREFIX_CACHE",
+    "HOROVOD_SERVE_SPECULATE",
+    "HOROVOD_SERVE_WATCHDOG_TIMEOUT",
     "HOROVOD_TIMELINE",
 })
 
@@ -63,3 +77,198 @@ def timeline_path() -> str | None:
     """Path for the Chrome-tracing timeline, or None when disabled."""
     path = os.environ.get("HOROVOD_TIMELINE")
     return path if path else None
+
+
+# -- serving knobs (horovod_tpu_torch.serving) ---------------------------------
+
+
+def _kv_format(var: str) -> str | None:
+    """A ``HOROVOD_SERVE_*KV_DTYPE`` value: None when unset, else one of
+    ``model`` or ``serving.kv_cache.KV_DTYPES`` (other values raise)."""
+    raw = os.environ.get(var)
+    if raw is None or not raw.strip():
+        return None
+    value = raw.strip().lower()
+    from horovod_tpu_torch.serving.kv_cache import KV_DTYPES
+
+    valid = ("model", *KV_DTYPES)
+    if value not in valid:
+        raise ValueError(
+            f"{var} must be one of {'|'.join(valid)}, got {raw!r}")
+    return value
+
+
+def serve_block_size() -> int:
+    """``HOROVOD_SERVE_BLOCK_SIZE`` (default 16): tokens per paged KV-cache
+    block. A positive integer; anything else raises."""
+    raw = os.environ.get("HOROVOD_SERVE_BLOCK_SIZE")
+    if raw is None or not raw.strip():
+        return 16
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_SERVE_BLOCK_SIZE must be a positive integer token "
+            f"count, got {raw!r}") from None
+    if n < 1:
+        raise ValueError(
+            f"HOROVOD_SERVE_BLOCK_SIZE must be >= 1, got {raw!r}")
+    return n
+
+
+def serve_max_batch() -> int:
+    """``HOROVOD_SERVE_MAX_BATCH`` (default 8): the engine's padded batch
+    slots, which fix the decode shape. A positive integer."""
+    raw = os.environ.get("HOROVOD_SERVE_MAX_BATCH")
+    if raw is None or not raw.strip():
+        return 8
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_SERVE_MAX_BATCH must be a positive integer slot "
+            f"count, got {raw!r}") from None
+    if n < 1:
+        raise ValueError(
+            f"HOROVOD_SERVE_MAX_BATCH must be >= 1, got {raw!r}")
+    return n
+
+
+def serve_kv_dtype() -> str | None:
+    """``HOROVOD_SERVE_KV_DTYPE`` (default unset = ``model``): the paged
+    pool's storage format — ``model`` (bf16 models cache bf16, others
+    fp32), ``fp32``, ``bf16``, ``int8_block`` or ``int4``."""
+    return _kv_format("HOROVOD_SERVE_KV_DTYPE")
+
+
+def serve_prefix_cache() -> bool:
+    """``HOROVOD_SERVE_PREFIX_CACHE`` (default 0): copy-on-write prefix
+    sharing of full prompt blocks. 0 or 1; anything else raises."""
+    raw = os.environ.get("HOROVOD_SERVE_PREFIX_CACHE")
+    if raw is None or raw.strip() in ("", "0"):
+        return False
+    if raw.strip() == "1":
+        return True
+    raise ValueError(
+        f"HOROVOD_SERVE_PREFIX_CACHE must be 0 or 1, got {raw!r}")
+
+
+def serve_speculate() -> int:
+    """``HOROVOD_SERVE_SPECULATE`` (default 0 = off): the speculative draft
+    length k. Parsed as the reference parses it; the port's engine refuses
+    k > 0 (speculative decoding is not ported yet)."""
+    raw = os.environ.get("HOROVOD_SERVE_SPECULATE")
+    if raw is None or not raw.strip():
+        return 0
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_SERVE_SPECULATE must be an integer draft length "
+            f"(0 disables speculation), got {raw!r}") from None
+    if n < 0:
+        raise ValueError(
+            f"HOROVOD_SERVE_SPECULATE must be >= 0, got {raw!r}")
+    return n
+
+
+def serve_draft_kv_dtype() -> str | None:
+    """``HOROVOD_SERVE_DRAFT_KV_DTYPE`` (default unset): the draft model's
+    pool format under speculation; the same values as
+    ``HOROVOD_SERVE_KV_DTYPE``."""
+    return _kv_format("HOROVOD_SERVE_DRAFT_KV_DTYPE")
+
+
+def serve_deadline_ms() -> float | None:
+    """``HOROVOD_SERVE_DEADLINE_MS`` (default unset = no deadline): the
+    default per-request latency budget in milliseconds. Positive and
+    finite; typos, NaN and non-positive values raise."""
+    raw = os.environ.get("HOROVOD_SERVE_DEADLINE_MS")
+    if raw is None or not raw.strip():
+        return None
+    try:
+        ms = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_SERVE_DEADLINE_MS must be a positive number of "
+            f"milliseconds, got {raw!r}") from None
+    if ms != ms:  # NaN: every deadline comparison would be False
+        raise ValueError(
+            f"HOROVOD_SERVE_DEADLINE_MS must be a positive number of "
+            f"milliseconds, got {raw!r}")
+    if ms <= 0 or ms == float("inf"):
+        raise ValueError(
+            f"HOROVOD_SERVE_DEADLINE_MS must be > 0 and finite, "
+            f"got {raw!r}")
+    return ms
+
+
+def serve_journal_path() -> str | None:
+    """``HOROVOD_SERVE_JOURNAL`` (default unset = no journal): the
+    crash-safe request journal's path, which must end in
+    ``.journal.json``."""
+    raw = os.environ.get("HOROVOD_SERVE_JOURNAL")
+    if raw is None or not raw.strip():
+        return None
+    path = raw.strip()
+    if not path.endswith(".journal.json"):
+        raise ValueError(
+            f"HOROVOD_SERVE_JOURNAL must name a .journal.json artifact "
+            f"(the hvd-lint dispatch suffix), got {raw!r}")
+    return path
+
+
+def serve_watchdog_timeout() -> float:
+    """``HOROVOD_SERVE_WATCHDOG_TIMEOUT`` (default 0 = off): seconds a
+    prefill or decode dispatch may stay open before the watchdog raises
+    ``EngineStalled``. Non-negative and finite."""
+    raw = os.environ.get("HOROVOD_SERVE_WATCHDOG_TIMEOUT")
+    if raw is None or not raw.strip():
+        return 0.0
+    try:
+        seconds = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_SERVE_WATCHDOG_TIMEOUT must be a non-negative "
+            f"number of seconds (0 disables), got {raw!r}") from None
+    if seconds != seconds:  # NaN: the age comparison would never fire
+        raise ValueError(
+            f"HOROVOD_SERVE_WATCHDOG_TIMEOUT must be a non-negative "
+            f"number of seconds (0 disables), got {raw!r}")
+    if seconds < 0 or seconds == float("inf"):
+        raise ValueError(
+            f"HOROVOD_SERVE_WATCHDOG_TIMEOUT must be >= 0 and finite, "
+            f"got {raw!r}")
+    return seconds
+
+
+def serve_min_accept() -> float:
+    """``HOROVOD_SERVE_MIN_ACCEPT`` (default 0 = off): the speculative
+    accept-rate floor in [0, 1]."""
+    raw = os.environ.get("HOROVOD_SERVE_MIN_ACCEPT")
+    if raw is None or not raw.strip():
+        return 0.0
+    try:
+        frac = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_SERVE_MIN_ACCEPT must be an acceptance fraction "
+            f"in [0, 1] (0 disables), got {raw!r}") from None
+    if frac != frac:  # NaN: the window comparison would never trigger
+        raise ValueError(
+            f"HOROVOD_SERVE_MIN_ACCEPT must be an acceptance fraction "
+            f"in [0, 1] (0 disables), got {raw!r}")
+    if frac < 0 or frac > 1:
+        raise ValueError(
+            f"HOROVOD_SERVE_MIN_ACCEPT must be in [0, 1], got {raw!r}")
+    return frac
+
+
+def validate_serving_knobs() -> None:
+    """Read every ``HOROVOD_SERVE_*`` knob once, so a typo'd value raises
+    at ``hvd.init`` instead of at the first request."""
+    for read in (serve_block_size, serve_max_batch, serve_kv_dtype,
+                 serve_prefix_cache, serve_speculate, serve_draft_kv_dtype,
+                 serve_deadline_ms, serve_journal_path,
+                 serve_watchdog_timeout, serve_min_accept):
+        read()

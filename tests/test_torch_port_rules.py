@@ -1,11 +1,16 @@
 """The port's ground rules, checked on this CPU-only host.
 
-* No module of ``horovod_tpu_torch`` — nor ``chip_smoke.py`` or
-  ``tools/profile_torch_step.py`` — imports JAX, flax, optax or the JAX
-  package (AST walk, and a clean-interpreter import).
+* No module of ``horovod_tpu_torch`` — nor ``chip_smoke.py``,
+  ``tools/profile_torch_step.py`` or ``tools/serve_bench_torch.py`` —
+  imports JAX, flax, optax or the JAX package (AST walk, and a
+  clean-interpreter import).
 * Entry points run on the GPU by default: ``hvd.init()``, the LM's
-  ``init_params`` and ``synthetic_tokens`` without ``device="cpu"`` raise
+  ``init_params``, ``synthetic_tokens``, ``init_cache``, ``prefill`` and
+  ``generate``, and ``serving.Engine``, without ``device="cpu"``, raise
   where CUDA is absent instead of drifting to the CPU.
+* What the serving slice leaves out raises ``NotImplementedError`` naming
+  its ROADMAP item: speculative decoding and the prefill/decode group
+  split.
 * Kernel wrappers dispatch on the tensor's device alone: a CPU tensor takes
   the plain version; any other tensor launches the kernel or raises — there
   is no fallback, and no launch is counted that did not happen.
@@ -34,7 +39,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "horovod_tpu"}
 def _port_sources():
     files = sorted((REPO / "horovod_tpu_torch").rglob("*.py"))
     return files + [REPO / "chip_smoke.py",
-                    REPO / "tools" / "profile_torch_step.py"]
+                    REPO / "tools" / "profile_torch_step.py",
+                    REPO / "tools" / "serve_bench_torch.py"]
 
 
 def _imported_roots(path):
@@ -80,21 +86,68 @@ def test_init_without_device_raises_without_cuda(monkeypatch):
     assert not hvd.is_initialized()
 
 
-@pytest.mark.parametrize("entry", ["init_params", "synthetic_tokens"])
+@pytest.mark.parametrize("entry", ["init_params", "synthetic_tokens",
+                                   "init_cache", "prefill", "generate",
+                                   "Engine"])
 def test_lm_entry_points_default_to_the_gpu(monkeypatch, entry):
     """The LM's entry points build on the GPU unless the caller passes
-    ``device='cpu'``: without CUDA they raise rather than train on the CPU."""
+    ``device='cpu'``: without CUDA they raise rather than train or serve on
+    the CPU."""
     from horovod_tpu_torch.models import transformer as tt
 
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tt.TransformerConfig(vocab_size=17, num_layers=1, num_heads=2,
-                               embed_dim=8, mlp_dim=16, max_seq_len=8)
+                               embed_dim=8, mlp_dim=16, max_seq_len=8,
+                               dtype=torch.float32)
+    model = tt.init_params(cfg, device="cpu")
+    prompt = torch.zeros((1, 3), dtype=torch.long)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {"init_params": lambda: tt.init_params(cfg),
-            "synthetic_tokens": lambda: tt.synthetic_tokens(1, 8, 17)}[entry]
+            "synthetic_tokens": lambda: tt.synthetic_tokens(1, 8, 17),
+            "init_cache": lambda: tt.init_cache(cfg, 1),
+            "prefill": lambda: tt.prefill(cfg, model, prompt),
+            "generate": lambda: tt.generate(cfg, model, prompt, 2),
+            "Engine": lambda: hvd.serving.Engine(cfg, model)}[entry]
     with pytest.raises((RuntimeError, AssertionError)) as err:
         call()
-    if entry == "init_params":
+    if entry != "synthetic_tokens":
         assert "device='cpu'" in str(err.value)
+
+
+@pytest.mark.parametrize("kw,what", [
+    (dict(speculate=2), "speculative decoding"),
+    (dict(prefill_group=0, decode_group=1), "prefill_group"),
+    (dict(prefill_group=0), "prefill_group"),
+    (dict(draft_kv_dtype="int4"), "speculative decoding"),
+    (dict(min_accept=0.5), "speculative decoding"),
+])
+def test_serving_parts_not_ported_raise(kw, what):
+    from horovod_tpu_torch.models import transformer as tt
+
+    cfg = tt.TransformerConfig(vocab_size=17, num_layers=1, num_heads=2,
+                               embed_dim=8, mlp_dim=16, max_seq_len=8,
+                               dtype=torch.float32)
+    model = tt.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError) as err:
+        hvd.serving.Engine(cfg, model, device="cpu", **kw)
+    assert what in str(err.value)
+    assert "ROADMAP §A item 14" in str(err.value)
+
+
+def test_speculate_knob_raises_not_ported(monkeypatch):
+    from horovod_tpu_torch.models import transformer as tt
+
+    cfg = tt.TransformerConfig(vocab_size=17, num_layers=1, num_heads=2,
+                               embed_dim=8, mlp_dim=16, max_seq_len=8,
+                               dtype=torch.float32)
+    model = tt.init_params(cfg, device="cpu")
+    monkeypatch.setenv("HOROVOD_SERVE_SPECULATE", "4")
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 14"):
+        hvd.serving.Engine(cfg, model, device="cpu")
+    monkeypatch.setenv("HOROVOD_SERVE_SPECULATE", "0")
+    with pytest.raises(ValueError, match="speculate=0"):
+        hvd.serving.Engine(cfg, model, device="cpu", draft_config=cfg)
+    with pytest.raises(ValueError, match="speculate must be >= 0"):
+        hvd.serving.Engine(cfg, model, device="cpu", speculate=-1)
 
 
 def test_unsupported_device_raises():

@@ -153,12 +153,16 @@ def test_not_ported_paths_raise():
 
     for kw, match in ((dict(attention="ring"), "ROADMAP §A item 13"),
                       (dict(attention="ulysses"), "ROADMAP §A item 13"),
-                      (dict(sp_layout="zigzag"), "ROADMAP §A item 13"),
-                      (dict(decode=True), "ROADMAP §A items 10 and 14")):
+                      (dict(sp_layout="zigzag"), "ROADMAP §A item 13")):
         with pytest.raises(NotImplementedError, match=match):
             tt.Transformer(_port_config(**kw))
         with pytest.raises(NotImplementedError, match=match):
             tt.make_loss_fn(_port_config(**kw))
+    # The decode side is ported (tests/test_torch_decode.py): a decode
+    # config builds, and its forward points at decode().
+    model = tt.Transformer(_port_config(decode=True))
+    with pytest.raises(ValueError, match="call decode"):
+        model(torch.zeros((1, 1), dtype=torch.long))
 
 
 def test_config_errors_match_flax():

@@ -1,0 +1,452 @@
+"""Open-loop load driver for the port's serving engine
+(``horovod_tpu_torch/serving/engine.py``) — the counterpart of
+``tools/serve_bench.py``. It imports only the port.
+
+Four measurements, each reusable as a library (``chip_smoke.py`` phase 9
+calls the first three):
+
+* :func:`decode_rates` — steady-state decode throughput at a fixed
+  concurrent batch: fill every slot, warm up, then time ``windows``
+  consecutive windows of N engine steps, each → B·N / seconds
+  (:func:`bench_decode_tokens_per_sec` is their median);
+* :func:`prefill_rates` — prompt tokens ingested per second by the prefill
+  loop, B prompts admitted in one step, one rate per admission;
+* :func:`run_load` — the open-loop driver: Poisson arrivals at a stated
+  rate with sampled prompt and output lengths, submitted on schedule
+  whatever the completions, so queueing delay shows in the latencies.
+  Reports p50 and maximum request latency, and p99 once at least
+  ``P99_MIN_SAMPLES`` requests completed; throughput, rejects and
+  preemptions;
+* :func:`profile_decode` — where a decode step's time goes: its wall time
+  beside the device's kernel time (``torch.profiler``), the kernels a step
+  launches, and the kernels that take the most device time.
+
+Every time is the host's clock around engine steps; each step ends with a
+host sync (the sampled tokens are read back), so the times cover the
+device's work.
+
+Run on one GPU (bench.py's LM at full width, random weights):
+
+    python tools/serve_bench_torch.py                      # 8 layers
+    python tools/serve_bench_torch.py --kv-dtype int8_block
+    python tools/serve_bench_torch.py --shared-prefix-len 64
+    python tools/serve_bench_torch.py --num-requests 300 --arrival-rate 0.5 \
+        --prompt-range 32 128 --output-range 16 64
+
+and on the CPU, a seconds-long drill of a tiny model:
+
+    python tools/serve_bench_torch.py --smoke --device cpu
+
+Decode is measured as ``chip_smoke.py`` phase 9 measures it: a 128-token
+prompt behind every slot, ``WINDOWS`` windows of 32 steps, each reported,
+then one profiled window. The output is one JSON line; on the GPU it
+carries the card's name and power limit (``nvidia-smi``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np
+import torch
+
+
+# Fewer completed requests than this and run_load reports no p99: with n
+# samples the 99th percentile is an interpolation between the two largest
+# latencies once n < 100, i.e. nearly the maximum.
+P99_MIN_SAMPLES = 100
+# The command line's decode and prefill measurements: timed windows (and
+# measured prefill admissions), steps per window, prompt behind each slot.
+WINDOWS = 5
+DECODE_STEPS = 32
+DECODE_PROMPT = 128
+
+
+def _positive(raw, flag: str, unit: str) -> float:
+    """Unparsable, NaN, inf and non-positive values raise: a typo'd load
+    knob must refuse, not benchmark a different workload."""
+    try:
+        val = float(raw)
+    except (TypeError, ValueError):
+        val = float("nan")
+    if val != val:
+        raise ValueError(f"{flag} must be a number of {unit}, got {raw!r}")
+    if math.isinf(val) or val <= 0:
+        raise ValueError(
+            f"{flag} must be a finite positive number of {unit}, "
+            f"got {raw!r}")
+    return val
+
+
+def positive_rate(raw) -> float:
+    """Parse an arrival rate (requests/second)."""
+    return _positive(raw, "--arrival-rate", "requests/second")
+
+
+def tiny_config(max_seq_len: int = 64):
+    """The CPU-serveable LM of the ``--smoke`` drill."""
+    from horovod_tpu_torch.models import transformer
+
+    return transformer.TransformerConfig(
+        vocab_size=512, num_layers=2, num_heads=4, num_kv_heads=2,
+        embed_dim=64, mlp_dim=128, max_seq_len=max_seq_len,
+        dtype=torch.float32)
+
+
+def lm_config(num_layers: int = 8, max_seq_len: int = 2048):
+    """bench.py's LM at full width (``_lm_extra``): vocab 32768, E=1024,
+    H=8, Hkv=4 (head dim 128), mlp 4096, bf16."""
+    from horovod_tpu_torch.models import transformer
+
+    return transformer.TransformerConfig(
+        vocab_size=32_768, num_layers=num_layers, num_heads=8,
+        num_kv_heads=4, embed_dim=1024, mlp_dim=4096,
+        max_seq_len=max_seq_len, dtype=torch.bfloat16)
+
+
+def sample_workload(n: int, rate: float, prompt_range=(4, 12),
+                    output_range=(4, 16), vocab: int = 512,
+                    seed: int = 0, shared_prefix_len: int = 0):
+    """Pre-drawn open-loop trace: Poisson arrivals (exponential gaps at
+    ``rate``/s), uniformly sampled prompt and output lengths, two tenants.
+    ``shared_prefix_len`` > 0 starts every prompt with the same tokens
+    (drawn once) — repeated-system-prompt traffic."""
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, size=n))
+    plens = rng.integers(prompt_range[0], prompt_range[1] + 1, size=n)
+    outs = rng.integers(output_range[0], output_range[1] + 1, size=n)
+    shared = rng.integers(0, vocab, size=shared_prefix_len).astype(np.int32)
+    prompts = [np.concatenate(
+        [shared, rng.integers(0, vocab, size=p).astype(np.int32)])
+        for p in plens]
+    return [{"arrival": float(arrivals[i]), "prompt": prompts[i],
+             "max_new": int(outs[i]),
+             "tenant": f"tenant{i % 2}"} for i in range(n)]
+
+
+def run_load(engine, workload, max_wall_seconds: float = 300.0) -> dict:
+    """Drive the engine open-loop through a :func:`sample_workload` trace;
+    returns the latency/throughput metric dict."""
+    from horovod_tpu_torch.serving import AdmissionError
+
+    t0 = time.monotonic()
+    pending = sorted(workload, key=lambda w: w["arrival"])
+    latencies, rejected, submitted = [], 0, {}
+    idx = 0
+    while len(latencies) + rejected < len(workload):
+        now = time.monotonic() - t0
+        if now > max_wall_seconds:
+            raise RuntimeError(
+                f"load run exceeded {max_wall_seconds}s wall cap with "
+                f"{len(workload) - len(latencies) - rejected} requests "
+                f"outstanding")
+        while idx < len(pending) and pending[idx]["arrival"] <= now:
+            w = pending[idx]
+            try:
+                req = engine.submit(w["prompt"], w["max_new"],
+                                    tenant=w["tenant"])
+                submitted[req.request_id] = w["arrival"]
+            except AdmissionError:
+                rejected += 1
+            idx += 1
+        if not engine.has_work():
+            if idx < len(pending):  # open-loop idle: wait for the next
+                time.sleep(max(0.0, pending[idx]["arrival"]
+                               - (time.monotonic() - t0)))
+            continue
+        for done in engine.step():
+            end = time.monotonic() - t0
+            latencies.append((end - submitted[done.request_id]) * 1e3)
+    wall = time.monotonic() - t0
+    lat = np.asarray(latencies) if latencies else np.asarray([float("nan")])
+    ingested = (engine.stats["prefill_tokens"]
+                + engine.stats["prefix_hit_tokens"])
+    return {
+        "requests": len(workload),
+        "completed": len(latencies),
+        "rejected": rejected,
+        "serve_p50_ms": float(np.percentile(lat, 50)),
+        "serve_p99_ms": (float(np.percentile(lat, 99))
+                         if len(latencies) >= P99_MIN_SAMPLES else None),
+        "serve_max_ms": float(lat.max()),
+        "serve_mean_ms": float(lat.mean()),
+        "requests_per_sec": len(latencies) / wall,
+        "gen_tokens_per_sec": engine.stats["tokens_generated"] / wall,
+        "preemptions": engine.stats["preemptions"],
+        "prefill_tokens": engine.stats["prefill_tokens"],
+        "prefill_steps": engine.stats["prefill_steps"],
+        "serve_prefix_hit_tokens_ratio": (
+            engine.stats["prefix_hit_tokens"] / ingested if ingested
+            else 0.0),
+        "kv_cache_bytes_per_token":
+            engine.cache_stats()["kv_cache_bytes_per_token"],
+        "kv_dtype": engine.kv_dtype,
+        "wall_seconds": wall,
+    }
+
+
+def _prompts(config, batch: int, prompt_len: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, config.vocab_size,
+                         size=prompt_len).astype(np.int32)
+            for _ in range(batch)]
+
+
+def _filled_engine(config, params, batch, prompt_len, max_new, block_size,
+                   kv_dtype, device):
+    """An engine with every one of its ``batch`` slots busy after one step
+    (admission, prefill, first decode)."""
+    from horovod_tpu_torch.serving import Engine
+
+    need = prompt_len + max_new
+    if need > config.max_seq_len:
+        raise ValueError(
+            f"prompt_len+warmup+steps ({need}) exceeds max_seq_len "
+            f"({config.max_seq_len}) — shrink the measurement")
+    engine = Engine(config, params, block_size=block_size,
+                    max_batch=batch, max_prompt_len=prompt_len,
+                    kv_dtype=kv_dtype, device=device)
+    for p in _prompts(config, batch, prompt_len):
+        engine.submit(p, max_new_tokens=max_new)
+    engine.step()
+    return engine
+
+
+def _decode_window(engine, batch: int, steps: int) -> float:
+    """Time ``steps`` engine steps that each advance all ``batch`` slots;
+    tokens/s."""
+    tok0 = engine.stats["tokens_generated"]
+    t0 = time.monotonic()
+    for _ in range(steps):
+        engine.step()
+    dt = time.monotonic() - t0
+    produced = engine.stats["tokens_generated"] - tok0
+    if produced != batch * steps or engine.stats["preemptions"]:
+        raise RuntimeError(
+            f"decode measurement not clean: {produced} tokens in the "
+            f"timed window (expected {batch * steps}), "
+            f"{engine.stats['preemptions']} preemptions — the reported "
+            f"throughput would be wrong")
+    return produced / dt
+
+
+def decode_rates(config, params, batch: int, steps: int = 16,
+                 prompt_len: int = 8, block_size: int = 16,
+                 warmup: int = 2, windows: int = 1,
+                 kv_dtype: str | None = None, device="cuda") -> list[float]:
+    """Steady-state decode throughput with every slot busy: prefill B
+    prompts, warm up, then time ``windows`` consecutive windows of
+    ``steps`` engine steps (each advances all B slots one token) in the
+    same engine; one tokens/s figure per window."""
+    # Token budget: 2 land in the first (admit+prefill+decode) step, one a
+    # warm-up step, one a timed step, plus one spare, so no request
+    # finishes inside a timed window.
+    engine = _filled_engine(config, params, batch, prompt_len,
+                            warmup + windows * steps + 3, block_size,
+                            kv_dtype, device)
+    for _ in range(warmup):
+        engine.step()
+    return [_decode_window(engine, batch, steps) for _ in range(windows)]
+
+
+def bench_decode_tokens_per_sec(config, params, batch: int,
+                                steps: int = 16, prompt_len: int = 8,
+                                block_size: int = 16, warmup: int = 2,
+                                windows: int = 1,
+                                kv_dtype: str | None = None,
+                                device="cuda") -> float:
+    """The median of :func:`decode_rates`."""
+    return statistics.median(decode_rates(
+        config, params, batch, steps, prompt_len, block_size, warmup,
+        windows, kv_dtype, device))
+
+
+def prefill_rates(config, params, batch: int, prompt_len: int,
+                  block_size: int = 16, windows: int = 1,
+                  kv_dtype: str | None = None, device="cuda") -> list[float]:
+    """Prompt tokens per second through the prefill loop: B prompts of
+    ``prompt_len`` tokens admitted in one step, after one warm-up admission
+    of the same shape in the same engine; one rate per each of
+    ``windows`` measured admissions."""
+    from horovod_tpu_torch.serving import Engine
+
+    engine = Engine(config, params, block_size=block_size, max_batch=batch,
+                    max_prompt_len=prompt_len, kv_dtype=kv_dtype,
+                    device=device)
+    rates = []
+    for seed in range(windows + 1):  # warm-up, then the measured admissions
+        for p in _prompts(config, batch, prompt_len, seed):
+            engine.submit(p, max_new_tokens=1)
+        before = (engine.stats["prefill_tokens"], engine._prefill_time_s)
+        engine.run_until_idle()
+        rates.append((engine.stats["prefill_tokens"] - before[0])
+                     / (engine._prefill_time_s - before[1]))
+    return rates[1:]
+
+
+def profile_decode(config, params, batch: int, steps: int = 16,
+                   prompt_len: int = 128, block_size: int = 16,
+                   top: int = 10, kv_dtype: str | None = None,
+                   device="cuda") -> dict:
+    """Where a decode step's time goes, every slot busy: the wall ms of a
+    step without the profiler (median of three windows), then one window
+    under ``torch.profiler`` — the device's kernel ms per step (the sum of
+    its kernels' durations, no overlap counted twice on one stream), the
+    kernels launched per step, the busy share (kernel time over the wall
+    time), and the ``top`` kernels by device time. Kernel figures are None
+    when the profiler saw no device activity."""
+    engine = _filled_engine(config, params, batch, prompt_len,
+                            2 + 4 * steps + 3, block_size, kv_dtype, device)
+    for _ in range(2):
+        engine.step()
+    wall = [batch * 1e3 / _decode_window(engine, batch, steps)
+            for _ in range(3)]
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            engine.step()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {"batch": batch, "steps": steps, "prompt_len": prompt_len,
+           "wall_ms_per_step": statistics.median(wall),
+           "wall_ms_per_step_windows": wall,
+           "device_ms_per_step": None, "kernels_per_step": None,
+           "busy_share": None, "top_kernels": None}
+    if not kernels:
+        return out
+    by_name: dict[str, list[float]] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    device_ms = sum(map(sum, by_name.values())) / 1e3 / steps
+    out.update(
+        device_ms_per_step=device_ms,
+        kernels_per_step=len(kernels) / steps,
+        busy_share=device_ms / out["wall_ms_per_step"],
+        top_kernels=[{"name": n[:120], "ms_per_step": sum(d) / 1e3 / steps,
+                      "calls_per_step": len(d) / steps}
+                     for n, d in sorted(by_name.items(),
+                                        key=lambda kv: -sum(kv[1]))[:top]])
+    return out
+
+
+def warm_engine(engine) -> None:
+    """Serve one throwaway request so the first request of a measured load
+    pays no one-time cost (allocator growth, library handles)."""
+    engine.generate_batch([np.zeros((2,), np.int32)], 2)
+    for k in ("tokens_generated", "preemptions", "prefill_tokens",
+              "prefix_hit_tokens", "prefill_steps"):
+        engine.stats[k] = 0
+
+
+def card_identity() -> str:
+    """``nvidia-smi``'s name and power limit of the card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def main() -> None:
+    from horovod_tpu_torch.serving.kv_cache import KV_DTYPES
+
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--smoke", action="store_true",
+                        help="a tiny fp32 model and a light load (seconds, "
+                             "runs on the CPU with --device cpu)")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu")
+    parser.add_argument("--layers", type=int, default=8,
+                        help="depth of the full-width LM (not --smoke)")
+    parser.add_argument("--arrival-rate", type=positive_rate, default=4.0,
+                        help="open-loop Poisson arrival rate, requests/s")
+    parser.add_argument("--num-requests", type=int, default=16)
+    parser.add_argument("--max-batch", type=int, default=8)
+    parser.add_argument("--block-size", type=int, default=16)
+    parser.add_argument("--prompt-range", type=int, nargs=2,
+                        default=None, metavar=("MIN", "MAX"))
+    parser.add_argument("--output-range", type=int, nargs=2,
+                        default=None, metavar=("MIN", "MAX"))
+    parser.add_argument("--kv-dtype", default="model",
+                        choices=["model", *KV_DTYPES])
+    parser.add_argument("--shared-prefix-len", type=int, default=0,
+                        help="every prompt starts with the same N tokens; "
+                             "turns the prefix cache on")
+    parser.add_argument("--decode-batches", type=int, nargs="*",
+                        default=[1, 8])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+    if 0 < args.shared_prefix_len < args.block_size:
+        raise SystemExit(
+            f"--shared-prefix-len {args.shared_prefix_len} is shorter "
+            f"than one block (--block-size {args.block_size}): a prefix "
+            f"shares as full blocks only. Use 0 (off) or >= block_size.")
+
+    from horovod_tpu_torch.models import transformer
+    from horovod_tpu_torch.serving import Engine
+
+    if args.smoke:
+        cfg = tiny_config(max_seq_len=max(64, args.shared_prefix_len + 32))
+        prange, orange = args.prompt_range or (4, 12), args.output_range or (4, 16)
+    else:
+        cfg = lm_config(args.layers)
+        prange = args.prompt_range or (128, 512)
+        orange = args.output_range or (32, 128)
+    params = transformer.init_params(cfg, seed=args.seed, device=args.device)
+    kvd = None if args.kv_dtype == "model" else args.kv_dtype
+    result = {"metric": "serve_bench_torch", "device": args.device,
+              "layers": cfg.num_layers, "arrival_rate_per_sec":
+              args.arrival_rate}
+    if args.device != "cpu":
+        result["card"] = card_identity()
+    steps, dprompt = ((4, 8) if args.smoke
+                      else (DECODE_STEPS, DECODE_PROMPT))
+    for b in args.decode_batches:
+        rates = decode_rates(cfg, params, b, steps=steps, prompt_len=dprompt,
+                             block_size=args.block_size, windows=WINDOWS,
+                             kv_dtype=kvd, device=args.device)
+        result[f"lm_decode_tokens_per_sec_b{b}"] = statistics.median(rates)
+        result[f"lm_decode_tokens_per_sec_b{b}_windows"] = rates
+        result[f"decode_profile_b{b}"] = profile_decode(
+            cfg, params, b, steps=steps, prompt_len=dprompt,
+            block_size=args.block_size, kv_dtype=kvd, device=args.device)
+    rates = prefill_rates(cfg, params, args.max_batch, prange[1],
+                          block_size=args.block_size, windows=WINDOWS,
+                          kv_dtype=kvd, device=args.device)
+    result["lm_prefill_tokens_per_sec"] = statistics.median(rates)
+    result["lm_prefill_tokens_per_sec_windows"] = rates
+    prefix_on = args.shared_prefix_len >= args.block_size
+    engine = Engine(cfg, params, block_size=args.block_size,
+                    max_batch=args.max_batch,
+                    max_prompt_len=prange[1] + args.shared_prefix_len,
+                    kv_dtype=kvd, prefix_cache=prefix_on,
+                    device=args.device)
+    warm_engine(engine)
+    if args.device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    workload = sample_workload(
+        args.num_requests, args.arrival_rate, prompt_range=prange,
+        output_range=orange, vocab=cfg.vocab_size, seed=args.seed,
+        shared_prefix_len=args.shared_prefix_len)
+    # Twice the arrivals' span and five minutes: a load the engine keeps up
+    # with ends well inside it, and a run that falls behind without end
+    # stops.
+    result.update(run_load(engine, workload, max_wall_seconds=(
+        2 * workload[-1]["arrival"] + 300)))
+    if args.device != "cpu":
+        result["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()
