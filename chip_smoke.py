@@ -7,8 +7,9 @@ Phases, one line of output each:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA source of the main paths (``horovod_tpu_torch/csrc``:
-   ``batchnorm.cu``, ``bn_sums.cu``, ``flash_fwd.cu``, ``flash_bwd.cu``)
-   with ``nvcc`` for ``sm_90a``, all builds started together;
+   ``adamw.cu``, ``batchnorm.cu``, ``bn_sums.cu``, ``flash_fwd.cu``,
+   ``flash_bwd.cu``) with ``nvcc`` for ``sm_90a``, all builds started
+   together;
 3. each kernel against its plain PyTorch version on the card, in bf16 and
    fp32, at every distinct (N, C) the main path gives it (ResNet-50, batch
    128, 224 px — read off the model's BatchNorm inputs) plus one ragged N;
@@ -48,7 +49,8 @@ Phases, one line of output each:
 8. the LM's main path: bench.py's config (8 layers, T=8192, B=2, bf16,
    fused head), ``DistributedOptimizer(AdamW(3e-4, weight_decay=0.1))``,
    ``Trainer.fit`` for 10 steps on a repeated seeded batch; the loss must be
-   finite and fall, and B3 and B4 must launch exactly 8 times a step;
+   finite and fall, B3 and B4 must launch exactly 8 times a step and the
+   AdamW kernel A1 once;
 9. LM serving: bench.py's LM at full width and depth (bf16 weights from
    ``init_params``, bf16 KV pages, block size 16, ``max_seq_len`` 2048 =
    the engine's view length) through ``serving.Engine``:
@@ -75,7 +77,28 @@ Phases, one line of output each:
    memory (``tools/serve_bench_torch.py``). No kernel of the port lies on
    this path, and none may launch in it.
 
-Each main path (5 and 8) runs with its kernels' launch counts set to 0
+10. checkpoint and resume at full width, for ResNet-50 (batch 128, bf16,
+    fused BN, SGD) and the LM (phase 8's, AdamW): ``Trainer.fit`` for 3
+    epochs of 2 steps with ``ModelCheckpointCallback`` under
+    ``HOROVOD_FAULT_INJECT=torn_write@epoch=2`` (set in the phase, restored
+    after); ``latest_epoch`` must return 1 and warn that epoch 2 is torn; a
+    trainer built from another seed then runs ``fit(resume=dir)``, which
+    must resume at epoch 2 with parameters, buffers, optimizer state (SGD
+    momenta; AdamW moments and step counts) and LR equal bit for bit to
+    what run A held when it saved epoch 1, and a first loss equal bit for
+    bit to run A's first loss of epoch 2; the save and resume seconds and
+    the checkpoint's bytes are printed;
+11. A1 (``csrc/adamw.cu``) against its plain version at the LM's 159.4 M
+    parameters and at three ragged cases (sizes across its vectors and
+    chunks, bases off 16 bytes, bf16 parameters with fp32 moments):
+    parameters within ``A1_UPD_TOL`` of the update, moments within one ulp,
+    step counts equal, each run twice and bit-identical; a planted fault
+    (one chunk left out) must fail; its time (one launch a step), bound,
+    plain and ``torch.optim.AdamW(fused=True)`` times (fp32 moments: not
+    the same function, so ``library_ms`` is null); and the LM step's
+    tokens/s with A1 against the plain update, A1, plain, plain, A1.
+
+Each main path (5, 8 and 10) runs with its kernels' launch counts set to 0
 just before it and read just after. Then a JSON line with each kernel's
 record, and last the result line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script then
@@ -93,23 +116,29 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch import serving
+from horovod_tpu_torch.core import resilience
 from horovod_tpu_torch.models import resnet, transformer
 from horovod_tpu_torch.models.layers import FusedBatchNorm
 from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.ops import batchnorm as bn
 from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.ops import optim
 from horovod_tpu_torch.ops.optim import AdamW
-from horovod_tpu_torch.training.callbacks import Callback
+from horovod_tpu_torch.training import checkpoint
+from horovod_tpu_torch.training.callbacks import (Callback,
+                                                  ModelCheckpointCallback)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "tools"))
@@ -244,12 +273,12 @@ def card_identity() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def seeded_resnet50(dtype, device):
-    """ResNet-50 (fused BN) with weights made from SEED on the CPU. Where the
-    reference zero-initialises each block's last BN scale, these draw it
+def seeded_resnet50(dtype, device, seed: int = SEED):
+    """ResNet-50 (fused BN) with weights made from ``seed`` on the CPU. Where
+    the reference zero-initialises each block's last BN scale, these draw it
     from U(0, 0.2): each block still starts close to the identity, and every
     layer gets a non-zero gradient."""
-    g = torch.Generator().manual_seed(SEED)
+    g = torch.Generator().manual_seed(seed)
     model = resnet.ResNet50(num_classes=CLASSES, dtype=dtype,
                             norm_impl="fused", generator=g)
     with torch.no_grad():
@@ -1009,27 +1038,478 @@ def phase_lm_main_path(device):
     timer = StepTimer()
     torch.cuda.reset_peak_memory_stats(device)
     fa.reset_launch_counts()
+    optim.reset_launch_counts()
     history = trainer.fit(
         [tokens], epochs=STEPS, steps_per_epoch=1, verbose=False,
         callbacks=[hvd.BroadcastGlobalVariablesCallback(0),
                    hvd.MetricAverageCallback(), timer])
     torch.cuda.synchronize()
-    launches = dict(fa.LAUNCHES)
+    launches = {**fa.LAUNCHES, **optim.LAUNCHES}
     losses = history["loss"]
     if not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"non-finite LM loss: {losses}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"LM loss did not fall: {losses}")
-    for k, v in launches.items():
-        if v != LM_LAYERS * STEPS:
-            raise RuntimeError(f"{k} launched {v} times in {STEPS} LM steps, "
-                               f"expected {LM_LAYERS} per step")
+    for k, per_step in (("flash_fwd", LM_LAYERS), ("flash_bwd", LM_LAYERS),
+                        ("adamw", 1)):
+        if launches[k] != per_step * STEPS:
+            raise RuntimeError(f"{k} launched {launches[k]} times in {STEPS} "
+                               f"LM steps, expected {per_step} per step")
     steady = timer.times[2:]
     tokens_per_s = LM_BATCH * LM_T * len(steady) / sum(steady)
     peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
     del model, trainer, opt
     torch.cuda.empty_cache()
     return losses, launches, tokens_per_s, steady, n_params, peak_gib
+
+
+# -- checkpoint and resume (phase 10) -------------------------------------------
+
+# Run A trains CKPT_EPOCHS epochs of CKPT_STEPS steps, saving every epoch,
+# with the save of epoch CKPT_TORN torn; run B, from another seed, resumes
+# from the directory. The directory lies in the checkout (.gitignore lists
+# it) and is removed after each workload.
+CKPT_DIR = "_chip_smoke_ckpt"
+CKPT_EPOCHS = 3
+CKPT_STEPS = 2
+CKPT_TORN = 2
+
+
+def _cpu_tree(x):
+    """A CPU copy of a state dict (nested dicts and lists of tensors)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    if isinstance(x, dict):
+        return {k: _cpu_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_cpu_tree(v) for v in x)
+    return x
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The bytes of ``t``, so that equality is bit for bit (NaNs too)."""
+    flat = t.detach().reshape(-1)
+    return flat.view(torch.uint8) if flat.numel() else flat
+
+
+def _leaves(x) -> list:
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _leaves(v)]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _leaves(v)]
+    return [x] if isinstance(x, torch.Tensor) else []
+
+
+def _tree_diff(a, b, path="") -> list[str]:
+    """Where two state trees differ: a tensor must match in dtype, shape and
+    every bit, any other value must be equal."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        same = (isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor)
+                and a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(_bits(a), _bits(b)))
+        return [] if same else [path]
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return [f"{path} keys"]
+        return [d for k in a for d in _tree_diff(a[k], b[k], f"{path}/{k}")]
+    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            return [f"{path} length"]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in _tree_diff(x, y, f"{path}/{i}")]
+    return [] if a == b else [path]
+
+
+class Snapshot(Callback):
+    """A CPU copy of the trainer's model and optimizer state: at the end of
+    epoch ``at``, or at train begin (after ``fit(resume=)`` restored)."""
+
+    def __init__(self, at: int | None = None) -> None:
+        self.at = at
+        self.state = None
+        self.epoch = None
+        self.clock = None
+
+    def _take(self) -> None:
+        self.state = _cpu_tree({"model": self.trainer.model.state_dict(),
+                                "optimizer":
+                                    self.trainer.optimizer.state_dict()})
+        self.epoch = self.trainer.epoch
+
+    def on_train_begin(self, logs=None):
+        self.clock = time.perf_counter()
+        if self.at is None:
+            self._take()
+
+    def on_epoch_end(self, epoch, logs=None):
+        if epoch == self.at:
+            self._take()
+
+
+class LossLog(Callback):
+    """Every step's loss, as the trainer returned it."""
+
+    def __init__(self) -> None:
+        self.losses = []
+
+    def on_batch_end(self, batch, logs=None):
+        self.losses.append(logs["loss"].detach().cpu().clone())
+
+
+class TimedCheckpoint(ModelCheckpointCallback):
+    """ModelCheckpointCallback with the seconds of each save."""
+
+    def __init__(self, directory: str) -> None:
+        super().__init__(directory)
+        self.seconds = []
+
+    def on_epoch_end(self, epoch, logs=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        super().on_epoch_end(epoch, logs)
+        self.seconds.append(time.perf_counter() - t0)
+
+
+def ckpt_workload(name: str, device, seed: int):
+    """A fresh trainer of the workload, weights from ``seed``, and the
+    batch every step takes."""
+    if name == "resnet50":
+        model = seeded_resnet50(torch.bfloat16, device, seed)
+        opt = torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9)
+        trainer = hvd.Trainer(model, resnet.make_loss_fn(model),
+                              hvd.DistributedOptimizer(opt), has_aux=True)
+        batch = resnet.synthetic_imagenet(BATCH, IMAGE, seed=SEED,
+                                          num_classes=CLASSES, device=device)
+        return trainer, batch
+    cfg = lm_config(torch.bfloat16)
+    model = transformer.init_params(cfg, seed=seed, device=device)
+    trainer = hvd.Trainer(
+        model, transformer.make_loss_fn(cfg, fused_head=True),
+        hvd.DistributedOptimizer(AdamW(model.parameters(), 3e-4,
+                                       weight_decay=0.1)))
+    batch = transformer.synthetic_tokens(LM_BATCH, LM_T, cfg.vocab_size,
+                                         seed=SEED, device=device)
+    return trainer, batch
+
+
+def checkpoint_drill(name: str, device, directory: str) -> dict:
+    """Phase 10 for one workload: the torn-write drill, then the resume."""
+    trainer, batch = ckpt_workload(name, device, SEED)
+    saves, at_save, run_a = TimedCheckpoint(directory), Snapshot(1), LossLog()
+    before = os.environ.get("HOROVOD_FAULT_INJECT")
+    os.environ["HOROVOD_FAULT_INJECT"] = f"torn_write@epoch={CKPT_TORN}"
+    resilience.reset_injector()
+    try:
+        trainer.fit([batch], CKPT_EPOCHS, CKPT_STEPS, verbose=False,
+                    callbacks=[saves, at_save, run_a])
+    finally:
+        if before is None:
+            del os.environ["HOROVOD_FAULT_INJECT"]
+        else:
+            os.environ["HOROVOD_FAULT_INJECT"] = before
+        resilience.reset_injector()
+    del trainer
+    torch.cuda.empty_cache()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        latest = checkpoint.latest_epoch(directory)
+    torn = [str(w.message) for w in caught
+            if f"epoch {CKPT_TORN} " in str(w.message)
+            and "(torn write)" in str(w.message)]
+    if latest != CKPT_TORN - 1 or not torn:
+        raise RuntimeError(
+            f"{name}: latest_epoch {latest} (expected {CKPT_TORN - 1}), "
+            f"warnings {[str(w.message) for w in caught]}")
+    trainer, _ = ckpt_workload(name, device, SEED + 1)
+    resumed, run_b = Snapshot(), LossLog()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # the torn epoch
+        trainer.fit([batch], CKPT_EPOCHS, CKPT_STEPS, verbose=False,
+                    callbacks=[resumed, run_b], resume=directory)
+    load_s = resumed.clock - t0
+    del trainer
+    torch.cuda.empty_cache()
+    if resumed.epoch != CKPT_TORN:
+        raise RuntimeError(f"{name}: resumed at epoch {resumed.epoch}, "
+                           f"expected {CKPT_TORN}")
+    diff = _tree_diff(resumed.state, at_save.state)
+    if diff:
+        raise RuntimeError(f"{name}: the restored state differs from the "
+                           f"state saved at epoch {CKPT_TORN - 1}: "
+                           f"{diff[:8]} ({len(diff)} entries)")
+    first_a, first_b = run_a.losses[CKPT_TORN * CKPT_STEPS], run_b.losses[0]
+    if not torch.equal(first_a, first_b):
+        raise RuntimeError(f"{name}: first resumed loss {first_b.item()!r} "
+                           f"differs from run A's {first_a.item()!r}")
+    return {"latest": latest, "torn": torn[0], "loss": first_b.item(),
+            "save_s": saves.seconds, "load_s": load_s,
+            "bytes": os.path.getsize(checkpoint._path(directory,
+                                                      CKPT_TORN - 1)),
+            "tensors": len(_leaves(at_save.state))}
+
+
+def phase_checkpoint(device) -> dict:
+    """Phase 10: checkpoint and resume at full width, ResNet-50 and the LM,
+    through ``fit``, ``ModelCheckpointCallback`` and ``fit(resume=)``. Every
+    kernel of the two paths must launch."""
+    for reset in (bn.reset_launch_counts, fa.reset_launch_counts,
+                  optim.reset_launch_counts):
+        reset()
+    out = {}
+    for name in ("resnet50", "lm"):
+        directory = os.path.join(HERE, CKPT_DIR, name)
+        shutil.rmtree(directory, ignore_errors=True)
+        try:
+            out[name] = checkpoint_drill(name, device, directory)
+        finally:
+            shutil.rmtree(directory, ignore_errors=True)
+    shutil.rmtree(os.path.join(HERE, CKPT_DIR), ignore_errors=True)
+    launches = {**bn.LAUNCHES, **fa.LAUNCHES, **optim.LAUNCHES}
+    idle = sorted(k for k, v in launches.items() if v == 0)
+    if idle:
+        raise RuntimeError(f"phase 10 never launched {idle}: {launches}")
+    out["launches"] = launches
+    return out
+
+
+# -- A1, the AdamW update (phase 11) --------------------------------------------
+
+# A1 against its plain version on the same inputs. The moments: both sides
+# form the same fp32 blend with the same operations (A1's _rn intrinsics
+# leave nvcc nothing to contract) and round it once to the moment dtype:
+# within one ulp of that dtype (read: equal). The parameters: the bias
+# corrections 1 − b1ᵗ and 1 − b2ᵗ come from powf on the card on both sides;
+# against the CPU's pow, k ulp of b2ᵗ (6e-8) become k·6e-5 of c2 at t = 1
+# (1 − b2 = 1e-3) and half that of √v̂. So the limit: A1_UPD_TOL of the
+# plain version's update, plus one rounding of the parameter (2^-23 of |p|
+# in fp32, 2^-8 in bf16). The step counts must be equal.
+A1_UPD_TOL = 1e-3
+A1_HYPER = dict(lr=3e-4, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.1)
+A1_REPS = 20
+PLAIN_REPS = 3
+# Beside the LM's parameters (fp32, bf16 moments, step 7 → 8): (name,
+# sizes, parameter dtype, moment dtype, step count before the update,
+# elements each base lies into its allocation). Sizes cross A1's 8-element
+# vectors and 8192-element chunks; a base one element off takes the scalar
+# loads; a 0-element tensor must still count its step.
+A1_CASES = (
+    ("ragged, first step", (0, 1, 7, 8191, 8193, 20000), torch.float32,
+     torch.bfloat16, 0, 0),
+    ("bases off 16 bytes", (5000, 12345), torch.float32, torch.bfloat16, 3,
+     1),
+    ("bf16 parameters, fp32 moments", (3, 4099, 16385), torch.bfloat16,
+     torch.float32, 0, 0),
+)
+A1_LM_STEP = 7
+# The LM step A/B: warm-up and timed steps of each run, A1 then plain
+# then plain then A1.
+LM_AB_WARM = 3
+LM_AB_STEPS = 10
+
+
+def _at_offset(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A copy of ``t`` whose base lies ``offset`` elements into its
+    allocation (a clone would be aligned)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    return buf[offset:].view(t.shape).copy_(t)
+
+
+def a1_inputs(sizes, pdt, mdt, step0: int, offset: int, device, seed: int):
+    """(params, grads, exp_avg, exp_avg_sq, steps) for A1, seeded."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(n, dt, scale, square=False):
+        x = torch.randn(n, generator=g, device=device)
+        return _at_offset(((x * x) if square else x).mul_(scale).to(dt),
+                          offset)
+
+    return ([draw(n, pdt, 0.02) for n in sizes],
+            [draw(n, pdt, 1e-2) for n in sizes],
+            [draw(n, mdt, 1e-3) for n in sizes],
+            [draw(n, mdt, 1e-5, square=True) for n in sizes],
+            [torch.full((), step0, dtype=torch.int32, device=device)
+             for _ in sizes])
+
+
+def a1_copy(inputs):
+    return tuple([_at_offset(t, t.storage_offset()) for t in col]
+                 for col in inputs)
+
+
+def a1_run(update, inputs):
+    """``update`` applied to a copy of ``inputs``; returns the copy."""
+    out = a1_copy(inputs)
+    update(*out, **A1_HYPER)
+    torch.cuda.synchronize()
+    return out
+
+
+def a1_errors(got, want, inputs) -> dict:
+    """The worst parameter error as a share of its limit (≤ 1 passes), the
+    worst moment error in ulps of the moment dtype, whether the step counts
+    agree, and the largest absolute parameter difference."""
+    (pk, _, mk, vk, sk), (pp, _, mp, vp, sp) = got, want
+    p_share = mom_ulps = max_abs = 0.0
+    for a, b, x0 in zip(pk, pp, inputs[0]):
+        if not a.numel():
+            continue
+        rnd = 2.0 ** (-23 if a.dtype == torch.float32 else -8)
+        a, b, x0 = a.float(), b.float(), x0.float()
+        lim = A1_UPD_TOL * (b - x0).abs() + rnd * b.abs()
+        d = (a - b).abs()
+        p_share = max(p_share, float((d / lim.clamp_min(1e-30)).max()))
+        max_abs = max(max_abs, float(d.max()))
+    for a, b in zip(mk + vk, mp + vp):
+        if not a.numel():
+            continue
+        _, exp = torch.frexp(b.float())
+        bits = 8 if b.dtype == torch.bfloat16 else 24
+        ulp = torch.ldexp(torch.ones_like(b, dtype=torch.float32),
+                          exp - bits)
+        mom_ulps = max(mom_ulps, float(((a.float() - b.float()).abs()
+                                        / ulp).max()))
+    steps_equal = all(torch.equal(a, b) for a, b in zip(sk, sp))
+    return {"p_share": p_share, "moment_ulps": mom_ulps,
+            "steps_equal": steps_equal, "max_abs_err": max_abs}
+
+
+def a1_fails(err) -> bool:
+    return (err["p_share"] > 1.0 or err["moment_ulps"] > 1.0
+            or not err["steps_equal"])
+
+
+def a1_identical(a, b) -> bool:
+    return all(torch.equal(_bits(x), _bits(y))
+               for ca, cb in zip(a, b) for x, y in zip(ca, cb))
+
+
+def a1_short(params, grads, mus, nus, steps, **hyper):
+    """The planted fault: A1 launched over one chunk fewer than its table
+    holds, so the last tensor's last chunk is never updated."""
+    table = optim.build_table(params, grads, mus, nus, steps)
+    optim.launch(table, chunks=table.chunks - 1, **hyper)
+
+
+class PlainAdamW(AdamW):
+    """AdamW whose update is the plain version on the card: the other side
+    of phase 11's LM step A/B."""
+
+    def _update(self, params, grads, mus, nus, steps, group, table):
+        optim.adamw_update_plain(
+            params, grads, mus, nus, steps, lr=group["lr"], b1=group["b1"],
+            b2=group["b2"], eps=group["eps"],
+            weight_decay=group["weight_decay"])
+        return None
+
+
+def lm_ab(model, cfg, tokens) -> dict:
+    """LM steps with A1, then the plain update, then plain, then A1, on one
+    model: tokens/s of each run's timed steps, and A1's launches in each."""
+    out = {"a1": [], "plain": []}
+    loss_fn = transformer.make_loss_fn(cfg, fused_head=True)
+    for which in ("a1", "plain", "plain", "a1"):
+        cls = AdamW if which == "a1" else PlainAdamW
+        trainer = hvd.Trainer(model, loss_fn, hvd.DistributedOptimizer(
+            cls(model.parameters(), 3e-4, weight_decay=0.1)))
+        for _ in range(LM_AB_WARM):
+            trainer.train_step(tokens)
+        torch.cuda.synchronize()
+        optim.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(LM_AB_STEPS):
+            trainer.train_step(tokens)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = optim.LAUNCHES["adamw"]
+        if launches != (LM_AB_STEPS if which == "a1" else 0):
+            raise RuntimeError(f"LM A/B {which}: {launches} A1 launches in "
+                               f"{LM_AB_STEPS} steps")
+        out[which].append(LM_BATCH * LM_T * LM_AB_STEPS / dt)
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_adamw(device) -> dict:
+    """Phase 11: A1 against its plain version at the LM's parameters and at
+    A1_CASES, twice each and bit-identical, a planted fault, its times at
+    the LM's parameters, and the LM step with A1 against the plain update
+    (``lm_ab``)."""
+    cfg = lm_config(torch.bfloat16)
+    model = transformer.init_params(cfg, seed=SEED, device=device)
+    sizes = [p.numel() for p in model.parameters()]
+    cases = (("LM", sizes, torch.float32, torch.bfloat16, A1_LM_STEP, 0),
+             *A1_CASES)
+    rec = {"cases": {}}
+    for i, (name, sz, pdt, mdt, step0, off) in enumerate(cases):
+        inputs = a1_inputs(sz, pdt, mdt, step0, off, device, SEED + 20 + i)
+        want = a1_run(optim.adamw_update_plain, inputs)
+        optim.reset_launch_counts()
+        got = a1_run(optim.adamw_update, inputs)
+        if optim.LAUNCHES["adamw"] != 1:
+            raise RuntimeError(f"A1 {name}: {optim.LAUNCHES['adamw']} "
+                               f"launches for one update")
+        again = a1_run(optim.adamw_update, inputs)
+        err = a1_errors(got, want, inputs)
+        if a1_fails(err):
+            raise RuntimeError(f"A1 {name} disagrees with its plain version: "
+                               f"{err}")
+        if not a1_identical(got, again):
+            raise RuntimeError(f"A1 {name}: two runs differ")
+        rec["cases"][name] = err
+        if name != "LM":
+            del inputs, want, got, again
+            continue
+        fault = a1_errors(a1_run(a1_short, inputs), want, inputs)
+        if not a1_fails(fault):
+            raise RuntimeError(f"A1's planted fault (one chunk left out) "
+                               f"passed the check: {fault}")
+        rec["fault"] = fault
+        del want, got, again
+        work = a1_copy(inputs)
+        table = optim.build_table(*work)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        for reps, fn, field in (
+                (A1_REPS, lambda: optim.launch(table, **A1_HYPER), "ms"),
+                (PLAIN_REPS, lambda: optim.adamw_update_plain(
+                    *work, **A1_HYPER), "plain_ms")):
+            fn()
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            end.synchronize()
+            rec[field] = start.elapsed_time(end) / reps
+        # The nearest library call: torch.optim.AdamW(fused=True), fp32
+        # moments and the decay applied first — not the same function.
+        lib_params = [torch.nn.Parameter(p.clone()) for p in work[0]]
+        for p, g in zip(lib_params, work[1]):
+            p.grad = g
+        lib = torch.optim.AdamW(lib_params, lr=A1_HYPER["lr"],
+                                betas=(A1_HYPER["b1"], A1_HYPER["b2"]),
+                                eps=A1_HYPER["eps"],
+                                weight_decay=A1_HYPER["weight_decay"],
+                                fused=True)
+        lib.step()
+        start.record()
+        for _ in range(A1_REPS):
+            lib.step()
+        end.record()
+        end.synchronize()
+        rec["nearest_library_ms"] = start.elapsed_time(end) / A1_REPS
+        nbytes = sum(n * (3 * 4 + 4 * 2) + 8 for n in sizes)
+        rec.update(bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes",
+                   bytes=nbytes, params=sum(sizes), tensors=len(sizes),
+                   max_abs_err=err["max_abs_err"])
+        del work, table, lib, lib_params, inputs
+        torch.cuda.empty_cache()
+    tokens = transformer.synthetic_tokens(LM_BATCH, LM_T, cfg.vocab_size,
+                                          seed=SEED, device=device)
+    rec["lm_ab"] = lm_ab(model, cfg, tokens)
+    del model
+    torch.cuda.empty_cache()
+    return rec
 
 
 # -- LM serving (phase 9) ------------------------------------------------------
@@ -1332,7 +1812,7 @@ def main() -> int:
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    libs = _build.build(["batchnorm", "bn_sums", "flash_fwd", "flash_bwd"])
+    libs = _build.build()
     say(f"phase 2 build: ok in {time.perf_counter() - t0:.1f} s: "
         f"{sorted(os.path.relpath(p, HERE) for p in libs.values())}")
 
@@ -1418,7 +1898,8 @@ def main() -> int:
         f"{LM_LAYERS} layers, B={LM_BATCH} T={LM_T} bf16 fused head, "
         f"AdamW(3e-4, wd 0.1, bf16 moments), {STEPS} steps; loss "
         f"{lm_losses[0]:.4f} -> {lm_losses[-1]:.4f}; launches {lm_launches} "
-        f"({LM_LAYERS}/step each); smoke throughput {tps:.1f} tokens/s "
+        f"(flash {LM_LAYERS}/step each, A1 1/step); smoke throughput "
+        f"{tps:.1f} tokens/s "
         f"(steps 3-{STEPS}, mean step "
         f"{1e3 * sum(lm_steady) / len(lm_steady):.2f} ms), peak memory "
         f"{peak_gib:.1f} GiB, on {ident}; total "
@@ -1468,6 +1949,47 @@ def main() -> int:
         f"{ident}; total "
         f"{time.perf_counter() - t_start:.0f} s")
 
+    ck = phase_checkpoint(device)
+
+    def drill(r):
+        return (f"latest_epoch {r['latest']} with the warning \"{r['torn']}\"; "
+                f"resumed at epoch {CKPT_TORN}, {r['tensors']} state tensors "
+                f"equal bit for bit, first resumed loss {r['loss']:.6f} "
+                f"equal to run A's; saves "
+                + ", ".join(f"{t:.2f}" for t in r["save_s"])
+                + f" s, resume {r['load_s']:.2f} s, checkpoint "
+                f"{r['bytes']} bytes")
+
+    say(f"phase 10 checkpoint: ok; {CKPT_EPOCHS} epochs of {CKPT_STEPS} "
+        f"steps under HOROVOD_FAULT_INJECT=torn_write@epoch={CKPT_TORN}, "
+        f"then fit(resume=) from seed {SEED + 1}; ResNet-50 (bf16, batch "
+        f"{BATCH}, SGD): {drill(ck['resnet50'])}; LM ({LM_LAYERS} layers, "
+        f"B={LM_BATCH} T={LM_T}, AdamW): {drill(ck['lm'])}; launches "
+        f"{ck['launches']}; on {ident}; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+
+    a1 = phase_adamw(device)
+    ab = a1["lm_ab"]
+    say(f"phase 11 adamw (A1): ok; vs plain (limits: parameters "
+        f"{A1_UPD_TOL} of the update + one rounding, moments one ulp, "
+        f"steps equal), each run twice, bit-identical: " + "; ".join(
+            f"{k}: parameters {e['p_share']:.3f} of the limit, moments "
+            f"{e['moment_ulps']:.1f} ulp, max |err| {e['max_abs_err']:.3e}"
+            for k, e in a1["cases"].items())
+        + f"; planted fault (one chunk left out) caught: parameters "
+        f"{a1['fault']['p_share']:.3g} of the limit, steps equal "
+        f"{a1['fault']['steps_equal']}; at the LM's {a1['params']} "
+        f"parameters in {a1['tensors']} tensors, one launch: "
+        f"{a1['ms']:.4f} ms, bound {a1['bound_ms']:.4f} ms "
+        f"({a1['bytes']} bytes), {100 * a1['bound_ms'] / a1['ms']:.1f}% of "
+        f"the bound; plain {a1['plain_ms']:.4f} ms; torch.optim.AdamW("
+        f"fused=True), fp32 moments (not the same function) "
+        f"{a1['nearest_library_ms']:.4f} ms; LM step tokens/s "
+        f"(A1, plain, plain, A1; {LM_AB_STEPS} steps each): A1 "
+        + ", ".join(f"{v:.1f}" for v in ab["a1"]) + "; plain "
+        + ", ".join(f"{v:.1f}" for v in ab["plain"])
+        + f"; on {ident}; total {time.perf_counter() - t_start:.0f} s")
+
     kernels = []
     for name, source, replaces, r, n in (
             ("channel_sums", "bn_sums.cu", "batchnorm.py:53", rec,
@@ -1477,7 +1999,9 @@ def main() -> int:
             ("flash_fwd", "flash_fwd.cu", "flash_attention.py:234",
              frec, lm_launches),
             ("flash_bwd", "flash_bwd.cu", "flash_attention.py:447",
-             frec, lm_launches)):
+             frec, lm_launches),
+            ("adamw", "adamw.cu", "optim.py:67", {"adamw": a1},
+             lm_launches)):
         r = r[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -1486,10 +2010,11 @@ def main() -> int:
             "launches": n[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r.get("library_ms")})
         kernels[-1].update({k: v for k, v in r.items()
                             if k.startswith(("ms_", "library_ms_"))
-                            or k == "library_bwd_ms"})
+                            or k in ("library_bwd_ms",
+                                     "nearest_library_ms")})
     say(json.dumps({"kernels": kernels}))
     hvd.shutdown()
     say(json.dumps({"ok": True, "device": {

@@ -23,6 +23,7 @@ The package imports no JAX and nothing of ``horovod_tpu``.
 from horovod_tpu_torch.core.state import (  # noqa: F401
     HorovodError,
     NotInitializedError,
+    bump_generation,
     device,
     get_group,
     global_rank,
@@ -70,5 +71,7 @@ from horovod_tpu_torch.training.callbacks import (  # noqa: F401
     LearningRateScheduleCallback,
     LearningRateWarmupCallback,
     MetricAverageCallback,
+    ModelCheckpointCallback,
+    StallWarningCallback,
 )
 from horovod_tpu_torch.training.loop import Trainer  # noqa: F401

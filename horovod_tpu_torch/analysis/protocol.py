@@ -1,8 +1,9 @@
 """Pure protocol judgements — a copy of the subset of
 ``horovod_tpu/analysis/protocol.py`` that the port's runtime calls: request
-validation for the negotiation layer, the fault-injection grammar
-(``HOROVOD_FAULT_INJECT``) and the serving judgements (deadlines, the
-journal's committed-token fold, stall and accept-rate verdicts).
+validation and the store key namespace of the negotiation layer, the
+fault-injection grammar (``HOROVOD_FAULT_INJECT``) with its torn-write
+matcher, the checkpoint-resume agreement, and the serving judgements
+(deadlines, the journal's committed-token fold, stall verdicts).
 
 Stdlib-only and side-effect free: every function is a pure transition
 (inputs in, verdict out). The port keeps its own copy rather than
@@ -14,7 +15,7 @@ compares them with the JAX package's ``validate_py``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Optional, Sequence
+from typing import Any, Iterable, Mapping, Optional, Sequence
 
 OP_ALLREDUCE = 0
 OP_ALLGATHER = 1
@@ -215,9 +216,10 @@ def parse_fault_spec(raw: Optional[str]) -> tuple[Fault, ...]:
     Grammar: ``entry (';' entry)*`` where ``entry := kind '@' name=int
     (',' name=int)*``. Unknown kinds/attrs and non-integer values raise
     ``ValueError`` — a typo'd injection spec must not silently run a
-    fault-free drill that then "passes". The port injects only the
-    serving kinds (``core/resilience.py``); the others parse as the
-    reference parses them.
+    fault-free drill that then "passes". The port injects the serving
+    kinds and ``torn_write`` (``core/resilience.py``); the others parse as
+    the reference parses them, and ``hvd.init`` refuses them
+    (``utils/env.py::check_unported``).
     """
     faults: list[Fault] = []
     for entry in (raw or "").split(";"):
@@ -269,6 +271,63 @@ def serve_fault_matching(faults: Sequence[Fault], kind: str, step: int,
             return f
     return None
 
+
+
+def torn_write_index(faults: Sequence[Fault], epoch: Optional[int],
+                     consumed: Iterable[int]) -> Optional[int]:
+    """Index of the first unconsumed ``torn_write`` fault matching
+    ``epoch``, or None. The caller owns the consumed set (consume-once:
+    a retried save of the same epoch succeeds)."""
+    if epoch is None:
+        return None
+    done = set(consumed)
+    for i, f in enumerate(faults):
+        if (f.kind == "torn_write" and i not in done
+                and f.attrs["epoch"] == epoch):
+            return i
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Store key namespace — generation-scoped key builders
+# ---------------------------------------------------------------------------
+
+KEY_PREFIX = "hvd"
+
+
+def neg_key(generation: int, group: int, seq: int, rank: int) -> str:
+    """One member's request batch at one negotiation index of a group.
+    (The reference keys a process's submission by ``(generation, seq,
+    pid)`` over one world-wide sequence; here each group negotiates on its
+    own sequence, so the group is part of the key.)"""
+    return f"{KEY_PREFIX}/neg/g{generation}/grp{group}/s{seq}/p{rank}"
+
+
+def verdict_key(generation: int, group: int, seq: int) -> str:
+    """The coordinator's published verdict for one negotiation index of a
+    group."""
+    return f"{KEY_PREFIX}/resp/g{generation}/grp{group}/s{seq}"
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint-resume agreement
+# ---------------------------------------------------------------------------
+
+
+def agree_epochs(per_rank: Sequence[Iterable[int]]) -> tuple[int, int]:
+    """``(agreed, newest)``: the newest epoch present in EVERY rank's
+    verified set (-1 if none) and the newest epoch ANY rank reported (-1
+    if none). A set intersection, not a scalar min over newest: the agreed
+    epoch is one every rank itself verified, never merely the smallest of
+    the newest (a rank whose newest epochs are torn must not steer the
+    group onto an epoch some OTHER rank can't load). Pure — every rank
+    computing this over the same gathered sets gets the same answer, which
+    is what makes the agreement a non-negotiated local computation."""
+    sets = [set(int(e) for e in s) for s in per_rank]
+    common: set[int] = set.intersection(*sets) if sets else set()
+    agreed = max(common) if common else -1
+    newest = max((max(s) for s in sets if s), default=-1)
+    return agreed, newest
 
 # ---------------------------------------------------------------------------
 # Serving judgements

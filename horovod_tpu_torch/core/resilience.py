@@ -1,5 +1,5 @@
-"""Fault injection for the serving engine — the part of
-``horovod_tpu/core/resilience.py`` that serving reads.
+"""Fault injection — the part of ``horovod_tpu/core/resilience.py`` that
+the serving engine and the checkpoint writer read.
 
 ``HOROVOD_FAULT_INJECT="engine_crash@step=5;stuck_decode@step=3,ms=9000"``
 threads synthetic faults through ``Engine.step`` (``serving/engine.py``):
@@ -11,10 +11,16 @@ threads synthetic faults through ``Engine.step`` (``serving/engine.py``):
   ms and judged, so the conviction is immediate and never a real hang;
 * ``deadline_storm@step=S`` — every in-flight deadline expires at step S.
 
+``torn_write@epoch=N`` leaves the checkpoint of epoch N truncated under
+its final name (``training/checkpoint.py::_atomic_write``), the artifact a
+writer killed mid-write leaves, so the resume scan's fall-back is
+drillable.
+
 The grammar is the reference's (``analysis/protocol.py::parse_fault_spec``):
-a typo'd spec raises instead of running a fault-free drill. The training
-faults (``kv_timeout``, ``crash``, ``torn_write``, ``regrow``) parse but
-nothing in the port injects them yet (ROADMAP §A item 15).
+a typo'd spec raises instead of running a fault-free drill. The other
+training faults (``kv_timeout``, ``crash``, ``regrow``) parse, and
+``hvd.init`` refuses them: nothing in the port injects them yet (ROADMAP
+§A item 15).
 """
 
 from __future__ import annotations
@@ -34,11 +40,12 @@ parse_fault_spec = _proto.parse_fault_spec
 
 class FaultInjector:
     """The parsed ``HOROVOD_FAULT_INJECT`` spec, with consume-once matching
-    of the serving faults."""
+    of the serving faults and of ``torn_write``."""
 
     def __init__(self, faults: tuple[Fault, ...] = ()):
         self._faults = tuple(faults)
         self._serve_consumed: set[int] = set()
+        self._consumed: set[int] = set()
         self._lock = threading.Lock()
 
     @property
@@ -61,6 +68,18 @@ class FaultInjector:
                 return None
             self._serve_consumed.add(i)
             return f
+
+    def torn_write_due(self, epoch: int | None) -> bool:
+        """True exactly once for a ``torn_write`` fault matching ``epoch``
+        (consume-once: a retried save of the same epoch succeeds; the
+        matcher is protocol.torn_write_index, this injector owns only the
+        consumed set)."""
+        with self._lock:
+            i = _proto.torn_write_index(self._faults, epoch, self._consumed)
+            if i is not None:
+                self._consumed.add(i)
+                return True
+        return False
 
 
 _injector: FaultInjector | None = None

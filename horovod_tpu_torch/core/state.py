@@ -9,9 +9,9 @@ process group:
 * group 0 is always the world; ``init([[0,1,2],[2,3,4]])`` adds one process
   group per listed rank set, created by every rank in the same order, and
   overlapping groups are allowed (a rank may belong to several);
-* each group also carries a gloo *side* group over the same ranks, which
-  carries the negotiation traffic (``core/negotiate.py``) so that request
-  metadata never touches the device;
+* negotiation metadata moves through the world's key-value store
+  (``core/negotiate.py``), never through the device; its per-group key
+  namespace carries a generation that :func:`bump_generation` advances;
 * a rank outside a group gets the reference's return conventions from the
   collectives (``ops/collectives.py``).
 
@@ -47,14 +47,12 @@ class Group:
     """One collective group: an ordered set of global ranks.
 
     ``pg`` is the process group that moves data (NCCL on the GPU, gloo on
-    the CPU) and ``side`` the gloo group that moves negotiation metadata;
-    both are None on a rank that is not a member.
+    the CPU); None on a rank that is not a member.
     """
 
     index: int
     ranks: tuple[int, ...]
     pg: Any
-    side: Any
 
     @property
     def size(self) -> int:
@@ -80,6 +78,7 @@ class _State:
         self.local_size = 1
         self.fusion_threshold = _env.DEFAULT_FUSION_THRESHOLD
         self.owns_default_pg = False
+        self.negotiator = None  # core/negotiate.py's, made by init
 
 
 _state = _State()
@@ -142,6 +141,7 @@ def init(group_ranks: Sequence[Sequence[int]] | None = None, *,
         if _state.initialized:
             return
         _env.warn_unknown_env()
+        _env.check_unported()
         _env.validate_serving_knobs()
         local_rank = int(os.environ.get("LOCAL_RANK", "0"))
         dev = _resolve_device(device, local_rank)
@@ -171,12 +171,14 @@ def init(group_ranks: Sequence[Sequence[int]] | None = None, *,
                 pg = dist.group.WORLD
             else:
                 pg = dist.new_group(list(ranks))
-            side = (pg if backend == "gloo"
-                    else dist.new_group(list(ranks), backend="gloo"))
-            member = rank in ranks
             groups.append(Group(index=i, ranks=ranks,
-                                pg=pg if member else None,
-                                side=side if member else None))
+                                pg=pg if rank in ranks else None))
+        from horovod_tpu_torch.core import negotiate as _neg  # imports us
+
+        _state.negotiator = _neg.Negotiator(
+            dist.PrefixStore("horovod_tpu_torch",
+                             dist.distributed_c10d._get_default_store()),
+            _env.stall_warning_seconds())
         _state.groups = groups
         _state.device = dev
         _state.rank = rank
@@ -202,20 +204,29 @@ def shutdown() -> None:
         if _state.owns_default_pg:
             dist.destroy_process_group()
         else:
-            created = set()
             for g in _state.groups:
-                for pg in (g.pg, g.side):
-                    if (pg is not None and pg is not dist.group.WORLD
-                            and id(pg) not in created):
-                        created.add(id(pg))
-                        dist.destroy_process_group(pg)
+                if g.pg is not None and g.pg is not dist.group.WORLD:
+                    dist.destroy_process_group(g.pg)
         _state.groups = []
+        _state.negotiator = None
         _state.initialized = False
     _coll.reset_auto_names()
 
 
 def is_initialized() -> bool:
     return _state.initialized
+
+
+def bump_generation(group: int = 0) -> int:
+    """Advance the group's coordination generation without re-initializing
+    — the checkpoint-resume path (``Trainer.restore``). The negotiation
+    keys of the group carry the generation, so after a crash-restart the
+    resumed run's negotiation can never meet stale keys of the run before
+    it. A collective over the group: every member calls it at the same
+    point. (The reference keeps one generation for the world; here each
+    group negotiates on its own sequence, so each has its own.)"""
+    get_group(group)
+    return _state.negotiator.bump_generation(group)
 
 
 def _require_init() -> _State:

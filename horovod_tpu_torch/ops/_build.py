@@ -24,6 +24,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# Every source the port builds, by name (``csrc/<name>.cu``): A1 the AdamW
+# update, B2 BatchNorm's gradient sums, B1 its forward sums, B4 and B3 the
+# flash-attention backward and forward.
+SOURCES = ("adamw", "batchnorm", "bn_sums", "flash_bwd", "flash_fwd")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -60,10 +64,11 @@ def _compile_cmd(name: str, out: str) -> list[str]:
             os.path.join(CSRC, f"{name}.cu")]
 
 
-def build(names) -> dict[str, str]:
-    """Compile every named source that has no up-to-date library, all
-    ``nvcc`` processes started together. Returns ``{name: library path}``;
-    raises with the compiler's output if any build fails."""
+def build(names=SOURCES) -> dict[str, str]:
+    """Compile every named source (default: all of :data:`SOURCES`) that has
+    no up-to-date library, all ``nvcc`` processes started together. Returns
+    ``{name: library path}``; raises with the compiler's output if any
+    build fails."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
     paths = {}

@@ -119,6 +119,13 @@ class _DistributedOptimizer:
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.optimizer.zero_grad(set_to_none=set_to_none)
 
+    def state_dict(self) -> dict:
+        """The inner optimizer's ``state_dict`` (what a checkpoint saves)."""
+        return self.optimizer.state_dict()
+
+    def load_state_dict(self, state_dict: dict) -> None:
+        self.optimizer.load_state_dict(state_dict)
+
 
 def DistributedOptimizer(optimizer: torch.optim.Optimizer, group: int = 0,
                          average: bool = True,

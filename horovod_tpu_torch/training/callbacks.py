@@ -4,8 +4,10 @@ Counterpart of ``horovod_tpu/training/callbacks.py``:
 ``BroadcastGlobalVariablesCallback`` (weight and optimizer-state sync at
 train begin), ``MetricAverageCallback`` (epoch metrics averaged over the
 group), ``LearningRateScheduleCallback`` with momentum correction and
-``LearningRateWarmupCallback`` (the Goyal et al. ramp ``lr/size → lr``). LR
-and momentum act on the optimizer's ``param_groups`` and momentum buffers.
+``LearningRateWarmupCallback`` (the Goyal et al. ramp ``lr/size → lr``),
+``StallWarningCallback`` (the negotiation's stall reports) and
+``ModelCheckpointCallback`` (rank-0-writes checkpoints). LR and momentum act
+on the optimizer's ``param_groups`` and momentum buffers.
 """
 
 from __future__ import annotations
@@ -159,3 +161,44 @@ class LearningRateWarmupCallback(LearningRateScheduleCallback):
                 and self.verbose:
             print(f"Epoch {epoch + 1}: finished gradual learning rate warmup "
                   f"to {self.trainer.get_lr():.6g}.")
+
+
+class StallWarningCallback(Callback):
+    """Print the stall reports the negotiation has recorded since the last
+    batch — the analog of the coordinator's CheckForStalledTensors sweep
+    (mpi_ops.cc:1369-1412). The coordinator of a group (its group-local
+    rank 0) records a report each time it warns while waiting on missing
+    ranks (``core/negotiate.py``), so the reports print on that rank."""
+
+    def __init__(self, group: int = 0) -> None:
+        self.group = group
+
+    def on_batch_end(self, batch: int, logs: dict | None = None) -> None:
+        from horovod_tpu_torch.core import negotiate as _neg
+
+        for report in _neg.negotiator().stalled(self.group):
+            print(f"WARNING: One or more tensors were submitted to be "
+                  f"reduced, gathered or broadcasted by subset of ranks and "
+                  f"are waiting for remainder of ranks: {report}")
+
+
+class ModelCheckpointCallback(Callback):
+    """Rank-0-writes checkpointing, the reference's convention: rank
+    ``root_rank`` of the group writes :meth:`Trainer.train_state` every
+    ``every_epochs`` epochs (``training/checkpoint.py::save``); restore
+    happens through ``fit(resume=...)``, which re-broadcasts."""
+
+    def __init__(self, directory: str, every_epochs: int = 1,
+                 root_rank: int = 0, group: int = 0) -> None:
+        self.directory = directory
+        self.every_epochs = every_epochs
+        self.root_rank = root_rank
+        self.group = group
+
+    def on_epoch_end(self, epoch: int, logs: dict | None = None) -> None:
+        if _state.rank(self.group) != self.root_rank:
+            return
+        if (epoch + 1) % self.every_epochs == 0:
+            from horovod_tpu_torch.training import checkpoint as _ckpt
+
+            _ckpt.save(self.directory, self.trainer.train_state(), epoch)

@@ -7,7 +7,9 @@ step is forward, backward, gradient averaging through
 negotiated once per gradient signature), the optimizer update, and then the
 averaging of the model's floating-point buffers — the BatchNorm running
 statistics — over the group, as the reference's ResNet step does after its
-update. Elastic training, ZeRO and ``steps_per_call`` are not ported yet.
+update. :meth:`Trainer.restore` (``fit(resume=...)``) resumes from the
+newest checkpoint every rank can load (``training/checkpoint.py``).
+Elastic training, ZeRO and ``steps_per_call`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -75,6 +77,50 @@ class Trainer(LRControlMixin):
         _opt.broadcast_global_variables(self.model, self.optimizer.optimizer,
                                         root_rank, g)
 
+    def train_state(self) -> dict:
+        """What a checkpoint holds: the model's and the optimizer's state
+        dicts and the epoch."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "epoch": self.epoch}
+
+    def restore(self, directory: str) -> int:
+        """Crash-safe resume (what ``fit(resume=...)`` calls): agree with
+        every rank on the newest epoch ALL can load
+        (:func:`checkpoint.agree_on_resume_epoch` — torn/corrupt epochs are
+        already skipped by the manifest scan), restore it, bump the group's
+        coordination generation so the restarted run's negotiation keys can
+        never collide with stale keys of the run before it, and re-broadcast
+        rank 0's state so every replica resumes bit-identical.
+
+        Returns the epoch training will resume at (``self.epoch``;
+        unchanged when the directory holds no loadable checkpoint)."""
+        from horovod_tpu_torch.training import checkpoint as _ckpt
+
+        if _state.rank(self.group) < 0:
+            # The agreement hands a memberless process only its LOCAL scan,
+            # so it could branch away from the members' restore sequence
+            # (generation bump + re-broadcast). Refuse loudly instead.
+            raise HorovodError(
+                f"Trainer.restore/fit(resume=...) called on a process "
+                f"hosting no members of group {self.group}: restore's "
+                f"generation bump and state re-broadcast are group "
+                f"collectives this process cannot follow consistently. "
+                f"Run restore only where the trainer's group has members.")
+        epoch = _ckpt.agree_on_resume_epoch(directory, group=self.group)
+        if epoch < 0:
+            return self.epoch
+        # agree_on_resume_epoch CRC-verified the agreed epoch on THIS rank
+        # before returning it: verify=False skips a second full read.
+        restored = _ckpt.load(directory, self.train_state(), epoch=epoch,
+                              verify=False)
+        self.model.load_state_dict(restored["model"])
+        self.optimizer.load_state_dict(restored["optimizer"])
+        self.epoch = epoch + 1
+        _state.bump_generation(self.group)
+        self.sync_state(group=self.group)
+        return self.epoch
+
     def train_step(self, batch):
         """One DP step on this rank's batch; returns ``(loss, aux)`` with the
         loss a detached 0-d tensor on the model's device."""
@@ -89,12 +135,33 @@ class Trainer(LRControlMixin):
         return loss.detach(), aux
 
     def fit(self, data: Iterable, epochs: int, steps_per_epoch: int,
-            callbacks: list | None = None, verbose: bool = True) -> dict:
-        """Keras-shaped fit from ``self.epoch`` to ``epochs``: ``data`` yields
-        this rank's batches (a finite re-iterable is cycled across epochs).
-        Returns
-        ``{metric: [per-epoch values]}``; the host reads the loss once per
-        epoch, not per step."""
+            callbacks: list | None = None, verbose: bool = True,
+            initial_epoch: int | None = None,
+            resume: str | None = None) -> dict:
+        """Keras-shaped fit from ``initial_epoch`` (default ``self.epoch``)
+        to ``epochs``: ``data`` yields this rank's batches (a finite
+        re-iterable is cycled across epochs).
+
+        ``resume=<checkpoint dir>`` restores the newest complete checkpoint
+        every rank can load before training (see :meth:`restore`) — the
+        crash-restart entry point: a killed job relaunches with the same
+        ``fit`` call plus ``resume=`` and continues from the last complete
+        epoch. A directory with no loadable checkpoint starts fresh.
+
+        Returns ``{metric: [per-epoch values]}``; the host reads the loss
+        once per epoch, not per step."""
+        if resume is not None:
+            if initial_epoch is not None:
+                # initial_epoch would silently override the restored resume
+                # point: the LR schedule would replay from scratch and the
+                # checkpoint callback would overwrite the history restore
+                # exists to protect.
+                raise HorovodError(
+                    "fit(resume=...) and initial_epoch are mutually "
+                    "exclusive: resume restores the agreed epoch and "
+                    "continues from it. Drop initial_epoch, or load "
+                    "explicitly and pass initial_epoch without resume.")
+            self.restore(resume)
         callbacks = list(callbacks or [])
         for cb in callbacks:
             cb.set_trainer(self)
@@ -117,7 +184,8 @@ class Trainer(LRControlMixin):
                         "re-iterable; pass an infinite generator or a "
                         "re-iterable collection of batches.") from None
 
-        for epoch in range(self.epoch, epochs):
+        start = self.epoch if initial_epoch is None else initial_epoch
+        for epoch in range(start, epochs):
             self.epoch = epoch
             for cb in callbacks:
                 cb.on_epoch_begin(epoch)

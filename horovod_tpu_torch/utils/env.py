@@ -2,12 +2,22 @@
 
 Same variable names as the reference, so job scripts carry over:
 ``HOROVOD_FUSION_THRESHOLD`` sizes the gradient fusion buffer (default
-64 MB), ``HOROVOD_TIMELINE`` names a Chrome-tracing output file, the
-``HOROVOD_SERVE_*`` knobs configure the serving engine
-(``horovod_tpu_torch.serving``) and ``HOROVOD_FAULT_INJECT`` arms its
-serving faults (``core/resilience.py``). Any other ``HOROVOD_*`` variable
-in the environment is most likely a typo'd knob name and draws a warning
-at ``hvd.init``. A typo'd *value* raises, with the reference's message.
+64 MB), ``HOROVOD_TIMELINE`` names a Chrome-tracing output file,
+``HOROVOD_STALL_CHECK_TIME`` and ``HOROVOD_NEGOTIATION_TIMEOUT`` time the
+negotiation's stall report and its wait for the coordinator
+(``core/negotiate.py``), the ``HOROVOD_SERVE_*`` knobs configure the
+serving engine (``horovod_tpu_torch.serving``) and ``HOROVOD_FAULT_INJECT``
+arms the serving faults and ``torn_write`` (``core/resilience.py``).
+
+Every other knob of the reference is registered too, with the ROADMAP §A
+item that ports it (:data:`UNPORTED_RESULT_KNOBS`,
+:data:`UNPORTED_TUNING_KNOBS`). At ``hvd.init`` (:func:`check_unported`) a
+knob that would change what a run computes raises
+``NotImplementedError`` naming its item, so a job script never runs
+without a setting it asked for; a knob that only tunes timing or reporting
+draws a warning. Any ``HOROVOD_*`` variable that is not registered at all
+is most likely a typo'd knob name and draws a warning too. A typo'd
+*value* raises, with the reference's message.
 """
 
 from __future__ import annotations
@@ -16,10 +26,13 @@ import os
 import warnings
 
 DEFAULT_FUSION_THRESHOLD = 64 * 1024 * 1024  # bytes
+DEFAULT_STALL_WARNING_TIME = 60.0  # seconds
 
-KNOWN_ENV_VARS = frozenset({
+# The knobs the port reads.
+PORTED_KNOBS = frozenset({
     "HOROVOD_FAULT_INJECT",
     "HOROVOD_FUSION_THRESHOLD",
+    "HOROVOD_NEGOTIATION_TIMEOUT",
     "HOROVOD_SERVE_BLOCK_SIZE",
     "HOROVOD_SERVE_DEADLINE_MS",
     "HOROVOD_SERVE_DRAFT_KV_DTYPE",
@@ -30,8 +43,70 @@ KNOWN_ENV_VARS = frozenset({
     "HOROVOD_SERVE_PREFIX_CACHE",
     "HOROVOD_SERVE_SPECULATE",
     "HOROVOD_SERVE_WATCHDOG_TIMEOUT",
+    "HOROVOD_STALL_CHECK_TIME",
     "HOROVOD_TIMELINE",
 })
+
+# Knobs of the reference that change what a run computes, not ported yet:
+# name -> (ROADMAP §A item, what it does, the values that leave it off).
+# Set to anything else, each raises at hvd.init.
+UNPORTED_RESULT_KNOBS: dict[str, tuple[int, str, frozenset]] = {
+    "HOROVOD_ALLREDUCE_ALGO": (12, "the allreduce decomposition",
+                               frozenset({"", "flat"})),
+    "HOROVOD_COMPRESSION": (12, "gradient wire compression",
+                            frozenset({"", "none"})),
+    "HOROVOD_ERROR_FEEDBACK": (12, "compression error feedback",
+                               frozenset({"", "0"})),
+    "HOROVOD_SHARDING": (12, "ZeRO sharding of optimizer state and "
+                             "parameters", frozenset({"", "off"})),
+    "HOROVOD_FSDP_AXIS_SIZE": (12, "the FSDP mesh axis of the ZeRO modes",
+                               frozenset({""})),
+    "HOROVOD_ELASTIC": (15, "elastic shrink and regrow",
+                        frozenset({"", "0"})),
+}
+
+# Knobs of the reference that only tune timing or reporting, not ported
+# yet: name -> ROADMAP §A item. Each draws a warning at hvd.init.
+UNPORTED_TUNING_KNOBS: dict[str, int] = {
+    "HOROVOD_AUTOTUNE": 16,
+    "HOROVOD_COMPRESSION_BLOCK": 12,
+    "HOROVOD_COMPRESSION_CROSS_SLICE": 12,
+    "HOROVOD_DATA_DIR": 5,
+    "HOROVOD_EAGER_CACHE": 1,
+    "HOROVOD_ELASTIC_JOIN_TIMEOUT": 15,
+    "HOROVOD_ELASTIC_MIN_WORLD": 15,
+    "HOROVOD_EXCHANGE_CHANNELS": 12,
+    "HOROVOD_EXCHANGE_SCHEDULE": 12,
+    "HOROVOD_KV_BACKOFF_MS": 15,
+    "HOROVOD_KV_RETRIES": 15,
+    "HOROVOD_LIVENESS_INTERVAL": 15,
+    "HOROVOD_LIVENESS_TIMEOUT": 15,
+    "HOROVOD_MAX_CHANNELS": 12,
+    "HOROVOD_MODEL_FAULTS": 17,
+    "HOROVOD_MODEL_MAX_STATES": 17,
+    "HOROVOD_PREFETCH_DEPTH": 5,
+    "HOROVOD_PROFILE": 16,
+    "HOROVOD_RECALIBRATION": 12,
+    "HOROVOD_SCHEDULE_TIMEOUT": 1,
+    "HOROVOD_SPARSE_DENSITY_THRESHOLD": 11,
+    "HOROVOD_SPARSE_PAD_CAPACITY": 11,
+    "HOROVOD_TIMELINE_DEVICE": 16,
+    "HOROVOD_TIMELINE_DEVICE_INTERVAL": 16,
+    "HOROVOD_TOPOLOGY_SLICES": 12,
+    "HOROVOD_TUNED_CONFIG": 16,
+    "HOROVOD_TUNE_BUDGET_S": 16,
+    "HOROVOD_TUNING_CACHE": 16,
+}
+
+# Knobs that only mean something under JAX: accepted, and nothing is said.
+JAX_ONLY_KNOBS = frozenset({"HOROVOD_CPU_DEVICES", "HOROVOD_XLA_OPTIONS"})
+
+# Training faults of HOROVOD_FAULT_INJECT that the port does not inject
+# yet (ROADMAP §A item 15; it injects torn_write and the serving faults).
+UNPORTED_FAULTS = frozenset({"crash", "kv_timeout", "regrow"})
+
+KNOWN_ENV_VARS = (PORTED_KNOBS | frozenset(UNPORTED_RESULT_KNOBS)
+                  | frozenset(UNPORTED_TUNING_KNOBS) | JAX_ONLY_KNOBS)
 
 
 def unknown_horovod_vars(environ=None) -> list[str]:
@@ -77,6 +152,71 @@ def timeline_path() -> str | None:
     """Path for the Chrome-tracing timeline, or None when disabled."""
     path = os.environ.get("HOROVOD_TIMELINE")
     return path if path else None
+
+
+def stall_warning_seconds() -> float:
+    """``HOROVOD_STALL_CHECK_TIME`` (seconds, default 60; 0 disables): how
+    long the coordinator waits on missing ranks between stall warnings.
+    Parsed as the reference parses it: an unparsable value is the
+    default."""
+    raw = os.environ.get("HOROVOD_STALL_CHECK_TIME")
+    if raw is None:
+        return DEFAULT_STALL_WARNING_TIME
+    try:
+        return max(0.0, float(raw))
+    except ValueError:
+        return DEFAULT_STALL_WARNING_TIME
+
+
+def negotiation_timeout_ms() -> int:
+    """``HOROVOD_NEGOTIATION_TIMEOUT`` (seconds; default 600): how long a
+    member that is not the coordinator waits for the coordinator's verdict
+    before raising. The coordinator itself waits indefinitely, printing
+    stall warnings. 0 or inf waits effectively forever; an unparsable
+    value is the default (the reference's parsing)."""
+    raw = os.environ.get("HOROVOD_NEGOTIATION_TIMEOUT")
+    if raw is None:
+        return 600_000
+    try:
+        seconds = float(raw)
+    except ValueError:
+        return 600_000
+    if seconds <= 0 or seconds == float("inf"):
+        return 2 ** 31 - 1  # ~24.8 days in ms
+    return max(1, int(seconds * 1000))
+
+
+def check_unported(environ=None) -> None:
+    """Refuse what the port cannot honour (called by ``hvd.init``).
+
+    A knob of :data:`UNPORTED_RESULT_KNOBS` set to anything but an off
+    value, or a ``HOROVOD_FAULT_INJECT`` spec with a training fault the
+    port does not inject, raises ``NotImplementedError`` naming the
+    ROADMAP §A item that ports it. A knob of :data:`UNPORTED_TUNING_KNOBS`
+    draws a warning naming its item and the run goes on without it."""
+    env = os.environ if environ is None else environ
+    for name, (item, what, off) in sorted(UNPORTED_RESULT_KNOBS.items()):
+        raw = env.get(name)
+        if raw is not None and raw.strip().lower() not in off:
+            raise NotImplementedError(
+                f"{name}={raw!r} changes what the run computes ({what}) "
+                f"and is not ported: ROADMAP §A item {item}. Unset it to "
+                f"run without it.")
+    from horovod_tpu_torch.analysis import protocol as _proto
+
+    for fault in _proto.parse_fault_spec(env.get("HOROVOD_FAULT_INJECT")):
+        if fault.kind in UNPORTED_FAULTS:
+            raise NotImplementedError(
+                f"HOROVOD_FAULT_INJECT: the {fault.kind!r} fault "
+                f"({fault.describe()}) is not injected by the port: "
+                f"ROADMAP §A item 15. A drill that "
+                f"injects nothing would pass fault-free; drop the entry.")
+    for name, item in sorted(UNPORTED_TUNING_KNOBS.items()):
+        if name in env:
+            warnings.warn(
+                f"{name} is set but not ported: ROADMAP §A item {item}. It "
+                f"only tunes timing or reporting; the run goes on without "
+                f"it.", stacklevel=2)
 
 
 # -- serving knobs (horovod_tpu_torch.serving) ---------------------------------

@@ -248,3 +248,161 @@ def test_chip_smoke_fails_without_a_gpu(tmp_path):
     for line in proc.stdout.splitlines():
         if line.startswith("{"):
             assert json.loads(line).get("ok") is not True
+
+
+# -- the knob registry ---------------------------------------------------------
+# Every knob of the reference is registered in the port, with the ROADMAP §A
+# item that ports it. At hvd.init a knob that changes what a run computes
+# raises NotImplementedError naming its item, a knob that only tunes timing
+# or reporting warns, and the JAX-only knobs draw nothing.
+
+import warnings  # noqa: E402
+
+from horovod_tpu_torch.core import resilience as tres  # noqa: E402
+from horovod_tpu_torch.utils import env as tenv  # noqa: E402
+
+# A value the reference accepts that turns each result knob on.
+RESULT_VALUES = {
+    "HOROVOD_ALLREDUCE_ALGO": "rs_ag",
+    "HOROVOD_COMPRESSION": "int8",
+    "HOROVOD_ERROR_FEEDBACK": "1",
+    "HOROVOD_SHARDING": "zero2",
+    "HOROVOD_FSDP_AXIS_SIZE": "2",
+    "HOROVOD_ELASTIC": "1",
+}
+OFF_VALUES = {
+    "HOROVOD_ALLREDUCE_ALGO": "flat",
+    "HOROVOD_COMPRESSION": "none",
+    "HOROVOD_ERROR_FEEDBACK": "0",
+    "HOROVOD_SHARDING": "off",
+    "HOROVOD_ELASTIC": "0",
+}
+
+
+@pytest.fixture
+def clean_env(monkeypatch):
+    for name in list(os.environ):
+        if name.startswith("HOROVOD_"):
+            monkeypatch.delenv(name)
+    tres.reset_injector()
+    hvd.shutdown()
+    yield monkeypatch
+    hvd.shutdown()
+    tres.reset_injector()
+
+
+def test_every_reference_knob_is_registered_once():
+    from horovod_tpu.utils import env as jenv
+
+    assert tenv.KNOWN_ENV_VARS == jenv.KNOWN_ENV_VARS
+    classes = (tenv.PORTED_KNOBS, set(tenv.UNPORTED_RESULT_KNOBS),
+               set(tenv.UNPORTED_TUNING_KNOBS), tenv.JAX_ONLY_KNOBS)
+    assert sum(len(c) for c in classes) == len(jenv.KNOWN_ENV_VARS)
+    assert set(RESULT_VALUES) == set(tenv.UNPORTED_RESULT_KNOBS)
+
+
+@pytest.mark.parametrize("name", sorted(RESULT_VALUES))
+def test_a_result_knob_raises_at_init_naming_its_item(clean_env, name):
+    item = tenv.UNPORTED_RESULT_KNOBS[name][0]
+    clean_env.setenv(name, RESULT_VALUES[name])
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP §A item {item}\\b") as info:
+        hvd.init(device="cpu")
+    assert name in str(info.value)
+    assert not hvd.is_initialized()
+
+
+@pytest.mark.parametrize("name", sorted(OFF_VALUES))
+def test_a_result_knob_left_off_is_accepted(clean_env, name):
+    clean_env.setenv(name, OFF_VALUES[name])
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        hvd.init(device="cpu")
+    assert hvd.is_initialized()
+
+
+@pytest.mark.parametrize("name", sorted(tenv.UNPORTED_TUNING_KNOBS))
+def test_a_tuning_knob_warns_not_ported(clean_env, name):
+    item = tenv.UNPORTED_TUNING_KNOBS[name]
+    clean_env.setenv(name, "1")
+    with pytest.warns(UserWarning,
+                      match=f"{name} is set but not ported: ROADMAP §A "
+                            f"item {item}\\."):
+        hvd.init(device="cpu")
+    assert hvd.is_initialized()
+
+
+@pytest.mark.parametrize("name", sorted(tenv.JAX_ONLY_KNOBS))
+def test_a_jax_only_knob_draws_nothing(clean_env, name):
+    clean_env.setenv(name, "8")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        hvd.init(device="cpu")
+    assert hvd.is_initialized()
+
+
+@pytest.mark.parametrize("spec", ["crash@step=3", "kv_timeout@seq=2",
+                                  "regrow@step=4",
+                                  "torn_write@epoch=1;crash@rank=0,step=1"])
+def test_training_faults_the_port_does_not_inject_raise(clean_env, spec):
+    clean_env.setenv("HOROVOD_FAULT_INJECT", spec)
+    with pytest.raises(NotImplementedError, match="ROADMAP §A item 15"):
+        hvd.init(device="cpu")
+
+
+@pytest.mark.parametrize("spec", ["torn_write@epoch=2",
+                                  "engine_crash@step=2;torn_write@epoch=0"])
+def test_torn_write_and_serving_faults_are_accepted(clean_env, spec):
+    clean_env.setenv("HOROVOD_FAULT_INJECT", spec)
+    hvd.init(device="cpu")
+    assert hvd.is_initialized()
+
+
+def test_torn_write_injects_once_like_the_reference(clean_env, tmp_path):
+    """``torn_write@epoch=2`` tears the save of epoch 2, once: both
+    packages leave the same truncated bytes, and a retried save of the same
+    epoch is whole."""
+    from horovod_tpu.core import resilience as jres
+    from horovod_tpu.training import checkpoint as jck
+    from horovod_tpu_torch.training import checkpoint as tck
+
+    clean_env.setenv("HOROVOD_FAULT_INJECT", "torn_write@epoch=2")
+    tres.reset_injector()
+    jres.reset_injector()
+    data = bytes(range(256)) * 3
+    try:
+        for mod, sub in ((jck, "j"), (tck, "t")):
+            (tmp_path / sub).mkdir()
+            path = str(tmp_path / sub / "x")
+            mod._atomic_write(path, data, fault_epoch=1)
+            assert open(path, "rb").read() == data
+            mod._atomic_write(path, data, fault_epoch=2)
+            assert open(path, "rb").read() == data[:len(data) // 2]
+            mod._atomic_write(path, data, fault_epoch=2)
+            assert open(path, "rb").read() == data
+    finally:
+        jres.reset_injector()
+
+
+@pytest.mark.parametrize("raw", [None, "", "0", "1", "2.5", "-3", "inf",
+                                 "nan", "x"])
+def test_stall_and_negotiation_timeout_parse_like_the_reference(
+        monkeypatch, raw):
+    from horovod_tpu.utils import env as jenv
+
+    for name in ("HOROVOD_STALL_CHECK_TIME", "HOROVOD_NEGOTIATION_TIMEOUT"):
+        if raw is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, raw)
+    def outcome(fn):
+        try:
+            v = fn()
+        except ValueError as e:
+            return ("raises", str(e))
+        return ("nan",) if v != v else v
+
+    assert (outcome(tenv.stall_warning_seconds)
+            == outcome(jenv.stall_warning_seconds))
+    assert (outcome(tenv.negotiation_timeout_ms)
+            == outcome(jenv.negotiation_timeout_ms))

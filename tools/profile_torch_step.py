@@ -18,9 +18,13 @@ then traces ``--steps`` steps with ``torch.profiler``:
 It prints, per step: the host wall time, the summed device kernel time and
 their ratio (the device's busy share; one stream, so kernels do not
 overlap), the time by category (the port's own kernels — BatchNorm channel
-sums, flash attention — then convolutions and matrix products, other
-kernels) and the top kernels, and writes the same as JSON to ``--out`` when
-it is given.
+sums, flash attention, the AdamW update A1 — then convolutions and matrix
+products, other kernels), the top kernels, the device time by region of the
+step (backward, optimizer: the ``Optimizer.step`` range, and the rest:
+the forward pass and the gradient exchange) and the
+elementwise and copy/cast kernels split op by op (each kernel under the
+PyTorch op that launched it, and that op's region), and writes the same as
+JSON to ``--out`` when it is given.
 """
 
 from __future__ import annotations
@@ -46,7 +50,9 @@ _OWN = (  # the port's kernels, by category
                          "channel_grad_sums_kernel", "finalize_kernel")),
     ("flash_attention", ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
                          "flash_bwd_dq_kernel")),
+    ("adamw", ("adamw_kernel",)),
 )
+_SPLIT = ("elementwise", "copy_and_cast")  # split op by op
 _CATEGORIES = (  # first match wins
     ("nccl", ("nccl",)),
     ("conv_and_matmul", ("conv", "gemm", "xmma", "cutlass", "cudnn",
@@ -89,6 +95,41 @@ def kernel_times(events) -> dict[str, list]:
             k[0] += us
             k[1] += 1
     return kernels
+
+
+def _region(event) -> str:
+    """``optimizer`` under the ``Optimizer.step`` range, ``backward`` under
+    the autograd engine, else ``rest`` (the forward pass and the gradient
+    exchange). A kernel launched outside any op (A1, through ctypes)
+    belongs to no region; its category counts it."""
+    while event is not None:
+        if event.name.startswith("Optimizer.step"):
+            return "optimizer"
+        if event.name.startswith("autograd::engine"):
+            return "backward"
+        event = event.cpu_parent
+    return "rest"
+
+
+def op_times(events) -> tuple[dict[str, float], dict[str, list]]:
+    """Device time by region of the step, ``{region: µs}``, and the
+    elementwise and copy/cast kernels op by op, ``{"region/op": [device µs,
+    kernels]}``: every kernel counts under the CPU event that launched it
+    (its ``kernels``), in that event's region."""
+    regions: dict[str, float] = {}
+    ops: dict[str, list] = {}
+    for e in events:
+        if (e.device_type != torch.autograd.DeviceType.CPU
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        for k in getattr(e, "kernels", None) or ():
+            region = _region(e)
+            regions[region] = regions.get(region, 0.0) + k.duration
+            if _category(k.name) in _SPLIT:
+                rec = ops.setdefault(f"{region}/{e.name}", [0.0, 0])
+                rec[0] += k.duration
+                rec[1] += 1
+    return regions, ops
 
 
 def main(argv=None) -> int:
@@ -144,6 +185,7 @@ def main(argv=None) -> int:
             trainer.train_step(batch)
         torch.cuda.synchronize()
     kernels = kernel_times(prof.events())
+    regions, ops = op_times(prof.events())
     per_step_ms = {}
     for name, (us, _) in kernels.items():
         cat = _category(name)
@@ -166,6 +208,13 @@ def main(argv=None) -> int:
                          "calls_per_step": n / args.steps,
                          "ms_per_step": us / 1e3 / args.steps}
                         for name, (us, n) in top],
+        "device_ms_per_step_by_region": {
+            r: us / 1e3 / args.steps for r, us in sorted(regions.items())},
+        "elementwise_and_casts_by_op": [
+            {"op": op, "kernels_per_step": n / args.steps,
+             "ms_per_step": us / 1e3 / args.steps}
+            for op, (us, n) in sorted(ops.items(), key=lambda kv: kv[1][0],
+                                      reverse=True)[:40]],
     }
     if args.model == "resnet50":
         result["norm_impl"] = args.norm_impl
