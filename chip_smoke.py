@@ -27,9 +27,12 @@ Phases, one line of output each:
 5. the main path: ``hvd.init()`` (world of 1, NCCL), ResNet-50 at full
    width with ``norm_impl="fused"``, batch 128, bf16,
    ``DistributedOptimizer(SGD(0.1, momentum=0.9))``, ``Trainer.fit`` for 10
-   steps on a repeated seeded batch; the loss must be finite and fall, and
-   each kernel's launch count must grow by exactly 53 per step (53
-   BatchNorm layers);
+   steps on a repeated seeded batch — the step captured as a CUDA graph by
+   ``hvd.spmd``: the first step eager, the second captured and replayed,
+   the rest replayed; the loss must be finite and fall, and each kernel's
+   launch count must be exactly 53 (BatchNorm layers) a step over the 10
+   steps (a launch recorded by the capture counts at each replay, where the
+   card runs it; phase 12 shows the kernels inside the replays);
 6. the flash kernels B3/B4 against their plain versions on the card, row
    by row, at small shapes for every masking mode (GQA, ragged lengths
    crossing the kernels' tiles, offsets, dead rows, window, segment ids, an
@@ -48,9 +51,10 @@ Phases, one line of output each:
    gradient tensor held on its own; B4 with di dropped must fail it;
 8. the LM's main path: bench.py's config (8 layers, T=8192, B=2, bf16,
    fused head), ``DistributedOptimizer(AdamW(3e-4, weight_decay=0.1))``,
-   ``Trainer.fit`` for 10 steps on a repeated seeded batch; the loss must be
-   finite and fall, B3 and B4 must launch exactly 8 times a step and the
-   AdamW kernel A1 once;
+   ``Trainer.fit`` for 10 steps on a repeated seeded batch, captured as in
+   5; the loss must be finite and fall, B3 and B4 must launch exactly 8
+   times a step and the AdamW kernel A1 once, in the eager step and the
+   capture;
 9. LM serving: bench.py's LM at full width and depth (bf16 weights from
    ``init_params``, bf16 KV pages, block size 16, ``max_seq_len`` 2048 =
    the engine's view length) through ``serving.Engine``:
@@ -96,10 +100,34 @@ Phases, one line of output each:
     (one chunk left out) must fail; its time (one launch a step), bound,
     plain and ``torch.optim.AdamW(fused=True)`` times (fp32 moments: not
     the same function, so ``library_ms`` is null); and the LM step's
-    tokens/s with A1 against the plain update, A1, plain, plain, A1.
+    tokens/s with A1 against the plain update, A1, plain, plain, A1 (each
+    captured);
+12. the captured step: ``Trainer(steps_per_call=5)``, which ``hvd.spmd``
+    captures as one CUDA graph of 5 steps, against the function it wraps
+    run eagerly (``trainer.step_fn``), from the same seeded weights and
+    batches, 3 calls each (eager, captured and replayed, replayed) with
+    ``set_lr`` before the second and the third, cuDNN held deterministic:
+    (a) ResNet-50 (bf16, batch 128, fused BN, ``training.sgd(0.1,
+    momentum=0.9)``) and (b) the LM (phase 8's, AdamW with its LR in a
+    device tensor, on A1) must match every loss and every parameter,
+    buffer and optimizer state tensor bit for bit; (c) the profiled
+    replays must run B1 and B2 53 times a step, B3 and B4 8 times and A1
+    once; (d) the same ResNet-50 trainer with a Python float LR, a planted
+    fault: ``set_lr`` must refuse once the step is captured, and the LR
+    written into ``param_groups`` after the capture, which the graph
+    ignores, must fail the bit-equality check while the calls before it
+    pass; (e) images/s and tokens/s, captured against eager, 5 timed
+    windows each in turns (median, min, max), and each side's device ms a
+    step and busy share in one profiled call; (f) a small MLP: a
+    ``torch.optim.AdamW`` trainer (made capturable) equals its eager step
+    bit for bit, loading the inner optimizer's state recaptures the step
+    and still equals the eager step, a ragged batch's program shares the
+    first one's memory pool, and ``torch.optim.Adagrad`` is refused.
 
 Each main path (5, 8 and 10) runs with its kernels' launch counts set to 0
-just before it and read just after. Then a JSON line with each kernel's
+just before it and read just after; the kernels line's ``launches`` are
+phases 5 and 8's counts (the eager step and the 9 replays). Then a JSON line
+with each kernel's
 record, and last the result line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script then
 exits non-zero and prints no result. It also fails without CUDA, and when
@@ -113,11 +141,13 @@ full fp32; the main path computes in bf16, which TF32 does not touch.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
 import shutil
 import statistics
+import gc
 import subprocess
 import sys
 import time
@@ -136,6 +166,8 @@ from horovod_tpu_torch.ops import batchnorm as bn
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import optim
 from horovod_tpu_torch.ops.optim import AdamW
+from horovod_tpu_torch.parallel.optimizer import optimizer_state_tensors
+from horovod_tpu_torch import training
 from horovod_tpu_torch.training import checkpoint
 from horovod_tpu_torch.training.callbacks import (Callback,
                                                   ModelCheckpointCallback)
@@ -143,6 +175,7 @@ from horovod_tpu_torch.training.callbacks import (Callback,
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "tools"))
 import serve_bench_torch  # noqa: E402  (tools/serve_bench_torch.py)
+import profile_torch_step  # noqa: E402  (tools/profile_torch_step.py)
 
 SEED = 0
 BATCH = 128
@@ -259,6 +292,13 @@ FLASH_CASES = (
     ("GQA tile edges", (1, 257, 257, 8, 2, 128), torch.bfloat16,
      dict(causal=False), False),
 )
+
+
+def free_cuda() -> None:
+    """Return the memory of dropped objects to the card: a trainer's CUDA
+    graphs hold their memory pools until the trainer is collected."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def say(msg: str) -> None:
@@ -544,7 +584,7 @@ def phase_kernels(model, device):
     b1_kernels_per_call(
         torch.randn((25088, 256), generator=g, device=device).bfloat16())
     del flush, clean
-    torch.cuda.empty_cache()
+    free_cuda()
     if not worst_library_rel <= LIBRARY_TOL:
         raise RuntimeError(
             f"batch_norm_backward_reduce disagrees with channel_grad_sums_"
@@ -823,7 +863,7 @@ def phase_flash_kernels(device):
         r["tflops"] = bounds[name][2] / (r["ms"] * 1e-3) / 1e12
         r["bound_share"] = r["bound_ms"] / r["ms"]
     del flush, sdpa_out
-    torch.cuda.empty_cache()
+    free_cuda()
     return rec, worst, full, lib_err, faults
 
 
@@ -925,13 +965,28 @@ def phase_main_path(device):
         raise RuntimeError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"loss did not fall: {losses}")
-    for k, v in launches.items():
-        if v != BN_LAYERS * STEPS:
-            raise RuntimeError(f"{k} launched {v} times in {STEPS} steps, "
-                               f"expected {BN_LAYERS} per step")
+    check_captured(trainer, launches, {k: BN_LAYERS for k in launches})
     steady = timer.times[2:]
     images_per_s = BATCH * len(steady) / sum(steady)
     return losses, launches, images_per_s, steady
+
+
+def check_captured(trainer, launches: dict, per_step: dict) -> None:
+    """A main path's STEPS calls through the captured step: the first eager,
+    the second captured, the rest replays (a tree before ``hvd.spmd``, as
+    ``tools/bench_bn_sums.py --root`` may load, runs every step eagerly);
+    each kernel launched ``per_step`` times a step, its launches in a replay
+    counted there."""
+    step = getattr(trainer, "_step", None)
+    if step is not None and (step.runs, step.replays) != (2, STEPS - 1):
+        raise RuntimeError(f"{STEPS} steps ran the step in Python "
+                           f"{step.runs} times and replayed it "
+                           f"{step.replays} times; expected 2 and "
+                           f"{STEPS - 1}")
+    for k, n in per_step.items():
+        if launches[k] != n * STEPS:
+            raise RuntimeError(f"{k} launched {launches[k]} times in "
+                               f"{STEPS} steps, expected {n} a step")
 
 
 # -- the LM (B3/B4's path) -----------------------------------------------------------
@@ -977,7 +1032,7 @@ def phase_lm_step_vs_cpu(device):
                     f"{k}: {fa.LAUNCHES[k] - before[k]} launches in one "
                     f"2-layer step, expected {LM_STEP_LAYERS}")
         del model, trainer
-        torch.cuda.empty_cache()
+        free_cuda()
         return _step_errors((float(gl), grads), cpu)
 
     def beyond(errs, tol):
@@ -1050,16 +1105,13 @@ def phase_lm_main_path(device):
         raise RuntimeError(f"non-finite LM loss: {losses}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"LM loss did not fall: {losses}")
-    for k, per_step in (("flash_fwd", LM_LAYERS), ("flash_bwd", LM_LAYERS),
-                        ("adamw", 1)):
-        if launches[k] != per_step * STEPS:
-            raise RuntimeError(f"{k} launched {launches[k]} times in {STEPS} "
-                               f"LM steps, expected {per_step} per step")
+    check_captured(trainer, launches, {"flash_fwd": LM_LAYERS,
+                                       "flash_bwd": LM_LAYERS, "adamw": 1})
     steady = timer.times[2:]
     tokens_per_s = LM_BATCH * LM_T * len(steady) / sum(steady)
     peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
     del model, trainer, opt
-    torch.cuda.empty_cache()
+    free_cuda()
     return losses, launches, tokens_per_s, steady, n_params, peak_gib
 
 
@@ -1209,7 +1261,7 @@ def checkpoint_drill(name: str, device, directory: str) -> dict:
             os.environ["HOROVOD_FAULT_INJECT"] = before
         resilience.reset_injector()
     del trainer
-    torch.cuda.empty_cache()
+    free_cuda()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         latest = checkpoint.latest_epoch(directory)
@@ -1229,7 +1281,7 @@ def checkpoint_drill(name: str, device, directory: str) -> dict:
                     callbacks=[resumed, run_b], resume=directory)
     load_s = resumed.clock - t0
     del trainer
-    torch.cuda.empty_cache()
+    free_cuda()
     if resumed.epoch != CKPT_TORN:
         raise RuntimeError(f"{name}: resumed at epoch {resumed.epoch}, "
                            f"expected {CKPT_TORN}")
@@ -1253,9 +1305,7 @@ def phase_checkpoint(device) -> dict:
     """Phase 10: checkpoint and resume at full width, ResNet-50 and the LM,
     through ``fit``, ``ModelCheckpointCallback`` and ``fit(resume=)``. Every
     kernel of the two paths must launch."""
-    for reset in (bn.reset_launch_counts, fa.reset_launch_counts,
-                  optim.reset_launch_counts):
-        reset()
+    reset_launch_counts()
     out = {}
     for name in ("resnet50", "lm"):
         directory = os.path.join(HERE, CKPT_DIR, name)
@@ -1265,7 +1315,7 @@ def phase_checkpoint(device) -> dict:
         finally:
             shutil.rmtree(directory, ignore_errors=True)
     shutil.rmtree(os.path.join(HERE, CKPT_DIR), ignore_errors=True)
-    launches = {**bn.LAUNCHES, **fa.LAUNCHES, **optim.LAUNCHES}
+    launches = launch_counts()
     idle = sorted(k for k, v in launches.items() if v == 0)
     if idle:
         raise RuntimeError(f"phase 10 never launched {idle}: {launches}")
@@ -1412,22 +1462,22 @@ def lm_ab(model, cfg, tokens) -> dict:
         cls = AdamW if which == "a1" else PlainAdamW
         trainer = hvd.Trainer(model, loss_fn, hvd.DistributedOptimizer(
             cls(model.parameters(), 3e-4, weight_decay=0.1)))
-        for _ in range(LM_AB_WARM):
+        optim.reset_launch_counts()
+        for _ in range(LM_AB_WARM):  # eager, captured, replayed
             trainer.train_step(tokens)
         torch.cuda.synchronize()
-        optim.reset_launch_counts()
+        launches = optim.LAUNCHES["adamw"]
+        if launches != (LM_AB_WARM if which == "a1" else 0):
+            raise RuntimeError(f"LM A/B {which}: {launches} A1 launches in "
+                               f"{LM_AB_WARM} steps")
         t0 = time.perf_counter()
         for _ in range(LM_AB_STEPS):
             trainer.train_step(tokens)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = optim.LAUNCHES["adamw"]
-        if launches != (LM_AB_STEPS if which == "a1" else 0):
-            raise RuntimeError(f"LM A/B {which}: {launches} A1 launches in "
-                               f"{LM_AB_STEPS} steps")
         out[which].append(LM_BATCH * LM_T * LM_AB_STEPS / dt)
         del trainer
-        torch.cuda.empty_cache()
+        free_cuda()
     return out
 
 
@@ -1469,11 +1519,14 @@ def phase_adamw(device) -> dict:
         del want, got, again
         work = a1_copy(inputs)
         table = optim.build_table(*work)
+        # The learning rate as the optimizer holds it: a device tensor.
+        hyper = dict(A1_HYPER, lr=torch.full((), A1_HYPER["lr"],
+                                             device=device))
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         for reps, fn, field in (
-                (A1_REPS, lambda: optim.launch(table, **A1_HYPER), "ms"),
+                (A1_REPS, lambda: optim.launch(table, **hyper), "ms"),
                 (PLAIN_REPS, lambda: optim.adamw_update_plain(
-                    *work, **A1_HYPER), "plain_ms")):
+                    *work, **hyper), "plain_ms")):
             fn()
             start.record()
             for _ in range(reps):
@@ -1503,13 +1556,448 @@ def phase_adamw(device) -> dict:
                    bytes=nbytes, params=sum(sizes), tensors=len(sizes),
                    max_abs_err=err["max_abs_err"])
         del work, table, lib, lib_params, inputs
-        torch.cuda.empty_cache()
+        free_cuda()
     tokens = transformer.synthetic_tokens(LM_BATCH, LM_T, cfg.vocab_size,
                                           seed=SEED, device=device)
     rec["lm_ab"] = lm_ab(model, cfg, tokens)
     del model
-    torch.cuda.empty_cache()
+    free_cuda()
     return rec
+
+
+# -- the captured step (phase 12) ----------------------------------------------
+
+# Trainer(steps_per_call=CAPTURE_K) runs its step through hvd.spmd: the first
+# call eager, the second captured as one CUDA graph and replayed, every later
+# call replayed. Phase 12 holds three such calls against three calls of the
+# function spmd wraps, run eagerly (trainer.step_fn), from the same seeded
+# weights and batches, with the learning rate changed through set_lr before
+# the second and the third call: every loss, parameter, buffer and optimizer
+# state tensor must be equal bit for bit. cuDNN is held to its deterministic
+# algorithms in the phase (restored after), so that two eager runs agree
+# bit for bit; the port's kernels have no float atomics.
+CAPTURE_K = 5
+CAPTURE_LRS = {"resnet50": (0.1, 0.05, 0.025), "lm": (3e-4, 1.5e-4, 7.5e-5)}
+AB_WINDOWS = 5
+AB_CALLS = 2  # calls of CAPTURE_K steps in one timed window
+REPLAY_MARK = "chip_smoke.replay"
+# The port's kernels a replay of each workload must run, a step.
+REPLAY_KERNELS = {
+    "resnet50": {"channel_sums_ring_kernel": BN_LAYERS,
+                 "channel_grad_sums_kernel": BN_LAYERS},
+    "lm": {"flash_fwd_kernel": LM_LAYERS, "flash_bwd_dq_kernel": LM_LAYERS,
+           "flash_bwd_dkdv_kernel": LM_LAYERS, "adamw_kernel": 1},
+}
+# The same, as the wrappers count them (LAUNCHES).
+REPLAY_COUNTS = {
+    "resnet50": {"channel_sums": BN_LAYERS, "channel_grad_sums": BN_LAYERS},
+    "lm": {"flash_fwd": LM_LAYERS, "flash_bwd": LM_LAYERS, "adamw": 1},
+}
+RULES_CALLS = 8  # (f): the inner optimizer's state is loaded after call 4
+
+
+def launch_counts() -> dict:
+    return {**bn.LAUNCHES, **fa.LAUNCHES, **optim.LAUNCHES}
+
+
+def reset_launch_counts() -> None:
+    for reset in (bn.reset_launch_counts, fa.reset_launch_counts,
+                  optim.reset_launch_counts):
+        reset()
+
+
+def capture_workload(name: str, device, float_lr: bool = False):
+    """A fresh ``Trainer(steps_per_call=CAPTURE_K)`` of the workload, weights
+    from SEED, and the batches of its three calls (CAPTURE_K stacked each).
+    ResNet-50 takes ``training.sgd(0.1, momentum=0.9)`` — or, with
+    ``float_lr``, the same SGD with a Python float LR, the planted fault —
+    and the LM AdamW(weight_decay=0.1) with a tensor LR, on A1."""
+    lr0 = CAPTURE_LRS[name][0]
+    if name == "resnet50":
+        model = seeded_resnet50(torch.bfloat16, device)
+        opt = (training.SGD(model.parameters(), lr0, momentum=0.9)
+               if float_lr else training.sgd(lr0, momentum=0.9))
+        trainer = hvd.Trainer(model, resnet.make_loss_fn(model), opt,
+                              has_aux=True, steps_per_call=CAPTURE_K)
+        batches = []
+        for c in range(3):
+            parts = [resnet.synthetic_imagenet(
+                BATCH, IMAGE, seed=SEED + 10 * c + i, num_classes=CLASSES,
+                device=device) for i in range(CAPTURE_K)]
+            batches.append(tuple(torch.stack(t) for t in zip(*parts)))
+        return trainer, batches
+    cfg = lm_config(torch.bfloat16)
+    model = transformer.init_params(cfg, seed=SEED, device=device)
+    lr = torch.full((), lr0, dtype=torch.float32, device=device)
+    trainer = hvd.Trainer(
+        model, transformer.make_loss_fn(cfg, fused_head=True),
+        AdamW(model.parameters(), lr, weight_decay=0.1),
+        steps_per_call=CAPTURE_K)
+    batches = [torch.stack([transformer.synthetic_tokens(
+        LM_BATCH, LM_T, cfg.vocab_size, seed=SEED + 10 * c + i,
+        device=device) for i in range(CAPTURE_K)]) for c in range(3)]
+    return trainer, batches
+
+
+def trainer_state(trainer) -> dict:
+    """Every parameter, buffer and optimizer state tensor, cloned."""
+    out = {f"model/{k}": v.detach().clone()
+           for k, v in trainer.model.state_dict().items()}
+    out.update({f"optimizer/{k}": v.detach().clone()
+                for k, v in optimizer_state_tensors(
+                    trainer.optimizer.optimizer).items()})
+    return out
+
+
+def _profiled(fn, marker: str | None = None) -> dict:
+    """``fn()`` (which returns the host wall seconds of the part it times)
+    under ``torch.profiler``, ended by a device sync: its kernels by name,
+    and from the start of the ``marker`` range ``fn`` opens (all of it
+    without one) the summed kernel µs, the µs in which some kernel ran
+    (the union of their intervals: a graph may run kernels side by side),
+    and the wall. Host events are recorded only for the marker."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CUDA]
+    if marker:
+        activities.append(ProfilerActivity.CPU)
+    torch.cuda.synchronize()
+    with profile(activities=activities) as prof:
+        wall = fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    start = min((e.time_range.start for e in events
+                 if e.name == marker
+                 and e.device_type == torch.autograd.DeviceType.CPU),
+                default=None) if marker else float("-inf")
+    if start is None:
+        raise RuntimeError(f"no {marker} range in the profile")
+    spans = sorted((e.time_range.start, e.time_range.end,
+                    profile_torch_step._device_us(e)) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)
+                   and e.time_range.start >= start)
+    busy, reach = 0.0, float("-inf")
+    for lo, hi, _ in spans:
+        busy += max(0.0, hi - max(lo, reach))
+        reach = max(reach, hi)
+    return {"kernels": profile_torch_step.kernel_times(events),
+            "device_us": sum(us for _, _, us in spans), "busy_us": busy,
+            "wall_s": wall}
+
+
+def _timed(fn) -> float:
+    """Host seconds of ``fn()`` up to a device sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def three_calls(trainer, batches, lrs, call, profiled=None
+                ) -> tuple[list, dict]:
+    """The three calls, the LR changed through ``set_lr`` before the second
+    and the third. With ``profiled`` (a list), the second and third calls
+    run under ``torch.profiler`` (:func:`_profiled`, the third call
+    marked) and the profile is appended to it."""
+    from torch.profiler import record_function
+
+    losses = []
+
+    def run(i):
+        if i:
+            trainer.set_lr(lrs[i])
+        loss, _ = call(batches[i])
+        losses.append(loss)
+
+    def calls_2_and_3():
+        run(1)
+
+        def third():
+            with record_function(REPLAY_MARK):
+                run(2)
+        return _timed(third)
+
+    run(0)
+    if profiled is None:
+        run(1)
+        run(2)
+    else:
+        profiled.append(_profiled(calls_2_and_3, REPLAY_MARK))
+    torch.cuda.synchronize()
+    return losses, trainer_state(trainer)
+
+
+def state_diff(a: dict, b: dict) -> list[str]:
+    return [k for k in a if not torch.equal(_bits(a[k]), _bits(b[k]))]
+
+
+def items_ms(r: dict, side: str) -> float:
+    """Wall ms a step of the median window of ``side``."""
+    return 1e3 * r["items"] / statistics.median(r["rates"][side])
+
+
+def capture_ab(eager, captured, batch, items: int) -> dict:
+    """(e): AB_WINDOWS timed windows of AB_CALLS calls each side, in turns
+    (eager, captured, captured, eager, ...): items/s of each window; and
+    the eager side's profile of one call (:func:`_profiled`)."""
+    rates = {"eager": [], "captured": []}
+    for w in range(AB_WINDOWS):
+        order = ("eager", "captured") if w % 2 == 0 else ("captured",
+                                                          "eager")
+        for side in order:
+            call = eager.step_fn if side == "eager" else captured.train_step
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(AB_CALLS):
+                call(batch)
+            torch.cuda.synchronize()
+            rates[side].append(items * AB_CALLS * CAPTURE_K
+                               / (time.perf_counter() - t0))
+    return {"rates": rates, "items": items,
+            "eager": _profiled(lambda: _timed(lambda: eager.step_fn(batch)))}
+
+
+def captured_vs_eager(name: str, device, items: int) -> dict:
+    """Phase 12 (a)/(b), (c) and (e) for one workload."""
+    lrs = CAPTURE_LRS[name]
+    eager, batches = capture_workload(name, device)
+    want_losses, want = three_calls(eager, batches, lrs, eager.step_fn)
+    captured, _ = capture_workload(name, device)
+    kernels: list = []
+    reset_launch_counts()
+    got_losses, got = three_calls(captured, batches, lrs,
+                                  captured.train_step, profiled=kernels)
+    counted = launch_counts()
+    step = captured._step
+    if step.runs != 2 or step.replays != 2 or step.trace_count != 1:
+        raise RuntimeError(
+            f"{name}: the captured trainer ran its step in Python "
+            f"{step.runs} times, replayed {step.replays} and recorded "
+            f"{step.trace_count} programs; expected 2, 2 and 1")
+    if captured.get_lr() != eager.get_lr():
+        raise RuntimeError(f"{name}: LR {captured.get_lr()} vs "
+                           f"{eager.get_lr()}")
+    if not all(math.isfinite(float(x)) for x in want_losses):
+        raise RuntimeError(f"{name}: non-finite eager losses "
+                           f"{[float(x) for x in want_losses]}")
+    bad = [i for i, (a, b) in enumerate(zip(got_losses, want_losses))
+           if not torch.equal(_bits(a), _bits(b))]
+    diff = state_diff(got, want)
+    if bad or diff:
+        raise RuntimeError(
+            f"{name}: the captured step differs from the eager step: calls "
+            f"{bad} (losses {[float(x) for x in got_losses]} vs "
+            f"{[float(x) for x in want_losses]}), state {diff[:8]} "
+            f"({len(diff)} of {len(want)} tensors)")
+    if name == "resnet50":
+        # B1's grid-barrier words of the program's stream: made by the eager
+        # first call, baked into the graph; every replay must leave their
+        # arrival counts (the low 32 bits; the high half is the generation,
+        # which each barrier moves on) at zero.
+        stream = next(iter(step.programs.values())).stream
+        words = bn._barriers[(device.index, stream.cuda_stream)]
+        if (words & 0xFFFFFFFF).any():
+            raise RuntimeError(f"B1's barrier words after the replays: "
+                               f"{words.tolist()}")
+    # (c): the profiled window held the two replays and no eager step, so
+    # every launch of the port's kernels in it ran inside a replay.
+    window = kernels[0]["kernels"]  # the two replays, by kernel
+    replay = {}
+    for k, per_step in REPLAY_KERNELS[name].items():
+        n = sum(c for kn, (_, c) in window.items() if k in kn)
+        if n != 2 * CAPTURE_K * per_step:
+            raise RuntimeError(
+                f"{name}: {n} launches of {k} in two replays of "
+                f"{CAPTURE_K} steps, expected {per_step} a step: "
+                f"{sorted(window)[:40]}")
+        replay[k] = n // 2
+    # The wrappers' counts: the eager call and the two replays, each
+    # CAPTURE_K steps.
+    for k, per_step in REPLAY_COUNTS[name].items():
+        if counted[k] != 3 * CAPTURE_K * per_step:
+            raise RuntimeError(
+                f"{name}: {k} counted {counted[k]} launches in 3 calls of "
+                f"{CAPTURE_K} steps, expected {per_step} a step")
+    ab = capture_ab(eager, captured, batches[0], items)
+    ab["captured"] = kernels[0]
+    ab["replay_kernels"] = replay
+    ab["kernels_per_replay"] = sum(c for _, c in window.values()) / 2
+    ab["tensors"] = len(want)
+    ab["losses"] = [float(x) for x in got_losses]
+    del eager, captured, batches
+    free_cuda()
+    return ab
+
+
+def planted_float_lr(device) -> dict:
+    """(d): ResNet-50 with a Python float LR, captured; set_lr must refuse,
+    and the LR written into param_groups after the capture — which the
+    graph ignores — must fail the bit-equality check against the eager
+    step, while the calls before it pass it."""
+    lrs = CAPTURE_LRS["resnet50"]
+    eager, batches = capture_workload("resnet50", device)
+    want_losses, want = three_calls(eager, batches, lrs, eager.step_fn)
+    del eager
+    faulty, _ = capture_workload("resnet50", device, float_lr=True)
+    losses = []
+    refused = None
+    for i, batch in enumerate(batches):
+        if i:
+            if i == 2:
+                try:
+                    faulty.set_lr(lrs[i])
+                except hvd.HorovodError as e:
+                    refused = str(e)
+            for group in faulty.optimizer.param_groups:
+                group["lr"] = lrs[i]
+        losses.append(faulty.train_step(batch)[0])
+    torch.cuda.synchronize()
+    got = trainer_state(faulty)
+    if refused is None:
+        raise RuntimeError("set_lr on a captured float LR did not raise")
+    same = [torch.equal(_bits(a), _bits(b))
+            for a, b in zip(losses, want_losses)]
+    diff = state_diff(got, want)
+    if not (same[0] and same[1]) or same[2] or not diff:
+        raise RuntimeError(
+            f"planted float LR: losses equal by call {same} (expected "
+            f"[True, True, False]), {len(diff)} state tensors differ "
+            f"(expected some)")
+    del faulty, batches
+    free_cuda()
+    return {"refused": refused, "differ": len(diff), "tensors": len(want)}
+
+
+def capture_rules(device) -> dict:
+    """(f): the Trainer's capture rules on a small fp32 MLP with
+    ``torch.optim.AdamW`` (float LR). Captured and eager (``step_fn``) run
+    RULES_CALLS calls from the same weights and batches, and both load the
+    inner optimizer's state saved after call 2 before call 5: every loss
+    and the final state must be equal bit for bit, the captured trainer
+    recording its step twice (once more after the load). Then two calls
+    on a ragged batch capture a second program, which must share the first
+    one's memory pool; and a ``torch.optim.Adagrad`` trainer is refused."""
+    def make(cls=torch.optim.AdamW, **kw):
+        torch.manual_seed(SEED)
+        model = torch.nn.Sequential(
+            torch.nn.Linear(64, 256), torch.nn.GELU(),
+            torch.nn.Linear(256, 10)).to(device)
+        return hvd.Trainer(model, lambda m, b: F.cross_entropy(m(b[0]), b[1]),
+                           cls(model.parameters(), lr=1e-3, **kw))
+
+    g = torch.Generator().manual_seed(SEED + 30)
+    batches = [(torch.randn(32, 64, generator=g).to(device),
+                torch.randint(0, 10, (32,), generator=g).to(device))
+               for _ in range(RULES_CALLS)]
+    runs = {}
+    for side in ("eager", "captured"):
+        trainer = make()
+        inner = trainer.optimizer.optimizer
+        if not all(gr["capturable"] for gr in inner.param_groups):
+            raise RuntimeError("the Trainer left torch.optim.AdamW "
+                               "uncapturable")
+        call = trainer.step_fn if side == "eager" else trainer.train_step
+        losses, saved = [], None
+        for i, batch in enumerate(batches):
+            if i == 2:
+                saved = copy.deepcopy(inner.state_dict())
+            if i == 4:
+                inner.load_state_dict(saved)
+            losses.append(call(batch)[0])
+        torch.cuda.synchronize()
+        runs[side] = (trainer, losses, trainer_state(trainer))
+    (_, want_losses, want), (captured, got_losses, got) = (
+        runs["eager"], runs["captured"])
+    step = captured._step
+    bad = [i for i, (a, b) in enumerate(zip(got_losses, want_losses))
+           if not torch.equal(_bits(a), _bits(b))]
+    diff = state_diff(got, want)
+    if bad or diff or step.trace_count != 2:
+        raise RuntimeError(
+            f"torch.optim.AdamW trainer: calls {bad} and state {diff[:8]} "
+            f"differ from the eager step, {step.trace_count} programs "
+            f"recorded (expected none, none and 2)")
+    ragged = tuple(t[:20] for t in batches[0])
+    for _ in range(2):
+        captured.train_step(ragged)
+    pools = [p.graph.pool() for p in step.programs.values()
+             if p.graph is not None]
+    if len(pools) != 2 or pools[0] != pools[1]:
+        raise RuntimeError(f"a ragged batch's program: pools {pools}, "
+                           f"expected two graphs on one pool")
+    try:
+        make(torch.optim.Adagrad)
+    except hvd.HorovodError as e:
+        refused = str(e)
+    else:
+        raise RuntimeError("a Trainer over torch.optim.Adagrad was built")
+    del runs, captured, step
+    free_cuda()
+    return {"tensors": len(want), "refused": refused}
+
+
+def captured_step_line(cs: dict, ident: str) -> str:
+    """Phase 12's line of output."""
+    def spread(rates):
+        return (f"median {statistics.median(rates):.1f} (min "
+                f"{min(rates):.1f}, max {max(rates):.1f})")
+
+    def side(r, k):
+        p = r[k]
+        busy_ms = p["busy_us"] / 1e3 / CAPTURE_K
+        return (f"{k} wall {items_ms(r, k):.2f} ms a step (median window), "
+                f"kernels {p['device_us'] / 1e3 / CAPTURE_K:.2f} ms summed "
+                f"and {busy_ms:.2f} ms busy a step (profiled call), busy "
+                f"share {p['busy_us'] / 1e6 / p['wall_s']:.3f} of the "
+                f"profiled call's wall and {busy_ms / items_ms(r, k):.3f} of "
+                f"the median window's")
+
+    def ab(r, unit):
+        return (f"{unit}/s captured {spread(r['rates']['captured'])}, eager "
+                f"{spread(r['rates']['eager'])}; {side(r, 'captured')}; "
+                f"{side(r, 'eager')}; the port's kernels a replay "
+                f"{r['replay_kernels']}, "
+                f"{r['kernels_per_replay']:.0f} device kernels a call")
+
+    return (
+        f"phase 12 captured step: ok; Trainer(steps_per_call={CAPTURE_K}) "
+        f"replaying its CUDA graph equals the eager step bit for bit over "
+        f"3 calls ({3 * CAPTURE_K} steps: eager, captured + replayed, "
+        f"replayed) with set_lr before calls 2 and 3, cuDNN deterministic: "
+        f"ResNet-50 (bf16 batch {BATCH}, fused BN, training.sgd(0.1, "
+        f"momentum 0.9), LRs {CAPTURE_LRS['resnet50']}) "
+        f"{cs['resnet50']['tensors']} tensors, losses "
+        f"{cs['resnet50']['losses']}; LM ({LM_LAYERS} layers, B={LM_BATCH} "
+        f"T={LM_T} bf16, AdamW wd 0.1 on A1, LRs {CAPTURE_LRS['lm']}) "
+        f"{cs['lm']['tensors']} tensors, losses {cs['lm']['losses']}; "
+        f"planted float LR caught: set_lr refused (\"{cs['fault']['refused']}"
+        f"\"), the LR written after the capture ignored, "
+        f"{cs['fault']['differ']} of {cs['fault']['tensors']} tensors "
+        f"differ; A/B over {AB_WINDOWS} windows of {AB_CALLS} calls: "
+        f"ResNet-50 {ab(cs['resnet50'], 'images')}; LM "
+        f"{ab(cs['lm'], 'tokens')}; MLP with torch.optim.AdamW: captured = "
+        f"eager bit for bit over {RULES_CALLS} calls, the inner optimizer's "
+        f"state loaded before call 5 (recaptured), {cs['rules']['tensors']} "
+        f"tensors; a ragged batch's graph on the first one's pool; Adagrad "
+        f"refused (\"{cs['rules']['refused']}\"); on {ident}")
+
+
+def phase_captured_step(device) -> dict:
+    """Phase 12: the captured step against the eager step, ResNet-50 and the
+    LM at full width, (a)-(e)."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {"resnet50": captured_vs_eager("resnet50", device, BATCH),
+               "fault": planted_float_lr(device),
+               "lm": captured_vs_eager("lm", device, LM_BATCH * LM_T),
+               "rules": capture_rules(device)}
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = deterministic
+    return out
 
 
 # -- LM serving (phase 9) ------------------------------------------------------
@@ -1792,7 +2280,7 @@ def phase_serving(device):
     out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
     out["seconds"] = time.perf_counter() - t0
     del model, engine, solo_engine, load_engine
-    torch.cuda.empty_cache()
+    free_cuda()
     return out
 
 
@@ -1820,7 +2308,7 @@ def main() -> int:
     rec, distinct, worst_rel, worst_library_rel, fault_rel = phase_kernels(
         model, device)
     del model
-    torch.cuda.empty_cache()
+    free_cuda()
     b1 = rec["channel_sums"]
     say(f"phase 3 kernels: ok at {len(distinct)} ResNet-50 shapes + 1 ragged, "
         f"bf16 and fp32, and B1 at {len(B1_EDGE_CASES)} edge cases in both "
@@ -1852,7 +2340,8 @@ def main() -> int:
     losses, launches, ips, steady = phase_main_path(device)
     say(f"phase 5 main path: ok; ResNet-50 bf16 fused BN batch {BATCH}, "
         f"{STEPS} steps; loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches "
-        f"{launches} ({BN_LAYERS}/step each); smoke throughput "
+        f"{launches} ({BN_LAYERS} a step: the eager first call and "
+        f"{STEPS - 1} replays); smoke throughput "
         f"{ips:.1f} images/s (steps 3-{STEPS}, mean step "
         f"{1e3 * sum(steady) / len(steady):.2f} ms) on {ident}; total "
         f"{time.perf_counter() - t_start:.0f} s")
@@ -1898,7 +2387,8 @@ def main() -> int:
         f"{LM_LAYERS} layers, B={LM_BATCH} T={LM_T} bf16 fused head, "
         f"AdamW(3e-4, wd 0.1, bf16 moments), {STEPS} steps; loss "
         f"{lm_losses[0]:.4f} -> {lm_losses[-1]:.4f}; launches {lm_launches} "
-        f"(flash {LM_LAYERS}/step each, A1 1/step); smoke throughput "
+        f"(flash {LM_LAYERS} a step each, A1 1 a step: the eager call and "
+        f"{STEPS - 1} replays); smoke throughput "
         f"{tps:.1f} tokens/s "
         f"(steps 3-{STEPS}, mean step "
         f"{1e3 * sum(lm_steady) / len(lm_steady):.2f} ms), peak memory "
@@ -2015,6 +2505,10 @@ def main() -> int:
                             if k.startswith(("ms_", "library_ms_"))
                             or k in ("library_bwd_ms",
                                      "nearest_library_ms")})
+    cs = phase_captured_step(device)
+    say(captured_step_line(cs, ident) + f"; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+
     say(json.dumps({"kernels": kernels}))
     hvd.shutdown()
     say(json.dumps({"ok": True, "device": {

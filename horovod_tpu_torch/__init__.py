@@ -6,10 +6,22 @@ Each rank is a process with one GPU; collectives run over
 Pallas kernels are CUDA kernels written for Hopper (``csrc/``).
 
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
     hvd.init()                         # cuda:<LOCAL_RANK>, NCCL
-    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), 0.1,
-                                                   momentum=0.9))
-    trainer = hvd.Trainer(model, loss_fn, opt, has_aux=True)
+    trainer = hvd.Trainer(model, loss_fn, training.sgd(0.1, momentum=0.9),
+                          has_aux=True, steps_per_call=5)
+
+The trainer's step runs through ``hvd.spmd``: on the card it is captured
+once as a CUDA graph and replayed (K = ``steps_per_call`` steps a replay),
+and its collective schedule is validated across the ranks once. The
+``training.sgd``/``training.adam`` builders keep the learning rate in a
+device tensor, so LR-schedule callbacks reach the captured step. A
+``torch.optim`` optimizer works too if it can be captured: the Trainer
+sets its ``capturable`` flag (``SGD`` needs none; one without the flag is
+refused), and its float learning rate is fixed once the step is recorded.
+``hvd.spmd(fn)`` wraps any step function the same
+way; ``rank_stack``, ``replicate`` and ``local_values`` are the JAX
+package's rank-axis helpers for a world where a process is a rank.
 
 The long-context LM (``models/transformer.py``) trains the same way, with
 ``ops.optim.AdamW`` and ``make_loss_fn(config, fused_head=True)``; its
@@ -49,6 +61,13 @@ from horovod_tpu_torch.ops.flash_attention import (  # noqa: F401
     flash_attention_lse,
 )
 from horovod_tpu_torch.parallel.sequence import local_attention  # noqa: F401
+from horovod_tpu_torch.parallel.spmd import (  # noqa: F401
+    device_put_ranked,
+    local_values,
+    rank_stack,
+    replicate,
+    spmd,
+)
 from horovod_tpu_torch.parallel.optimizer import (  # noqa: F401
     DistributedOptimizer,
     allreduce_gradients,
@@ -74,4 +93,5 @@ from horovod_tpu_torch.training.callbacks import (  # noqa: F401
     ModelCheckpointCallback,
     StallWarningCallback,
 )
+from horovod_tpu_torch import training  # noqa: F401
 from horovod_tpu_torch.training.loop import Trainer  # noqa: F401

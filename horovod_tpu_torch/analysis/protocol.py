@@ -1,6 +1,7 @@
 """Pure protocol judgements — a copy of the subset of
 ``horovod_tpu/analysis/protocol.py`` that the port's runtime calls: request
 validation and the store key namespace of the negotiation layer, the
+comparison of two programs' collective schedules, the
 fault-injection grammar (``HOROVOD_FAULT_INJECT``) with its torn-write
 matcher, the checkpoint-resume agreement, and the serving judgements
 (deadlines, the journal's committed-token fold, stall verdicts).
@@ -307,6 +308,31 @@ def verdict_key(generation: int, group: int, seq: int) -> str:
     """The coordinator's published verdict for one negotiation index of a
     group."""
     return f"{KEY_PREFIX}/resp/g{generation}/grp{group}/s{seq}"
+
+
+def sched_key(generation: int, tag: str, epoch: int) -> str:
+    """Base key for one compiled program's schedule validation round;
+    call sites append ``/p<pid>`` and ``/verdict``."""
+    return f"{KEY_PREFIX}/sched/g{generation}/{tag}/{epoch}"
+
+
+# ---------------------------------------------------------------------------
+# Schedule comparison
+# ---------------------------------------------------------------------------
+
+
+def first_divergence(a: Sequence[object], b: Sequence[object]
+                     ) -> Optional[tuple[int, object, object]]:
+    """First position where two ordered collective schedules differ, or
+    None when identical (used by ``validate_schedule`` and the checker)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return (i, x, y)
+    if len(a) != len(b):
+        i = min(len(a), len(b))
+        return (i, a[i] if i < len(a) else "<end>",
+                b[i] if i < len(b) else "<end>")
+    return None
 
 
 # ---------------------------------------------------------------------------

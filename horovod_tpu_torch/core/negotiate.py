@@ -106,6 +106,7 @@ class Negotiator:
         self.store_calls = 0
         self._generation: dict[int, int] = {}
         self._seq: dict[int, int] = {}
+        self._sched: dict[tuple[int, str], int] = {}
         self._stalls: dict[int, list[str]] = {}
         self._lock = threading.Lock()
 
@@ -116,6 +117,19 @@ class Negotiator:
             self._seq[group] = seq + 1
             return self._generation.get(group, 0), seq
 
+    def generation(self, group: int) -> int:
+        """The group's current generation."""
+        with self._lock:
+            return self._generation.get(group, 0)
+
+    def sched_index(self, group: int, tag: str) -> tuple[int, int]:
+        """``(generation, epoch)`` of the group's next schedule validation
+        of program ``tag`` (``core/multihost.py``)."""
+        with self._lock:
+            epoch = self._sched.get((group, tag), 0)
+            self._sched[(group, tag)] = epoch + 1
+            return self._generation.get(group, 0), epoch
+
     def bump_generation(self, group: int) -> int:
         """Move the group's keys to a fresh namespace; every member calls
         this at the same point of its sequence."""
@@ -123,6 +137,8 @@ class Negotiator:
             gen = self._generation.get(group, 0) + 1
             self._generation[group] = gen
             self._seq[group] = 0
+            for k in [k for k in self._sched if k[0] == group]:
+                del self._sched[k]
             return gen
 
     def stalled(self, group: int) -> list[str]:

@@ -79,6 +79,7 @@ class _State:
         self.fusion_threshold = _env.DEFAULT_FUSION_THRESHOLD
         self.owns_default_pg = False
         self.negotiator = None  # core/negotiate.py's, made by init
+        self.inits = 0  # init cycles so far: part of every program's key
 
 
 _state = _State()
@@ -187,6 +188,7 @@ def init(group_ranks: Sequence[Sequence[int]] | None = None, *,
         _state.local_size = int(os.environ.get("LOCAL_WORLD_SIZE", world))
         _state.fusion_threshold = _env.fusion_threshold_bytes()
         _state.owns_default_pg = owns
+        _state.inits += 1
         _state.initialized = True
         if rank == 0:  # coordinator-only timeline, as in the reference
             _timeline.maybe_start()
@@ -227,6 +229,15 @@ def bump_generation(group: int = 0) -> int:
     group negotiates on its own sequence, so each has its own.)"""
     get_group(group)
     return _state.negotiator.bump_generation(group)
+
+
+def generation(group: int = 0) -> tuple[int, int]:
+    """``(init cycle, the group's coordination generation)``: what an
+    ``spmd`` program is keyed on, so a program recorded before a
+    ``shutdown``/``init`` cycle or a :func:`bump_generation` never runs
+    again."""
+    get_group(group)
+    return _state.inits, _state.negotiator.generation(group)
 
 
 def _require_init() -> _State:

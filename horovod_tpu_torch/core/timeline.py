@@ -12,6 +12,12 @@ clock, and the file flushes at most once a second. Activity names:
                              the collective itself
     MEMCPY_OUT_FUSION_BUFFER unpack
 
+An ``spmd`` program (``parallel/spmd.py``) adds, when it is recorded, a
+TRACE_AND_COMPILE span on its ``_program/<tag>`` row and a NEGOTIATE_<OP>
+span on each row of its schedule; and on every later run, GRAPH_<OP> spans
+on those rows, opened before the run and closed once the device is done
+with it (the reference names them XLA_<OP>).
+
 The serving engine writes one ``serving`` row: PREFILL and DECODE spans
 around its two forwards, and instant ticks ADMIT (a request took a slot),
 EVICT (finished or preempted), DEADLINE (evicted or refused past its
@@ -89,6 +95,10 @@ class Timeline:
 
     def __init__(self) -> None:
         self._py: _PyTimeline | None = None
+
+    @property
+    def active(self) -> bool:
+        return self._py is not None
 
     def start(self, path: str) -> None:
         if self._py is None:

@@ -44,6 +44,8 @@
 //    No count is written before every chunk of its tensor has read it, so
 //    the host never reads or writes the count: the update can be captured
 //    in a CUDA graph.
+//  * The learning rate is read from a device tensor, not passed by value,
+//    so a captured update follows the LR a schedule writes there.
 //
 // Plain C interface for ctypes. hvd_adamw returns cudaGetLastError() (or
 // cudaErrorInvalidValue for arguments it refuses); the Python wrapper raises
@@ -72,7 +74,7 @@ struct Rec {  // one parameter tensor; the layout ops/optim.py writes
 static_assert(sizeof(Rec) == 64, "ops/optim.py writes 8 int64 a record");
 
 struct Hyper {
-  float b1, omb1, b2, omb2, eps, wd, neg_lr;
+  float b1, omb1, b2, omb2, eps, wd, neg_lr;  // neg_lr: set by the kernel
 };
 
 template <bool BF16>
@@ -199,9 +201,11 @@ __device__ __forceinline__ void run_chunk(const Rec& r, long long lo,
 
 __global__ void __launch_bounds__(kThreads)
     adamw_kernel(const Rec* __restrict__ recs, int* __restrict__ arrived,
-                 int n_tensors, long long total_chunks, Hyper h) {
+                 int n_tensors, long long total_chunks, Hyper h,
+                 const float* __restrict__ lr) {
   __shared__ int s_t;      // the tensor of this block's chunk
   __shared__ int s_count;  // its step count after this update
+  h.neg_lr = -*lr;  // exact: the plain version's −lr
   for (long long c = blockIdx.x; c < total_chunks; c += gridDim.x) {
     if (threadIdx.x == 0) {
       int lo = 0, hi = n_tensors - 1;  // last record with chunk0 <= c
@@ -248,16 +252,19 @@ long long hvd_adamw_chunk_elems() { return kChunk; }
 // Blocks of the persistent grid on each multiprocessor.
 int hvd_adamw_blocks_per_sm() { return kBlocksPerSM; }
 
+// lr: the learning rate, one fp32 on the device, read by every block at
+// run time (a CUDA graph that captures the launch keeps reading the same
+// tensor, so an update of the tensor reaches every replay).
 int hvd_adamw(const void* recs, void* arrived, int n_tensors,
               long long total_chunks, int grid, float b1, float omb1,
-              float b2, float omb2, float eps, float wd, float neg_lr,
+              float b2, float omb2, float eps, float wd, const void* lr,
               void* stream) {
-  if (n_tensors < 1 || total_chunks < 1 || grid < 1)
+  if (n_tensors < 1 || total_chunks < 1 || grid < 1 || lr == nullptr)
     return (int)cudaErrorInvalidValue;
-  const Hyper h{b1, omb1, b2, omb2, eps, wd, neg_lr};
+  const Hyper h{b1, omb1, b2, omb2, eps, wd, 0.0f};
   adamw_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const Rec*>(recs), static_cast<int*>(arrived), n_tensors,
-      total_chunks, h);
+      total_chunks, h, static_cast<const float*>(lr));
   return (int)cudaGetLastError();
 }
 

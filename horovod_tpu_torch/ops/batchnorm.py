@@ -38,9 +38,11 @@ import torch
 import torch.distributed as dist
 
 from horovod_tpu_torch.ops import _build
+from horovod_tpu_torch.ops import launches as _launches
 
 # Kernel launches per wrapper since the last reset_launch_counts(); only the
-# CUDA branch counts, where the kernel is actually launched.
+# CUDA branch counts, where the kernel is actually launched (a captured launch
+# at each replay of its graph: ops/launches.py).
 LAUNCHES = {"channel_sums": 0, "channel_grad_sums": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -245,7 +247,7 @@ def channel_sums(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         _DTYPE_CODES[x.dtype], vec, plan.gx, plan.gy, plan.ct,
         plan.rows_per_stage, device, stream)
     _raise_on(err, "channel_sums")
-    LAUNCHES["channel_sums"] += 1
+    _launches.count(LAUNCHES, "channel_sums")
     return buf[:c], buf[c:2 * c]
 
 
@@ -293,7 +295,7 @@ def channel_grad_sums(dy: torch.Tensor, x: torch.Tensor, mean: torch.Tensor,
             partial.data_ptr(), sdy.data_ptr(), sdx.data_ptr(), n, c,
             _DTYPE_CODES[x.dtype], vec, slabs, _stream(x))
     _raise_on(err, "channel_grad_sums")
-    LAUNCHES["channel_grad_sums"] += 1
+    _launches.count(LAUNCHES, "channel_grad_sums")
     return sdy, sdx
 
 

@@ -22,6 +22,14 @@ that is not a member of ``group`` takes no part and gets ``None`` (``[]``
 from ``gather``), the reference's convention for a process that hosts no
 member of the group.
 
+Inside an ``spmd`` program (``core/context.py``) a collective registers in
+the program's schedule and skips step 2: the program's one schedule
+validation (``core/multihost.py``) stands in for it, except in the
+program's first, eager call, which negotiates as well. There, as in the
+reference's traced collectives, shapes are the same on every rank (the
+validation compares them), and ``gather`` gives every member the
+concatenation.
+
 ``alltoall``, ``reducescatter`` and group families are not ported yet.
 """
 
@@ -32,6 +40,7 @@ import threading
 import torch
 import torch.distributed as dist
 
+from horovod_tpu_torch.core import context as _ctx
 from horovod_tpu_torch.core import negotiate as _neg
 from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.core import timeline as _tl
@@ -62,6 +71,33 @@ def dtype_name(dtype: torch.dtype) -> str:
     """The numpy-style dtype name the reference's requests carry
     (``float32``, ``bfloat16``, ``int64``, ``bool``)."""
     return str(dtype).removeprefix("torch.")
+
+
+def program_register(g: _state.Group, name: str, op: _neg.CollectiveOp,
+                     dtype: torch.dtype, shape, root_rank: int = -1,
+                     members=None) -> bool:
+    """Register a collective in the active ``spmd`` program, if any.
+    Returns whether the per-call negotiation runs: outside a program, or
+    in a program's first, eager call."""
+    ctx = _ctx.current()
+    if ctx is None:
+        return True
+    ctx.register(name, op.name, dtype_name(dtype), tuple(shape), g.index,
+                 None if root_rank < 0 else root_rank, members)
+    return ctx.negotiate
+
+
+def _sizes(g: _state.Group, name: str, op: _neg.CollectiveOp,
+           x: torch.Tensor, root_rank: int = -1) -> tuple[int, ...] | None:
+    """Register and negotiate a gathering collective; the members' first
+    dims, equal on every rank when a program skips the negotiation.
+    None on a rank that is not a member."""
+    negotiating = program_register(g, name, op, x.dtype, x.shape, root_rank)
+    if g.pg is None:
+        return None
+    if negotiating:
+        return _negotiate_one(g, name, op, x, root_rank).tensor_sizes
+    return (x.shape[0],) * g.size
 
 
 def _negotiate_one(g: _state.Group, name: str, op: _neg.CollectiveOp,
@@ -96,9 +132,12 @@ def allreduce(x: torch.Tensor, group: int = 0, average: bool = True,
     """Sum (``average=True``: mean) of every member's tensor."""
     name = _auto_name("HorovodAllreduce", name)
     g = _state.get_group(group)
+    op = _neg.CollectiveOp.ALLREDUCE
+    negotiating = program_register(g, name, op, x.dtype, x.shape)
     if g.pg is None:
         return None
-    _negotiate_one(g, name, _neg.CollectiveOp.ALLREDUCE, x)
+    if negotiating:
+        _negotiate_one(g, name, op, x)
     with _tl.activity(name, "ALLREDUCE"):
         out = sum_into(x.clone(), g)
     return divide_avg(out, g.size) if average else out
@@ -125,11 +164,11 @@ def allgather(x: torch.Tensor, group: int = 0,
     differ (sizes are exchanged by the negotiation)."""
     name = _auto_name("HorovodAllgather", name)
     g = _state.get_group(group)
-    if g.pg is None:
+    sizes = _sizes(g, name, _neg.CollectiveOp.ALLGATHER, x)
+    if sizes is None:
         return None
-    resp = _negotiate_one(g, name, _neg.CollectiveOp.ALLGATHER, x)
     with _tl.activity(name, "ALLGATHER"):
-        return _allgather_padded(x, g, resp.tensor_sizes)
+        return _allgather_padded(x, g, sizes)
 
 
 def broadcast_(x: torch.Tensor, root_rank: int, g: _state.Group) -> None:
@@ -149,9 +188,12 @@ def broadcast(x: torch.Tensor, root_rank: int, group: int = 0,
     """Every member receives the tensor of group-local rank ``root_rank``."""
     name = _auto_name("HorovodBroadcast", name)
     g = _state.get_group(group)
+    op = _neg.CollectiveOp.BROADCAST
+    negotiating = program_register(g, name, op, x.dtype, x.shape, root_rank)
     if g.pg is None:
         return None
-    _negotiate_one(g, name, _neg.CollectiveOp.BROADCAST, x, root_rank)
+    if negotiating:
+        _negotiate_one(g, name, op, x, root_rank)
     out = x.clone()
     with _tl.activity(name, "BROADCAST"):
         broadcast_(out, root_rank, g)
@@ -161,13 +203,16 @@ def broadcast(x: torch.Tensor, root_rank: int, group: int = 0,
 def gather(x: torch.Tensor, root_rank: int, group: int = 0,
            name: str | None = None) -> torch.Tensor | list:
     """Rooted gather: the root receives the concatenation along dim 0; every
-    other member keeps its own input unchanged."""
+    other member keeps its own input unchanged — except inside an ``spmd``
+    program, where every member receives the concatenation."""
     name = _auto_name("HorovodGather", name)
     g = _state.get_group(group)
-    if g.pg is None:
+    sizes = _sizes(g, name, _neg.CollectiveOp.GATHER, x, root_rank)
+    if sizes is None:
         return []
-    resp = _negotiate_one(g, name, _neg.CollectiveOp.GATHER, x, root_rank)
     with _tl.activity(name, "GATHER"):
-        gathered = _allgather_padded(x, g, resp.tensor_sizes)
-    return gathered if g.group_rank_of(_state.global_rank()) == root_rank \
-        else x
+        gathered = _allgather_padded(x, g, sizes)
+    if (_ctx.current() is not None
+            or g.group_rank_of(_state.global_rank()) == root_rank):
+        return gathered
+    return x

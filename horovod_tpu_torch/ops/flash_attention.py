@@ -55,10 +55,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from horovod_tpu_torch.ops import _build
+from horovod_tpu_torch.ops import launches as _launches
 
 # Kernel launches per wrapper since the last reset_launch_counts(); only the
 # CUDA branch counts, where the kernels are actually launched (B4's two
-# kernels count as one launch of B4).
+# kernels count as one launch of B4; a captured launch counts at each replay
+# of its graph: ops/launches.py).
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
 
 # Head dims the kernels are instantiated for: every one the repo's models use.
@@ -318,7 +320,7 @@ def flash_fwd_kernel(q, k, v, causal: bool = True, sm_scale=None,
             window or 0, int(q_offset), int(kv_offset),
             _resolve_scale(sm_scale, d), _DTYPE_CODES[q.dtype], _stream(q))
     _raise_on(err, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    _launches.count(LAUNCHES, "flash_fwd")
     return out, lse
 
 
@@ -350,7 +352,7 @@ def flash_bwd_kernel(q, k, v, out, lse, g_out, g_lse=None, causal: bool = True,
             window or 0, int(q_offset), int(kv_offset),
             _resolve_scale(sm_scale, d), _DTYPE_CODES[q.dtype], _stream(q))
     _raise_on(err, "flash_bwd")
-    LAUNCHES["flash_bwd"] += 1
+    _launches.count(LAUNCHES, "flash_bwd")
     return dq, dk, dv
 
 

@@ -38,9 +38,11 @@ import dataclasses
 import torch
 
 from horovod_tpu_torch.ops import _build
+from horovod_tpu_torch.ops import launches as _launches
 
 # Kernel launches since the last reset_launch_counts(); only the CUDA branch
-# counts, where the kernel is actually launched.
+# counts, where the kernel is actually launched (a captured launch at each
+# replay of its graph: ops/launches.py).
 LAUNCHES = {"adamw": 0}
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -64,18 +66,35 @@ def _kernels():
         lib.hvd_adamw_chunk_elems.restype = ll
         lib.hvd_adamw_blocks_per_sm.argtypes = []
         lib.hvd_adamw_blocks_per_sm.restype = i
-        lib.hvd_adamw.argtypes = [vp, vp, i, ll, i, f, f, f, f, f, f, f, vp]
+        lib.hvd_adamw.argtypes = [vp, vp, i, ll, i, f, f, f, f, f, f, vp, vp]
         lib.hvd_adamw.restype = i
         _lib = lib
     return _lib
 
 
-def adamw_update_plain(params, grads, mus, nus, steps, *, lr: float,
+def lr_tensor(lr, device) -> torch.Tensor:
+    """The learning rate as the 0-d fp32 tensor on ``device`` that the
+    update reads: ``lr`` itself when it is one, else a tensor filled with
+    it on the device (a fill, never a copy from the host: under a CUDA
+    graph the value is then fixed at capture)."""
+    if isinstance(lr, torch.Tensor):
+        if (lr.dtype != torch.float32 or lr.dim() != 0
+                or lr.device != device):
+            raise ValueError(
+                f"adamw: the learning rate must be a 0-d float32 tensor on "
+                f"{device}, got {lr.dtype} of shape {tuple(lr.shape)} on "
+                f"{lr.device}.")
+        return lr
+    return torch.full((), float(lr), dtype=torch.float32, device=device)
+
+
+def adamw_update_plain(params, grads, mus, nus, steps, *, lr,
                        b1: float, b2: float, eps: float,
                        weight_decay: float) -> None:
     """The plain version: the reference's update, tensor by tensor, in
     fp32, in place. ``steps`` are the parameters' int32 step counts (0-d),
-    advanced by one here."""
+    advanced by one here; ``lr`` is a 0-d fp32 tensor (or a float)."""
+    lr = lr_tensor(lr, params[0].device) if params else lr
     for p, g, mu, nu, step in zip(params, grads, mus, nus, steps):
         step.add_(1)
         # Bias corrections in fp32 from the device count, as the reference
@@ -91,6 +110,20 @@ def adamw_update_plain(params, grads, mus, nus, steps, *, lr: float,
         p.add_(upd.to(p.dtype))
         mu.copy_(mf.to(mu.dtype))
         nu.copy_(vf.to(nu.dtype))
+
+
+def keep_lr_tensors(optimizer: torch.optim.Optimizer, load,
+                    state_dict) -> None:
+    """``load(state_dict)``, then each param group's tensor learning rate
+    back in the tensor it had, holding the loaded value: torch's loader
+    replaces a group's entries, and a captured step reads the old
+    tensor."""
+    before = [g["lr"] for g in optimizer.param_groups]
+    load(state_dict)
+    for group, lr in zip(optimizer.param_groups, before):
+        if isinstance(lr, torch.Tensor):
+            lr.fill_(float(group["lr"]))
+            group["lr"] = lr
 
 
 @dataclasses.dataclass
@@ -151,8 +184,17 @@ def _check_kernel_inputs(params, grads, mus, nus, steps) -> torch.device:
 
 def build_table(params, grads, mus, nus, steps, key=None) -> A1Table:
     """A1's table for these tensors, on their device (``key``: their
-    ``_table_key``, when the caller has it)."""
+    ``_table_key``, when the caller has it). Copies from the host, so it
+    refuses to run while a CUDA graph is being captured: a captured update
+    takes the table its program's first, eager call built."""
     dev = params[0].device
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "adamw: A1's launch table must be rebuilt (a parameter, "
+            "gradient or moment moved) while a CUDA graph is being "
+            "captured; keep the gradients allocated between steps "
+            "(zero_grad(set_to_none=False)) so the table of the program's "
+            "first call holds.")
     chunk = _kernels().hvd_adamw_chunk_elems()
     records = []
     first = 0
@@ -171,10 +213,12 @@ def build_table(params, grads, mus, nus, steps, key=None) -> A1Table:
         torch.zeros(len(records), dtype=torch.int32, device=dev), first)
 
 
-def launch(table: A1Table, *, lr: float, b1: float, b2: float, eps: float,
+def launch(table: A1Table, *, lr, b1: float, b2: float, eps: float,
            weight_decay: float, chunks: int | None = None) -> None:
     """One launch of A1 over ``table`` (all its chunks unless ``chunks``
-    says fewer). Counts the launch."""
+    says fewer), reading the learning rate from ``lr``, a 0-d fp32 tensor
+    on the table's device (a float is filled into one first). Counts the
+    launch."""
     lib = _kernels()
     dev = table.records.device
     if dev.index not in _sms:
@@ -186,20 +230,22 @@ def launch(table: A1Table, *, lr: float, b1: float, b2: float, eps: float,
         err = lib.hvd_adamw(
             table.records.data_ptr(), table.arrived.data_ptr(),
             table.records.shape[0], n, grid, b1, 1.0 - b1, b2, 1.0 - b2, eps,
-            weight_decay, -lr, torch.cuda.current_stream(dev).cuda_stream)
+            weight_decay, lr_tensor(lr, dev).data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"adamw: CUDA error {err} at kernel launch.")
-    LAUNCHES["adamw"] += 1
+    _launches.count(LAUNCHES, "adamw")
 
 
-def adamw_update(params, grads, mus, nus, steps, *, lr: float, b1: float,
+def adamw_update(params, grads, mus, nus, steps, *, lr, b1: float,
                  b2: float, eps: float, weight_decay: float,
                  table: A1Table | None = None) -> A1Table | None:
     """The AdamW update of a list of parameters, in place: one launch of A1
     on CUDA tensors, :func:`adamw_update_plain` on CPU tensors; any other
-    device raises. ``table`` is the launch table the previous call
-    returned, used again while it matches these tensors; returns the table
-    launched (None on the CPU)."""
+    device raises. ``lr``: a 0-d fp32 tensor on the parameters' device
+    (read when the update runs) or a float. ``table`` is the launch table
+    the previous call returned, used again while it matches these tensors;
+    returns the table launched (None on the CPU)."""
     if not params:
         return None
     if all(p.device.type == "cpu" for p in params):
@@ -217,7 +263,10 @@ def adamw_update(params, grads, mus, nus, steps, *, lr: float, b1: float,
 class AdamW(torch.optim.Optimizer):
     """AdamW with ``moment_dtype`` moment storage (see the module
     docstring). ``lr`` is read from ``param_groups`` each step, so
-    learning-rate callbacks drive it. Each parameter keeps its own step
+    learning-rate callbacks drive it: a float, or a 0-d fp32 tensor on the
+    parameters' device that the update reads on the device (what
+    ``training.adam`` builds, and what a CUDA graph of the step needs to
+    follow a schedule). Each parameter keeps its own step
     count (an int32 tensor on its device); parameters that step together
     keep the reference's one count. On the card a param group's update is
     one launch of A1."""
@@ -266,10 +315,11 @@ class AdamW(torch.optim.Optimizer):
         """``torch.optim.Optimizer.load_state_dict``, then the moments back
         to each group's ``moment_dtype`` and the step counts to int32 on
         the parameter's device (torch casts floating state to the
-        parameter's dtype and leaves a step count where it was loaded).
-        bf16 → fp32 → bf16 is exact, so the moments are restored bit for
-        bit."""
-        super().load_state_dict(state_dict)
+        parameter's dtype and leaves a step count where it was loaded),
+        and a tensor learning rate back in its tensor
+        (:func:`keep_lr_tensors`). bf16 → fp32 → bf16 is exact, so the
+        moments are restored bit for bit."""
+        keep_lr_tensors(self, super().load_state_dict, state_dict)
         for group in self.param_groups:
             for p in group["params"]:
                 st = self.state.get(p)

@@ -8,8 +8,11 @@ momentum and statistics see the same averaged gradient on every rank, as in
 the reference where the allreduce happens before apply.
 
 The bucket plan is negotiated once per gradient signature (the dtypes and
-shapes of the gradients, in order) and cached, as the JAX package validates
-once per trace; a step whose signature has been seen moves data only.
+shapes of the gradients, in order) and cached; a step whose signature has
+been seen moves data only. Inside an ``spmd`` program the buckets register
+in the program's schedule instead (name, dtype, size and the labels of
+their members), which the program's one schedule validation checks across
+the ranks, as the JAX package validates once per trace.
 :func:`broadcast_variables` syncs parameters, buffers and optimizer state
 from a root rank. Overlapping the allreduce with backward is not done yet.
 """
@@ -30,7 +33,7 @@ from horovod_tpu_torch.ops import fusion as _fusion
 class FusedAllreduce:
     """In-place fused allreduce of a list of tensors over one group, with
     the bucket plan negotiated once per signature and cached on the
-    object."""
+    object (inside an ``spmd`` program: registered in its schedule)."""
 
     def __init__(self, name: str, group: int = 0, average: bool = True,
                  fusion_threshold: int | None = None) -> None:
@@ -49,6 +52,17 @@ class FusedAllreduce:
                          else self.fusion_threshold)
             buckets = _fusion.plan_buckets_py(tensors, threshold)
             names = [f"{self.name}.bucket_{b}" for b in range(len(buckets))]
+            plan = (buckets, names, None)
+        buckets, names, negotiated = plan
+        # Inside a program the buckets register; the plan is negotiated
+        # only where the per-call round runs (outside, or a first call).
+        negotiating = False
+        for b, bk in enumerate(buckets):
+            negotiating |= _coll.program_register(
+                g, names[b], _neg.CollectiveOp.ALLREDUCE, bk.dtype,
+                (bk.elems,), members=tuple(f"{self.name}.{i}"
+                                           for i in bk.indices))
+        if negotiating and not negotiated and g.pg is not None:
             me = g.group_rank_of(_state.global_rank())
             _neg.negotiate(
                 [_neg.Request(rank=me, name=names[b],
@@ -56,15 +70,17 @@ class FusedAllreduce:
                               dtype=_coll.dtype_name(bk.dtype),
                               shape=(bk.elems,), group=g.index)
                  for b, bk in enumerate(buckets)], g)
-            plan = (buckets, names)
-            self._plans[sig] = plan
-        return plan
+            negotiated = True
+        self._plans[sig] = (buckets, names, negotiated)
+        return buckets, names
 
     def __call__(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
         g = _state.get_group(self.group)
-        if g.pg is None or not tensors:
+        if not tensors:
             return tensors
         buckets, names = self._plan(tensors, g)
+        if g.pg is None:
+            return tensors
 
         def reduce(flat, b):
             with _tl.activity(names[b], "ALLREDUCE"):
@@ -154,16 +170,23 @@ def broadcast_variables(variables, root_rank: int = 0, group: int = 0,
     the root rank's values — run once after init or restore so all replicas
     start identical. One negotiation round covers all the tensors."""
     g = _state.get_group(group)
+    items = _named_tensors(variables)
+    negotiating = False
+    for k, t in items:
+        negotiating |= _coll.program_register(
+            g, f"{name}.{k}", _neg.CollectiveOp.BROADCAST, t.dtype, t.shape,
+            root_rank)
     if g.pg is None:
         return
-    items = _named_tensors(variables)
     me = g.group_rank_of(_state.global_rank())
-    _neg.negotiate(
-        [_neg.Request(rank=me, name=f"{name}.{k}",
-                      op=_neg.CollectiveOp.BROADCAST,
-                      dtype=_coll.dtype_name(t.dtype), shape=tuple(t.shape),
-                      root_rank=root_rank, group=g.index)
-         for k, t in items], g)
+    if negotiating:
+        _neg.negotiate(
+            [_neg.Request(rank=me, name=f"{name}.{k}",
+                          op=_neg.CollectiveOp.BROADCAST,
+                          dtype=_coll.dtype_name(t.dtype),
+                          shape=tuple(t.shape), root_rank=root_rank,
+                          group=g.index)
+             for k, t in items], g)
     with torch.no_grad():
         for k, t in items:
             with _tl.activity(f"{name}.{k}", "BROADCAST"):

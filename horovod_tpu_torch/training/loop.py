@@ -3,36 +3,156 @@
 Counterpart of ``horovod_tpu/training/loop.py`` (its replicated path). Each
 rank is a process running its own :class:`Trainer` on its own batches; a
 step is forward, backward, gradient averaging through
-:func:`~horovod_tpu_torch.parallel.optimizer.DistributedOptimizer` (fused,
-negotiated once per gradient signature), the optimizer update, and then the
-averaging of the model's floating-point buffers — the BatchNorm running
-statistics — over the group, as the reference's ResNet step does after its
-update. :meth:`Trainer.restore` (``fit(resume=...)``) resumes from the
-newest checkpoint every rank can load (``training/checkpoint.py``).
-Elastic training, ZeRO and ``steps_per_call`` are not ported yet.
+:func:`~horovod_tpu_torch.parallel.optimizer.DistributedOptimizer` (fused),
+the optimizer update, and then the averaging of the model's floating-point
+buffers — the BatchNorm running statistics — over the group, as the
+reference's ResNet step does after its update.
+
+The step runs through :func:`~horovod_tpu_torch.parallel.spmd.spmd`, as the
+reference's runs through ``hvd.spmd``: on the card its first call is eager
+and its second is captured as a CUDA graph that every later call replays;
+on the CPU it runs eagerly under a schedule validated once.
+``steps_per_call=K`` makes the program K steps (the reference's
+``lax.scan``), and ``fit`` then feeds K batches a call.
+
+:func:`sgd` and :func:`adam` are the reference's builders: their optimizers
+hold the learning rate in a 0-d tensor on the parameters' device, as
+``optax.inject_hyperparams`` keeps it in the optimizer state, so
+:meth:`LRControlMixin.set_lr` reaches a captured step. :meth:`Trainer.
+restore` (``fit(resume=...)``) resumes from the newest checkpoint every
+rank can load (``training/checkpoint.py``). Elastic training and ZeRO are
+not ported yet.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Iterable
 
 import torch
+import torch.utils._pytree as pytree
 
 from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.core.state import HorovodError
+from horovod_tpu_torch.ops import optim as _optim
 from horovod_tpu_torch.parallel import optimizer as _opt
+from horovod_tpu_torch.parallel import spmd as _spmd
+
+
+class SGD(torch.optim.Optimizer):
+    """``optax.sgd``'s update: ``t = g + momentum·t`` (``t`` from zeros;
+    ``g + momentum·t`` again with ``nesterov``), then ``p += t·(−lr)``, as
+    foreach kernels over a param group. ``lr`` may be a 0-d fp32 tensor on
+    the parameters' device, read by the kernels (what :func:`sgd` builds).
+    The momentum buffers are ``state[p]["momentum_buffer"]``.
+
+    ``torch.optim.SGD`` is not used: it multiplies by a tensor learning
+    rate through ``.item()``, which a CUDA graph capture refuses, and a
+    float learning rate would be fixed in the graph."""
+
+    def __init__(self, params, lr, momentum: float = 0.0,
+                 nesterov: bool = False) -> None:
+        super().__init__(params, dict(lr=lr, momentum=momentum,
+                                      nesterov=nesterov))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            upd = [p.grad for p in params]
+            m = group["momentum"]
+            if m:
+                bufs = []
+                for p in params:
+                    st = self.state[p]
+                    if "momentum_buffer" not in st:
+                        st["momentum_buffer"] = torch.zeros_like(p)
+                    bufs.append(st["momentum_buffer"])
+                torch._foreach_mul_(bufs, m)
+                torch._foreach_add_(bufs, upd)
+                if group["nesterov"]:
+                    upd = torch._foreach_mul(bufs, m)
+                    torch._foreach_add_(upd, [p.grad for p in params])
+                else:
+                    upd = bufs
+            lr = group["lr"]
+            torch._foreach_add_(params, torch._foreach_mul(upd, -lr))
+        return loss
+
+    def load_state_dict(self, state_dict) -> None:
+        _optim.keep_lr_tensors(self, super().load_state_dict, state_dict)
+
+
+class OptimizerBuilder:
+    """What :func:`sgd` and :func:`adam` return: called with a model's
+    parameters (the :class:`Trainer` does), it builds the optimizer with
+    the learning rate in a 0-d fp32 tensor on their device."""
+
+    def __init__(self, cls, learning_rate: float, **kwargs) -> None:
+        self.cls = cls
+        self.learning_rate = float(learning_rate)
+        self.kwargs = kwargs
+
+    def __call__(self, params) -> torch.optim.Optimizer:
+        params = list(params)
+        lr = torch.full((), self.learning_rate, dtype=torch.float32,
+                        device=params[0].device)
+        return self.cls(params, lr=lr, **self.kwargs)
+
+
+def sgd(learning_rate: float, momentum: float = 0.0,
+        nesterov: bool = False) -> OptimizerBuilder:
+    """SGD with a runtime-adjustable LR (what LR-schedule callbacks need):
+    ``optax.inject_hyperparams(optax.sgd)``'s counterpart."""
+    return OptimizerBuilder(SGD, learning_rate, momentum=momentum,
+                            nesterov=nesterov)
+
+
+def adam(learning_rate: float, **kwargs) -> OptimizerBuilder:
+    """Adam with a runtime-adjustable LR: the port's
+    :class:`~horovod_tpu_torch.ops.optim.AdamW` (kernel A1 on the card)
+    with no weight decay and fp32 moments, ``optax.adam``'s update.
+    ``kwargs``: ``b1``, ``b2``, ``eps``."""
+    return OptimizerBuilder(_optim.AdamW, learning_rate, weight_decay=0.0,
+                            moment_dtype=torch.float32, **kwargs)
 
 
 class LRControlMixin:
     """Runtime LR and momentum control over ``self.optimizer``'s
-    ``param_groups`` and state — what the LR-schedule callbacks drive."""
+    ``param_groups`` and state — what the LR-schedule callbacks drive. A
+    learning rate held in a tensor (:func:`sgd`, :func:`adam`) is written
+    in place; a float one only until the step program that reads it is
+    recorded, after which :meth:`set_lr` raises, as the reference's does
+    for an optimizer without injected hyperparameters."""
+
+    def _lr_fixed(self) -> bool:
+        step = getattr(self, "_step", None)
+        return step is not None and step.recorded
 
     def get_lr(self) -> float:
         return float(self.optimizer.param_groups[0]["lr"])
 
     def set_lr(self, value: float) -> None:
-        for group in self.optimizer.param_groups:
-            group["lr"] = value
+        groups = self.optimizer.param_groups
+        if self._lr_fixed() and not all(isinstance(g["lr"], torch.Tensor)
+                                        for g in groups):
+            raise HorovodError(
+                "LR schedule callbacks need an optimizer built with "
+                "horovod_tpu_torch.training.sgd/adam/... (a learning rate "
+                "held in a device tensor, as optax.inject_hyperparams "
+                "holds it): the recorded step keeps this optimizer's float "
+                "learning rate fixed.")
+        for group in groups:
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(value)
+            else:
+                group["lr"] = value
 
     def scale_momentum(self, factor: float) -> None:
         """Momentum correction: rescale the momentum buffers when the LR
@@ -46,19 +166,63 @@ class LRControlMixin:
                     buf.mul_(factor)
 
 
+def _capturable(optimizer: torch.optim.Optimizer) -> None:
+    """Ready ``optimizer`` for a step captured on the card: a torch.optim
+    optimizer that takes ``capturable`` gets it (its step counts then live
+    on the device, and its update reads nothing on the host). One without
+    it reads its step count on the host, which a graph would freeze, and is
+    refused; ``torch.optim.SGD`` keeps no step count and needs none."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    if not params or params[0].device.type != "cuda":
+        return
+    if "capturable" in optimizer.defaults:
+        optimizer.defaults["capturable"] = True
+        for group in optimizer.param_groups:
+            group["capturable"] = True
+        for p, st in optimizer.state.items():
+            step = st.get("step")
+            if isinstance(step, torch.Tensor) and step.device != p.device:
+                st["step"] = step.to(p.device)
+    elif (type(optimizer).__module__.startswith("torch.optim.")
+          and not isinstance(optimizer, torch.optim.SGD)):
+        raise HorovodError(
+            f"Trainer: {type(optimizer).__name__} cannot run in a step "
+            f"captured as a CUDA graph (it takes no capturable flag and "
+            f"reads its step count on the host). Use training.sgd/adam, "
+            f"horovod_tpu_torch.ops.optim.AdamW, or a torch.optim optimizer "
+            f"that takes capturable.")
+
+
 class Trainer(LRControlMixin):
     """Data-parallel trainer for one rank.
 
     ``loss_fn(model, batch) -> loss`` (or ``(loss, aux)`` with
     ``has_aux=True``). ``optimizer``: a ``torch.optim.Optimizer`` (wrapped
-    here in :func:`DistributedOptimizer`) or one already wrapped.
+    here in :func:`DistributedOptimizer`), one already wrapped, or what
+    :func:`sgd`/:func:`adam` return (built here over the model's
+    parameters). ``steps_per_call``: optimizer steps in one program (one
+    call of :meth:`train_step`, which then takes K batches stacked along a
+    new leading dim and returns the mean loss of its K steps).
+
+    On the card the step is captured as a CUDA graph (:func:`spmd`), so
+    ``loss_fn`` must not synchronise with the host, and the optimizer must
+    be capturable: torch.optim's get ``capturable=True`` here, and those
+    without the flag (``SGD`` apart) are refused. :attr:`step_fn` is the
+    step uncaptured. Loading the inner optimizer's state (through the
+    wrapper or not) recaptures the step, since torch replaces the state
+    tensors the graph updates.
     """
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer,
                  group: int = 0, has_aux: bool = False,
-                 fusion_threshold: int | None = None) -> None:
+                 fusion_threshold: int | None = None,
+                 steps_per_call: int = 1) -> None:
+        if steps_per_call < 1:
+            raise HorovodError("steps_per_call must be >= 1.")
         self.model = model
         self.loss_fn = loss_fn
+        if isinstance(optimizer, OptimizerBuilder):
+            optimizer = optimizer(model.parameters())
         if not isinstance(optimizer, _opt._DistributedOptimizer):
             optimizer = _opt.DistributedOptimizer(
                 optimizer, group=group, fusion_threshold=fusion_threshold)
@@ -66,16 +230,30 @@ class Trainer(LRControlMixin):
         self.group = group
         self.has_aux = has_aux
         self.epoch = 0
+        self.last_aux = None
         self._sync_buffers = _opt.FusedAllreduce(
             "Trainer.buffers", group, average=True,
             fusion_threshold=fusion_threshold)
+        self.steps_per_call = steps_per_call
+        self._step = self._build_step()
+        _capturable(optimizer.optimizer)
+        me = weakref.ref(self)
+
+        def recapture(_optimizer):
+            trainer = me()
+            if trainer is not None:
+                trainer._step.reset()
+
+        optimizer.optimizer.register_load_state_dict_post_hook(recapture)
 
     def sync_state(self, root_rank: int = 0, group: int | None = None) -> None:
         """Broadcast parameters, buffers and optimizer state from
-        ``root_rank`` — what BroadcastGlobalVariablesCallback runs."""
+        ``root_rank`` — what BroadcastGlobalVariablesCallback runs. The
+        step is recorded anew at its next call."""
         g = self.group if group is None else group
         _opt.broadcast_global_variables(self.model, self.optimizer.optimizer,
                                         root_rank, g)
+        self._step.reset()
 
     def train_state(self) -> dict:
         """What a checkpoint holds: the model's and the optimizer's state
@@ -90,8 +268,9 @@ class Trainer(LRControlMixin):
         (:func:`checkpoint.agree_on_resume_epoch` — torn/corrupt epochs are
         already skipped by the manifest scan), restore it, bump the group's
         coordination generation so the restarted run's negotiation keys can
-        never collide with stale keys of the run before it, and re-broadcast
-        rank 0's state so every replica resumes bit-identical.
+        never collide with stale keys of the run before it (and the step is
+        recorded anew), and re-broadcast rank 0's state so every replica
+        resumes bit-identical.
 
         Returns the epoch training will resume at (``self.epoch``;
         unchanged when the directory holds no loadable checkpoint)."""
@@ -121,11 +300,15 @@ class Trainer(LRControlMixin):
         self.sync_state(group=self.group)
         return self.epoch
 
-    def train_step(self, batch):
-        """One DP step on this rank's batch; returns ``(loss, aux)`` with the
-        loss a detached 0-d tensor on the model's device."""
+    # -- the step ------------------------------------------------------------
+
+    def _one_step(self, batch):
+        """One DP step on this rank's batch: ``(loss, aux)``, the loss a
+        detached 0-d tensor. The gradients stay allocated between steps
+        (``set_to_none=False``), so a captured step reads and writes the
+        same tensors at every replay."""
         self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
+        self.optimizer.zero_grad(set_to_none=False)
         out = self.loss_fn(self.model, batch)
         loss, aux = out if self.has_aux else (out, {})
         loss.backward()
@@ -133,6 +316,48 @@ class Trainer(LRControlMixin):
         self._sync_buffers([b for b in self.model.buffers()
                             if b.dtype.is_floating_point])
         return loss.detach(), aux
+
+    def _build_step(self) -> _spmd.Spmd:
+        # The program reaches the trainer through a weak reference: the
+        # trainer owns the program (and its CUDA graph's memory pool), which
+        # then goes with the trainer instead of waiting for a cycle
+        # collection.
+        me = weakref.ref(self)
+        k = self.steps_per_call
+
+        def one_step(batch):
+            return me()._one_step(batch)
+
+        def multi_step(batches):
+            # `batches` leaves carry a leading loop axis of length K.
+            losses = []
+            aux = {}
+            for i in range(k):
+                loss, aux = me()._one_step(
+                    pytree.tree_map(lambda t: t[i], batches))
+                losses.append(loss)
+            # Mean over the K steps: epoch metrics must not become a
+            # 1-in-K sample of the loss curve when steps_per_call changes.
+            return torch.stack(losses).mean(), aux
+
+        return _spmd.spmd(one_step if k == 1 else multi_step,
+                          group=self.group)
+
+    @property
+    def step_fn(self) -> Callable:
+        """The function the step program runs (K steps when
+        ``steps_per_call`` is K), uncaptured: calling it is the eager
+        step."""
+        return self._step.fn
+
+    def train_step(self, batch):
+        """One call of the step program on this rank's batch (K batches
+        stacked along a new leading dim when ``steps_per_call`` is K);
+        returns ``(loss, aux)`` with the loss a 0-d tensor on the model's
+        device (the mean over the K steps)."""
+        loss, aux = self._step(batch)
+        self.last_aux = aux
+        return loss, aux
 
     def fit(self, data: Iterable, epochs: int, steps_per_epoch: int,
             callbacks: list | None = None, verbose: bool = True,
@@ -147,6 +372,10 @@ class Trainer(LRControlMixin):
         crash-restart entry point: a killed job relaunches with the same
         ``fit`` call plus ``resume=`` and continues from the last complete
         epoch. A directory with no loadable checkpoint starts fresh.
+
+        With ``steps_per_call`` K, each call of the step takes K batches
+        (``steps_per_epoch`` must be a multiple of K) and the batch
+        callbacks fire once a call, with ``batch_idx = call_idx·K``.
 
         Returns ``{metric: [per-epoch values]}``; the host reads the loss
         once per epoch, not per step."""
@@ -184,16 +413,31 @@ class Trainer(LRControlMixin):
                         "re-iterable; pass an infinite generator or a "
                         "re-iterable collection of batches.") from None
 
+        spc = self.steps_per_call
+        if spc > 1 and steps_per_epoch % spc != 0:
+            raise HorovodError(
+                f"steps_per_epoch ({steps_per_epoch}) must be divisible by "
+                f"steps_per_call ({spc}).")
+
         start = self.epoch if initial_epoch is None else initial_epoch
         for epoch in range(start, epochs):
             self.epoch = epoch
             for cb in callbacks:
                 cb.on_epoch_begin(epoch)
             losses = []
-            for batch_idx in range(steps_per_epoch):
+            for call_idx in range(steps_per_epoch // spc):
+                # Callbacks see the true step index: schedules compute
+                # fractional epochs as step/steps_per_epoch.
+                batch_idx = call_idx * spc
                 for cb in callbacks:
                     cb.on_batch_begin(batch_idx)
-                loss, _ = self.train_step(next_batch())
+                if spc > 1:
+                    batch = pytree.tree_map(
+                        lambda *leaves: torch.stack(leaves),
+                        *[next_batch() for _ in range(spc)])
+                else:
+                    batch = next_batch()
+                loss, _ = self.train_step(batch)
                 losses.append(loss)
                 for cb in callbacks:
                     cb.on_batch_end(batch_idx, {"loss": loss})

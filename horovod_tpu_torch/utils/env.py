@@ -5,7 +5,8 @@ Same variable names as the reference, so job scripts carry over:
 64 MB), ``HOROVOD_TIMELINE`` names a Chrome-tracing output file,
 ``HOROVOD_STALL_CHECK_TIME`` and ``HOROVOD_NEGOTIATION_TIMEOUT`` time the
 negotiation's stall report and its wait for the coordinator
-(``core/negotiate.py``), the ``HOROVOD_SERVE_*`` knobs configure the
+(``core/negotiate.py``), ``HOROVOD_SCHEDULE_TIMEOUT`` caps the coordinator's
+wait for a program's schedules (``core/multihost.py``), the ``HOROVOD_SERVE_*`` knobs configure the
 serving engine (``horovod_tpu_torch.serving``) and ``HOROVOD_FAULT_INJECT``
 arms the serving faults and ``torn_write`` (``core/resilience.py``).
 
@@ -33,6 +34,7 @@ PORTED_KNOBS = frozenset({
     "HOROVOD_FAULT_INJECT",
     "HOROVOD_FUSION_THRESHOLD",
     "HOROVOD_NEGOTIATION_TIMEOUT",
+    "HOROVOD_SCHEDULE_TIMEOUT",
     "HOROVOD_SERVE_BLOCK_SIZE",
     "HOROVOD_SERVE_DEADLINE_MS",
     "HOROVOD_SERVE_DRAFT_KV_DTYPE",
@@ -87,7 +89,6 @@ UNPORTED_TUNING_KNOBS: dict[str, int] = {
     "HOROVOD_PREFETCH_DEPTH": 5,
     "HOROVOD_PROFILE": 16,
     "HOROVOD_RECALIBRATION": 12,
-    "HOROVOD_SCHEDULE_TIMEOUT": 1,
     "HOROVOD_SPARSE_DENSITY_THRESHOLD": 11,
     "HOROVOD_SPARSE_PAD_CAPACITY": 11,
     "HOROVOD_TIMELINE_DEVICE": 16,
@@ -183,6 +184,31 @@ def negotiation_timeout_ms() -> int:
         return 600_000
     if seconds <= 0 or seconds == float("inf"):
         return 2 ** 31 - 1  # ~24.8 days in ms
+    return max(1, int(seconds * 1000))
+
+
+def schedule_timeout_ms() -> int:
+    """``HOROVOD_SCHEDULE_TIMEOUT`` (seconds; default 0 = wait forever):
+    opt-in hard cap on the *coordinator's* wait for peer schedules in
+    ``validate_schedule`` (core/multihost.py). By default the coordinator
+    sweeps stall warnings indefinitely — a slow peer may legitimately be
+    recording a big program — but a crashed peer then hangs the whole job;
+    setting this bound turns that into a fatal, diagnosable error naming
+    the missing process. An unparsable value raises, as in the
+    reference."""
+    raw = os.environ.get("HOROVOD_SCHEDULE_TIMEOUT")
+    if raw is None:
+        return 0
+    try:
+        seconds = float(raw)
+    except ValueError:
+        seconds = float("nan")
+    if seconds != seconds:  # unparsable or NaN: refuse, don't silently
+        raise ValueError(   # fall back to the unbounded sweep
+            f"HOROVOD_SCHEDULE_TIMEOUT must be a number of seconds, "
+            f"got {raw!r}")
+    if seconds <= 0 or seconds == float("inf"):
+        return 0  # 0/inf: the default unbounded sweep
     return max(1, int(seconds * 1000))
 
 

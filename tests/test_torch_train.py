@@ -161,9 +161,10 @@ def _flax_setup():
     return model, variables, sd
 
 
-def _jax_train(world, batches):
-    """The reference DP step over ``world`` devices; returns per-step
-    per-rank losses and the final variables as a port state dict."""
+def _jax_train(world, batches, lr=0.1):
+    """The reference DP step over ``world`` devices (SGD at ``lr``, momentum
+    0.9); returns per-step per-rank losses and the final variables as a
+    port state dict."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -175,7 +176,7 @@ def _jax_train(world, batches):
     model, variables, _ = _flax_setup()
     loss_fn = jresnet.make_loss_fn(model, weight_decay=1e-4,
                                    label_smoothing=0.1)
-    opt = optax.sgd(0.1, momentum=0.9)
+    opt = optax.sgd(lr, momentum=0.9)
 
     def train_step(variables, opt_state, batch):
         (loss, aux), grads = jax.value_and_grad(loss_fn, has_aux=True)(

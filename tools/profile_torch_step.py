@@ -15,9 +15,12 @@ then traces ``--steps`` steps with ``torch.profiler``:
   weight_decay=0.1))``, ``Trainer``, a batch of ``--batch`` rows of
   ``--seq`` tokens.
 
-It prints, per step: the host wall time, the summed device kernel time and
-their ratio (the device's busy share; one stream, so kernels do not
-overlap), the time by category (the port's own kernels — BatchNorm channel
+The ``Trainer``'s step is captured as a CUDA graph (``hvd.spmd``): its
+replays give ``captured_wall_ms_per_step`` and the captured rate. The trace
+runs the same step eagerly (``trainer.step_fn``), since a replay's kernels
+belong to no host op. It prints, per step: the eager step's host wall
+time, the summed device kernel time and their ratio (the device's busy
+share; one stream, so kernels do not overlap), the time by category (the port's own kernels — BatchNorm channel
 sums, flash attention, the AdamW update A1 — then convolutions and matrix
 products, other kernels), the top kernels, the device time by region of the
 step (backward, optimizer: the ``Optimizer.step`` range, and the rest:
@@ -170,19 +173,28 @@ def main(argv=None) -> int:
         batch = transformer.synthetic_tokens(args.batch, args.seq,
                                              cfg.vocab_size, device=device)
         items_per_step, unit = args.batch * args.seq, "tokens"
+    def timed(step) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step(batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    # The Trainer's step: eager, captured as a CUDA graph, then replayed.
     for _ in range(3):
         trainer.train_step(batch)
-    torch.cuda.synchronize()
-    # Wall time without the profiler (which slows the host), then the trace.
-    t0 = time.perf_counter()
-    for _ in range(args.steps):
-        trainer.train_step(batch)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    captured_wall = timed(trainer.train_step)
+    # The same step eager (the function the graph captured), for the trace:
+    # a replay has no host ops to attribute kernels to. Wall time without
+    # the profiler (which slows the host), then the trace.
+    eager = trainer.step_fn
+    eager(batch)
+    wall = timed(eager)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(args.steps):
-            trainer.train_step(batch)
+            eager(batch)
         torch.cuda.synchronize()
     kernels = kernel_times(prof.events())
     regions, ops = op_times(prof.events())
@@ -203,6 +215,9 @@ def main(argv=None) -> int:
         "device_ms_per_step": device_ms,
         "device_busy_share": device_ms / wall_ms,
         f"{unit}_per_s": items_per_step / (wall_ms / 1e3),
+        "captured_wall_ms_per_step": captured_wall * 1e3 / args.steps,
+        f"captured_{unit}_per_s": items_per_step * args.steps
+        / captured_wall,
         "device_ms_per_step_by_category": per_step_ms,
         "top_kernels": [{"name": name[:160], "category": _category(name),
                          "calls_per_step": n / args.steps,
