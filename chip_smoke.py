@@ -57,20 +57,23 @@ Phases, one line of output each:
    capture;
 9. LM serving: bench.py's LM at full width and depth (bf16 weights from
    ``init_params``, bf16 KV pages, block size 16, ``max_seq_len`` 2048 =
-   the engine's view length) through ``serving.Engine``:
+   the engine's view length) through ``serving.Engine``, whose forwards
+   are CUDA graphs captured once and replayed:
    (a) a one-slot engine serves a 256-token prompt for 64 greedy tokens,
    which must equal ``transformer.generate``'s token for token, and its
    pool pages must equal the dense cache bit for bit; (b) an 8-slot engine
    with the prefix cache serves 12 requests (prompts 128-512 tokens, 32-128
    new, two tenants, 4 sharing a 64-token prefix), the pool passing
-   ``check_invariants`` after every step; the rows are compared with their
+   ``check_invariants`` after every step, with one decode and one prefill
+   capture (the replays are counted); the rows are compared with their
    solo runs in an engine of the same shape (the count of equal rows, and
    each other row's first differing step with its top-2 logit margin);
    (c) a pool too small for 8 slots forces preemptions, and every
    preempted request must equal its solo run; (d) the 12 requests under
    ``kv_dtype="int8_block"`` finish, and the share of tokens that agree
-   with bf16 is printed; (e) a planted fault — one step's fresh K/V
-   scattered one position late — must fail (a)'s check; (g) teacher-forced
+   with bf16 is printed; (e) a planted fault — the fresh K/V of position
+   ``FAULT_SCATTER - 1`` scattered one position late, inside the captured
+   prefill — must fail (a)'s check; (g) teacher-forced
    ``decode_step`` logits over a 256-token prompt must agree with the
    training forward ``model(tokens)`` (plain attention, no decode code
    shared) within ``SERVE_FWD_TOL``, and the same comparison with each
@@ -122,7 +125,28 @@ Phases, one line of output each:
     ``torch.optim.AdamW`` trainer (made capturable) equals its eager step
     bit for bit, loading the inner optimizer's state recaptures the step
     and still equals the eager step, a ragged batch's program shares the
-    first one's memory pool, and ``torch.optim.Adagrad`` is refused.
+    first one's memory pool, and ``torch.optim.Adagrad`` is refused;
+13. serving on captured graphs, and speculative decoding, at phase 9's LM
+    and shapes: (a) the engine replaying its graphs against the same
+    forward bodies called eagerly (``serve_bench_torch.eager_bodies``), at
+    B=1 and B=8: tokens equal, pools bit for bit outside the null block;
+    (b) each graph captured once, the replays counted; (c) a one-slot
+    engine self-speculating at k=4 (``draft_kv_dtype="model"``) equals
+    ``generate`` with accept rate 1.0 and never captures decode; (d) the
+    distilled pair (``serve_bench_torch.distilled_draft_pair``: the 8-layer
+    target's upper blocks zeroed, a 1-layer draft sharing its first block)
+    on an int4 draft pool equals the plain engine; (e) a garbage 1-layer
+    draft under ``min_accept=0.5`` latches DEGRADE, equals the plain engine
+    and captures nothing more; (f) a planted fault, a verify accepting one
+    token past the first mismatch, must fail (e)'s check; (g) decode
+    tokens/s at B=1 and B=8, graphs against eager bodies, 5 windows each in
+    turns; B=1 speculative tokens/s with the distilled pair (int4 and bf16
+    draft pools) and with self-speculation, accept rates and draft ms; the
+    busy share of one profiled window of graph decode; (h) a (B, 5) decode
+    forward equals 5 one-token forwards bit for bit (logits and view pages)
+    at B = 1, 2, 3 and 8 over one seeded random view, with the elements a
+    single library product of the MLP's down-projection would change. No
+    kernel of the port may launch.
 
 Each main path (5, 8 and 10) runs with its kernels' launch counts set to 0
 just before it and read just after; the kernels line's ``launches`` are
@@ -1683,7 +1707,7 @@ def _profiled(fn, marker: str | None = None) -> dict:
         reach = max(reach, hi)
     return {"kernels": profile_torch_step.kernel_times(events),
             "device_us": sum(us for _, _, us in spans), "busy_us": busy,
-            "wall_s": wall}
+            "launches": len(spans), "wall_s": wall}
 
 
 def _timed(fn) -> float:
@@ -2091,13 +2115,12 @@ def serve_one(cfg, model, device, prompt, fault: bool = False):
                             device=device)
     tables = keep_tables(engine)
     if fault:
-        scatter, calls = engine._scatter, [0]
+        # On the device, so that the captured prefill graph holds it.
+        scatter = engine._scatter
 
         def late(tables_, lengths, active, fresh):
-            calls[0] += 1
-            if calls[0] == FAULT_SCATTER:
-                lengths = lengths + 1
-            scatter(tables_, lengths, active, fresh)
+            scatter(tables_, lengths + (lengths == FAULT_SCATTER - 1).long(),
+                    active, fresh)
 
         engine._scatter = late
     req = engine.submit(prompt, new)
@@ -2194,7 +2217,8 @@ def phase_serving(device):
                            f"tokens from the prefix cache)")
     traces = (engine.decode_trace_count, engine.prefill_trace_count)
     if traces != (1, 1):
-        raise RuntimeError(f"decode/prefill signatures {traces}, expected 1")
+        raise RuntimeError(f"decode/prefill captures {traces}, expected 1")
+    out["replays"] = dict(engine._replays)
     solo_engine = serving.Engine(cfg, model, block_size=SERVE_BLOCK,
                                  max_batch=SERVE_SLOTS, device=device)
     solo = [list(solo_engine.generate_batch([p], new)[0][len(p):])
@@ -2282,6 +2306,330 @@ def phase_serving(device):
     del model, engine, solo_engine, load_engine
     free_cuda()
     return out
+
+
+# -- serving on captured graphs, and speculative decoding (phase 13) -----------
+
+# Draft length of the speculative engines; the garbage draft of (e)/(f) is a
+# 1-layer model from another seed, and (e) turns speculation off below this
+# accept rate. (e)/(f) serve SPEC_GARBAGE_N requests of SPEC_GARBAGE tokens
+# (prompt, new) in as many slots.
+SPEC_K = 4
+SPEC_GARBAGE_SEED = 7
+SPEC_MIN_ACCEPT = 0.5
+SPEC_GARBAGE = (128, 48)
+SPEC_GARBAGE_N = 2
+# (h): the batch sizes at which a (B, SPEC_K + 1) decode forward is held
+# against SPEC_K + 1 one-token forwards.
+ROW_CHECK_BATCHES = (1, 2, 3, 8)
+# The engine's graphs on the card: a plain engine captures decode, prefill
+# and the first-token sample, a speculating one prefill, the first-token
+# sample, verify, draft propose and draft prefill — each once.
+PLAIN_GRAPHS = {"decode": 1, "prefill": 1, "first": 1}
+SPEC_GRAPHS = {"prefill": 1, "first": 1, "verify": 1, "draft": 1,
+               "draft_prefill": 1}
+
+
+def _serve(engine, prompts, new: int) -> list:
+    reqs = [engine.submit(p, new) for p in prompts]
+    engine.run_until_idle()
+    return [list(r.output) for r in reqs]
+
+
+def _captures(engine, want: dict, what: str) -> dict:
+    got = dict(engine._captures)
+    if got != want:
+        raise RuntimeError(f"{what}: graphs captured {got}, expected {want}")
+    return dict(engine._replays)
+
+
+def graph_vs_body(cfg, model, device, batch: int) -> dict:
+    """(a): ``batch`` requests of SERVE_DECODE_PROMPT tokens for
+    SERVE_DECODE_STEPS tokens through an engine replaying its graphs and
+    through one running the same bodies eagerly: tokens equal, and every
+    pool bit for bit outside the null block."""
+    prompts = serve_bench_torch._prompts(cfg, batch, SERVE_DECODE_PROMPT,
+                                         seed=SEED + 13)
+    outs, pools, replays = {}, {}, {}
+    for side in ("graph", "eager"):
+        engine = serving.Engine(cfg, model, block_size=SERVE_BLOCK,
+                                max_batch=batch,
+                                max_prompt_len=SERVE_DECODE_PROMPT,
+                                device=device)
+        if side == "eager":
+            serve_bench_torch.eager_bodies(engine)
+        outs[side] = _serve(engine, prompts, SERVE_DECODE_STEPS)
+        pools[side] = engine._pools
+        if side == "graph":
+            replays = _captures(engine, PLAIN_GRAPHS, f"B={batch} engine")
+    same_pools = all(torch.equal(_bits(a[:, 1:]), _bits(b[:, 1:]))
+                     for a, b in zip(pools["graph"], pools["eager"]))
+    if outs["graph"] != outs["eager"] or not same_pools:
+        raise RuntimeError(
+            f"B={batch}: the replayed graphs differ from their bodies run "
+            f"eagerly: tokens equal {outs['graph'] == outs['eager']}, pools "
+            f"equal outside block 0 {same_pools}")
+    return replays
+
+
+def row_invariance(cfg, model, device) -> dict:
+    """(h): the decode side scores a row the same in a (B, k + 1) forward as
+    in k + 1 one-token forwards — each B of ROW_CHECK_BATCHES over copies
+    of one seeded random paged view (positions from 300), logits and view
+    pages bit for bit. Printed beside it: the elements of the MLP's
+    down-projection, all B(k + 1) rows in one library product, that differ
+    from one-row products (what the decode side's 8-row products avoid)."""
+    g = torch.Generator(device=device).manual_seed(SEED + 15)
+    hkv, dh, w = cfg.num_kv_heads, cfg.embed_dim // cfg.num_heads, SPEC_K + 1
+    out = {}
+    for b in ROW_CHECK_BATCHES:
+        view = [tuple(torch.randn(b, SERVE_SEQ, hkv, dh, generator=g,
+                                  device=device).to(cfg.dtype)
+                      for _ in range(2)) for _ in range(cfg.num_layers)]
+        toks = torch.randint(0, cfg.vocab_size, (b, w), generator=g,
+                             device=device)
+        pos = 300 + torch.arange(w, device=device).expand(b, w)
+        wide_view = [tuple(t.clone() for t in v) for v in view]
+        with torch.no_grad():
+            wide, _ = model.decode(toks, positions=pos, kv_views=wide_view)
+            seq = torch.cat([model.decode(
+                toks[:, i:i + 1], positions=pos[:, i:i + 1],
+                kv_views=view)[0] for i in range(w)], dim=1)
+            x = torch.randn(b * w, cfg.mlp_dim, generator=g,
+                            device=device).to(cfg.dtype)
+            wt = model.blocks[0].mlp_out.to(cfg.dtype)
+            rows = torch.cat([x[i:i + 1] @ wt for i in range(b * w)])
+            split = int(((x @ wt) != rows).sum())
+        same = torch.equal(_bits(wide), _bits(seq)) and all(
+            torch.equal(_bits(a), _bits(c))
+            for v, u in zip(wide_view, view) for a, c in zip(v, u))
+        if not same:
+            raise RuntimeError(
+                f"B={b}: a (B, {w}) decode forward differs from {w} one-token "
+                f"forwards: {int((wide != seq).sum())} logits differ")
+        out[b] = split
+    return out
+
+
+def accept_one_more(engine):
+    """The planted fault of (f): verify's choices altered so that the host
+    accepts one proposal past each row's first mismatch."""
+    run, k = engine._run, engine.speculate_k
+
+    def faulty(name):
+        out = run(name)
+        if name != "verify":
+            return out
+        choices, props = out.clone(), engine._props
+        miss = props != choices[:, :k]
+        first = miss.int().argmax(dim=1)
+        rows = torch.arange(choices.shape[0], device=choices.device)
+        choices[rows, first] = torch.where(miss.any(dim=1),
+                                           props[rows, first],
+                                           choices[rows, first])
+        return choices
+
+    engine._run = faulty
+    return engine
+
+
+def decode_busy(cfg, model, device, batch: int) -> dict:
+    """(g): one profiled window of SERVE_DECODE_STEPS decode steps on the
+    graphs, every slot busy (the engine is built and its graphs captured
+    under the profiler, which sees a replay's kernels only so)."""
+    def window():
+        engine = serve_bench_torch._filled_engine(
+            cfg, model, batch, SERVE_DECODE_PROMPT, SERVE_DECODE_STEPS + 5,
+            SERVE_BLOCK, None, device)
+        engine.step()
+        torch.cuda.synchronize()
+        with torch.profiler.record_function(REPLAY_MARK):
+            return _timed(lambda: [engine.step()
+                                   for _ in range(SERVE_DECODE_STEPS)])
+
+    return _profiled(window, REPLAY_MARK)
+
+
+def phase_serving_graphs(device) -> dict:
+    """Phase 13: the engine's captured forwards against their bodies, and
+    speculative decoding, at phase 9's shapes (module docstring)."""
+    t0 = time.perf_counter()
+    cfg = serve_config()
+    model = transformer.init_params(cfg, seed=SEED, device=device)
+    bn.reset_launch_counts()
+    fa.reset_launch_counts()
+    out = {}
+
+    # (a)/(b) graph against eager body, and the capture counts.
+    out["graph_vs_body"] = {b: graph_vs_body(cfg, model, device, b)
+                            for b in (1, SERVE_SLOTS)}
+    # (h) the row invariance speculation's equality rests on.
+    out["rows"] = row_invariance(cfg, model, device)
+
+    # (c) self-speculation against generate.
+    g = torch.Generator().manual_seed(SEED + 8)
+    prompt = torch.randint(0, cfg.vocab_size, (SERVE_B1[0],), generator=g)
+    want = transformer.generate(cfg, model, prompt[None], SERVE_B1[1],
+                                device=device)[0, SERVE_B1[0]:].tolist()
+    engine = serving.Engine(cfg, model, block_size=SERVE_BLOCK, max_batch=1,
+                            speculate=SPEC_K, draft_kv_dtype="model",
+                            device=device)
+    got = _serve(engine, [prompt], SERVE_B1[1])[0]
+    if got != want or engine.spec_accept_rate != 1.0:
+        raise RuntimeError(
+            f"self-speculation: tokens equal generate {got == want}, accept "
+            f"rate {engine.spec_accept_rate} (expected 1.0)")
+    out["self"] = (engine.spec_accept_rate,
+                   _captures(engine, SPEC_GRAPHS, "self-speculation"))
+    if engine.decode_trace_count != 0:
+        raise RuntimeError("a speculating engine captured decode")
+
+    # (d) the distilled pair on an int4 draft pool against the plain engine.
+    target, dcfg, draft = serve_bench_torch.distilled_draft_pair(
+        cfg, seed=SEED, device=device)
+    plain = serving.Engine(cfg, target, block_size=SERVE_BLOCK, max_batch=1,
+                           device=device)
+    want = _serve(plain, [prompt], SERVE_B1[1])[0]
+    engine = serving.Engine(cfg, target, block_size=SERVE_BLOCK, max_batch=1,
+                            speculate=SPEC_K, draft_config=dcfg,
+                            draft_params=draft, device=device)
+    got = _serve(engine, [prompt], SERVE_B1[1])[0]
+    if engine.draft_kv_dtype != "int4" or got != want:
+        raise RuntimeError(
+            f"distilled pair ({engine.draft_kv_dtype} draft pool): tokens "
+            f"equal the plain engine's {got == want}")
+    out["distilled"] = (engine.spec_accept_rate,
+                        engine.stats["spec_rollback_tokens"],
+                        _captures(engine, SPEC_GRAPHS, "distilled pair"))
+    del plain, engine
+
+    # (e) a garbage draft under min_accept: the DEGRADE latch, same tokens.
+    garbage = transformer.init_params(transformer.draft_config(cfg, 1),
+                                      seed=SPEC_GARBAGE_SEED, device=device)
+    prompts = serve_bench_torch._prompts(cfg, SPEC_GARBAGE_N,
+                                         SPEC_GARBAGE[0], seed=SEED + 14)
+    plain = serving.Engine(cfg, model, block_size=SERVE_BLOCK,
+                           max_batch=SPEC_GARBAGE_N, device=device)
+    wants = _serve(plain, prompts, SPEC_GARBAGE[1])
+    engine = serving.Engine(cfg, model, block_size=SERVE_BLOCK,
+                            max_batch=SPEC_GARBAGE_N, speculate=SPEC_K,
+                            draft_config=transformer.draft_config(cfg, 1),
+                            draft_params=garbage, min_accept=SPEC_MIN_ACCEPT,
+                            device=device)
+    got = _serve(engine, prompts, SPEC_GARBAGE[1])
+    st = engine.stats
+    if (got != wants or not engine.cache_stats()["spec_disabled"]
+            or not st["draft_calls"] < st["verify_calls"]):
+        raise RuntimeError(
+            f"garbage draft with min_accept={SPEC_MIN_ACCEPT}: tokens equal "
+            f"{got == wants}, disabled {engine.cache_stats()['spec_disabled']}"
+            f", draft calls {st['draft_calls']}, verify calls "
+            f"{st['verify_calls']}")
+    out["degrade"] = (engine.spec_accept_rate, st["draft_calls"],
+                      st["verify_calls"],
+                      _captures(engine, SPEC_GRAPHS, "degraded engine"))
+    del plain, engine
+
+    # (f) the planted fault: a verify that accepts one token past the first
+    # mismatch must change the tokens.
+    engine = accept_one_more(serving.Engine(
+        cfg, model, block_size=SERVE_BLOCK, max_batch=SPEC_GARBAGE_N,
+        speculate=SPEC_K, draft_config=transformer.draft_config(cfg, 1),
+        draft_params=garbage, device=device))
+    got = _serve(engine, prompts, SPEC_GARBAGE[1])
+    if got == wants:
+        raise RuntimeError("planted fault (verify accepting one token past "
+                           "the first mismatch) passed the check")
+    out["fault"] = sum(a != b for x, y in zip(got, wants)
+                       for a, b in zip(x, y))
+    del engine, garbage
+
+    # (g) the card's numbers.
+    sb = serve_bench_torch
+    out["decode"] = {b: sb.decode_ab(
+        cfg, model, b, steps=SERVE_DECODE_STEPS,
+        prompt_len=SERVE_DECODE_PROMPT, block_size=SERVE_BLOCK,
+        windows=SERVE_WINDOWS, device=device) for b in (1, SERVE_SLOTS)}
+    spec = dict(speculate=SPEC_K, steps=SERVE_DECODE_STEPS,
+                prompt_len=SERVE_DECODE_PROMPT, block_size=SERVE_BLOCK,
+                windows=SERVE_WINDOWS, device=device)
+    out["spec_distilled"] = sb.speculative_rates(
+        cfg, target, draft_config=dcfg, draft_params=draft, **spec)
+    out["spec_distilled_model"] = sb.speculative_rates(
+        cfg, target, draft_config=dcfg, draft_params=draft,
+        draft_kv_dtype="model", **spec)
+    out["spec_self"] = sb.speculative_rates(cfg, model,
+                                            draft_kv_dtype="model", **spec)
+    del target, draft
+    free_cuda()
+    out["busy"] = {b: decode_busy(cfg, model, device, b)
+                   for b in (1, SERVE_SLOTS)}
+    torch.cuda.synchronize()
+    launched = {**bn.LAUNCHES, **fa.LAUNCHES}
+    if any(launched.values()):
+        raise RuntimeError(f"the serving path launched kernels: {launched}")
+    out["seconds"] = time.perf_counter() - t0
+    del model
+    free_cuda()
+    return out
+
+
+def serving_graphs_line(sg: dict, ident: str) -> str:
+    """Phase 13's line of output."""
+    def spread(rates):
+        return (f"median {statistics.median(rates):.1f} (min "
+                f"{min(rates):.1f}, max {max(rates):.1f})")
+
+    def busy(p):
+        return (f"{p['busy_us'] / 1e3 / SERVE_DECODE_STEPS:.3f} ms busy of "
+                f"{1e3 * p['wall_s'] / SERVE_DECODE_STEPS:.3f} ms a step, "
+                f"busy share {p['busy_us'] / 1e6 / p['wall_s']:.3f}, "
+                f"{p['launches'] / SERVE_DECODE_STEPS:.0f} kernels and "
+                f"{p['device_us'] / 1e3 / SERVE_DECODE_STEPS:.3f} ms of them "
+                f"a step")
+
+    def spec(r):
+        return (f"{spread(r['tokens_per_sec'])} tokens/s, accept rate "
+                f"{r['accept_rate']:.4f}, draft {r['draft_overhead_ms']:.3f} "
+                f"ms a step ({r['draft_kv_dtype']} draft pool)")
+
+    b1, b8 = sg["decode"][1], sg["decode"][SERVE_SLOTS]
+    return (
+        f"phase 13 serving graphs: ok; phase 9's LM and shapes; (a) graphs "
+        f"replayed = their bodies run eagerly, tokens and pools outside "
+        f"block 0 bit for bit, B=1 and B={SERVE_SLOTS} over "
+        f"{SERVE_DECODE_STEPS} tokens after a {SERVE_DECODE_PROMPT}-token "
+        f"prompt; (b) each graph captured once (replays: B=1 "
+        f"{sg['graph_vs_body'][1]}, B={SERVE_SLOTS} "
+        f"{sg['graph_vs_body'][SERVE_SLOTS]}); (h) a (B, {SPEC_K + 1}) "
+        f"decode forward = {SPEC_K + 1} one-token forwards bit for bit "
+        f"(logits, view pages) at B=" + "/".join(map(str, sg["rows"]))
+        + " (the MLP down-projection in one product of B x "
+        f"{SPEC_K + 1} rows differs from one-row products at " + ", ".join(
+            f"{v} elements (B={b})" for b, v in sg["rows"].items())
+        + f"); (c) self-speculation k="
+        f"{SPEC_K} (draft_kv_dtype='model') = generate for {SERVE_B1[0]}+"
+        f"{SERVE_B1[1]} tokens, accept rate {sg['self'][0]}, replays "
+        f"{sg['self'][1]}, decode never captured; (d) distilled pair (8-layer"
+        f" target, 1-layer draft, int4 draft pool) = the plain engine, "
+        f"accept rate {sg['distilled'][0]:.4f}, {sg['distilled'][1]} tokens "
+        f"rolled back; (e) garbage draft with min_accept={SPEC_MIN_ACCEPT}: "
+        f"DEGRADE latched, tokens = the plain engine, accept rate "
+        f"{sg['degrade'][0]:.4f}, {sg['degrade'][1]} draft and "
+        f"{sg['degrade'][2]} verify calls on the same graphs "
+        f"{sg['degrade'][3]}; (f) planted fault (one token accepted past the "
+        f"first mismatch) caught, {sg['fault']} tokens differ; (g) decode "
+        f"tokens/s, {SERVE_WINDOWS} windows of {SERVE_DECODE_STEPS} steps in "
+        f"turns: B=1 graphs {spread(b1['graph'])}, eager bodies "
+        f"{spread(b1['eager'])}; B={SERVE_SLOTS} graphs "
+        f"{spread(b8['graph'])}, eager bodies {spread(b8['eager'])}; B=1 "
+        f"speculative k={SPEC_K}: distilled pair "
+        f"{spec(sg['spec_distilled'])}; the same pair "
+        f"{spec(sg['spec_distilled_model'])}; self-speculation "
+        f"{spec(sg['spec_self'])}; one profiled window of graph decode: B=1 "
+        f"{busy(sg['busy'][1])}; B={SERVE_SLOTS} "
+        f"{busy(sg['busy'][SERVE_SLOTS])}; phase {sg['seconds']:.1f} s (no "
+        f"kernel of the port launched), on {ident}")
 
 
 def main() -> int:
@@ -2411,7 +2759,9 @@ def main() -> int:
         f"dense cache bit for bit; {SERVE_SLOTS} slots, {SERVE_REQUESTS} "
         f"requests ({n_tok} tokens, {hits} prompt tokens from the prefix "
         f"cache), pool invariants after every step, one decode and one "
-        f"prefill signature: {n_same}/{SERVE_REQUESTS} rows equal their "
+        f"prefill capture (replays: " + ", ".join(
+            f"{k} {v}" for k, v in sorted(sv["replays"].items()))
+        + f"): {n_same}/{SERVE_REQUESTS} rows equal their "
         f"solo runs" + "".join(
             f"; row {i} differs first at step {k} (top-2 margin {m:.4f})"
             for i, k, m in differ)
@@ -2507,6 +2857,10 @@ def main() -> int:
                                      "nearest_library_ms")})
     cs = phase_captured_step(device)
     say(captured_step_line(cs, ident) + f"; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+
+    sg = phase_serving_graphs(device)
+    say(serving_graphs_line(sg, ident) + f"; total "
         f"{time.perf_counter() - t_start:.0f} s")
 
     say(json.dumps({"kernels": kernels}))

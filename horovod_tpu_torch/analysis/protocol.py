@@ -4,7 +4,8 @@ validation and the store key namespace of the negotiation layer, the
 comparison of two programs' collective schedules, the
 fault-injection grammar (``HOROVOD_FAULT_INJECT``) with its torn-write
 matcher, the checkpoint-resume agreement, and the serving judgements
-(deadlines, the journal's committed-token fold, stall verdicts).
+(deadlines, the journal's committed-token fold, stall verdicts, the
+speculation auto-off).
 
 Stdlib-only and side-effect free: every function is a pure transition
 (inputs in, verdict out). The port keeps its own copy rather than
@@ -384,6 +385,17 @@ def admission_feasible(prompt_tokens: int, budget_ms: Optional[float],
     if prefill_tokens_per_ms <= 0:
         return True
     return prompt_tokens / prefill_tokens_per_ms <= budget_ms
+
+
+def accept_rate_collapsed(window: Sequence[float], min_accept: float,
+                          min_samples: int = 8) -> bool:
+    """The speculation auto-off judgement: the rolling window of
+    per-step acceptance fractions has enough samples and its mean sits
+    below ``min_accept``. Pure so the engine, the tests, and the drill
+    agree on when degradation triggers (min_accept <= 0 disables)."""
+    if min_accept <= 0 or len(window) < min_samples:
+        return False
+    return sum(window) / len(window) < min_accept
 
 
 def journal_committed(records: Sequence[Mapping[str, Any]],

@@ -37,6 +37,12 @@ both cache carriers, so :func:`generate` and the serving engine
 The attend runs in fp32: GQA grouped as ``bqhgd,bkhd`` without expanding
 the cache, positions past each query's frontier (and outside ``window``)
 written as -1e30 before the softmax.
+The decode side computes a row the same whether it rides a one-token step
+of B rows or the serving engine's (B, k + 1) speculative verify: its
+RMSNorm sums the statistics in an order independent of the number of rows,
+its products run on at most 8 rows at a time, and the attend takes one
+query position at a time (the card's reductions and products otherwise
+round by their shapes).
 
 Not ported yet: sequence-parallel attention (``attention='ring'`` /
 ``'ulysses'``, the ``'zigzag'`` layout — ROADMAP §A item 13); those raise
@@ -115,10 +121,27 @@ def _apply_rotary(x: torch.Tensor, cos, sin) -> torch.Tensor:
                      dim=-1).to(x.dtype)
 
 
-def _dense(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
+# The decode side's products run on at most this many rows at a time: the
+# card's library picks its kernel (a split of the contraction among them)
+# by the number of rows, and at the LM's widths every product of up to 8
+# rows rounds a row as a one-row product does (measured on an H100,
+# chip_smoke.py phase 13).
+_INVARIANT_ROWS = 8
+
+
+def _dense(x: torch.Tensor, w: torch.Tensor, dtype,
+           row_invariant: bool = False) -> torch.Tensor:
     """flax Dense/DenseGeneral without bias: x and the fp32 kernel, both cast
-    to ``dtype``, contracted over x's last dim and w's leading dims."""
-    return x.to(dtype) @ w.to(dtype).reshape(x.shape[-1], -1)
+    to ``dtype``, contracted over x's last dim and w's leading dims.
+    ``row_invariant`` (the decode side) multiplies at most
+    ``_INVARIANT_ROWS`` rows at a time, so that a row's bits do not depend
+    on how many rows ride with it."""
+    x, w = x.to(dtype), w.to(dtype).reshape(x.shape[-1], -1)
+    rows = x.reshape(-1, x.shape[-1])
+    if not row_invariant or rows.shape[0] <= _INVARIANT_ROWS:
+        return x @ w
+    return torch.cat([r @ w for r in rows.split(_INVARIANT_ROWS)]).reshape(
+        *x.shape[:-1], w.shape[1])
 
 
 class _Step(NamedTuple):
@@ -146,27 +169,54 @@ def _attend(q, kc, vc, visible) -> torch.Tensor:
     """The decode attend, in fp32: q (B, W, H, d) against the cache or
     view (B, K, Hkv, d), GQA grouped as ``bqhgd,bkhd`` (the cache is never
     expanded), invisible scores written as -1e30 before the softmax.
-    Returns (B, W, H, d) in q's dtype."""
+    Returns (B, W, H, d) in q's dtype. One query position at a time: the
+    card's fp32 products round by their shapes, so a position of the
+    serving engine's (B, k + 1) verify is scored with the one-token step's
+    shapes, and so with its bits."""
     b, w, h, d = q.shape
     hkv = kc.shape[2]
-    qg = q.reshape(b, w, hkv, h // hkv, d).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kc.float()) * (1.0 / d ** 0.5)
-    p = torch.softmax(torch.where(visible, s, -1e30), dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p, vc.float())
+    kf, vf = kc.float(), vc.float()
+    outs = []
+    for i in range(w):
+        qg = q[:, i:i + 1].reshape(b, 1, hkv, h // hkv, d).float()
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * (1.0 / d ** 0.5)
+        p = torch.softmax(torch.where(visible[:, :, :, i:i + 1], s, -1e30),
+                          dim=-1)
+        outs.append(torch.einsum("bhgqk,bkhd->bqhgd", p, vf))
+    out = outs[0] if w == 1 else torch.cat(outs, dim=1)
     return out.reshape(b, w, h, d).to(q.dtype)
 
 
+def _row_invariant_mean_sq(xf: torch.Tensor) -> torch.Tensor:
+    """The mean of squares over the last dim, summed in an order that does
+    not depend on how many rows there are: lanes of 32, then the lanes'
+    sums. A single CUDA reduction spreads a row over more lanes when there
+    are fewer rows, so a one-token decode step (B rows) and the serving
+    engine's (B, k + 1) verify would round each row's statistics
+    differently."""
+    e = xf.shape[-1]
+    if e % 32:
+        return (xf * xf).mean(-1, keepdim=True)
+    sq = (xf * xf).reshape(*xf.shape[:-1], e // 32, 32)
+    return sq.sum(-1).sum(-1, keepdim=True) / e
+
+
 class RMSNorm(nn.Module):
-    """flax ``nn.RMSNorm``: statistics in fp32, ε = 1e-6, output ``dtype``."""
+    """flax ``nn.RMSNorm``: statistics in fp32, ε = 1e-6, output ``dtype``.
+    ``row_invariant`` (the decode side) sums the statistics in an order
+    independent of the number of rows (:func:`_row_invariant_mean_sq`)."""
 
     def __init__(self, dim: int, dtype: torch.dtype) -> None:
         super().__init__()
         self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(dim))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                row_invariant: bool = False) -> torch.Tensor:
         xf = x.float()
-        mul = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + 1e-6) * self.scale
+        ms = (_row_invariant_mean_sq(xf) if row_invariant
+              else (xf * xf).mean(-1, keepdim=True))
+        mul = torch.rsqrt(ms + 1e-6) * self.scale
         return (xf * mul).to(self.dtype)
 
 
@@ -202,14 +252,17 @@ class Attention(nn.Module):
         self.value = kernel((e, hkv, d), e)
         self.out = kernel((h, d, e), h * d)
 
-    def _qkv(self, x, rot):
+    def _qkv(self, x, rot, row_invariant: bool = False):
         cfg = self.config
         b, t, _ = x.shape
-        q = _apply_rotary(_dense(x, self.query, cfg.dtype).reshape(
+        q = _apply_rotary(_dense(x, self.query, cfg.dtype,
+                                 row_invariant).reshape(
             b, t, self.h, self.d), *rot)
-        k = _apply_rotary(_dense(x, self.key, cfg.dtype).reshape(
+        k = _apply_rotary(_dense(x, self.key, cfg.dtype,
+                                 row_invariant).reshape(
             b, t, self.hkv, self.d), *rot)
-        v = _dense(x, self.value, cfg.dtype).reshape(b, t, self.hkv, self.d)
+        v = _dense(x, self.value, cfg.dtype, row_invariant).reshape(
+            b, t, self.hkv, self.d)
         return q, k, v
 
     def forward(self, x, positions, segment_ids=None):
@@ -234,7 +287,7 @@ class Attention(nn.Module):
         W == 1; None for the dense cache."""
         cfg = self.config
         b, w, _ = x.shape
-        q, k, v = self._qkv(x, rot)
+        q, k, v = self._qkv(x, rot, row_invariant=True)
         fresh = None
         if step.paged:
             if kv_quantized(kv_dtype):
@@ -262,7 +315,7 @@ class Attention(nn.Module):
             vc[:, i] = v[:, 0].to(vc.dtype)
         out = _attend(q, kc, vc, step.visible)
         return _dense(out.reshape(b, w, self.h * self.d), self.out,
-                      cfg.dtype), fresh
+                      cfg.dtype, row_invariant=True), fresh
 
 
 class Block(nn.Module):
@@ -280,19 +333,20 @@ class Block(nn.Module):
         self.mlp_out = nn.Parameter(lecun_normal_(torch.empty(m, e), m,
                                                   generator))
 
-    def _mlp(self, x):
-        y = _dense(self.norm2(x), self.mlp_in, self.dtype)
+    def _mlp(self, x, row_invariant: bool = False):
+        y = _dense(self.norm2(x, row_invariant), self.mlp_in, self.dtype,
+                   row_invariant)
         y = F.gelu(y, approximate="tanh")
-        return x + _dense(y, self.mlp_out, self.dtype)
+        return x + _dense(y, self.mlp_out, self.dtype, row_invariant)
 
     def forward(self, x, positions, segment_ids=None):
         return self._mlp(x + self.attn(self.norm1(x), positions,
                                        segment_ids))
 
     def decode(self, x, rot, step, carrier, kv_dtype: str):
-        a, fresh = self.attn.decode(self.norm1(x), rot, step, carrier,
+        a, fresh = self.attn.decode(self.norm1(x, True), rot, step, carrier,
                                     kv_dtype)
-        return self._mlp(x + a), fresh
+        return self._mlp(x + a, True), fresh
 
 
 class Transformer(nn.Module):
@@ -424,7 +478,8 @@ class Transformer(nn.Module):
         for block, carrier in zip(self.blocks, carriers):
             x, f = block.decode(x, rot, step, carrier, kvd)
             fresh.append(f)
-        logits = _dense(self.norm(x), self.lm_head, cfg.dtype).float()
+        logits = _dense(self.norm(x, True), self.lm_head, cfg.dtype,
+                        row_invariant=True).float()
         if cache is not None:
             cache.index = i + 1
             return logits
@@ -501,6 +556,21 @@ def decode_config(config: TransformerConfig) -> TransformerConfig:
     :func:`prefill`/:func:`decode_step` pair and the serving engine run."""
     return config._replace(decode=True, attention="local",
                            sp_layout="contiguous")
+
+
+def draft_config(config: TransformerConfig, num_layers: int = 1,
+                 mlp_dim: int | None = None) -> TransformerConfig:
+    """A small draft-model config for speculative decoding (the serving
+    engine's ``speculate=k``): the same vocabulary (proposals are target
+    token ids), heads, width and ``max_seq_len`` (its paged cache rides
+    the target's block tables and positions), fewer layers. Train it
+    separately or distill it from the target, and pass its model as
+    ``draft_params``."""
+    if num_layers < 1:
+        raise ValueError(f"draft num_layers must be >= 1, got {num_layers}")
+    return config._replace(
+        num_layers=num_layers,
+        mlp_dim=config.mlp_dim if mlp_dim is None else mlp_dim)
 
 
 _ARCH_FIELDS = ("vocab_size", "num_layers", "num_heads", "embed_dim",

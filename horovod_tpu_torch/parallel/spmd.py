@@ -20,7 +20,8 @@ On the card (``hvd.init()``'s device is CUDA), per key:
    communicator, the optimizer's state, kernel A1's launch table, kernel
    B1's barrier words, which are owned by the stream);
 2. the second call copies the tensor arguments into static buffers and
-   captures ``fn`` on that side stream into one ``torch.cuda.CUDAGraph``,
+   captures ``fn`` on that side stream into one ``torch.cuda.CUDAGraph``
+   (``utils/graphs.py``, the capture core the serving engine shares),
    under a program context (``core/context.py``) in which the collectives
    only register; ``core/multihost.py::validate_schedule`` then compares
    the schedule across the group's ranks, and the graph is replayed. The
@@ -66,7 +67,7 @@ from horovod_tpu_torch.core import multihost as _mh
 from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.core import timeline as _tl
 from horovod_tpu_torch.core.state import HorovodError
-from horovod_tpu_torch.ops import launches as _launches
+from horovod_tpu_torch.utils import graphs as _graphs
 
 
 def _signature(leaves) -> tuple:
@@ -84,19 +85,15 @@ def _signature(leaves) -> tuple:
     return tuple(one(t) for t in leaves)
 
 
-class _Program:
+class _Program(_graphs.Graph):
     """One key's program: its calls so far, its schedule and, on the card,
-    its stream, graph and static buffers."""
+    its stream, graph and static buffers (``utils/graphs.py``)."""
 
     def __init__(self) -> None:
+        super().__init__()
         self.calls = 0
         self.schedule: list | None = None
-        self.stream = None
-        self.graph = None
         self.static_in: list = []
-        self.static_out: list = []
-        self.out_spec = None
-        self.launches: list = []  # kernel launches a replay makes
 
 
 class Spmd:
@@ -201,15 +198,10 @@ class Spmd:
                     f"spmd: program {tag} runs on {dev}, but an argument of "
                     f"shape {tuple(t.shape)} lies on {t.device}; move the "
                     f"arguments to the rank's device first.")
-        cur = torch.cuda.current_stream(dev)
         if prog.calls == 0:
             self.runs += 1
-            prog.stream = torch.cuda.Stream(dev)
-            prog.stream.wait_stream(cur)
-            with torch.cuda.stream(prog.stream), \
-                    _ctx.enter(self.group, negotiate=True):
-                out = self.fn(*args)
-            cur.wait_stream(prog.stream)
+            with _ctx.enter(self.group, negotiate=True):
+                out = prog.eager(dev, self.fn, *args)
             prog.calls = 1
             return out
         if prog.calls == 1:
@@ -218,21 +210,17 @@ class Spmd:
             if isinstance(t, torch.Tensor) and t is not static:
                 static.copy_(t)
         self._spans(prog, "B")
-        prog.graph.replay()
-        _launches.replayed(prog.launches)
+        out = prog.replay()
         self.replays += 1
-        out = [t.clone() if isinstance(t, torch.Tensor) else t
-               for t in prog.static_out]
         if _tl.session().active:
-            cur.synchronize()
+            torch.cuda.current_stream(dev).synchronize()
         self._spans(prog, "E")
-        return pytree.tree_unflatten(out, prog.out_spec)
+        return out
 
     def _capture(self, prog: _Program, tag: str, leaves, spec) -> None:
         prog.static_in = [t.clone() if isinstance(t, torch.Tensor) else t
                           for t in leaves]
         args = pytree.tree_unflatten(prog.static_in, spec)
-        graph = torch.cuda.CUDAGraph()
         # One pool for all this Spmd's graphs: a second signature (a ragged
         # last batch) reuses the first one's activations instead of holding
         # its own. Safe as the graphs never run at once, and a replay's
@@ -243,27 +231,16 @@ class Spmd:
         tl = _tl.session()
         row = f"_program/{tag}"
         tl.start_activity(row, "TRACE_AND_COMPILE")
-        try:
-            with _launches.recording() as launches, \
-                    torch.cuda.graph(graph, pool=pool, stream=prog.stream,
-                                     capture_error_mode="thread_local"), \
-                    _ctx.enter(self.group) as ctx:
-                out = self.fn(*args)
-        except HorovodError:
-            raise
-        except Exception as e:
-            raise HorovodError(
-                f"spmd: program {tag} could not be captured as a CUDA "
-                f"graph: {e}. A captured step must not synchronise with the "
-                f"host (.item(), float(tensor), a copy to the host) or copy "
-                f"from pageable host memory, and its optimizer must be "
-                f"capturable (torch.optim's with capturable=True, which the "
-                f"Trainer sets).") from e
+        ctx = prog.capture(
+            self.fn, *args, pool=pool, within=_ctx.enter(self.group),
+            what=f"spmd: program {tag}",
+            rules="A captured step must not synchronise with the host "
+                  "(.item(), float(tensor), a copy to the host) or copy "
+                  "from pageable host memory, and its optimizer must be "
+                  "capturable (torch.optim's with capturable=True, which "
+                  "the Trainer sets).")
         tl.end_activity(row, "TRACE_AND_COMPILE")
-        prog.static_out, prog.out_spec = pytree.tree_flatten(out)
         prog.schedule = self._recorded(tag, ctx)
-        prog.graph = graph
-        prog.launches = launches
         prog.calls = 2
 
 

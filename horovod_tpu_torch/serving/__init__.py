@@ -1,7 +1,8 @@
 """horovod_tpu_torch.serving — continuous-batching LM inference on the GPU.
 
-Counterpart of ``horovod_tpu.serving`` (speculative decoding and the
-prefill/decode group split are not ported yet — ROADMAP §A item 14):
+Counterpart of ``horovod_tpu.serving`` (the prefill/decode group split is
+not ported yet — ROADMAP §A item 14; on the GPU the engine's forwards are
+captured CUDA graphs):
 
     from horovod_tpu_torch import serving
     from horovod_tpu_torch.models import transformer
@@ -11,7 +12,8 @@ prefill/decode group split are not ported yet — ROADMAP §A item 14):
     for done in engine.run_until_idle():
         print(done.request_id, done.output)
 
-Pieces: :class:`Engine` (fixed-shape prefill/decode over a paged KV cache —
+Pieces: :class:`Engine` (fixed-shape prefill/decode over a paged KV cache,
+and draft-and-verify speculative decoding with ``speculate=k`` —
 engine.py), :class:`Scheduler` + :class:`Request` (continuous batching,
 tenant fairness, admission control, prefix sharing — scheduler.py),
 :class:`BlockPool` (the paged-cache allocator — kv_cache.py),

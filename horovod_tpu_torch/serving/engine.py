@@ -1,16 +1,18 @@
 """Continuous-batching generation engine over the paged KV cache.
 
-Counterpart of ``horovod_tpu/serving/engine.py`` without speculation. The
-reference jits two fixed-shape executables; the port runs the same two
-forwards eagerly, at shapes that never change with the batch's
-composition:
+Counterpart of ``horovod_tpu/serving/engine.py``. The reference jits its
+forwards once as fixed-shape executables; the port captures each once as a
+CUDA graph (``utils/graphs.py``) and replays it, at shapes that never change
+with the batch's composition:
 
-* **prefill** — a loop of one-token forwards over the data window
-  ``[min(skip, plen - 1), max(plen))`` of the newly admitted rows (the
-  earliest position any of them needs, to the end of the longest prompt).
-  Inactive rows, and admitted rows inside a shared prefix span, write their
-  fresh K/V to the null block; the last prompt position's logits give each
-  row its first token.
+* **prefill** — one one-token forward at position ``t``, held in a 0-d
+  device tensor that the graph advances. The host replays it over the data
+  window ``[min(skip, plen - 1), max(plen))`` of the newly admitted rows
+  (the earliest position any of them needs, to the end of the longest
+  prompt), as the reference's ``while_loop`` runs it. Inactive rows, and
+  admitted rows inside a shared prefix span, write their fresh K/V to the
+  null block; the last prompt position's logits give each row its first
+  token (a second, small graph samples them).
 * **decode** — one token for every slot: gather each slot's paged view
   through its block table, run the model's decode step (the attend
   :func:`~horovod_tpu_torch.models.transformer.generate` runs, so greedy
@@ -18,20 +20,48 @@ composition:
   into the pools in place at ``(tables[row, len // bs], len % bs)``
   (``index_put_``), sample.
 
-Batch slots are padded to ``max_batch``: admitting, finishing or preempting
-requests changes the contents of the mask, table and length tensors, never
-their shapes. :attr:`Engine.decode_trace_count` and
-:attr:`Engine.prefill_trace_count` count the distinct signatures (shape,
-dtype, device) of the tensors each forward handed the model's decode step —
-the counterpart of the reference's trace counts — and stay at 1 across
-composition churn.
+Speculative decoding (``speculate=k`` > 0, ``HOROVOD_SERVE_SPECULATE``)
+swaps decode for a draft-and-verify pair: the engine then captures the
+target's prefill and **verify** and the draft's **draft prefill** and
+**draft propose**, four graphs for its life (decode is never captured):
+
+* **draft propose** — the draft model (its own pools, mirroring the
+  target's allocator; int4 pages by default) proposes k tokens a slot:
+  k + 1 one-token forwards, unrolled in one graph, over a view gathered
+  once and carried (each forward writes its fresh K/V into it), then one
+  pool scatter. Forward 0 re-ingests the token at position L - 1 (the
+  draft's pool runs one write behind the target's after a full accept).
+* **verify** — the target scores all k + 1 positions (the last token and
+  the k proposals) in one ``(B, k + 1)`` forward, its causal visibility
+  keeping each position blind to the ones after it. The host accepts
+  proposals while they equal the target's own choice (the same keyed
+  sampler) and emits the target's choice at the first mismatch, so the
+  stream is the target's sequential stream: greedy speculation equals
+  ``generate``, sampled speculation the plain engine. The rejected tail
+  rolls back through ``BlockPool.truncate``; a windowed accept rate below
+  ``min_accept`` latches speculation off (verify with horizon 0, no draft),
+  on the same graphs.
+
+The host keeps fixed-shape numpy mirrors of the batch slots (tables,
+lengths, tokens, masks, prompts) as views of one pinned staging buffer;
+before a forward one ``copy_(non_blocking=True)`` moves them into the
+static device buffers the graphs read, and after it one copy brings back
+the sampled tokens. The pools are allocated once and updated in place by
+every replay. On the card a capture that fails raises
+:class:`~horovod_tpu_torch.core.state.HorovodError`; the engine never
+serves eagerly. On the CPU there is no graph: the same bodies run eagerly.
+:attr:`Engine.decode_trace_count` and its siblings count captures on the
+card and, on the CPU, the distinct signatures (shape, dtype, device) of
+the tensors each forward handed the model's decode step — the counterpart
+of the reference's trace counts. Each stays at 1 across composition churn.
 
 ``kv_dtype`` selects the pool format at construction (fp32/bf16 raw pages,
 int8_block/int4 payloads plus bf16 scale planes — ``serving/kv_cache.py``).
 The scheduler (``serving/scheduler.py``) owns admission, fairness and prefix
 matching; the block pool owns memory; ``serving/resilience.py`` owns
-deadlines, the watchdog and the journal. Timeline: PREFILL/DECODE spans and
-ADMIT/EVICT ticks on a ``serving`` row (``core/timeline.py``).
+deadlines, the watchdog and the journal. Timeline: PREFILL/DECODE/DRAFT/
+VERIFY spans and ADMIT/EVICT/ROLLBACK/DEGRADE ticks on a ``serving`` row
+(``core/timeline.py``).
 
 Sampling at ``temperature > 0`` is Gumbel-max over a counter hash keyed by
 (engine seed, request seed, position)
@@ -39,19 +69,18 @@ Sampling at ``temperature > 0`` is Gumbel-max over a counter hash keyed by
 independent of the batch composition and stable under recompute, but not
 the reference's ``jax.random`` stream (ROADMAP §C). Greedy is ``argmax``.
 
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP §A item 14):
-speculative decoding (``speculate > 0``, and its ``draft_kv_dtype`` and
-``min_accept`` options), the prefill/decode split across two subset groups
-(``prefill_group``/``decode_group``). The reference's
-tuned-config override of the speculate knob (``tune/apply.py``) is not read:
-the port reads ``HOROVOD_SERVE_SPECULATE`` only.
+Not ported yet, raising ``NotImplementedError`` (ROADMAP §A item 14): the
+prefill/decode split across two subset groups (``prefill_group``/
+``decode_group``). The reference's tuned-config override of the speculate
+knob (``tune/apply.py``) is not read: the port reads
+``HOROVOD_SERVE_SPECULATE`` only.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from collections import deque
+from collections import Counter, deque
 
 import numpy as np
 import torch
@@ -69,8 +98,15 @@ from horovod_tpu_torch.serving.scheduler import (AdmissionError, PrefixIndex,
                                                  Request, RequestState,
                                                  Scheduler)
 from horovod_tpu_torch.utils import env as _env
+from horovod_tpu_torch.utils import graphs as _graphs
 
 _NOT_PORTED = "is not ported to horovod_tpu_torch yet: ROADMAP §A item 14"
+
+_CAPTURE_RULES = (
+    "A captured forward must not synchronise with the host (.item(), a "
+    "copy to the host) or copy from pageable host memory; the engine "
+    "stages its inputs through pinned memory and never serves eagerly on "
+    "the card.")
 
 
 def _signature(*tensors) -> tuple:
@@ -93,14 +129,23 @@ class Engine:
     ``temperature=0`` is greedy, bit-identical to ``transformer.generate``
     at fp32/bf16 KV and equal shapes.
 
+    ``speculate=k`` (default ``HOROVOD_SERVE_SPECULATE``, 0 = off) turns on
+    draft-and-verify speculative decoding: ``draft_config`` /
+    ``draft_params`` name the draft model (same vocabulary, a
+    :class:`~horovod_tpu_torch.models.transformer.Transformer` on the
+    engine's device; omit both for self-speculation, the target drafting
+    for itself) and ``draft_kv_dtype`` its pool format (default
+    ``HOROVOD_SERVE_DRAFT_KV_DTYPE``, unset = ``int4``). The emitted
+    tokens are the non-speculative engine's at every temperature.
+
     Resilience (``serving/resilience.py``): ``deadline_ms`` is the default
     per-request budget (``HOROVOD_SERVE_DEADLINE_MS``); ``journal`` names a
     crash-safe request journal (``HOROVOD_SERVE_JOURNAL``) that
     :meth:`recover` replays; ``watchdog_timeout`` (seconds,
-    ``HOROVOD_SERVE_WATCHDOG_TIMEOUT``, 0 = off) arms the stall watchdog.
-    ``speculate``, ``draft_config`` and ``draft_params`` are validated as
-    the reference validates them; ``speculate > 0``, ``draft_kv_dtype``,
-    ``min_accept`` and ``prefill_group``/``decode_group`` raise
+    ``HOROVOD_SERVE_WATCHDOG_TIMEOUT``, 0 = off) arms the stall watchdog;
+    ``min_accept`` (``HOROVOD_SERVE_MIN_ACCEPT``, 0 = off) turns
+    speculation off when the windowed accept rate falls below it (the
+    tokens do not change). ``prefill_group``/``decode_group`` raise
     ``NotImplementedError``.
     """
 
@@ -133,19 +178,8 @@ class Engine:
                 f"prefill_group=/decode_group= (prefill and decode placed "
                 f"on two subset groups) {_NOT_PORTED}. Serve on one "
                 f"device.")
-        if draft_kv_dtype is not None or min_accept is not None:
-            raise NotImplementedError(
-                f"draft_kv_dtype=/min_accept= (options of speculative "
-                f"decoding) {_NOT_PORTED}. Leave them unset.")
         transformer.check_model(config, params)
-        have = next(params.parameters()).device
-        if have.type != self.device.type or (
-                self.device.index is not None
-                and have.index != self.device.index):
-            raise ValueError(
-                f"the model's parameters are on {have} but the engine "
-                f"serves on {self.device}: build the model there "
-                f"(init_params(..., device=)) or pass device=")
+        self._check_device(params, "model")
         self.model = params
         self.config = config
         if kv_dtype is None:
@@ -179,6 +213,8 @@ class Engine:
             num_blocks = self.max_batch * self.blocks_per_seq + 1
         self.pool = _kv.BlockPool(num_blocks, self.block_size)
 
+        # Speculative decoding: resolve k and the draft model before the
+        # scheduler, whose admission headroom depends on k.
         if speculate is None:
             speculate = _env.serve_speculate()
         self.speculate_k = int(speculate)
@@ -186,24 +222,53 @@ class Engine:
             raise ValueError(
                 f"speculate must be >= 0 (0 disables speculation), got "
                 f"{speculate}")
-        if self.speculate_k:
-            raise NotImplementedError(
-                f"speculate={self.speculate_k} (speculative decoding: the "
-                f"draft_propose/verify_step pair and truncate rollback) "
-                f"{_NOT_PORTED}. Use speculate=0.")
-        if draft_config is not None or draft_params is not None:
+        if self.speculate_k == 0 and (draft_config is not None
+                                      or draft_params is not None):
             raise ValueError(
                 "draft_config/draft_params were passed but speculate=0 — "
                 "set speculate=k (or HOROVOD_SERVE_SPECULATE) to enable "
                 "speculative decoding; a silently ignored draft model "
                 "would serve without the speedup it was configured for")
+        self.draft_kv_dtype = None
+        self._draft_cfg = None
+        self._draft = None
+        if self.speculate_k:
+            if (draft_config is None) != (draft_params is None):
+                raise ValueError(
+                    "draft_config and draft_params must be passed "
+                    "together (a config without weights, or weights "
+                    "without their shape story, cannot draft)")
+            if draft_config is None:
+                # Self-speculation: the target drafts for itself.
+                draft_config, draft_params = config, params
+            if draft_config.vocab_size != config.vocab_size:
+                raise ValueError(
+                    f"draft vocab_size ({draft_config.vocab_size}) must "
+                    f"match the target's ({config.vocab_size}) — "
+                    f"proposals are target token ids")
+            transformer.check_model(draft_config, draft_params)
+            self._check_device(draft_params, "draft model")
+            if draft_kv_dtype is None:
+                draft_kv_dtype = _env.serve_draft_kv_dtype()
+            if draft_kv_dtype is None:
+                draft_kv_dtype = "int4"
+            self.draft_kv_dtype = _kv.resolve_kv_dtype(
+                draft_kv_dtype, draft_config.dtype)
+            # The draft serves the target's positions and block tables:
+            # align its sequence capacity with the target's.
+            self._draft_cfg = transformer.decode_config(
+                draft_config)._replace(kv_dtype=self.draft_kv_dtype,
+                                       max_seq_len=self._cfg.max_seq_len)
+            self._draft = draft_params
 
         if prefix_cache is None:
             prefix_cache = _env.serve_prefix_cache()
         self.prefix_index = PrefixIndex(self.pool) if prefix_cache else None
         self.scheduler = Scheduler(
             self.pool, self.max_batch, max_queue,
-            prefix_index=self.prefix_index, headroom_tokens=0,
+            prefix_index=self.prefix_index,
+            headroom_tokens=(self.speculate_k + 1 if self.speculate_k
+                             else 0),
             seq_cap=self._cfg.max_seq_len,
             prefill_rate=self._measured_prefill_rate)
         self.max_prompt_len = (max_prompt_len if max_prompt_len is not None
@@ -216,31 +281,71 @@ class Engine:
         self.seed = int(seed)
         self.eos_id = eos_id
 
-        # Device state: the paged pools, updated in place — (k, v) raw
-        # pages, or (k, v, k_scale, v_scale) for the quantized formats.
+        # Device state: the paged pools, allocated once and updated in
+        # place — (k, v) raw pages, or (k, v, k_scale, v_scale) for the
+        # quantized formats. The draft's pools mirror the target's
+        # allocator: same block ids, same tables, their own pages.
         self._pools = _kv.make_kv_pools(self._cfg, num_blocks,
                                         self.block_size, self.kv_dtype,
                                         device=self.device)
+        self._draft_pools = None
+        if self.speculate_k:
+            self._draft_pools = _kv.make_kv_pools(
+                self._draft_cfg, num_blocks, self.block_size,
+                self.draft_kv_dtype, device=self.device)
+        self._pool_ptrs = [p.data_ptr() for p in self._all_pools()]
 
-        # Host state: fixed-shape numpy mirrors of the batch slots.
-        mb = self.max_batch
-        self._slots: list[Request | None] = [None] * mb
-        self._tables = np.zeros((mb, self.blocks_per_seq), np.int64)
-        self._lengths = np.zeros((mb,), np.int64)
-        self._plens = np.zeros((mb,), np.int64)
-        self._skips = np.zeros((mb,), np.int64)
-        self._prompts = np.zeros((mb, self.max_prompt_len), np.int64)
-        self._last_tok = np.zeros((mb,), np.int64)
-        self._seeds = np.zeros((mb,), np.int64)
+        # Host state: fixed-shape numpy mirrors of the batch slots, views
+        # of one staging buffer (pinned on the card) whose device twin
+        # holds the static inputs every forward reads.
+        self._slots: list[Request | None] = [None] * self.max_batch
+        self._stage_host, self._stage_dev, self._stage_end = self._staging()
+        self._d = self._views(self._stage_dev)  # by segment name
+        for name, view in self._views(self._stage_host).items():
+            setattr(self, f"_{name}", view.numpy())  # self._tables, ...
+
+        # Static device buffers the forwards write and read across calls:
+        # the last prompt position's logits (prefill), the draft's
+        # proposals (read by verify).
+        mb, vocab = self.max_batch, self._cfg.vocab_size
+        self._last = torch.zeros((mb, vocab), dtype=torch.float32,
+                                 device=self.device)
+        self._props = (torch.zeros((mb, self.speculate_k), dtype=torch.long,
+                                   device=self.device)
+                       if self.speculate_k else None)
+
+        # The forwards: each a body reading the static buffers, captured
+        # once on the card into one graph pool, on one side stream.
+        self._bodies = {"decode": self._decode_body,
+                        "prefill": self._prefill_body,
+                        "first": self._first_body}
+        if self.speculate_k:
+            self._bodies.update(verify=self._verify_body,
+                                draft=self._draft_body,
+                                draft_prefill=self._draft_prefill_body)
+        self._graphs: dict[str, _graphs.Graph] = {}
+        self._captures: Counter = Counter()  # graphs captured, by forward
+        self._replays: Counter = Counter()   # graph replays, by forward
+        self._graph_pool = None
+        self._stream = None
+        if self.device.type == "cuda":
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(self.device)
 
         self._next_id = 0
         self._decode_sigs: set[tuple] = set()
         self._prefill_sigs: set[tuple] = set()
+        self._verify_sigs: set[tuple] = set()
+        self._draft_sigs: set[tuple] = set()
+        self._draft_prefill_sigs: set[tuple] = set()
         self.stats = {"steps": 0, "prefill_calls": 0, "decode_calls": 0,
                       "tokens_generated": 0, "preemptions": 0,
                       "finished": 0, "rejected": 0,
                       "prefill_tokens": 0, "prefix_hit_tokens": 0,
                       "prefill_steps": 0,
+                      "draft_calls": 0, "verify_calls": 0,
+                      "spec_proposed": 0, "spec_accepted": 0,
+                      "spec_rollback_tokens": 0, "draft_time_s": 0.0,
                       "deadline_missed": 0, "shed_rejected": 0,
                       "recovered": 0}
 
@@ -255,6 +360,13 @@ class Engine:
         self.watchdog = Watchdog(
             watchdog_timeout if watchdog_timeout is not None
             else _env.serve_watchdog_timeout())
+        self.min_accept = (float(min_accept) if min_accept is not None
+                           else _env.serve_min_accept())
+        if not 0.0 <= self.min_accept <= 1.0:
+            raise ValueError(
+                f"min_accept must be in [0, 1], got {self.min_accept}")
+        self._spec_disabled = False     # accept-rate collapse latch
+        self._accept_window: deque[float] = deque(maxlen=32)
         self._shedding = False          # pool-pressure load-shed latch
         self._pressure_window: deque[int] = deque(maxlen=16)
         self._prefill_time_s = 0.0      # wall inside _call_prefill
@@ -264,58 +376,273 @@ class Engine:
         self.journal = (RequestJournal(journal_path, self.fingerprint())
                         if journal_path else None)
 
+    def _check_device(self, model, what: str) -> None:
+        have = next(model.parameters()).device
+        if have.type != self.device.type or (
+                self.device.index is not None
+                and have.index != self.device.index):
+            raise ValueError(
+                f"the {what}'s parameters are on {have} but the engine "
+                f"serves on {self.device}: build the model there "
+                f"(init_params(..., device=)) or pass device=")
+
+    def _all_pools(self) -> tuple:
+        return tuple(self._pools) + tuple(self._draft_pools or ())
+
     # ------------------------------------------------------------------
-    # the two forwards
+    # static inputs: the staging buffer
     # ------------------------------------------------------------------
 
-    def _dev(self, a: np.ndarray) -> torch.Tensor:
-        return torch.tensor(a, device=self.device)
+    def _segments(self) -> list:
+        """The staging buffer's int64 segments, in order: what decode (and
+        a speculative step) reads first, through ``horizon``; prefill
+        copies the whole buffer."""
+        mb = self.max_batch
+        return [("tables", (mb, self.blocks_per_seq)), ("seeds", (mb,)),
+                ("lengths", (mb,)), ("last_tok", (mb,)),
+                ("prev_tok", (mb,)), ("mask", (mb,)), ("horizon", (mb,)),
+                ("plens", (mb,)), ("skips", (mb,)), ("admit", (mb,)),
+                ("t", ()), ("draft_t", ()),
+                ("prompts", (mb, self.max_prompt_len))]
 
-    def _forward(self, tables, lengths, toks, active,
-                 sigs: set) -> torch.Tensor:
-        """One token for every slot: gather views → the model's decode step
-        → scatter the fresh K/V into the pools (inactive rows land in the
-        null block). Adds the signature of what the decode step is handed
-        to ``sigs``. Returns (B, V) fp32 logits."""
-        nl, b, lv = self._cfg.num_layers, tables.shape[0], self.view_len
+    def _staging(self):
+        total, ends = 0, {}
+        for name, shape in self._segments():
+            total += int(np.prod(shape, dtype=np.int64))
+            ends[name] = total
+        host = torch.zeros((total,), dtype=torch.long,
+                           pin_memory=self.device.type == "cuda")
+        return host, torch.zeros_like(host, device=self.device), ends
+
+    def _views(self, buf) -> dict:
+        out, start = {}, 0
+        for name, shape in self._segments():
+            n = int(np.prod(shape, dtype=np.int64))
+            out[name] = buf[start:start + n].view(shape)
+            start += n
+        return out
+
+    def _stage(self, upto: str) -> None:
+        """Copy the host mirrors, up to the end of segment ``upto``, into
+        the static device inputs (one copy, asynchronous from pinned
+        memory; each step reads its tokens back before the host writes the
+        mirrors again)."""
+        n = self._stage_end[upto]
+        self._stage_dev[:n].copy_(self._stage_host[:n], non_blocking=True)
+
+    # ------------------------------------------------------------------
+    # the forwards' bodies: what each graph captures
+    # ------------------------------------------------------------------
+
+    def _forward(self, tables, lengths, toks, active, sigs: set,
+                 draft: bool = False) -> torch.Tensor:
+        """One token for every slot: gather views → the (target or draft)
+        model's decode step → scatter the fresh K/V into its pools
+        (inactive rows land in the null block). Adds the signature of what
+        the decode step is handed to ``sigs``. Returns (B, V) fp32
+        logits."""
+        model, pools, kvd, nl = (
+            (self._draft, self._draft_pools, self.draft_kv_dtype,
+             self._draft_cfg.num_layers) if draft
+            else (self.model, self._pools, self.kv_dtype,
+                  self._cfg.num_layers))
+        b, lv = tables.shape[0], self.view_len
         views = [p[:, tables].reshape(nl, b, lv, *p.shape[3:])
-                 for p in self._pools]
+                 for p in pools]
         kv_views = [tuple(v[layer] for v in views) for layer in range(nl)]
         toks, positions = toks[:, None], lengths[:, None]
         sigs.add(_signature(toks, positions, *kv_views[0]))
-        logits, fresh = self.model.decode(
-            toks, positions=positions, kv_views=kv_views,
-            kv_dtype=self.kv_dtype)
-        self._scatter(tables, lengths, active, fresh)
+        logits, fresh = model.decode(toks, positions=positions,
+                                     kv_views=kv_views, kv_dtype=kvd)
+        if draft:
+            self._scatter(tables, lengths, active, fresh, pools=pools)
+        else:
+            self._scatter(tables, lengths, active, fresh)
         return logits[:, 0]
 
-    def _scatter(self, tables, lengths, active, fresh) -> None:
-        """Write each row's fresh K/V (and scales) into the pools in place,
-        at ``(tables[row, len // bs], len % bs)``; inactive rows write to
-        the null block."""
-        bs, b = self.block_size, tables.shape[0]
-        col = torch.clamp(lengths // bs, max=tables.shape[1] - 1)
-        bi = tables[torch.arange(b, device=tables.device), col]
-        bi = torch.where(active, bi, _kv.NULL_BLOCK)
-        off = lengths % bs
-        for p, s in zip(self._pools, fresh):
+    def _scatter(self, tables, lengths, active, fresh, pools=None) -> None:
+        """Write each row's fresh K/V (and scales) into the pools (the
+        target's unless ``pools``) in place, at ``(tables[row, len // bs],
+        len % bs)``; inactive rows write to the null block."""
+        self._scatter_window(self._pools if pools is None else pools,
+                             tables, lengths[:, None], active[:, None],
+                             [f.unsqueeze(2) for f in fresh])
+
+    def _scatter_window(self, pools, tables, posw, actw, fresh) -> None:
+        """The (B, W) form of :meth:`_scatter`: every window position's
+        fresh K/V (planes shaped (layers, B, W, ...)) at ``(tables[row,
+        pos // bs], pos % bs)``, masked positions to the null block."""
+        bs = self.block_size
+        col = torch.clamp(posw // bs, 0, tables.shape[1] - 1)
+        bi = tables.gather(1, col).masked_fill(~actw, _kv.NULL_BLOCK)
+        off = posw % bs
+        for p, s in zip(pools, fresh):
             p[:, bi, off] = s
 
     def _sample(self, logits, positions, seeds) -> torch.Tensor:
         """Next token per row: greedy at temperature 0, else keyed by
-        (engine seed, request seed, position)."""
+        (engine seed, request seed, position). ``positions`` and ``seeds``
+        are tensors (a Python int would be a pageable host copy, which a
+        capture refuses)."""
         return transformer.sample_tokens(logits, self.temperature, self.seed,
                                          seeds, positions)
 
+    def _decode_body(self) -> torch.Tensor:
+        """decode: the next token of every slot, (B,)."""
+        d = self._d
+        logits = self._forward(d["tables"], d["lengths"], d["last_tok"],
+                               d["mask"] != 0, self._decode_sigs)
+        return self._sample(logits, d["lengths"], d["seeds"])
+
+    def _prompt_step(self, t, sigs: set, draft: bool) -> torch.Tensor:
+        """One prefill position ``t`` (a 0-d device tensor, advanced by
+        one): the admitted rows' prompt tokens at ``t`` through one
+        forward, writes masked outside ``[skips, plens)``."""
+        d = self._d
+        mb = self.max_batch
+        toks = d["prompts"].gather(1, t.expand(mb, 1))[:, 0]
+        active = (d["admit"] != 0) & (t >= d["skips"]) & (t < d["plens"])
+        logits = self._forward(d["tables"], t.expand(mb), toks, active, sigs,
+                               draft=draft)
+        t.add_(1)
+        return logits
+
+    def _prefill_body(self) -> None:
+        """prefill: one prompt position; the rows whose last prompt
+        position it is keep its logits in ``_last``."""
+        d = self._d
+        t = d["t"]
+        done = (d["admit"] != 0) & (d["plens"] - 1 == t)
+        logits = self._prompt_step(t, self._prefill_sigs, draft=False)
+        self._last.copy_(torch.where(done[:, None], logits, self._last))
+
+    def _first_body(self) -> torch.Tensor:
+        """The first token of each admitted row from ``_last``, which is
+        then cleared for the next admission."""
+        d = self._d
+        first = self._sample(self._last, d["plens"] - 1, d["seeds"])
+        self._last.zero_()
+        return first
+
+    def _draft_prefill_body(self) -> None:
+        """draft prefill: one prompt position into the draft's pools."""
+        self._prompt_step(self._d["draft_t"], self._draft_prefill_sigs,
+                          draft=True)
+
+    def _verify_body(self) -> torch.Tensor:
+        """verify: one (B, k + 1) target forward over the last token and
+        the k proposals at positions ``lengths + i``; window positions
+        past a row's ``horizon`` write to the null block. Returns the
+        target's choice at each position, (B, k + 1)."""
+        d = self._d
+        k, nl = self.speculate_k, self._cfg.num_layers
+        tables, lengths = d["tables"], d["lengths"]
+        b, w, lv = tables.shape[0], k + 1, self.view_len
+        iidx = torch.arange(w, device=tables.device)
+        posw = lengths[:, None] + iidx[None, :]
+        views = [p[:, tables].reshape(nl, b, lv, *p.shape[3:])
+                 for p in self._pools]
+        kv_views = [tuple(v[layer] for v in views) for layer in range(nl)]
+        toks = torch.cat([d["last_tok"][:, None], self._props], 1)
+        # Window positions past the view (a row near the sequence
+        # capacity; past its horizon, so never read or kept) repeat the
+        # row's last position inside it, token and all: every position is
+        # written into the view before the one attend, and a repeat writes
+        # the same K/V there, so the view keeps the decode's length.
+        inside = torch.minimum(iidx[None, :], (lv - 1 - lengths)[:, None])
+        toks, posv = toks.gather(1, inside), lengths[:, None] + inside
+        self._verify_sigs.add(_signature(toks, posv, *kv_views[0]))
+        logits, fresh = self.model.decode(toks, positions=posv,
+                                          kv_views=kv_views,
+                                          kv_dtype=self.kv_dtype)
+        actw = (d["mask"] != 0)[:, None] & (iidx[None, :]
+                                            <= d["horizon"][:, None])
+        self._scatter_window(self._pools, tables, posw, actw, fresh)
+        seeds = d["seeds"][:, None].expand(b, w)
+        return self._sample(logits.reshape(b * w, -1), posw.reshape(-1),
+                            seeds.reshape(-1)).reshape(b, w)
+
+    def _draft_body(self) -> torch.Tensor:
+        """draft propose: k + 1 one-token draft forwards over one gathered
+        view carried through them (each writes its fresh K/V into it),
+        then one scatter of the window into the draft's pools. Forward 0
+        re-ingests ``prev_tok`` at ``lengths - 1``; forward i ≥ 1 proposes
+        the token after position ``lengths + i - 1``, keyed as the target
+        keys its choice there. Returns the k proposals, (B, k), also left
+        in ``_props`` for verify."""
+        d = self._d
+        k, nl = self.speculate_k, self._draft_cfg.num_layers
+        tables, lengths, seeds = d["tables"], d["lengths"], d["seeds"]
+        b, lv = tables.shape[0], self.view_len
+        views = [p[:, tables].reshape(nl, b, lv, *p.shape[3:])
+                 for p in self._draft_pools]
+        kv_views = [tuple(v[layer] for v in views) for layer in range(nl)]
+        tok, raw, fresh = d["prev_tok"], [], []
+        for i in range(k + 1):
+            pos = lengths + (i - 1)
+            # A position outside the view (an inactive row's -1, a row
+            # past its horizon) is never consumed: clamp it into the view.
+            # Forwards run in order, so a clamped write can only land
+            # where a later, unconsumed forward reads.
+            inside = pos.clamp(0, lv - 1)[:, None]
+            if i == 0:
+                self._draft_sigs.add(_signature(tok[:, None], inside,
+                                                *kv_views[0]))
+            logits, f = self._draft.decode(
+                tok[:, None], positions=inside, kv_views=kv_views,
+                kv_dtype=self.draft_kv_dtype)
+            fresh.append(f)
+            nxt = self._sample(logits[:, 0], pos, seeds)
+            raw.append(nxt)
+            tok = d["last_tok"] if i == 0 else nxt
+        iidx = torch.arange(k + 1, device=tables.device)
+        posw = lengths[:, None] + iidx[None, :] - 1
+        actw = (d["mask"] != 0)[:, None] & (iidx[None, :]
+                                            <= d["horizon"][:, None] + 1)
+        self._scatter_window(self._draft_pools, tables, posw, actw,
+                             [torch.stack(p, dim=2) for p in zip(*fresh)])
+        props = torch.stack(raw[1:], dim=1)
+        self._props.copy_(props)
+        return props
+
+    # ------------------------------------------------------------------
+    # running a forward: eager on the CPU, a graph on the card
+    # ------------------------------------------------------------------
+
+    def _run(self, name: str):
+        """Run forward ``name`` once. On the CPU its body runs. On the card
+        the first call runs the body eagerly on the engine's side stream
+        (the step's work, and the lazy initialisation a capture cannot do)
+        and captures it into one graph in the engine's pool; every later
+        call replays the graph. Returns the body's output: on the card
+        the graph's static tensors, valid until the next replay."""
+        body = self._bodies[name]
+        if self.device.type != "cuda":
+            return body()
+        graph = self._graphs.get(name)
+        if graph is None:
+            graph = _graphs.Graph(self._stream)
+            out = graph.eager(self.device, body)
+            graph.capture(body, pool=self._graph_pool,
+                          what=f"serving: the engine's {name} forward",
+                          rules=_CAPTURE_RULES)
+            self._graphs[name] = graph
+            self._captures[name] += 1
+            return out
+        out = graph.replay(clone=False)
+        self._replays[name] += 1
+        if [p.data_ptr() for p in self._all_pools()] != self._pool_ptrs:
+            raise HorovodError(
+                f"serving: the {name} replay left the KV pools at new "
+                f"addresses; the graphs write them in place and must never "
+                f"see them reallocated")
+        return out
+
     @torch.no_grad()
     def _call_decode(self, mask: np.ndarray) -> np.ndarray:
-        args = (self._dev(self._tables), self._dev(self._lengths),
-                self._dev(self._last_tok), self._dev(mask),
-                self._dev(self._seeds))
-        tables, lengths, toks, active, seeds = args
-        logits = self._forward(tables, lengths, toks, active,
-                               self._decode_sigs)
-        return self._sample(logits, lengths, seeds).cpu().numpy()
+        self._mask[:] = mask
+        self._stage("horizon")
+        return self._run("decode").cpu().numpy()
 
     @torch.no_grad()
     def _call_prefill(self, admit_mask: np.ndarray):
@@ -324,29 +651,25 @@ class Engine:
         needs (its shared-prefix span ends at ``skips``, but the last
         prompt position always runs, for the first token's logits) to the
         end of the longest prompt. Positions inside a row's shared span are
-        not written: those pages are already in the pool. Returns the first
-        sampled token per row and the window's length."""
-        args = (self._dev(self._tables), self._dev(self._prompts),
-                self._dev(self._plens), self._dev(self._skips),
-                self._dev(admit_mask), self._dev(self._seeds))
-        tables, prompts, plens, skips, admit, seeds = args
+        not written: those pages are already in the pool. The draft ingests
+        the same window into its pools while speculation is on. Returns the
+        first sampled token per row and the window's length."""
         rows = np.flatnonzero(admit_mask)
         t1 = int(self._plens[rows].max())
         t0 = min(int(np.minimum(self._skips[rows],
                                 self._plens[rows] - 1).min()), t1)
-        mb, vocab = self.max_batch, self._cfg.vocab_size
-        last = torch.zeros((mb, vocab), dtype=torch.float32,
-                           device=self.device)
-        for t in range(t0, t1):
-            active = admit & (t >= skips) & (t < plens)
-            logits = self._forward(
-                tables, torch.full((mb,), t, device=self.device),
-                prompts[:, t], active, self._prefill_sigs)
-            if (self._plens[rows] - 1 == t).any():
-                done = admit & (plens - 1 == t)
-                last = torch.where(done[:, None], logits, last)
-        first = self._sample(last, plens - 1, seeds)
+        self._admit[:] = admit_mask
+        self._t[...] = t0
+        self._draft_t[...] = t0
+        self._stage("prompts")
+        for _ in range(t1 - t0):
+            self._run("prefill")
+        first = self._run("first").clone()
+        if self.speculate_k and not self._spec_disabled:
+            for _ in range(t1 - t0):
+                self._run("draft_prefill")
         return first.cpu().numpy(), t1 - t0
+
 
     # ------------------------------------------------------------------
     # request lifecycle
@@ -404,6 +727,12 @@ class Engine:
                 f"exceeds max_seq_len ({self._cfg.max_seq_len}) — the KV "
                 f"capacity bound transformer.generate enforces too")
         need_blocks = self.pool.blocks_for(total)
+        if self.speculate_k:
+            # Speculative headroom: an admission (a preempted re-admission
+            # too, whose prompt grew by its output) must back up to k + 1
+            # write positions past its prompt.
+            need_blocks = self.pool.blocks_for(
+                min(total + self.speculate_k + 1, self._cfg.max_seq_len))
         if need_blocks > self.pool.capacity:
             self._reject(
                 f"request needs {need_blocks} blocks but "
@@ -459,6 +788,8 @@ class Engine:
         self._prompts[slot, :req.prompt_len] = req.prompt
         self._seeds[slot] = req.sample_seed
         self._last_tok[slot] = 0
+        # The token at cache position L - 1: the draft's catch-up input.
+        self._prev_tok[slot] = int(req.prompt[req.prompt_len - 1])
 
     def _clear_slot(self, slot: int) -> None:
         self._slots[slot] = None
@@ -508,15 +839,17 @@ class Engine:
         self.stats["preemptions"] += 1
         tl.event("serving", "EVICT", "X")
 
-    def _ensure_block(self, req: Request, tl) -> bool:
-        """Guarantee the block backing cache position ``lengths[slot]``
-        exists before the step's write. May evict index-only cached pages,
+    def _ensure_block(self, req: Request, tl, horizon: int = 0) -> bool:
+        """Guarantee the blocks backing cache positions ``lengths[slot] ..
+        lengths[slot] + horizon`` exist before the step's writes
+        (``horizon=0`` is the plain one-token decode; a speculative step
+        writes up to k + 1 positions). May evict index-only cached pages,
         then preempt newest-admitted requests (recompute policy); returns
         False when ``req`` itself was preempted and must skip this
         step."""
         slot = req.slot
-        need = min(self.pool.blocks_for(int(self._lengths[slot]) + 1),
-                   self.blocks_per_seq)
+        need = min(self.pool.blocks_for(
+            int(self._lengths[slot]) + 1 + horizon), self.blocks_per_seq)
         while len(req.blocks) < need:
             got = self.pool.alloc(1)
             if got is None and self.prefix_index is not None:
@@ -687,10 +1020,13 @@ class Engine:
                 if self._record_token(req, int(first[slot]), tl):
                     finished.append(req)
 
-        # 2. One decode token for every running request. Block guarantees
-        #    run first for ALL slots; preemption may clear slots mid-loop,
-        #    so the stepped set is whatever survives.
-        if self._active_slots():
+        # 2. One decode token (or one draft-and-verify burst) for every
+        #    running request. Block guarantees run first for ALL slots;
+        #    preemption may clear slots mid-loop, so the stepped set is
+        #    whatever survives.
+        if self._active_slots() and self.speculate_k:
+            finished.extend(self._spec_decode_step(tl))
+        elif self._active_slots():
             for slot in range(self.max_batch):
                 req = self._slots[slot]
                 if req is None:
@@ -719,6 +1055,119 @@ class Engine:
             self.stats["preemptions"] - preempt_before, tl)
         if self.journal is not None:
             self.journal.flush(t=self._now_ms)
+        return finished
+
+    def _spec_decode_step(self, tl) -> list[Request]:
+        """One draft-and-verify burst for every running request: the draft
+        proposes k tokens a slot (one forward), the target scores all
+        k + 1 positions (one forward), and the host accepts the longest
+        proposal prefix matching the target's own choices — 1..k + 1
+        tokens a slot a step. Rejected tails roll back through refcounted
+        page truncation."""
+        k = self.speculate_k
+        step_idx = self.stats["steps"] - 1
+        finished: list[Request] = []
+        hz = 0 if self._spec_disabled else k
+        for slot in range(self.max_batch):
+            req = self._slots[slot]
+            if req is None:
+                continue  # free, or preempted by an earlier iteration
+            self._ensure_block(req, tl, horizon=hz)
+        stepped = [r for r in self._slots if r is not None]
+        if not stepped:
+            return finished
+        self._mask[:] = 0
+        self._horizon[:] = 0
+        for req in stepped:
+            self._mask[req.slot] = 1
+            # Per-row speculation window: never write past the model's
+            # sequence capacity (writes beyond go to the null block).
+            remaining = self._cfg.max_seq_len - int(self._lengths[req.slot])
+            self._horizon[req.slot] = min(hz, remaining - 1)
+        horizon = self._horizon.copy()
+        self._stage("horizon")
+
+        with torch.no_grad():
+            if self._spec_disabled:
+                # Degraded mode (accept-rate collapse): no draft, and a
+                # verify with horizon 0 scores only the last token, whose
+                # choice is exactly the plain decode's (same positions,
+                # same keys): the tokens stay the same, nothing rolls back.
+                props = np.zeros((self.max_batch, k), np.int64)
+            else:
+                t0 = time.monotonic()
+                tl.start_activity("serving", "DRAFT")
+                self.watchdog.stamp("DRAFT", step_idx)
+                props = self._run("draft").cpu().numpy()  # props[:, i]: d_{i+1}
+                self.watchdog.clear()
+                tl.end_activity("serving", "DRAFT")
+                self.stats["draft_time_s"] += time.monotonic() - t0
+                self.stats["draft_calls"] += 1
+            tl.start_activity("serving", "VERIFY")
+            self.watchdog.stamp("VERIFY", step_idx)
+            choices = self._run("verify").cpu().numpy()  # choices[:, i]: c_i
+            self.watchdog.clear()
+            tl.end_activity("serving", "VERIFY")
+        self.stats["verify_calls"] += 1
+
+        rejected_total = 0
+        proposed_step = accepted_step = 0
+        for req in stepped:
+            slot = req.slot
+            h = int(horizon[slot])
+            last = int(self._last_tok[slot])
+            # Accept while the draft's proposal equals the target's own
+            # choice, d_{i+1} == c_i: the emitted c_0..c_a is then the
+            # sequential target stream.
+            a = 0
+            while a < h and props[slot, a] == choices[slot, a]:
+                a += 1
+            self.stats["spec_proposed"] += h
+            self.stats["spec_accepted"] += a
+            proposed_step += h
+            accepted_step += a
+            done = False
+            for i in range(a + 1):
+                self._lengths[slot] += 1
+                done = self._record_token(req, int(choices[slot, i]), tl)
+                if done:
+                    finished.append(req)
+                    break
+            rejected_total += h - a
+            if done:
+                continue  # _finish already released every block
+            # The new second-to-last token (the draft's catch-up input).
+            self._prev_tok[slot] = int(choices[slot, a - 1] if a >= 1
+                                       else last)
+            # Roll back the rejected tail: drop whole freed blocks; stale
+            # entries inside kept blocks are overwritten before any attend
+            # can see them (writes are sequential and the visibility mask
+            # stops at the query position).
+            new_len = int(self._lengths[slot])
+            if len(req.blocks) > self.pool.blocks_for(new_len):
+                _, cow = self.pool.truncate(req.blocks, new_len)
+                if cow is not None:
+                    raise HorovodError(
+                        "speculative rollback forked a shared boundary "
+                        "block — engine tail blocks are private by "
+                        "construction; the allocator or the prefix "
+                        "index violated that invariant")
+                self._tables[slot] = _kv.padded_table(
+                    req.blocks, self.blocks_per_seq)
+        if rejected_total:
+            self.stats["spec_rollback_tokens"] += rejected_total
+            tl.event("serving", "ROLLBACK", "X")
+        if proposed_step:
+            # Accept-rate degradation latch: a windowed collapse below
+            # min_accept means drafting costs more than it saves — turn
+            # speculation off (DEGRADE tick). Lossless either way: only
+            # the speed changes.
+            self._accept_window.append(accepted_step / proposed_step)
+            if (not self._spec_disabled
+                    and _proto.accept_rate_collapsed(self._accept_window,
+                                                     self.min_accept)):
+                self._spec_disabled = True
+                tl.event("serving", "DEGRADE", "X")
         return finished
 
     # ------------------------------------------------------------------
@@ -848,22 +1297,55 @@ class Engine:
             "active_requests": len(lengths),
             "queued_requests": self.scheduler.queued,
             "speculate_k": self.speculate_k,
-            "draft_kv_dtype": None,
-            "spec_accept_rate": None,
-            "spec_disabled": False,
+            "draft_kv_dtype": self.draft_kv_dtype,
+            "spec_accept_rate": self.spec_accept_rate,
+            "spec_disabled": self._spec_disabled,
             "shedding": self._shedding,
         }
 
+    def _traces(self, name: str, sigs: set) -> int:
+        """Graphs captured for forward ``name`` on the card; on the CPU the
+        distinct signatures it handed the model's decode step."""
+        if self.device.type == "cuda":
+            return self._captures[name]
+        return len(sigs)
+
     @property
     def decode_trace_count(self) -> int:
-        """Distinct signatures of the tensors the decode forward handed the
-        model's decode step — 1 for the engine's whole life is the
-        fixed-shape contract (0 before the first decode)."""
-        return len(self._decode_sigs)
+        """Captures (the CPU: signatures) of the decode forward — 1 for the
+        engine's whole life is the fixed-shape contract (0 before the first
+        decode, and 0 when speculation replaces decode with verify)."""
+        return self._traces("decode", self._decode_sigs)
 
     @property
     def prefill_trace_count(self) -> int:
-        """Distinct signatures of the tensors the prefill loop handed the
-        model's decode step — 1 for the engine's whole life (0 before the
-        first admission)."""
-        return len(self._prefill_sigs)
+        """Captures (the CPU: signatures) of the prefill forward — 1 for
+        the engine's whole life (0 before the first admission)."""
+        return self._traces("prefill", self._prefill_sigs)
+
+    @property
+    def verify_trace_count(self) -> int:
+        """Captures (the CPU: signatures) of the speculative verify forward
+        — 1 for the engine's whole life (0 with speculation off)."""
+        return self._traces("verify", self._verify_sigs)
+
+    @property
+    def draft_trace_count(self) -> int:
+        """Captures (the CPU: signatures) of the draft-propose forward — 1
+        for the engine's whole life (0 with speculation off)."""
+        return self._traces("draft", self._draft_sigs)
+
+    @property
+    def draft_prefill_trace_count(self) -> int:
+        """Captures (the CPU: signatures) of the draft prefill forward — 1
+        for the engine's whole life (0 with speculation off)."""
+        return self._traces("draft_prefill", self._draft_prefill_sigs)
+
+    @property
+    def spec_accept_rate(self) -> float | None:
+        """Fraction of draft proposals the target accepted (None before
+        any speculative step, or with speculation off)."""
+        proposed = self.stats["spec_proposed"]
+        if not proposed:
+            return None
+        return self.stats["spec_accepted"] / proposed

@@ -174,8 +174,7 @@ class BlockPool:
         """Shrink a request's block table IN PLACE so it backs only
         ``new_tokens`` cache entries — the speculative-decoding rollback
         primitive: a verify step that rejects a draft tail hands back the
-        whole blocks behind it (speculation is not ported yet, ROADMAP
-        §A item 14; the allocator is).
+        whole blocks behind it (``Engine._spec_decode_step``).
 
         * Whole blocks past ``blocks_for(new_tokens)`` are released
           (one reference each — a tail page the prefix index or another

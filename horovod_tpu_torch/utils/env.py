@@ -321,8 +321,8 @@ def serve_prefix_cache() -> bool:
 
 def serve_speculate() -> int:
     """``HOROVOD_SERVE_SPECULATE`` (default 0 = off): the speculative draft
-    length k. Parsed as the reference parses it; the port's engine refuses
-    k > 0 (speculative decoding is not ported yet)."""
+    length k, parsed as the reference parses it (the engine's
+    ``speculate=``)."""
     raw = os.environ.get("HOROVOD_SERVE_SPECULATE")
     if raw is None or not raw.strip():
         return 0

@@ -114,11 +114,8 @@ def test_lm_entry_points_default_to_the_gpu(monkeypatch, entry):
 
 
 @pytest.mark.parametrize("kw,what", [
-    (dict(speculate=2), "speculative decoding"),
     (dict(prefill_group=0, decode_group=1), "prefill_group"),
     (dict(prefill_group=0), "prefill_group"),
-    (dict(draft_kv_dtype="int4"), "speculative decoding"),
-    (dict(min_accept=0.5), "speculative decoding"),
 ])
 def test_serving_parts_not_ported_raise(kw, what):
     from horovod_tpu_torch.models import transformer as tt
@@ -133,7 +130,32 @@ def test_serving_parts_not_ported_raise(kw, what):
     assert "ROADMAP §A item 14" in str(err.value)
 
 
-def test_speculate_knob_raises_not_ported(monkeypatch):
+@pytest.mark.parametrize("kw,want", [
+    (dict(speculate=2), dict(speculate_k=2, draft_kv_dtype="int4")),
+    (dict(speculate=2, draft_kv_dtype="int8_block"),
+     dict(speculate_k=2, draft_kv_dtype="int8_block")),
+    (dict(speculate=2, min_accept=0.5),
+     dict(speculate_k=2, min_accept=0.5)),
+])
+def test_speculation_options_build_a_speculating_engine(kw, want):
+    """``speculate=k`` with its options (ROADMAP §A item 14(b), ported)
+    builds a speculating engine that serves."""
+    from horovod_tpu_torch.models import transformer as tt
+
+    cfg = tt.TransformerConfig(vocab_size=17, num_layers=1, num_heads=2,
+                               embed_dim=8, mlp_dim=16, max_seq_len=8,
+                               dtype=torch.float32)
+    model = tt.init_params(cfg, device="cpu")
+    eng = hvd.serving.Engine(cfg, model, device="cpu", block_size=4, **kw)
+    for attr, value in want.items():
+        assert getattr(eng, attr) == value, attr
+    req = eng.submit([1, 2, 3], 3)
+    eng.run_until_idle()
+    assert len(req.output) == 3
+    assert eng.verify_trace_count == 1 and eng.decode_trace_count == 0
+
+
+def test_speculate_knob_builds_a_speculating_engine(monkeypatch):
     from horovod_tpu_torch.models import transformer as tt
 
     cfg = tt.TransformerConfig(vocab_size=17, num_layers=1, num_heads=2,
@@ -141,13 +163,18 @@ def test_speculate_knob_raises_not_ported(monkeypatch):
                                dtype=torch.float32)
     model = tt.init_params(cfg, device="cpu")
     monkeypatch.setenv("HOROVOD_SERVE_SPECULATE", "4")
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 14"):
-        hvd.serving.Engine(cfg, model, device="cpu")
+    monkeypatch.setenv("HOROVOD_SERVE_DRAFT_KV_DTYPE", "int8_block")
+    eng = hvd.serving.Engine(cfg, model, device="cpu")
+    assert (eng.speculate_k, eng.draft_kv_dtype) == (4, "int8_block")
+    assert eng.cache_stats()["speculate_k"] == 4
     monkeypatch.setenv("HOROVOD_SERVE_SPECULATE", "0")
     with pytest.raises(ValueError, match="speculate=0"):
         hvd.serving.Engine(cfg, model, device="cpu", draft_config=cfg)
     with pytest.raises(ValueError, match="speculate must be >= 0"):
         hvd.serving.Engine(cfg, model, device="cpu", speculate=-1)
+    with pytest.raises(ValueError, match="passed together"):
+        hvd.serving.Engine(cfg, model, device="cpu", speculate=2,
+                           draft_config=cfg)
 
 
 def test_unsupported_device_raises():

@@ -64,3 +64,24 @@ def port_model(tcfg, params) -> "tt.Transformer":
 def tokens(b: int, t: int, seed: int = 0, vocab: int = ARCH["vocab_size"]):
     return np.random.RandomState(seed).randint(0, vocab, (b, t)).astype(
         np.int32)
+
+
+def distilled_draft_pair(dtype: str = "fp32", seed: int = 0, **kw):
+    """``tools/serve_bench.py::distilled_draft_pair`` over :func:`numpy_params`
+    weights, for both frameworks: the target's blocks 1.. have their
+    ``attn.out`` and ``Dense_1`` kernels zeroed, so it computes its first
+    block only, and the 1-layer draft shares ``Embed_0``, ``block_0``,
+    ``RMSNorm_0`` and ``lm_head``. Returns ``(jax_side, port_side)``, each
+    ``(config, params or model, draft config, draft params or model)``."""
+    jcfg, tcfg = configs(dtype, **kw)
+    params = numpy_params(jcfg, seed)
+    for i in range(1, jcfg.num_layers):
+        block = params[f"block_{i}"]
+        block["attn"]["out"]["kernel"] = np.zeros_like(
+            block["attn"]["out"]["kernel"])
+        block["Dense_1"]["kernel"] = np.zeros_like(block["Dense_1"]["kernel"])
+    dparams = {k: params[k]
+               for k in ("Embed_0", "block_0", "RMSNorm_0", "lm_head")}
+    jd, td = jcfg._replace(num_layers=1), tcfg._replace(num_layers=1)
+    return ((jcfg, params, jd, dparams),
+            (tcfg, port_model(tcfg, params), td, port_model(td, dparams)))

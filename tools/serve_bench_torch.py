@@ -2,13 +2,18 @@
 (``horovod_tpu_torch/serving/engine.py``) — the counterpart of
 ``tools/serve_bench.py``. It imports only the port.
 
-Four measurements, each reusable as a library (``chip_smoke.py`` phase 9
-calls the first three):
+The measurements, each reusable as a library (``chip_smoke.py`` phases 9
+and 13 call them):
 
 * :func:`decode_rates` — steady-state decode throughput at a fixed
   concurrent batch: fill every slot, warm up, then time ``windows``
   consecutive windows of N engine steps, each → B·N / seconds
   (:func:`bench_decode_tokens_per_sec` is their median);
+  :func:`decode_ab` times the engine's captured forwards against the same
+  bodies run eagerly (:func:`eager_bodies`), window for window in turns;
+* :func:`speculative_rates` — B=1 draft-and-verify throughput, the accept
+  rate and the draft's ms a step, with self-speculation or a draft model
+  (:func:`distilled_draft_pair` builds the perfectly distilled one);
 * :func:`prefill_rates` — prompt tokens ingested per second by the prefill
   loop, B prompts admitted in one step, one rate per admission;
 * :func:`run_load` — the open-loop driver: Poisson arrivals at a stated
@@ -32,6 +37,7 @@ Run on one GPU (bench.py's LM at full width, random weights):
     python tools/serve_bench_torch.py --shared-prefix-len 64
     python tools/serve_bench_torch.py --num-requests 300 --arrival-rate 0.5 \
         --prompt-range 32 128 --output-range 16 64
+    python tools/serve_bench_torch.py --speculate 4   # + B=1 speculation
 
 and on the CPU, a seconds-long drill of a tiny model:
 
@@ -39,8 +45,13 @@ and on the CPU, a seconds-long drill of a tiny model:
 
 Decode is measured as ``chip_smoke.py`` phase 9 measures it: a 128-token
 prompt behind every slot, ``WINDOWS`` windows of 32 steps, each reported,
-then one profiled window. The output is one JSON line; on the GPU it
-carries the card's name and power limit (``nvidia-smi``).
+then one profiled window. ``--speculate K`` adds B=1 speculative decoding
+at draft length K with the full-width distilled pair (an 8-layer target
+whose upper blocks add nothing, and a 1-layer draft sharing its first
+block, on an int4 draft pool): ``lm_decode_tokens_per_sec_b1_spec``,
+``serve_speculative_accept_rate`` and ``serve_draft_overhead_ms`` (null
+when off). The output is one JSON line; on the GPU it carries the card's
+name and power limit (``nvidia-smi``).
 """
 
 from __future__ import annotations
@@ -201,10 +212,44 @@ def _prompts(config, batch: int, prompt_len: int, seed: int = 0):
             for _ in range(batch)]
 
 
+def eager_bodies(engine):
+    """Make ``engine`` run its forwards' bodies eagerly — the functions its
+    CUDA graphs capture, called directly — instead of capturing and
+    replaying them: the eager side of :func:`decode_ab` and of
+    ``chip_smoke.py``'s graph-against-body check. Returns the engine."""
+    engine._run = lambda name: engine._bodies[name]()
+    return engine
+
+
+def distilled_draft_pair(config, seed: int = 0, device="cuda"):
+    """A (target, draft config, draft) whose draft agrees with the target:
+    the target's blocks 1.. have their attention out-projection and MLP
+    down-projection zeroed, so the target computes its first block only,
+    and a 1-layer draft shares the embedding, block 0, the final norm and
+    the LM head (``tools/serve_bench.py::distilled_draft_pair``, here at
+    the caller's width, weights from ``init_params(config, seed)``). The
+    measured speculative speedup then isolates what the draft-and-verify
+    machinery delivers when the draft is right."""
+    from horovod_tpu_torch.models import transformer
+
+    target = transformer.init_params(config, seed=seed, device=device)
+    with torch.no_grad():
+        for block in target.blocks[1:]:
+            block.attn.out.zero_()
+            block.mlp_out.zero_()
+    dcfg = transformer.draft_config(config, num_layers=1)
+    draft = transformer.Transformer(dcfg).to(device)
+    draft.load_state_dict({k: v for k, v in target.state_dict().items()
+                           if not k.startswith("blocks.")
+                           or k.startswith("blocks.0.")})
+    return target, dcfg, draft
+
+
 def _filled_engine(config, params, batch, prompt_len, max_new, block_size,
-                   kv_dtype, device):
+                   kv_dtype, device, eager: bool = False, **engine_kw):
     """An engine with every one of its ``batch`` slots busy after one step
-    (admission, prefill, first decode)."""
+    (admission, prefill, first decode); ``eager``: its bodies run eagerly
+    (:func:`eager_bodies`)."""
     from horovod_tpu_torch.serving import Engine
 
     need = prompt_len + max_new
@@ -214,7 +259,9 @@ def _filled_engine(config, params, batch, prompt_len, max_new, block_size,
             f"({config.max_seq_len}) — shrink the measurement")
     engine = Engine(config, params, block_size=block_size,
                     max_batch=batch, max_prompt_len=prompt_len,
-                    kv_dtype=kv_dtype, device=device)
+                    kv_dtype=kv_dtype, device=device, **engine_kw)
+    if eager:
+        eager_bodies(engine)
     for p in _prompts(config, batch, prompt_len):
         engine.submit(p, max_new_tokens=max_new)
     engine.step()
@@ -256,6 +303,82 @@ def decode_rates(config, params, batch: int, steps: int = 16,
     for _ in range(warmup):
         engine.step()
     return [_decode_window(engine, batch, steps) for _ in range(windows)]
+
+
+def decode_ab(config, params, batch: int, steps: int = 16,
+              prompt_len: int = 8, block_size: int = 16, warmup: int = 2,
+              windows: int = 1, device="cuda") -> dict:
+    """Decode throughput of the captured forwards against the same bodies
+    run eagerly (:func:`eager_bodies`): two engines filled alike, then
+    ``windows`` windows of ``steps`` steps each, in turns (graph, eager,
+    eager, graph, ...). Returns the tokens/s of each side by window."""
+    max_new = warmup + windows * steps + 3
+    engines = {side: _filled_engine(config, params, batch, prompt_len,
+                                    max_new, block_size, None, device,
+                                    eager=side == "eager")
+               for side in ("graph", "eager")}
+    for engine in engines.values():
+        for _ in range(warmup):
+            engine.step()
+    rates: dict[str, list[float]] = {"graph": [], "eager": []}
+    for w in range(windows):
+        for side in (("graph", "eager") if w % 2 == 0
+                     else ("eager", "graph")):
+            rates[side].append(_decode_window(engines[side], batch, steps))
+    return rates
+
+
+def speculative_rates(config, params, *, speculate: int = 4,
+                      steps: int = 12, prompt_len: int = 8,
+                      block_size: int = 16, warmup: int = 2,
+                      windows: int = 1, draft_kv_dtype: str | None = None,
+                      draft_config=None, draft_params=None,
+                      device="cuda") -> dict:
+    """Steady-state B=1 draft-and-verify throughput (the low-batch regime
+    speculation is for), as ``tools/serve_bench.py::
+    bench_speculative_decode`` measures it: one request, ``windows``
+    windows of ``steps`` engine steps. With no draft the target
+    self-speculates. Returns each window's tokens/s, the accept rate and
+    the draft's ms a step (host clock around the draft forward, which ends
+    in reading its proposals back). Raises when a window is not clean (a
+    finish or a preemption inside it)."""
+    from horovod_tpu_torch.serving import Engine
+
+    need = prompt_len + 1 + (warmup + windows * steps + 1) * (speculate + 1)
+    if need > config.max_seq_len:
+        raise ValueError(
+            f"speculative window needs {need} positions but max_seq_len "
+            f"is {config.max_seq_len} — shrink steps/k or grow the model")
+    engine = Engine(config, params, block_size=block_size, max_batch=1,
+                    max_prompt_len=prompt_len, speculate=speculate,
+                    draft_kv_dtype=draft_kv_dtype, draft_config=draft_config,
+                    draft_params=draft_params, device=device)
+    engine.submit(_prompts(config, 1, prompt_len)[0],
+                  max_new_tokens=config.max_seq_len - prompt_len)
+    engine.step()  # admit + prefill (+ first burst)
+    for _ in range(warmup):
+        engine.step()
+    draft0, calls0 = engine.stats["draft_time_s"], engine.stats["draft_calls"]
+    rates = []
+    for _ in range(windows):
+        tok0 = engine.stats["tokens_generated"]
+        t0 = time.monotonic()
+        for _ in range(steps):
+            engine.step()
+        rates.append((engine.stats["tokens_generated"] - tok0)
+                     / (time.monotonic() - t0))
+    if engine.stats["finished"] or engine.stats["preemptions"]:
+        raise RuntimeError(
+            "speculative decode measurement not clean: a request "
+            "finished or was preempted inside the timed window")
+    return {
+        "tokens_per_sec": rates,
+        "accept_rate": engine.spec_accept_rate,
+        "draft_overhead_ms": ((engine.stats["draft_time_s"] - draft0) * 1e3
+                              / max(1, engine.stats["draft_calls"] - calls0)),
+        "speculate_k": speculate,
+        "draft_kv_dtype": engine.draft_kv_dtype,
+    }
 
 
 def bench_decode_tokens_per_sec(config, params, batch: int,
@@ -302,22 +425,39 @@ def profile_decode(config, params, batch: int, steps: int = 16,
     under ``torch.profiler`` — the device's kernel ms per step (the sum of
     its kernels' durations, no overlap counted twice on one stream), the
     kernels launched per step, the busy share (kernel time over the wall
-    time), and the ``top`` kernels by device time. Kernel figures are None
-    when the profiler saw no device activity."""
+    time), and the ``top`` kernels by device time. The profiled engine is
+    built, and its graphs captured, under the profiler, which sees a
+    replay's kernels only so; the window is the kernels after its
+    ``record_function`` mark. Kernel figures are None when the profiler saw
+    no device activity."""
     engine = _filled_engine(config, params, batch, prompt_len,
-                            2 + 4 * steps + 3, block_size, kv_dtype, device)
+                            2 + 3 * steps + 3, block_size, kv_dtype, device)
     for _ in range(2):
         engine.step()
     wall = [batch * 1e3 / _decode_window(engine, batch, steps)
             for _ in range(3)]
+    del engine
+    cuda = torch.device(device).type == "cuda"
     acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
+    if cuda:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(steps):
+        engine = _filled_engine(config, params, batch, prompt_len,
+                                2 + steps + 3, block_size, kv_dtype, device)
+        for _ in range(2):
             engine.step()
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if cuda:
+            torch.cuda.synchronize()
+        with torch.profiler.record_function("profiled_window"):
+            for _ in range(steps):
+                engine.step()
+    events = prof.events()
+    start = min(e.time_range.start for e in events
+                if e.name == "profiled_window")
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.time_range.start >= start]
     out = {"batch": batch, "steps": steps, "prompt_len": prompt_len,
            "wall_ms_per_step": statistics.median(wall),
            "wall_ms_per_step_windows": wall,
@@ -385,6 +525,9 @@ def main() -> None:
     parser.add_argument("--decode-batches", type=int, nargs="*",
                         default=[1, 8])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--speculate", type=int, default=0, metavar="K",
+                        help="also measure B=1 speculative decoding at draft "
+                             "length K with the distilled pair (0 = off)")
     args = parser.parse_args()
     if 0 < args.shared_prefix_len < args.block_size:
         raise SystemExit(
@@ -425,6 +568,25 @@ def main() -> None:
                           kv_dtype=kvd, device=args.device)
     result["lm_prefill_tokens_per_sec"] = statistics.median(rates)
     result["lm_prefill_tokens_per_sec_windows"] = rates
+    result.update(lm_decode_tokens_per_sec_b1_spec=None,
+                  serve_speculative_accept_rate=None,
+                  serve_draft_overhead_ms=None)
+    if args.speculate:
+        target, dcfg, draft = distilled_draft_pair(cfg, seed=args.seed,
+                                                   device=args.device)
+        spec = speculative_rates(
+            cfg, target, speculate=args.speculate, steps=steps,
+            prompt_len=dprompt, block_size=args.block_size,
+            windows=1 if args.smoke else WINDOWS, draft_config=dcfg, draft_params=draft, device=args.device)
+        del target, draft
+        result.update(
+            lm_decode_tokens_per_sec_b1_spec=statistics.median(
+                spec["tokens_per_sec"]),
+            lm_decode_tokens_per_sec_b1_spec_windows=spec["tokens_per_sec"],
+            serve_speculative_accept_rate=spec["accept_rate"],
+            serve_draft_overhead_ms=spec["draft_overhead_ms"],
+            serve_speculate_k=args.speculate,
+            serve_draft_kv_dtype=spec["draft_kv_dtype"])
     prefix_on = args.shared_prefix_len >= args.block_size
     engine = Engine(cfg, params, block_size=args.block_size,
                     max_batch=args.max_batch,
