@@ -146,13 +146,34 @@ Phases, one line of output each:
     forward equals 5 one-token forwards bit for bit (logits and view pages)
     at B = 1, 2, 3 and 8 over one seeded random view, with the elements a
     single library product of the MLP's down-projection would change. No
-    kernel of the port may launch.
+    kernel of the port may launch;
+14. the reference's examples (``horovod_tpu_torch.examples``), each
+    ``main`` called in this process on ``cuda:0`` with the kernels' counts
+    set to 0 just before it: ``imagenet_resnet50`` (ResNet-50, 224 px,
+    batch 32) for 2 epochs of 5 steps, then again from its checkpoint
+    directory, which must resume at epoch 2; ``mnist`` (40 steps, its first
+    loss within ``MNIST_LOSS_TOL`` of the same step on the CPU),
+    ``keras_mnist`` (adadelta), ``keras_mnist_advanced`` (adam: A1 once a
+    step), ``mnist_estimator`` (train, evaluate, predict) and
+    ``lm_generate`` at its defaults and with ``--speculate 3`` (A1 once a
+    step; every served request equal to ``generate``, which the example
+    itself asserts); every loss finite, every step program 2 runs of its
+    Python then replays, no other kernel launched; ``grouped_collectives``
+    needs 5 ranks and says so. Then ``prefetch_to_device`` from
+    ``ShardedDataset`` batches of seeded numpy arrays: bit for bit (fp32,
+    and bf16-cast), ``depth`` batches in flight, and by profiler trace its
+    copies from pinned memory on a stream other than the consumer's;
+    ResNet-50's images/s (batch 32, the captured step) fed from host numpy
+    arrays through ``prefetch_to_device(dtype=bf16)`` beside batches
+    already on the card, windows in turns; and, where Pillow imports, the
+    tiny ResNet example on a directory of PNGs through
+    ``ImageFolderDataset``.
 
-Each main path (5, 8 and 10) runs with its kernels' launch counts set to 0
-just before it and read just after; the kernels line's ``launches`` are
-phases 5 and 8's counts (the eager step and the 9 replays). Then a JSON line
-with each kernel's
-record, and last the result line
+Each main path (5, 8 and 10, and each example of 14) runs with its
+kernels' launch counts set to 0 just before it and read just after; the
+kernels line's ``launches`` are phases 5 and 8's counts (the eager step
+and the 9 replays). Then a JSON line with each kernel's record, and last
+the result line
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script then
 exits non-zero and prints no result. It also fails without CUDA, and when
 the ``horovod_tpu_torch`` package is not beside it.
@@ -166,6 +187,7 @@ full fp32; the main path computes in bf16, which TF32 does not touch.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import math
 import os
@@ -177,13 +199,14 @@ import sys
 import time
 import warnings
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch import serving
 from horovod_tpu_torch.core import resilience
-from horovod_tpu_torch.models import resnet, transformer
+from horovod_tpu_torch.models import mnist, resnet, transformer
 from horovod_tpu_torch.models.layers import FusedBatchNorm
 from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.ops import batchnorm as bn
@@ -192,7 +215,7 @@ from horovod_tpu_torch.ops import optim
 from horovod_tpu_torch.ops.optim import AdamW
 from horovod_tpu_torch.parallel.optimizer import optimizer_state_tensors
 from horovod_tpu_torch import training
-from horovod_tpu_torch.training import checkpoint
+from horovod_tpu_torch.training import checkpoint, data
 from horovod_tpu_torch.training.callbacks import (Callback,
                                                   ModelCheckpointCallback)
 
@@ -2632,6 +2655,330 @@ def serving_graphs_line(sg: dict, ident: str) -> str:
         f"kernel of the port launched), on {ident}")
 
 
+# -- the reference's examples on the card (phase 14) --------------------------
+
+EXAMPLES_DIR = os.path.join(CKPT_DIR, "examples")
+# The mnist example's first loss on the card (bf16) against the same step on
+# the CPU (bf16, same weights, batch and dropout mask): the two round the
+# convolutions' and products' bf16 outputs after different accumulation
+# orders, one bf16 rounding (2^-8) of some activations, through 4 layers;
+# the loss moves far less than 2^-8 of itself. Limit: 2e-2 relative.
+MNIST_LOSS_TOL = 2e-2
+# Input pipeline: ShardedDataset batches of seeded numpy arrays (ImageNet's
+# shape, 8 batches of 32) through prefetch_to_device, compared with the host
+# arrays bit for bit, and fed to a captured program.
+PREFETCH_BATCH = 32
+PREFETCH_SHAPE = (8 * PREFETCH_BATCH, IMAGE, IMAGE, 3)
+PREFETCH_DEPTH = 2
+PREFETCH_SLEEP_CYCLES = 1_000_000_000  # the consumer's stream: ~0.5 s
+# ResNet-50 images/s, the example's shapes (batch 32, 224 px, bf16 input),
+# fed from host numpy arrays through prefetch_to_device against batches
+# already on the card: IPS_POOL host batches cycled, IPS_STEPS timed steps
+# a window, windows in turns (device, host, host, device).
+IPS_BATCH = 32
+IPS_POOL = 8
+IPS_STEPS = 20
+
+
+def _finite(name: str, losses) -> None:
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"{name}: a loss is not finite: {losses}")
+
+
+def _captured(name: str, out: dict, calls: int) -> None:
+    """The example's step program: the first call eager, the second
+    captured, every later call a replay."""
+    if (out["runs"], out["replays"]) != (2, calls - 1):
+        raise RuntimeError(
+            f"{name}: step program ran its Python {out['runs']} times with "
+            f"{out['replays']} replays over {calls} calls (want 2 and "
+            f"{calls - 1})")
+
+
+def run_example(name: str, argv: list, calls: int, a1: int = 0) -> dict:
+    """``main(argv)`` of example ``name`` on the card, with the kernels'
+    counts set to 0 just before; checks finite losses, the capture and the
+    launches (A1 ``a1`` times, every other kernel never)."""
+    import importlib
+
+    mod = importlib.import_module(f"horovod_tpu_torch.examples.{name}")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = mod.main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = launch_counts()
+    out["calls"] = calls
+    _finite(name, out["losses"])
+    _captured(name, out, calls)
+    want = {k: (a1 if k == "adamw" else 0) for k in out["launches"]}
+    if out["launches"] != want:
+        raise RuntimeError(f"{name}: launches {out['launches']}, want "
+                           f"{want}")
+    return out
+
+
+def mnist_first_loss_cpu(batch_size: int) -> float:
+    """The mnist example's first loss on the CPU: the same seeded weights,
+    batch and dropout key, in bf16."""
+    model = mnist.ConvModel(generator=torch.Generator().manual_seed(0))
+    batch = mnist.synthetic_mnist(batch_size, seed=0, device="cpu")
+    with torch.no_grad():
+        return float(mnist.make_loss_fn(model)(model, batch))
+
+
+def check_prefetch(device) -> dict:
+    """prefetch_to_device on the card, from ShardedDataset batches of
+    seeded numpy arrays: bit for bit (and bf16-cast where asked),
+    PREFETCH_DEPTH batches in flight, the copies on a stream other than
+    the consumer's (they finish while the consumer's stream still sleeps),
+    and each batch read right by a captured program, whose copies into its
+    static inputs must follow the prefetch's."""
+    rng = np.random.RandomState(SEED)
+    x = rng.rand(*PREFETCH_SHAPE).astype(np.float32)
+    y = rng.randint(0, 10, size=PREFETCH_SHAPE[0]).astype(np.int64)
+    ds = data.ShardedDataset([x, y], 1, PREFETCH_BATCH, seed=SEED)
+    cur = torch.cuda.current_stream(device)
+    out = {"batches": 0}
+    for dtype in (None, torch.bfloat16):
+        host = list(ds.batches(0, rank=0))
+        torch.cuda.synchronize()
+        # The consumer's stream sleeps; copies queued behind it could not
+        # finish before it wakes.
+        torch.cuda._sleep(PREFETCH_SLEEP_CYCLES)
+        it = data.prefetch_to_device(ds.batches(0, rank=0), dtype=dtype,
+                                     depth=PREFETCH_DEPTH)
+        got = [next(it)]
+        if it.pulled != PREFETCH_DEPTH + 1:
+            raise RuntimeError(
+                f"prefetch: {it.pulled} batches taken when the first was "
+                f"handed out (want depth + 1 = {PREFETCH_DEPTH + 1})")
+        t0 = time.perf_counter()
+        while not it.stream.query():
+            if time.perf_counter() - t0 > 10:
+                raise RuntimeError("prefetch: the copies never finished")
+        if cur.query():
+            raise RuntimeError("prefetch: the consumer's stream was idle "
+                               "before the copies finished: no overlap to "
+                               "show")
+        out["overlap_ms"] = 1e3 * (time.perf_counter() - t0)
+        got += list(it)
+        for i, (batch, want) in enumerate(zip(got, host, strict=True)):
+            for g, w in zip(batch, want):
+                w = torch.from_numpy(w)
+                if dtype is not None and w.is_floating_point():
+                    w = w.to(dtype)
+                if g.device != device or not torch.equal(g.cpu(), w):
+                    raise RuntimeError(
+                        f"prefetch: batch {i} ({dtype}) differs from the "
+                        f"host's on {g.device}")
+            out["batches"] += 1
+    if out["batches"] != 2 * ds.steps_per_epoch:
+        raise RuntimeError("prefetch: batches lost")
+    prog = hvd.spmd(lambda a, b: (a * 2, b + 1))
+    for i, (got, want) in enumerate(zip(
+            data.prefetch_to_device(ds.batches(1, rank=0),
+                                    dtype=torch.bfloat16,
+                                    depth=PREFETCH_DEPTH),
+            ds.batches(1, rank=0))):
+        a, b = prog(*got)
+        wa = torch.from_numpy(want[0]).to(torch.bfloat16) * 2
+        if not (torch.equal(a.cpu(), wa)
+                and torch.equal(b.cpu(), torch.from_numpy(want[1]) + 1)):
+            raise RuntimeError(f"prefetch: the captured program read batch "
+                               f"{i} wrong")
+    if (prog.runs, prog.replays) != (2, ds.steps_per_epoch - 1):
+        raise RuntimeError(f"prefetch: the program ran {prog.runs} times "
+                           f"with {prog.replays} replays")
+    out["captured"] = ds.steps_per_epoch
+    return out
+
+
+def resnet_input_rates(device) -> dict:
+    """ResNet-50 images/s at the example's shapes, one captured Trainer
+    fed (a) bf16 batches already on the card and (b) host numpy batches
+    through prefetch_to_device(dtype=bf16), windows in turns."""
+    model = resnet.ResNet50(generator=torch.Generator().manual_seed(SEED))
+    model = model.to(device)
+    trainer = hvd.Trainer(model, resnet.make_loss_fn(model),
+                          training.sgd(0.0125, momentum=0.9), has_aux=True)
+    rng = np.random.default_rng(SEED)
+    n = IPS_POOL * IPS_BATCH
+    images = rng.standard_normal((n, IMAGE, IMAGE, 3), dtype=np.float32)
+    labels = rng.integers(0, CLASSES, size=n, dtype=np.int64)
+    ds = data.ShardedDataset([images, labels], 1, IPS_BATCH, seed=SEED)
+    resident = [[torch.from_numpy(a).to(device) for a in b]
+                for b in ds.batches(0, rank=0)]
+    for b in resident:
+        b[0] = b[0].to(torch.bfloat16)
+
+    def host_batches():
+        epoch = 0
+        while True:
+            yield from ds.batches(epoch, rank=0)
+            epoch += 1
+
+    feeds = {"device": lambda: itertools.cycle(resident),
+             "host": lambda: data.prefetch_to_device(
+                 host_batches(), dtype=torch.bfloat16)}
+    rates = {"device": [], "host": []}
+    for k in ("device", "host"):  # warm-up: eager, capture, replay
+        it = feeds[k]()
+        for _ in range(3):
+            trainer.train_step(next(it))
+    for k in ("device", "host", "host", "device"):
+        it = feeds[k]()
+        trainer.train_step(next(it))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(IPS_STEPS):
+            loss, _ = trainer.train_step(next(it))
+        torch.cuda.synchronize()
+        rates[k].append(IPS_STEPS * IPS_BATCH / (time.perf_counter() - t0))
+    if not math.isfinite(float(loss)):
+        raise RuntimeError("resnet input rates: the loss is not finite")
+    if trainer._step.runs != 2:
+        raise RuntimeError(f"resnet input rates: {trainer._step.runs} "
+                           f"Python runs of the step (want 2)")
+    return rates
+
+
+def image_folder_example(root: str) -> dict | None:
+    """The tiny ResNet example on a directory of PNGs through
+    ImageFolderDataset and prefetch_to_device, where Pillow imports (None
+    where it does not)."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    rng = np.random.RandomState(SEED)
+    for c in range(2):
+        os.makedirs(os.path.join(root, f"class{c}"), exist_ok=True)
+        for i in range(8):
+            px = rng.randint(0, 256, size=(40 + 4 * i, 48, 3), dtype=np.uint8)
+            Image.fromarray(px).save(os.path.join(root, f"class{c}",
+                                                  f"{i}.png"))
+    return run_example("imagenet_resnet50", [
+        "--tiny", "--epochs", "1", "--steps-per-epoch", "2", "--batch-size",
+        "8", "--data-dir", root, "--checkpoint-dir",
+        os.path.join(root, "ckpt")], calls=2)
+
+
+def phase_examples(device) -> dict:
+    """Phase 14: every example's main on the card, prefetch_to_device held
+    against the host, ResNet-50's images/s with and without host input, and
+    ImageFolderDataset where Pillow imports."""
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, EXAMPLES_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    out = {}
+    try:
+        ck = os.path.join(root, "rn50")
+        out["rn50"] = run_example("imagenet_resnet50", [
+            "--epochs", "2", "--steps-per-epoch", "5", "--checkpoint-dir",
+            ck], calls=10)
+        out["rn50_resumed"] = run_example("imagenet_resnet50", [
+            "--epochs", "3", "--steps-per-epoch", "5", "--checkpoint-dir",
+            ck], calls=5)
+        if (out["rn50"]["start_epoch"], out["rn50_resumed"]["start_epoch"]) \
+                != (0, 2):
+            raise RuntimeError(
+                f"imagenet_resnet50: started at epochs "
+                f"{out['rn50']['start_epoch']} and "
+                f"{out['rn50_resumed']['start_epoch']} (want 0 and 2)")
+        free_cuda()
+        out["mnist"] = run_example("mnist", ["--steps", "40"], calls=40)
+        cpu = mnist_first_loss_cpu(64)
+        rel = abs(out["mnist"]["losses"][0] - cpu) / abs(cpu)
+        if rel > MNIST_LOSS_TOL:
+            raise RuntimeError(f"mnist: first loss {out['mnist']['losses'][0]}"
+                               f" on the card, {cpu} on the CPU: rel err "
+                               f"{rel:.3e} > {MNIST_LOSS_TOL}")
+        out["mnist_cpu"] = (cpu, rel)
+        out["keras_mnist"] = run_example(
+            "keras_mnist", ["--epochs", "2", "--steps-per-epoch", "20",
+                            "--synthetic"], calls=40)
+        out["keras_mnist_advanced"] = run_example(
+            "keras_mnist_advanced", ["--epochs", "2", "--steps-per-epoch",
+                                     "10", "--checkpoint-dir",
+                                     os.path.join(root, "adv")],
+            calls=20, a1=20)
+        out["mnist_estimator"] = run_example(
+            "mnist_estimator", ["--steps", "40", "--model-dir",
+                                os.path.join(root, "est")], calls=40)
+        for speculate in (0, 3):
+            r = run_example("lm_generate", ["--speculate", str(speculate)],
+                            calls=300, a1=300)
+            if r["served_equal"] != r["requests"]:
+                raise RuntimeError(f"lm_generate: {r['served_equal']} of "
+                                   f"{r['requests']} served = generate")
+            out[f"lm_generate_{speculate}"] = r
+        from horovod_tpu_torch.examples import grouped_collectives
+
+        if grouped_collectives.main(["--device", "cuda"]) is not None:
+            raise RuntimeError("grouped_collectives ran in a world of 1")
+        free_cuda()
+        out["prefetch"] = check_prefetch(device)
+        out["ips"] = resnet_input_rates(device)
+        free_cuda()
+        out["image_folder"] = image_folder_example(os.path.join(root, "img"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        free_cuda()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def examples_line(ex: dict, ident: str) -> str:
+    """Phase 14's line of output."""
+    def one(name, r):
+        return (f"{name}: {r['calls']} steps ({r['runs']} runs, "
+                f"{r['replays']} replays), loss "
+                f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f}, A1 "
+                f"{r['launches']['adamw']}, {r['seconds']:.1f} s")
+
+    lm0, lm3 = ex["lm_generate_0"], ex["lm_generate_3"]
+    ips = ex["ips"]
+    pf = ex["prefetch"]
+    folder = ("ImageFolderDataset ran (Pillow imports): " + one(
+        "tiny ResNet on 16 PNGs", ex["image_folder"])
+        if ex["image_folder"] else
+        "ImageFolderDataset skipped (no Pillow on this machine)")
+    return (
+        f"phase 14 examples: ok on cuda:0; every loss finite, every step "
+        f"program 2 Python runs then replays, B1-B4 never launched; "
+        f"{one('imagenet_resnet50 (ResNet-50 224 px batch 32)', ex['rn50'])}"
+        f", resumed from epoch 1 at epoch 2: "
+        f"{one('imagenet_resnet50', ex['rn50_resumed'])}; "
+        f"{one('mnist', ex['mnist'])}, first loss vs CPU "
+        f"{ex['mnist_cpu'][0]:.6f}: rel err {ex['mnist_cpu'][1]:.2e} (limit "
+        f"{MNIST_LOSS_TOL}); "
+        f"{one('keras_mnist (adadelta)', ex['keras_mnist'])}; "
+        f"{one('keras_mnist_advanced (adam: A1)', ex['keras_mnist_advanced'])}"
+        f"; {one('mnist_estimator', ex['mnist_estimator'])}; "
+        f"{one('lm_generate', lm0)}, pattern accuracy {lm0['accuracy']:.2f}, "
+        f"served {lm0['served_equal']}/{lm0['requests']} = generate bit for "
+        f"bit, {lm0['tokens_per_sec']:.0f} tokens/s; --speculate 3: served "
+        f"{lm3['served_equal']}/{lm3['requests']} = generate, accept rate "
+        f"{lm3['accept_rate']:.2f}, {lm3['tokens_per_sec']:.0f} tokens/s; "
+        f"grouped_collectives needs 5 ranks (a CPU gloo world in the tests);"
+        f" prefetch_to_device: {pf['batches']} batches (fp32 and bf16) = "
+        f"the host arrays bit for bit ({PREFETCH_BATCH} x {IMAGE} px a "
+        f"batch), depth {PREFETCH_DEPTH} in flight, {pf['captured']} read "
+        f"right by a captured program (2 runs, then replays), the copies of "
+        f"depth + 1 batches done on a side stream while the consumer's "
+        f"stream slept ({pf['overlap_ms']:.1f} ms after the first batch was "
+        f"handed out); "
+        f"ResNet-50 batch {IPS_BATCH} captured step, images/s over "
+        f"{IPS_STEPS}-step windows (device, host, host, device): from "
+        f"batches on the card " + ", ".join(
+            f"{v:.1f}" for v in ips["device"]) + "; from host numpy arrays "
+        "through prefetch_to_device(bf16) " + ", ".join(
+            f"{v:.1f}" for v in ips["host"]) + f"; {folder}; phase "
+        f"{ex['seconds']:.1f} s, on {ident}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -2861,6 +3208,10 @@ def main() -> int:
 
     sg = phase_serving_graphs(device)
     say(serving_graphs_line(sg, ident) + f"; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+
+    ex = phase_examples(device)
+    say(examples_line(ex, ident) + f"; total "
         f"{time.perf_counter() - t_start:.0f} s")
 
     say(json.dumps({"kernels": kernels}))

@@ -29,6 +29,11 @@ attention above 2048 tokens runs on the flash kernels B3/B4. The same LM
 serves through ``hvd.serving.Engine`` (paged KV cache, continuous batching)
 and ``models.transformer.generate`` (dense KV cache).
 
+The reference's training entry points are here too: the MNIST models
+(``models/mnist.py``), the input pipeline (``training.data``: sharded
+datasets, ``prefetch_to_device``), ``training.Estimator``, and the seven
+examples, ``python -m horovod_tpu_torch.examples.<name>``.
+
 The package imports no JAX and nothing of ``horovod_tpu``.
 """
 

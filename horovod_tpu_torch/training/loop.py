@@ -15,9 +15,10 @@ on the CPU it runs eagerly under a schedule validated once.
 ``steps_per_call=K`` makes the program K steps (the reference's
 ``lax.scan``), and ``fit`` then feeds K batches a call.
 
-:func:`sgd` and :func:`adam` are the reference's builders: their optimizers
-hold the learning rate in a 0-d tensor on the parameters' device, as
-``optax.inject_hyperparams`` keeps it in the optimizer state, so
+:func:`sgd`, :func:`adam` and :func:`adadelta` are the reference's
+builders: their optimizers hold the learning rate in a 0-d tensor on the
+parameters' device, as ``optax.inject_hyperparams`` keeps it in the
+optimizer state, so
 :meth:`LRControlMixin.set_lr` reaches a captured step. :meth:`Trainer.
 restore` (``fit(resume=...)``) resumes from the newest checkpoint every
 rank can load (``training/checkpoint.py``). Elastic training and ZeRO are
@@ -89,10 +90,67 @@ class SGD(torch.optim.Optimizer):
         _optim.keep_lr_tensors(self, super().load_state_dict, state_dict)
 
 
+class Adadelta(torch.optim.Optimizer):
+    """``optax.adadelta``'s update, as foreach kernels over a param group::
+
+        a = rho·a + (1 − rho)·g²
+        u = g·√(d + eps) / √(a + eps)
+        d = rho·d + (1 − rho)·u²
+        p += u·(−lr)
+
+    (``a`` and ``d`` from zeros: ``state[p]["square_avg"]`` and
+    ``["acc_delta"]``). ``torch.optim.Adadelta`` computes the same
+    function, but it reads a tensor learning rate on the host and keeps a
+    step count, neither of which a CUDA graph capture allows; ``lr`` may be
+    a 0-d fp32 tensor on the parameters' device, read by the kernels (what
+    :func:`adadelta` builds)."""
+
+    def __init__(self, params, lr, rho: float = 0.9,
+                 eps: float = 1e-6) -> None:
+        super().__init__(params, dict(lr=lr, rho=rho, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            rho, eps = group["rho"], group["eps"]
+            avgs, deltas = [], []
+            for p in params:
+                st = self.state[p]
+                if "square_avg" not in st:
+                    st["square_avg"] = torch.zeros_like(p)
+                    st["acc_delta"] = torch.zeros_like(p)
+                avgs.append(st["square_avg"])
+                deltas.append(st["acc_delta"])
+            torch._foreach_mul_(avgs, rho)
+            torch._foreach_addcmul_(avgs, grads, grads, value=1 - rho)
+            std = torch._foreach_add(avgs, eps)
+            torch._foreach_sqrt_(std)
+            upd = torch._foreach_add(deltas, eps)
+            torch._foreach_sqrt_(upd)
+            torch._foreach_div_(upd, std)
+            torch._foreach_mul_(upd, grads)
+            torch._foreach_mul_(deltas, rho)
+            torch._foreach_addcmul_(deltas, upd, upd, value=1 - rho)
+            torch._foreach_add_(params, torch._foreach_mul(upd, -group["lr"]))
+        return loss
+
+    def load_state_dict(self, state_dict) -> None:
+        _optim.keep_lr_tensors(self, super().load_state_dict, state_dict)
+
+
 class OptimizerBuilder:
-    """What :func:`sgd` and :func:`adam` return: called with a model's
-    parameters (the :class:`Trainer` does), it builds the optimizer with
-    the learning rate in a 0-d fp32 tensor on their device."""
+    """What :func:`sgd`, :func:`adam` and :func:`adadelta` return: called
+    with a model's parameters (the :class:`Trainer` does), it builds the
+    optimizer with the learning rate in a 0-d fp32 tensor on their
+    device."""
 
     def __init__(self, cls, learning_rate: float, **kwargs) -> None:
         self.cls = cls
@@ -121,6 +179,13 @@ def adam(learning_rate: float, **kwargs) -> OptimizerBuilder:
     ``kwargs``: ``b1``, ``b2``, ``eps``."""
     return OptimizerBuilder(_optim.AdamW, learning_rate, weight_decay=0.0,
                             moment_dtype=torch.float32, **kwargs)
+
+
+def adadelta(learning_rate: float = 1.0, **kwargs) -> OptimizerBuilder:
+    """Adadelta with a runtime-adjustable LR (keras_mnist uses it):
+    ``optax.inject_hyperparams(optax.adadelta)``'s counterpart.
+    ``kwargs``: ``rho``, ``eps``."""
+    return OptimizerBuilder(Adadelta, learning_rate, **kwargs)
 
 
 class LRControlMixin:

@@ -7,8 +7,10 @@ Same variable names as the reference, so job scripts carry over:
 negotiation's stall report and its wait for the coordinator
 (``core/negotiate.py``), ``HOROVOD_SCHEDULE_TIMEOUT`` caps the coordinator's
 wait for a program's schedules (``core/multihost.py``), the ``HOROVOD_SERVE_*`` knobs configure the
-serving engine (``horovod_tpu_torch.serving``) and ``HOROVOD_FAULT_INJECT``
-arms the serving faults and ``torn_write`` (``core/resilience.py``).
+serving engine (``horovod_tpu_torch.serving``), ``HOROVOD_FAULT_INJECT``
+arms the serving faults and ``torn_write`` (``core/resilience.py``), and
+``HOROVOD_DATA_DIR`` and ``HOROVOD_PREFETCH_DEPTH`` place the datasets and
+set how far the input pipeline prefetches (``training/data.py``).
 
 Every other knob of the reference is registered too, with the ROADMAP §A
 item that ports it (:data:`UNPORTED_RESULT_KNOBS`,
@@ -31,9 +33,11 @@ DEFAULT_STALL_WARNING_TIME = 60.0  # seconds
 
 # The knobs the port reads.
 PORTED_KNOBS = frozenset({
+    "HOROVOD_DATA_DIR",
     "HOROVOD_FAULT_INJECT",
     "HOROVOD_FUSION_THRESHOLD",
     "HOROVOD_NEGOTIATION_TIMEOUT",
+    "HOROVOD_PREFETCH_DEPTH",
     "HOROVOD_SCHEDULE_TIMEOUT",
     "HOROVOD_SERVE_BLOCK_SIZE",
     "HOROVOD_SERVE_DEADLINE_MS",
@@ -73,7 +77,6 @@ UNPORTED_TUNING_KNOBS: dict[str, int] = {
     "HOROVOD_AUTOTUNE": 16,
     "HOROVOD_COMPRESSION_BLOCK": 12,
     "HOROVOD_COMPRESSION_CROSS_SLICE": 12,
-    "HOROVOD_DATA_DIR": 5,
     "HOROVOD_EAGER_CACHE": 1,
     "HOROVOD_ELASTIC_JOIN_TIMEOUT": 15,
     "HOROVOD_ELASTIC_MIN_WORLD": 15,
@@ -86,7 +89,6 @@ UNPORTED_TUNING_KNOBS: dict[str, int] = {
     "HOROVOD_MAX_CHANNELS": 12,
     "HOROVOD_MODEL_FAULTS": 17,
     "HOROVOD_MODEL_MAX_STATES": 17,
-    "HOROVOD_PREFETCH_DEPTH": 5,
     "HOROVOD_PROFILE": 16,
     "HOROVOD_RECALIBRATION": 12,
     "HOROVOD_SPARSE_DENSITY_THRESHOLD": 11,
@@ -243,6 +245,29 @@ def check_unported(environ=None) -> None:
                 f"{name} is set but not ported: ROADMAP §A item {item}. It "
                 f"only tunes timing or reporting; the run goes on without "
                 f"it.", stacklevel=2)
+
+
+def prefetch_depth() -> int:
+    """``HOROVOD_PREFETCH_DEPTH`` (default 1): how many batches
+    :func:`horovod_tpu_torch.training.data.prefetch_to_device` keeps in
+    flight on the device ahead of the consumer. Depth 1 is the classic
+    double-buffer; slow/jittery loaders can raise it to keep the device fed
+    through hiccups (each unit of depth holds one more batch in device
+    memory). Must be a positive integer; typos raise (the resilience-knob
+    convention)."""
+    raw = os.environ.get("HOROVOD_PREFETCH_DEPTH")
+    if raw is None:
+        return 1
+    try:
+        depth = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_PREFETCH_DEPTH must be a positive integer, "
+            f"got {raw!r}") from None
+    if depth < 1:
+        raise ValueError(
+            f"HOROVOD_PREFETCH_DEPTH must be >= 1, got {raw!r}")
+    return depth
 
 
 # -- serving knobs (horovod_tpu_torch.serving) ---------------------------------

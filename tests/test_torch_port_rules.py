@@ -6,8 +6,9 @@
   clean-interpreter import).
 * Entry points run on the GPU by default: ``hvd.init()``, the LM's
   ``init_params``, ``synthetic_tokens``, ``init_cache``, ``prefill`` and
-  ``generate``, and ``serving.Engine``, without ``device="cpu"``, raise
-  where CUDA is absent instead of drifting to the CPU.
+  ``generate``, ``serving.Engine`` and every example's ``main``, without
+  ``device="cpu"`` (``--device cpu``), raise where CUDA is absent instead
+  of drifting to the CPU. Importing an example runs nothing.
 * What the serving slice leaves out raises ``NotImplementedError`` naming
   its ROADMAP item: speculative decoding and the prefill/decode group
   split.
@@ -66,6 +67,7 @@ def test_importing_the_port_loads_no_jax():
             p.relative_to(REPO / "horovod_tpu_torch").with_suffix("").parts)
         for p in (REPO / "horovod_tpu_torch").rglob("*.py")
         if p.name != "__init__.py"]
+    assert "horovod_tpu_torch.examples.lm_generate" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -76,6 +78,8 @@ def test_importing_the_port_loads_no_jax():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]
+    # The examples' main runs only under __main__: importing prints nothing.
+    assert proc.stdout == ""
 
 
 def test_init_without_device_raises_without_cuda(monkeypatch):
@@ -111,6 +115,33 @@ def test_lm_entry_points_default_to_the_gpu(monkeypatch, entry):
         call()
     if entry != "synthetic_tokens":
         assert "device='cpu'" in str(err.value)
+
+
+EXAMPLES = sorted(p.stem for p in (REPO / "horovod_tpu_torch" /
+                                   "examples").glob("*.py")
+                  if p.name != "__init__.py")
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_default_to_the_gpu(monkeypatch, name):
+    """Each example's ``main`` runs on the card unless given ``--device
+    cpu``: without CUDA it raises instead of training on the CPU."""
+    import importlib
+
+    mod = importlib.import_module(f"horovod_tpu_torch.examples.{name}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # grouped_collectives returns early in a world of fewer than 5 ranks.
+    monkeypatch.setenv("WORLD_SIZE", "5")
+    hvd.shutdown()
+    with pytest.raises(hvd.HorovodError, match="device='cpu'"):
+        mod.main([])
+    assert not hvd.is_initialized()
+
+
+def test_the_seven_examples_are_ported():
+    assert EXAMPLES == sorted([
+        "grouped_collectives", "imagenet_resnet50", "keras_mnist",
+        "keras_mnist_advanced", "lm_generate", "mnist", "mnist_estimator"])
 
 
 @pytest.mark.parametrize("kw,what", [
@@ -355,6 +386,20 @@ def test_a_tuning_knob_warns_not_ported(clean_env, name):
     with pytest.warns(UserWarning,
                       match=f"{name} is set but not ported: ROADMAP §A "
                             f"item {item}\\."):
+        hvd.init(device="cpu")
+    assert hvd.is_initialized()
+
+
+@pytest.mark.parametrize("name,value", [("HOROVOD_DATA_DIR", "/data"),
+                                        ("HOROVOD_PREFETCH_DEPTH", "2")])
+def test_the_input_pipeline_knobs_are_ported(clean_env, name, value):
+    """HOROVOD_DATA_DIR and HOROVOD_PREFETCH_DEPTH (ROADMAP §A items 5-6)
+    are read by ``training/data.py``: set, they draw no warning."""
+    assert name in tenv.PORTED_KNOBS
+    assert name not in tenv.UNPORTED_TUNING_KNOBS
+    clean_env.setenv(name, value)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         hvd.init(device="cpu")
     assert hvd.is_initialized()
 
