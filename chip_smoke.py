@@ -167,7 +167,25 @@ Phases, one line of output each:
     arrays through ``prefetch_to_device(dtype=bf16)`` beside batches
     already on the card, windows in turns; and, where Pillow imports, the
     tiny ResNet example on a directory of PNGs through
-    ``ImageFolderDataset``.
+    ``ImageFolderDataset``;
+15. the sparse path (no kernel of the port lies on it): (a) the exchange's
+    dedup-and-merge (``ops/sparse.py``) at 8 ranks' gathered rows (8 x
+    1,024 rows of 128 fp32, Zipf-hot indices) on the card against the
+    CPU: bit for bit on integer-valued rows, within ``SPARSE_TOL`` of each
+    segment's sum|row| on random rows, two runs on the card bit-identical;
+    (b) ``alltoall``, ``reducescatter`` and a one-group allreduce family
+    in bf16, fp32 and bool inside an ``hvd.spmd`` program: captured once,
+    replayed, each equal to its eager result; (c) the ``word2vec`` example
+    at the reference's width (V = 50,000, D = 128, 64 negatives, batch
+    128, synthetic corpus) for 200 steps: 2 runs of the step's Python then
+    replays, the loss falling, every table finite, its first loss within
+    ``W2V_LOSS_TOL`` of the same step on the CPU, and a captured program
+    equal to its step run eagerly, every table bit for bit; (d) the
+    ``embedding_bag`` example at its defaults with ``--sparse-algo
+    gather`` and ``dense``: tables within ``BAG_TOL`` after 20 steps, and
+    the loss falling on a repeated batch; (e) steps/s of (c) and (d) and
+    the device ms of their merges; (f) a captured ``Trainer`` refuses a
+    COO gradient (``nn.Embedding(sparse=True)``) and names it.
 
 Each main path (5, 8 and 10, and each example of 14) runs with its
 kernels' launch counts set to 0 just before it and read just after; the
@@ -212,6 +230,7 @@ from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.ops import batchnorm as bn
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import optim
+from horovod_tpu_torch.ops import sparse
 from horovod_tpu_torch.ops.optim import AdamW
 from horovod_tpu_torch.parallel.optimizer import optimizer_state_tensors
 from horovod_tpu_torch import training
@@ -2979,6 +2998,330 @@ def examples_line(ex: dict, ident: str) -> str:
         f"{ex['seconds']:.1f} s, on {ident}")
 
 
+# -- the sparse path (phase 15) ----------------------------------------------
+
+# (a) The merge of the sparse exchange at 8 ranks' gathered rows: 8 x 1,024
+# rows of 128 fp32, Zipf-hot indices into a 50,000-row table. On
+# integer-valued rows every sum is exact, so the card must equal the CPU bit
+# for bit; on random rows each merged element is held within SPARSE_TOL of
+# Σ|row| over its segment (a reassociation moves it by a few fp32 roundings
+# of that sum, ~1e-7 each); either way two runs on the card must be equal
+# bit for bit (no float atomics).
+SPARSE_ROWS, SPARSE_DIM, SPARSE_TABLE = 8 * 1024, 128, 50_000
+SPARSE_TOL = 1e-6
+# (c) word2vec at the reference's width (V = 50,000, D = 128, 64 negatives,
+# batch 128, skip window 1, 2 skips) on its synthetic corpus: the first loss
+# against the same step on the CPU (fp32 on both; sums in another order),
+# W2V_LOSS_TOL relative; a captured program against the same step function
+# run eagerly, W2V_AB_STEPS steps, every table bit for bit.
+W2V_ARGV = ["--vocab-size", "50000", "--embedding-dim", "128",
+            "--num-sampled", "64", "--batch-size", "128", "--skip-window",
+            "1", "--num-skips", "2", "--synthetic"]
+W2V_STEPS = 200
+W2V_LOSS_TOL = 1e-4
+W2V_AB_STEPS = 5
+# (d) the embedding bag at its defaults (60,000 x 32, bag 8, batch 64):
+# the example with --sparse-algo gather and dense, BAG_STEPS steps each, the
+# tables within BAG_TOL (relative; the two sum the same rows in other
+# orders). Its batches are fresh every step, each with its own hot ids and
+# a parity label, so its loss carries nothing from step to step; the loss
+# is shown to fall on one repeated batch, through the same step.
+BAG_STEPS = 20
+BAG_TOL = 1e-5
+# (e) steps/s over SPARSE_RATE_STEPS replays (batches on the card), and
+# merge ms as a mean of REPS replays of the merge captured alone.
+SPARSE_RATE_STEPS = 50
+
+
+def merge_inputs(integer: bool, seed: int = SEED):
+    rng = np.random.RandomState(seed)
+    idx = (rng.zipf(1.5, SPARSE_ROWS) - 1).clip(max=SPARSE_TABLE - 1)
+    vals = (rng.randint(-8, 9, (SPARSE_ROWS, SPARSE_DIM)) if integer
+            else rng.randn(SPARSE_ROWS, SPARSE_DIM))
+    return (torch.from_numpy(vals.astype(np.float32)),
+            torch.from_numpy(idx.astype(np.int32)))
+
+
+def graph_ms(fn, device) -> float:
+    """Mean device ms of ``fn()`` captured as a CUDA graph and replayed, its
+    inputs cold in L2. Called eagerly, a merge's dozen small kernels wait
+    on the host's launches; in the step's graph they do not."""
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+                        device=device)
+    return cuda_time_ms(graph.replay, flush)
+
+
+def merge_ms(values, indices) -> float:
+    """Device ms of one dedup_merge, as a replayed graph."""
+    return graph_ms(lambda: sparse.dedup_merge(values, indices),
+                    values.device)
+
+
+def check_merge(device) -> dict:
+    """(a): dedup_merge on the card against the CPU's."""
+    out = {}
+    for integer in (True, False):
+        vals, idx = merge_inputs(integer)
+        cpu_v, cpu_i = sparse.dedup_merge(vals, idx)
+        dv, di = vals.to(device), idx.to(device)
+        runs = [sparse.dedup_merge(dv, di) for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise RuntimeError("dedup_merge: two runs on the card differ")
+        got_v, got_i = (t.cpu() for t in runs[0])
+        if not torch.equal(got_i, cpu_i):
+            raise RuntimeError("dedup_merge: merged indices differ from "
+                               "the CPU's")
+        if integer:
+            if not torch.equal(got_v, cpu_v):
+                raise RuntimeError("dedup_merge: integer-valued rows not "
+                                   "bit for bit the CPU's")
+            out["unique"] = int(torch.unique(idx).numel())
+            continue
+        scale = sparse.dedup_merge(vals.abs(), idx)[0]
+        err = (got_v - cpu_v).abs()
+        worst = float((err / scale.clamp(min=1e-30)).max())
+        if worst > SPARSE_TOL:
+            raise RuntimeError(f"dedup_merge: random rows {worst:.3e} of "
+                               f"the segment's sum|row| > {SPARSE_TOL}")
+        out["random_rel"] = worst
+        out["random_bits_equal"] = bool(torch.equal(got_v, cpu_v))
+        out["ms"] = merge_ms(dv, di)
+        out["index_add_ms"] = graph_ms(
+            lambda: torch.zeros(SPARSE_TABLE, SPARSE_DIM,
+                                device=device).index_add_(0, di.long(), dv),
+            device)
+    return out
+
+
+def check_collectives(device) -> dict:
+    """(b): alltoall, reducescatter and a one-group allreduce family in a
+    program: one capture, replays, each equal to its eager result."""
+    gen = torch.Generator().manual_seed(SEED)
+    inputs = {str(dt).removeprefix("torch."): (
+        torch.randn(16, 128, generator=gen) > 0 if dt == torch.bool
+        else torch.randn(16, 128, generator=gen).to(dt)).to(device)
+        for dt in (torch.bfloat16, torch.float32, torch.bool)}
+
+    def step(xs):
+        return {k: (hvd.alltoall(x, name=f"a2a_{k}"),
+                    hvd.reducescatter(x, name=f"rs_{k}"),
+                    hvd.allreduce(x, group=(0,), average=False,
+                                  name=f"family_{k}"))
+                for k, x in xs.items()}
+
+    eager = {k: (hvd.alltoall(x, name=f"eager_a2a_{k}"),
+                 hvd.reducescatter(x, name=f"eager_rs_{k}"),
+                 hvd.allreduce(x, average=False, name=f"eager_ar_{k}"))
+             for k, x in inputs.items()}
+    prog = hvd.spmd(step)
+    calls = [prog(inputs) for _ in range(3)]
+    for call in calls:
+        for k, outs in call.items():
+            for name, got, want in zip(("alltoall", "reducescatter",
+                                        "allreduce family"), outs, eager[k]):
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    raise RuntimeError(f"{name} ({k}) in a program differs "
+                                       f"from its eager result")
+    if (prog.runs, prog.replays, prog.trace_count) != (2, 2, 1):
+        raise RuntimeError(f"collectives program: {prog.runs} runs, "
+                           f"{prog.replays} replays, {prog.trace_count} "
+                           f"recordings (want 2, 2, 1)")
+    rows = next(iter(prog.programs.values())).schedule
+    if [r[4] for r in rows if r[0].startswith("family_")] != [[0]] * 3:
+        raise RuntimeError("the family's schedule rows do not carry it")
+    return {"collectives": len(rows), "dtypes": list(inputs)}
+
+
+def step_rate(fn, batches) -> float:
+    """Steps/s of ``fn`` over SPARSE_RATE_STEPS calls, batches cycled."""
+    fn(*batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(SPARSE_RATE_STEPS):
+        fn(*batches[i % len(batches)])
+    torch.cuda.synchronize()
+    return SPARSE_RATE_STEPS / (time.perf_counter() - t0)
+
+
+def check_word2vec(device) -> dict:
+    """(c): the example at the reference's width, its first loss against
+    the CPU's, and a captured program against its step run eagerly."""
+    from horovod_tpu_torch.examples import word2vec as ex
+    from horovod_tpu_torch.models import word2vec
+
+    out = run_example("word2vec", W2V_ARGV + ["--steps", str(W2V_STEPS)],
+                      calls=W2V_STEPS)
+    model = out.pop("model")
+    if not all(bool(torch.isfinite(t).all())
+               for t in model.state_dict().values()):
+        raise RuntimeError("word2vec: a table holds a non-finite value")
+    first, last = (statistics.mean(out["losses"][s]) for s in
+                   (slice(0, 10), slice(-10, None)))
+    if not last < first:
+        raise RuntimeError(f"word2vec: loss did not fall ({first:.4f} -> "
+                           f"{last:.4f}, means of 10 steps)")
+    out["mean_first_last"] = (first, last)
+    del model
+
+    args = ex.parse_args(W2V_ARGV + ["--device", "cuda"])
+    model_a, step_a, batches_a = ex.setup(args)
+    model_b, step_b, _ = ex.setup(args)
+    batch = next(batches_a)
+    cpu = word2vec.Word2Vec(model_a.config,
+                            generator=torch.Generator().manual_seed(0))
+    cpu_loss = float(word2vec.value_and_sparse_grad(
+        cpu, *(t.cpu() for t in batch))[0])
+    rel = abs(out["losses"][0] - cpu_loss) / abs(cpu_loss)
+    if rel > W2V_LOSS_TOL:
+        raise RuntimeError(f"word2vec: first loss {out['losses'][0]} on the "
+                           f"card, {cpu_loss} on the CPU: rel err "
+                           f"{rel:.3e} > {W2V_LOSS_TOL}")
+    out["cpu"] = (cpu_loss, rel)
+    prog = hvd.spmd(step_a)
+    for i in range(W2V_AB_STEPS):
+        if i:
+            batch = next(batches_a)
+        la, lb = prog(*batch), step_b(*batch)
+        if not torch.equal(la, lb):
+            raise RuntimeError(f"word2vec: captured loss {float(la)} != "
+                               f"eager {float(lb)} at step {i}")
+    diff = [k for k, t in model_a.state_dict().items()
+            if not torch.equal(t, model_b.state_dict()[k])]
+    if diff or (prog.runs, prog.replays) != (2, W2V_AB_STEPS - 1):
+        raise RuntimeError(f"word2vec: captured vs eager tables {diff}, "
+                           f"{prog.runs} runs, {prog.replays} replays")
+    batches = [next(batches_a) for _ in range(8)]
+    out["steps_per_s"] = step_rate(prog, batches)
+    merges = {"embeddings": batch[0].numel(),
+              "nce": batch[1].numel() + batch[2].numel()}
+    out["merge_ms"] = sum(
+        merge_ms(torch.randn(n, d, device=device),
+                 torch.randint(0, args.vocab_size, (n,), dtype=torch.int32,
+                               device=device))
+        for n, d in ((merges["embeddings"], args.embedding_dim),
+                     (merges["nce"], args.embedding_dim), (merges["nce"], 1)))
+    out["merge_rows"] = merges
+    return out
+
+
+def check_embedding_bag(device) -> dict:
+    """(d): the example with gather and with dense; the loss on a repeated
+    batch through the same step."""
+    from horovod_tpu_torch.models import embedding_bag
+
+    runs = {algo: run_example("embedding_bag", [
+        "--steps", str(BAG_STEPS), "--sparse-algo", algo], calls=BAG_STEPS)
+        for algo in ("gather", "dense")}
+    a, b = (runs[k].pop("model").state_dict() for k in ("gather", "dense"))
+    worst = max(float(((a[k] - b[k]).abs()
+                       / (b[k].abs() + BAG_TOL)).max()) for k in a)
+    if worst > BAG_TOL:
+        raise RuntimeError(f"embedding_bag: gather and dense tables differ "
+                           f"by {worst:.3e} > {BAG_TOL}")
+    del a, b
+    cfg = embedding_bag.EmbeddingBagConfig()
+    model = embedding_bag.EmbeddingBag(
+        cfg, generator=torch.Generator().manual_seed(0)).to(device)
+
+    def step(bags, labels):
+        loss, grads = embedding_bag.value_and_sparse_grad(model, bags,
+                                                          labels)
+        keys = list(grads)
+        synced = hvd.allreduce_gradients([grads[k] for k in keys],
+                                         name="bag.repeated")
+        embedding_bag.apply_sgd(model, dict(zip(keys, synced)), lr=0.5)
+        return hvd.allreduce(loss, name="bag.repeated.loss")
+
+    prog = hvd.spmd(step)
+    batch = [torch.from_numpy(a).to(device) for a in
+             embedding_bag.synthetic_batch(cfg, 64, seed=0)]
+    losses = [float(prog(*batch)) for _ in range(BAG_STEPS)]
+    _finite("embedding_bag (repeated batch)", losses)
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"embedding_bag: loss on a repeated batch did not "
+                           f"fall: {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return {"runs": runs, "rel": worst, "repeated": (losses[0], losses[-1]),
+            "steps_per_s": step_rate(prog, [batch]),
+            "merge_ms": merge_ms(
+                torch.randn(64 * cfg.bag_size, cfg.embedding_dim,
+                            device=device),
+                batch[0].reshape(-1).contiguous())}
+
+
+def check_coo_refused(device) -> str:
+    """(f): a captured Trainer refuses a COO gradient and names it."""
+    emb = torch.nn.Embedding(1000, 16, sparse=True).to(device)
+    trainer = hvd.Trainer(emb, lambda m, b: m(b).float().pow(2).mean(),
+                          torch.optim.SGD(emb.parameters(), lr=0.1))
+    try:
+        trainer.train_step(torch.arange(64, device=device))
+    except hvd.HorovodError as e:
+        if "COO" not in str(e):
+            raise
+        return str(e).split(":")[0]
+    raise RuntimeError("a captured Trainer stepped a COO gradient")
+
+
+def phase_sparse(device) -> dict:
+    """Phase 15: the sparse path on the card."""
+    t0 = time.perf_counter()
+    out = {"merge": check_merge(device),
+           "collectives": check_collectives(device)}
+    free_cuda()
+    out["word2vec"] = check_word2vec(device)
+    free_cuda()
+    out["bag"] = check_embedding_bag(device)
+    out["coo"] = check_coo_refused(device)
+    free_cuda()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def sparse_line(sp: dict, ident: str) -> str:
+    """Phase 15's line of output."""
+    m, w, b = sp["merge"], sp["word2vec"], sp["bag"]
+    g, d = b["runs"]["gather"], b["runs"]["dense"]
+    return (
+        f"phase 15 sparse: ok on cuda:0; (a) dedup_merge of {SPARSE_ROWS} x "
+        f"{SPARSE_DIM} fp32 rows, Zipf-hot indices into {SPARSE_TABLE} "
+        f"rows ({m['unique']} unique): integer-valued rows = the CPU's bit "
+        f"for bit, random rows {m['random_rel']:.2e} of each segment's "
+        f"sum|row| (limit {SPARSE_TOL}; bit for bit: "
+        f"{m['random_bits_equal']}), two runs on the card bit-identical; "
+        f"{m['ms']:.4f} ms a merge, a replayed graph (index_add_ into a "
+        f"zeroed table, not deterministic: {m['index_add_ms']:.4f} ms); (b) alltoall, reducescatter and a "
+        f"one-group allreduce family in {sp['collectives']['dtypes']}: one "
+        f"capture, 2 replays, each = its eager result; (c) word2vec V=50000 "
+        f"D=128 K=64 batch 128 through the example: {W2V_STEPS} steps "
+        f"({w['runs']} runs, {w['replays']} replays), loss "
+        f"{w['losses'][0]:.4f} -> {w['losses'][-1]:.4f} (means of 10: "
+        f"{w['mean_first_last'][0]:.4f} -> {w['mean_first_last'][1]:.4f}), "
+        f"every table finite, first loss vs CPU {w['cpu'][0]:.6f}: rel err "
+        f"{w['cpu'][1]:.2e} (limit {W2V_LOSS_TOL}), captured = eager bit "
+        f"for bit over {W2V_AB_STEPS} steps on every table, "
+        f"{w['steps_per_s']:.1f} steps/s over {SPARSE_RATE_STEPS} replays, "
+        f"a step's merges ({w['merge_rows']['embeddings']} + 2 x "
+        f"{w['merge_rows']['nce']} rows) {w['merge_ms']:.4f} ms, example "
+        f"{w['seconds']:.1f} s; (d) embedding bag 60000 x 32 bag 8 batch "
+        f"64, {BAG_STEPS} steps each: gather ({g['runs']} runs, "
+        f"{g['replays']} replays) and dense tables agree within "
+        f"{b['rel']:.2e} (limit {BAG_TOL}), losses finite, loss on a "
+        f"repeated batch {b['repeated'][0]:.4f} -> {b['repeated'][1]:.4f}, "
+        f"{b['steps_per_s']:.1f} steps/s over {SPARSE_RATE_STEPS} replays, "
+        f"its merge (512 rows) {b['merge_ms']:.4f} ms, examples "
+        f"{g['seconds']:.1f} s and {d['seconds']:.1f} s; (f) a captured "
+        f"Trainer refuses a COO gradient (\"{sp['coo']}: ...\"); no kernel "
+        f"of the port launched; phase {sp['seconds']:.1f} s, on {ident}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -3212,6 +3555,10 @@ def main() -> int:
 
     ex = phase_examples(device)
     say(examples_line(ex, ident) + f"; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+
+    sp = phase_sparse(device)
+    say(sparse_line(sp, ident) + f"; total "
         f"{time.perf_counter() - t_start:.0f} s")
 
     say(json.dumps({"kernels": kernels}))

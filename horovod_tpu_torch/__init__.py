@@ -31,8 +31,13 @@ and ``models.transformer.generate`` (dense KV cache).
 
 The reference's training entry points are here too: the MNIST models
 (``models/mnist.py``), the input pipeline (``training.data``: sharded
-datasets, ``prefetch_to_device``), ``training.Estimator``, and the seven
+datasets, ``prefetch_to_device``), ``training.Estimator``, and the nine
 examples, ``python -m horovod_tpu_torch.examples.<name>``.
+
+Sparse gradients are ``hvd.IndexedSlices``: ``allreduce_gradients`` and
+``allreduce_indexed_slices`` exchange them by allgather with
+dedup-and-merge (``ops/sparse.py``), as word2vec (``models/word2vec.py``)
+and the embedding bag (``models/embedding_bag.py``) train.
 
 The package imports no JAX and nothing of ``horovod_tpu``.
 """
@@ -57,13 +62,19 @@ from horovod_tpu_torch.core.state import (  # noqa: F401
 from horovod_tpu_torch.ops.collectives import (  # noqa: F401
     allgather,
     allreduce,
+    alltoall,
     broadcast,
     gather,
+    reducescatter,
 )
 from horovod_tpu_torch.ops.flash_attention import (  # noqa: F401
     blockwise_attention,
     flash_attention,
     flash_attention_lse,
+)
+from horovod_tpu_torch.ops.sparse import (  # noqa: F401
+    IndexedSlices,
+    allreduce_indexed_slices,
 )
 from horovod_tpu_torch.parallel.sequence import local_attention  # noqa: F401
 from horovod_tpu_torch.parallel.spmd import (  # noqa: F401

@@ -41,11 +41,14 @@ class ProgramContext:
     # the metadata compare.
     members: dict = dataclasses.field(default_factory=dict)
 
-    def register(self, name: str, op: str, dtype, shape, group: int,
+    def register(self, name: str, op: str, dtype, shape,
+                 group: int | tuple[int, ...],
                  root_rank: int | None = None,
                  members: tuple[str, ...] | None = None) -> None:
         """Add one collective to the schedule; raise the reference's error
-        when ``name`` was registered before with other metadata."""
+        when ``name`` was registered before with other metadata. ``group``
+        is a tuple for a group family, registered by every rank of the
+        program, including one in none of the family's groups."""
         from horovod_tpu_torch.core.state import HorovodError
 
         meta = (op, str(dtype), tuple(shape), group, root_rank)
@@ -76,9 +79,10 @@ class ProgramContext:
 
     def schedule(self) -> list:
         """The ordered schedule as JSON-ready rows: ``[name, op, dtype,
-        shape, group, root (-1 for none), members]``, the reference's row
-        layout (``parallel/spmd.py``)."""
-        return [[nm, op, dtype, list(shape), group,
+        shape, group (a list for a family), root (-1 for none), members]``,
+        the reference's row layout (``parallel/spmd.py``)."""
+        return [[nm, op, dtype, list(shape),
+                 list(group) if isinstance(group, tuple) else group,
                  -1 if root is None else root,
                  list(self.members.get(nm, ()))]
                 for nm, (op, dtype, shape, group, root) in self.names.items()]

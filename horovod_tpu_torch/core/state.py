@@ -144,6 +144,7 @@ def init(group_ranks: Sequence[Sequence[int]] | None = None, *,
         _env.warn_unknown_env()
         _env.check_unported()
         _env.validate_serving_knobs()
+        _env.sparse_pad_capacity()
         local_rank = int(os.environ.get("LOCAL_RANK", "0"))
         dev = _resolve_device(device, local_rank)
         backend = "nccl" if dev.type == "cuda" else "gloo"

@@ -3,7 +3,8 @@
     python -m horovod_tpu_torch.examples.<name> [flags] [--device cpu]
 
 ``mnist``, ``keras_mnist``, ``keras_mnist_advanced``, ``mnist_estimator``,
-``imagenet_resnet50``, ``grouped_collectives`` and ``lm_generate`` take the
+``imagenet_resnet50``, ``grouped_collectives``, ``lm_generate``,
+``word2vec`` and ``embedding_bag`` take the
 flags and defaults of the JAX package's ``examples/<name>.py``, plus
 ``--device`` (``cuda``, the default, or ``cpu``; without CUDA the default
 raises instead of running on the CPU). Each module's ``main(argv)`` parses

@@ -7,7 +7,8 @@ or a tensor that would push the bucket past ``HOROVOD_FUSION_THRESHOLD``
 bytes, closes the bucket; a threshold of 0 gives every tensor its own
 bucket. Each bucket is packed into one flat buffer
 (``MEMCPY_IN_FUSION_BUFFER``), reduced by ONE collective, and unpacked
-(``MEMCPY_OUT_FUSION_BUFFER``).
+(``MEMCPY_OUT_FUSION_BUFFER``). A sparse gradient's exchange is planned as
+one :class:`SparseBucket` row (``ops/sparse.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,53 @@ class Bucket:
     @property
     def elems(self) -> int:
         return self.total_bytes // self.dtype.itemsize
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseBucket:
+    """One sparse (IndexedSlices) gradient exchange, as
+    ``ops/sparse.py::plan_sparse_exchange`` resolves it.
+
+    ``index`` is the leaf's position among all the gradients; ``rows`` the
+    padded per-rank row capacity of the gather wire; ``row_elems`` the
+    elements of one slice row; ``dense_rows`` the table's row count
+    (``dense_shape[0]``); ``algo`` the resolved exchange, ``gather``
+    (padded allgather + dedup-and-merge) or ``dense`` (densify +
+    allreduce). Values move in their own dtype (wire compression is ROADMAP
+    §A item 12), indices at ``index_itemsize`` bytes each.
+    """
+
+    index: int
+    dtype: torch.dtype
+    rows: int
+    row_elems: int
+    dense_rows: int
+    algo: str = "gather"
+    index_itemsize: int = 4
+    label: str = ""
+
+    @property
+    def values_bytes(self) -> int:
+        """Bytes of one rank's padded value block."""
+        return self.rows * self.row_elems * self.dtype.itemsize
+
+    @property
+    def payload_wire_bytes(self) -> int:
+        """Bytes of one rank's gather payload: values and indices."""
+        return self.values_bytes + self.rows * self.index_itemsize
+
+    @property
+    def dense_bytes(self) -> int:
+        """Bytes of the densified table (the dense exchange's payload)."""
+        return self.dense_rows * self.row_elems * self.dtype.itemsize
+
+    def describe(self) -> str:
+        dtype = str(self.dtype).removeprefix("torch.")
+        return (f"sparse[leaf {self.index}"
+                f"{' ' + self.label if self.label else ''}, "
+                f"{self.rows}x{self.row_elems} {dtype} of "
+                f"{self.dense_rows} rows, algo={self.algo}, "
+                f"payload={self.payload_wire_bytes}B]")
 
 
 def plan_buckets_py(leaves: Sequence[torch.Tensor],

@@ -15,6 +15,13 @@ their members), which the program's one schedule validation checks across
 the ranks, as the JAX package validates once per trace.
 :func:`broadcast_variables` syncs parameters, buffers and optimizer state
 from a root rank. Overlapping the allreduce with backward is not done yet.
+
+Sparse gradients take the sparse exchange (``ops/sparse.py``): an
+``IndexedSlices`` item of :func:`allreduce_gradients`, and a COO
+``p.grad`` (``nn.Embedding(sparse=True)``) in :func:`DistributedOptimizer`,
+whose ``synchronize`` writes back a COO gradient of the merged rows that
+``torch.optim.SGD`` applies. On the card a COO gradient is exchanged
+eagerly only: inside a captured step program it raises.
 """
 
 from __future__ import annotations
@@ -23,11 +30,14 @@ from typing import Mapping
 
 import torch
 
+from horovod_tpu_torch.core import context as _ctx
 from horovod_tpu_torch.core import negotiate as _neg
 from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.core import timeline as _tl
+from horovod_tpu_torch.core.state import HorovodError
 from horovod_tpu_torch.ops import collectives as _coll
 from horovod_tpu_torch.ops import fusion as _fusion
+from horovod_tpu_torch.ops import sparse as _sparse
 
 
 class FusedAllreduce:
@@ -91,16 +101,51 @@ class FusedAllreduce:
         return tensors
 
 
-def allreduce_gradients(grads: list[torch.Tensor], group: int = 0,
-                        average: bool = True,
+def _exchange_sparse(item: _sparse.IndexedSlices, i: int, group: int,
+                     average: bool, sparse_algo, name: str
+                     ) -> _sparse.IndexedSlices:
+    """One sparse gradient's exchange: planned once and exchanged on the
+    program's group; a subset group takes the reference's plain gather, and
+    a rank outside it keeps its own gradient."""
+    label = f"{name}.{i}"
+    ctx = _ctx.current()
+    if ctx is None or group != ctx.group_index:
+        out = _sparse.allreduce_indexed_slices(
+            item, group=group, average=average, name=label,
+            algo=sparse_algo)
+        return item if out is None else out
+    row = _sparse.plan_sparse_exchange(item, group=group, algo=sparse_algo,
+                                       index=i, label=label)
+    return _sparse.allreduce_indexed_slices(
+        item, group=group, average=average, name=label, algo=row.algo,
+        _plan=row)
+
+
+def allreduce_gradients(grads: list, group: int = 0, average: bool = True,
                         fusion_threshold: int | None = None,
-                        name: str = "allreduce_gradients"
-                        ) -> list[torch.Tensor]:
-    """Allreduce-average a list of gradient tensors in place, with tensor
-    fusion; returns the list. Negotiates on every call: a training loop
-    should hold a :class:`FusedAllreduce` (as :func:`DistributedOptimizer`
-    does) to negotiate once per signature."""
-    return FusedAllreduce(name, group, average, fusion_threshold)(grads)
+                        name: str = "allreduce_gradients",
+                        sparse_algo=None) -> list:
+    """Allreduce-average a list of gradients with tensor fusion; returns
+    the list. Dense tensors are reduced in place through fused buckets.
+    An :class:`~horovod_tpu_torch.ops.sparse.IndexedSlices` item takes the
+    sparse exchange (``ops/sparse.py``; ``sparse_algo``: ``"gather"``, the
+    default, or ``"dense"``) and is replaced in the returned list by the
+    exchanged slices. Negotiates on every call: a training loop should
+    hold a :class:`FusedAllreduce` (as :func:`DistributedOptimizer` does)
+    to negotiate once per signature."""
+    sparse = [i for i, g in enumerate(grads)
+              if isinstance(g, _sparse.IndexedSlices)]
+    if sparse and not _coll._is_group_index(group):
+        raise HorovodError(
+            "Group-family sparse allreduce is not supported: an "
+            "IndexedSlices exchange targets a single group; issue one "
+            "allreduce_indexed_slices per group.")
+    for i in sparse:
+        grads[i] = _exchange_sparse(grads[i], i, group, average,
+                                    sparse_algo, name)
+    FusedAllreduce(name, group, average, fusion_threshold)(
+        [g for i, g in enumerate(grads) if i not in sparse])
+    return grads
 
 
 class _DistributedOptimizer:
@@ -123,10 +168,35 @@ class _DistributedOptimizer:
         return self.optimizer.state
 
     def synchronize(self) -> None:
-        """Average every gradient over the group (in place)."""
-        grads = [p.grad for pg in self.optimizer.param_groups
-                 for p in pg["params"] if p.grad is not None]
-        self._allreduce(grads)
+        """Average every gradient over the group: dense ones in place, and
+        a sparse COO one (``nn.Embedding(sparse=True)``) through the sparse
+        exchange, replaced by a COO gradient of the merged rows."""
+        params = [p for pg in self.optimizer.param_groups
+                  for p in pg["params"] if p.grad is not None]
+        coo = [p for p in params if p.grad.is_sparse]
+        self._allreduce([p.grad for p in params if not p.grad.is_sparse])
+        for i, p in enumerate(coo):
+            p.grad = self._exchange_coo(p.grad, i)
+
+    def _exchange_coo(self, grad: torch.Tensor, i: int) -> torch.Tensor:
+        if grad.device.type != "cpu" and _ctx.current() is not None:
+            raise HorovodError(
+                "DistributedOptimizer: a sparse COO gradient (nn.Embedding("
+                "sparse=True)) is not exchanged inside a captured step "
+                "program on the card: a COO tensor's entry count lives on "
+                "the host, so the port does not capture it. Compute the "
+                "sparse gradient as hvd.IndexedSlices (value_and_sparse_grad "
+                "of models/word2vec.py) and exchange it with "
+                "hvd.allreduce_gradients, or step this optimizer eagerly.")
+        g = self._allreduce.group
+        slices = _sparse.IndexedSlices(
+            grad._values(), grad._indices()[0].to(torch.int32),
+            tuple(grad.shape))
+        out = _exchange_sparse(slices, i, g, self._allreduce.average, None,
+                               f"{self._allreduce.name}.sparse")
+        values, indices = _sparse.dedup_merge(out.values, out.indices)
+        return torch.sparse_coo_tensor(indices.long()[None], values,
+                                       grad.shape)
 
     def step(self, closure=None):
         self.synchronize()

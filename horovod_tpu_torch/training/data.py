@@ -8,8 +8,8 @@ fetches one (it raises ``FileNotFoundError`` naming the path instead).
   MNIST distribution format) with gzip support, in the shared dataset
   directory (:func:`default_data_dir`, ``HOROVOD_DATA_DIR``).
 * :func:`load_text8` / :func:`build_vocab` / :func:`skipgram_batches` —
-  the word2vec corpus path (the reference's ``build_dataset`` /
-  ``generate_batch`` semantics).
+  the word2vec corpus path (the reference's ``build_dataset``, and
+  ``models/word2vec.py::generate_batch``).
 * :class:`ShardedDataset` / :class:`ImageFolderDataset` — the per-rank
   sharding convention: rank i of a group owns a contiguous 1/size slice of
   the examples and reshuffles it every epoch with a per-rank seed. A
@@ -36,6 +36,7 @@ import torch
 
 from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.core.state import HorovodError
+from horovod_tpu_torch.models.word2vec import generate_batch
 from horovod_tpu_torch.utils import env as _env
 
 _MNIST_FILES = {
@@ -152,29 +153,6 @@ def build_vocab(words: Sequence[str], vocab_size: int):
     return ids, counts, word_to_id, id_to_word
 
 
-def _generate_batch(data, batch_size: int, num_skips: int, skip_window: int,
-                    data_index: int):
-    """One sliding-window skip-gram batch (context positions cycle rather
-    than random-sample): (centers, contexts, new_data_index). The
-    reference's ``models/word2vec.py::generate_batch``, whose model is not
-    ported yet (ROADMAP §A item 11)."""
-    batch_size = batch_size // num_skips * num_skips
-    span = 2 * skip_window + 1
-    centers = np.empty((batch_size,), np.int32)
-    contexts = np.empty((batch_size,), np.int32)
-    if data_index + span > len(data):
-        data_index = 0
-    offsets = [o for o in range(span) if o != skip_window]
-    for i in range(batch_size // num_skips):
-        window_start = data_index
-        for j in range(num_skips):
-            centers[i * num_skips + j] = data[window_start + skip_window]
-            contexts[i * num_skips + j] = data[
-                window_start + offsets[j % len(offsets)]]
-        data_index = (data_index + 1) % (len(data) - span + 1)
-    return centers, contexts, data_index
-
-
 def skipgram_batches(ids: np.ndarray, batch_size: int, num_skips: int,
                      skip_window: int, start: int = 0
                      ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
@@ -186,7 +164,7 @@ def skipgram_batches(ids: np.ndarray, batch_size: int, num_skips: int,
         raise ValueError("num_skips cannot exceed 2*skip_window.")
     pos = start
     while True:
-        centers, contexts, pos = _generate_batch(
+        centers, contexts, pos = generate_batch(
             ids, batch_size, num_skips, skip_window, pos)
         yield centers, contexts
 

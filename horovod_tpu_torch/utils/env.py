@@ -10,7 +10,9 @@ wait for a program's schedules (``core/multihost.py``), the ``HOROVOD_SERVE_*`` 
 serving engine (``horovod_tpu_torch.serving``), ``HOROVOD_FAULT_INJECT``
 arms the serving faults and ``torn_write`` (``core/resilience.py``), and
 ``HOROVOD_DATA_DIR`` and ``HOROVOD_PREFETCH_DEPTH`` place the datasets and
-set how far the input pipeline prefetches (``training/data.py``).
+set how far the input pipeline prefetches (``training/data.py``), and
+``HOROVOD_SPARSE_PAD_CAPACITY`` pads the sparse gather wire
+(``ops/sparse.py``).
 
 Every other knob of the reference is registered too, with the ROADMAP §A
 item that ports it (:data:`UNPORTED_RESULT_KNOBS`,
@@ -49,6 +51,7 @@ PORTED_KNOBS = frozenset({
     "HOROVOD_SERVE_PREFIX_CACHE",
     "HOROVOD_SERVE_SPECULATE",
     "HOROVOD_SERVE_WATCHDOG_TIMEOUT",
+    "HOROVOD_SPARSE_PAD_CAPACITY",
     "HOROVOD_STALL_CHECK_TIME",
     "HOROVOD_TIMELINE",
 })
@@ -91,8 +94,7 @@ UNPORTED_TUNING_KNOBS: dict[str, int] = {
     "HOROVOD_MODEL_MAX_STATES": 17,
     "HOROVOD_PROFILE": 16,
     "HOROVOD_RECALIBRATION": 12,
-    "HOROVOD_SPARSE_DENSITY_THRESHOLD": 11,
-    "HOROVOD_SPARSE_PAD_CAPACITY": 11,
+    "HOROVOD_SPARSE_DENSITY_THRESHOLD": 12,
     "HOROVOD_TIMELINE_DEVICE": 16,
     "HOROVOD_TIMELINE_DEVICE_INTERVAL": 16,
     "HOROVOD_TOPOLOGY_SLICES": 12,
@@ -271,6 +273,26 @@ def prefetch_depth() -> int:
 
 
 # -- serving knobs (horovod_tpu_torch.serving) ---------------------------------
+
+
+def sparse_pad_capacity() -> int:
+    """``HOROVOD_SPARSE_PAD_CAPACITY`` (default 0 = no padding): the fixed
+    per-rank row capacity of the sparse gather wire (``ops/sparse.py``).
+    Must be a non-negative integer; a typo raises at ``hvd.init``."""
+    raw = os.environ.get("HOROVOD_SPARSE_PAD_CAPACITY")
+    if raw is None or not raw.strip():
+        return 0
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_SPARSE_PAD_CAPACITY must be a non-negative integer "
+            f"row capacity (0 disables padding), got {raw!r}") from None
+    if n < 0:
+        raise ValueError(
+            f"HOROVOD_SPARSE_PAD_CAPACITY must be >= 0 (0 disables "
+            f"padding), got {raw!r}")
+    return n
 
 
 def _kv_format(var: str) -> str | None:

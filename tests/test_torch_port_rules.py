@@ -138,10 +138,11 @@ def test_examples_default_to_the_gpu(monkeypatch, name):
     assert not hvd.is_initialized()
 
 
-def test_the_seven_examples_are_ported():
+def test_the_nine_examples_are_ported():
     assert EXAMPLES == sorted([
-        "grouped_collectives", "imagenet_resnet50", "keras_mnist",
-        "keras_mnist_advanced", "lm_generate", "mnist", "mnist_estimator"])
+        "embedding_bag", "grouped_collectives", "imagenet_resnet50",
+        "keras_mnist", "keras_mnist_advanced", "lm_generate", "mnist",
+        "mnist_estimator", "word2vec"])
 
 
 @pytest.mark.parametrize("kw,what", [
@@ -391,10 +392,13 @@ def test_a_tuning_knob_warns_not_ported(clean_env, name):
 
 
 @pytest.mark.parametrize("name,value", [("HOROVOD_DATA_DIR", "/data"),
-                                        ("HOROVOD_PREFETCH_DEPTH", "2")])
+                                        ("HOROVOD_PREFETCH_DEPTH", "2"),
+                                        ("HOROVOD_SPARSE_PAD_CAPACITY",
+                                         "64")])
 def test_the_input_pipeline_knobs_are_ported(clean_env, name, value):
     """HOROVOD_DATA_DIR and HOROVOD_PREFETCH_DEPTH (ROADMAP §A items 5-6)
-    are read by ``training/data.py``: set, they draw no warning."""
+    are read by ``training/data.py``, HOROVOD_SPARSE_PAD_CAPACITY (item
+    11) by ``ops/sparse.py``: set, they draw no warning."""
     assert name in tenv.PORTED_KNOBS
     assert name not in tenv.UNPORTED_TUNING_KNOBS
     clean_env.setenv(name, value)
