@@ -185,7 +185,26 @@ Phases, one line of output each:
     gather`` and ``dense``: tables within ``BAG_TOL`` after 20 steps, and
     the loss falling on a repeated batch; (e) steps/s of (c) and (d) and
     the device ms of their merges; (f) a captured ``Trainer`` refuses a
-    COO gradient (``nn.Embedding(sparse=True)``) and names it.
+    COO gradient (``nn.Embedding(sparse=True)``) and names it;
+16. wire compression and decomposition (no kernel of the port lies on
+    it): (a) ResNet-50's gradient (25.6 M fp32 values, seeded, in the
+    buckets of the default fusion threshold) through bf16, int8,
+    int8_block and int4 with an explicit ``compression_key``: wire, scales
+    and dequantized values on the card equal the CPU's bit for bit, and
+    two card runs each other; (b) each format's compress + decompress of
+    those buckets, device ms (CUDA events, median, min and max of
+    ``WIRE_WINDOWS`` windows) against the byte bound, printed as
+    ``compression_ms`` JSON lines; (c) ResNet-50 (bf16, fused BN, batch
+    ``WIRE_BATCH``) through ``DistributedOptimizer(compression=
+    "int8_block", error_feedback=True)``, 10 captured steps on a repeated
+    batch: finite losses whose last 3 average below the first, every loss,
+    parameter, buffer, momentum and residual equal bit for bit to the same
+    steps run eagerly, and images/s beside the uncompressed captured step
+    in turns (at one rank the wire saves nothing: the price of the
+    compression alone); (d) in a captured program, ``algo="rs_ag"`` and
+    ``channels=4`` equal ``flat`` bit for bit for every format,
+    ``algo="hierarchical"`` at one slice raises the reference's text, and
+    ``algo="auto"`` resolves to ``flat``.
 
 Each main path (5, 8 and 10, and each example of 14) runs with its
 kernels' launch counts set to 0 just before it and read just after; the
@@ -224,15 +243,17 @@ import torch.nn.functional as F
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch import serving
 from horovod_tpu_torch.core import resilience
+from horovod_tpu_torch.core import state as hstate
 from horovod_tpu_torch.models import mnist, resnet, transformer
 from horovod_tpu_torch.models.layers import FusedBatchNorm
 from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.ops import batchnorm as bn
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import optim
-from horovod_tpu_torch.ops import sparse
+from horovod_tpu_torch.ops import compression, fusion, sparse, strategy
 from horovod_tpu_torch.ops.optim import AdamW
-from horovod_tpu_torch.parallel.optimizer import optimizer_state_tensors
+from horovod_tpu_torch.parallel.optimizer import (FusedAllreduce,
+                                                  optimizer_state_tensors)
 from horovod_tpu_torch import training
 from horovod_tpu_torch.training import checkpoint, data
 from horovod_tpu_torch.training.callbacks import (Callback,
@@ -3322,6 +3343,309 @@ def sparse_line(sp: dict, ident: str) -> str:
         f"of the port launched; phase {sp['seconds']:.1f} s, on {ident}")
 
 
+# -- wire compression and decomposition (phase 16) ------------------------------
+
+WIRE_FORMATS = ("bf16", "int8", "int8_block", "int4")
+WIRE_KEY = 1017                # the explicit compression_key of (a), (b)
+WIRE_WINDOWS = 7               # (b): timed windows of one step's buckets
+WIRE_BATCH = 32                # (c): the ResNet-50 step's batch
+WIRE_LR = 0.0125               # (c): SGD's LR at that batch (phase 14's)
+WIRE_STEPS = 10                # (c): steps eager and captured
+WIRE_AB_WINDOWS = 4            # (c): images/s windows a side, in turns
+WIRE_AB_STEPS = 5
+DECOMP_ELEMS = 1 << 20         # (d): the program's tensor
+HIERARCHICAL_ONE_SLICE = (
+    "allreduce algo='hierarchical' (tensor wire.hierarchical) needs a "
+    "multi-slice topology; this group's 1 rank(s) live on one slice. Use "
+    "'flat'/'rs_ag'/'auto', or HOROVOD_TOPOLOGY_SLICES=N to simulate "
+    "slices in tests.")
+
+
+def resnet_gradient_buckets(seed: int = SEED) -> list[torch.Tensor]:
+    """ResNet-50's gradient as the fusion plan cuts it at the default
+    threshold: seeded fp32 values (N(0, 0.01²)) on the CPU, one flat
+    tensor per bucket."""
+    shapes = [p.shape for p in resnet.ResNet50(
+        num_classes=CLASSES,
+        generator=torch.Generator().manual_seed(seed)).parameters()]
+    plan = fusion.plan_buckets_py([torch.empty(s, device="meta")
+                                   for s in shapes],
+                                  hstate.fusion_threshold())
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(b.elems, generator=g) * 1e-2 for b in plan]
+
+
+def _wire(comp, flat) -> dict:
+    """One compress + decompress with the explicit key: wire, scales,
+    dequantized values."""
+    ctx = compression.WireContext(group_size=1, key=WIRE_KEY)
+    wire, meta = comp.compress(flat, ctx)
+    unit = meta[0] if isinstance(meta, tuple) else meta
+    out = {"wire": wire, "dequantized": comp.decompress(
+        wire, meta, torch.float32, ctx)}
+    if unit is not None:
+        out["scales"] = unit
+    return out
+
+
+def check_wire_formats(device, buckets) -> dict:
+    """(a): each format on the card against the same call on the CPU, and
+    two card runs against each other, bit for bit."""
+    out = {}
+    for name in WIRE_FORMATS:
+        comp = compression.resolve(name)
+        compared = 0
+        for flat in buckets:
+            cpu = _wire(comp, flat)
+            card = _wire(comp, flat.to(device))
+            again = _wire(comp, flat.to(device))
+            for k, want in cpu.items():
+                if not torch.equal(card[k], again[k]):
+                    raise RuntimeError(f"{name}: two runs on the card give "
+                                       f"different {k}")
+                got = card[k].cpu()
+                if got.dtype != want.dtype or not torch.equal(got, want):
+                    gap = float((got.float() - want.float()).abs().max())
+                    raise RuntimeError(
+                        f"{name}: the card's {k} differs from the CPU's "
+                        f"(largest gap {gap:.3e})")
+                compared += want.numel()
+        out[name] = compared
+    return out
+
+
+def time_wire_formats(device, buckets) -> dict:
+    """(b): compress + decompress of one step's buckets on the card (CUDA
+    events, WIRE_WINDOWS windows after a warm-up), against the byte bound:
+    the fp32 buckets read and written once, the wire and scales written
+    and read once, over the card's memory rate."""
+    flats = [b.to(device) for b in buckets]
+    n = sum(f.numel() for f in flats)
+    rec = {}
+    for name in WIRE_FORMATS:
+        comp = compression.resolve(name)
+        ctx = compression.WireContext(group_size=1, key=WIRE_KEY)
+
+        def step():
+            for f in flats:
+                wire, meta = comp.compress(f, ctx)
+                comp.decompress(wire, meta, torch.float32, ctx)
+
+        step()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(WIRE_WINDOWS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            step()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        wire_b = sum(compression.wire_bytes(f.numel(), f.dtype, comp, 1)
+                     for f in flats)
+        scale_b = sum(4 * (-(-f.numel() // comp.block)) if hasattr(
+            comp, "block") else (4 if name == "int8" else 0) for f in flats)
+        moved = 2 * 4 * n + 2 * (wire_b + scale_b)
+        rec[name] = {"format": name, "elements": n,
+                     "buckets": len(flats),
+                     "ms_median": statistics.median(times),
+                     "ms_min": min(times), "ms_max": max(times),
+                     "windows": len(times), "bytes": moved,
+                     "bound_ms": 1e3 * moved / HBM_BYTES_PER_S,
+                     "bound_by": "bytes", "wire_bytes": wire_b,
+                     "scale_bytes": scale_b, "fp32_bytes": 4 * n}
+    del flats
+    return rec
+
+
+def _wire_trainer(device, comp: str, error_feedback: bool):
+    """ResNet-50 (bf16, fused BN, weights from SEED) in a Trainer whose
+    DistributedOptimizer(SGD(WIRE_LR, momentum 0.9)) compresses."""
+    model = seeded_resnet50(torch.bfloat16, device)
+    opt = hvd.DistributedOptimizer(
+        training.sgd(WIRE_LR, momentum=0.9)(model.parameters()),
+        compression=comp, error_feedback=error_feedback)
+    return hvd.Trainer(model, resnet.make_loss_fn(model), opt, has_aux=True)
+
+
+def _wire_state(trainer) -> dict:
+    state = trainer_state(trainer)
+    state.update({f"residual/{i}": r.detach().clone()
+                  for i, r in trainer.optimizer.residual.items()})
+    return state
+
+
+def compressed_step(device) -> dict:
+    """(c): the captured step with int8_block and error feedback against
+    the same step run eagerly, and images/s beside the uncompressed
+    captured step."""
+    batch = resnet.synthetic_imagenet(WIRE_BATCH, IMAGE, seed=SEED,
+                                      num_classes=CLASSES, device=device)
+    eager = _wire_trainer(device, "int8_block", True)
+    want = [eager.step_fn(batch)[0] for _ in range(WIRE_STEPS)]
+    want_state = _wire_state(eager)
+    del eager
+    captured = _wire_trainer(device, "int8_block", True)
+    got = [captured.train_step(batch)[0] for _ in range(WIRE_STEPS)]
+    torch.cuda.synchronize()
+    got_state = _wire_state(captured)
+    losses = [float(x) for x in got]
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"compressed step: non-finite losses {losses}")
+    if not statistics.mean(losses[-3:]) < losses[0]:
+        raise RuntimeError(f"compressed step: the loss did not fall "
+                           f"{losses}")
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if not torch.equal(_bits(a), _bits(b))]
+    diff = state_diff(got_state, want_state)
+    if bad or diff:
+        raise RuntimeError(
+            f"compressed step: the replay differs from the eager step: "
+            f"steps {bad}, state {diff[:8]} ({len(diff)} of "
+            f"{len(want_state)} tensors)")
+    step = captured._step
+    if (step.runs, step.replays) != (2, WIRE_STEPS - 1):
+        raise RuntimeError(f"compressed step: {step.runs} runs, "
+                           f"{step.replays} replays")
+    residuals = [k for k in got_state if k.startswith("residual/")]
+    if not any(bool(got_state[k].any()) for k in residuals):
+        raise RuntimeError("compressed step: every residual is zero")
+    plain = _wire_trainer(device, "none", False)
+    for _ in range(3):
+        plain.train_step(batch)
+    rates = {"int8_block": [], "none": []}
+    for w in range(WIRE_AB_WINDOWS):
+        order = ("int8_block", "none") if w % 2 == 0 else ("none",
+                                                           "int8_block")
+        for side in order:
+            trainer = captured if side == "int8_block" else plain
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(WIRE_AB_STEPS):
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+            rates[side].append(WIRE_AB_STEPS * WIRE_BATCH
+                               / (time.perf_counter() - t0))
+    buckets = captured.optimizer._allreduce.buckets(
+        [p.grad for p in captured.model.parameters()])
+    del captured, plain
+    free_cuda()
+    return {"losses": losses, "tensors": len(want_state),
+            "residuals": len(residuals), "rates": rates,
+            "buckets": [b.describe() for b in buckets]}
+
+
+def check_decompositions(device) -> dict:
+    """(d): rs_ag and 4 channels equal flat bit for bit in a captured
+    program, for every wire format (a world of 1: each is the identity,
+    and the compressed ones quantize once, keyed by the data, so every
+    call draws the same noise); hierarchical at one slice raises the
+    reference's text; auto resolves to flat."""
+    g = torch.Generator().manual_seed(SEED)
+    x = (torch.randn(DECOMP_ELEMS, generator=g) * 1e-2).to(device)
+    ways = (("flat", 1), ("rs_ag", 1), ("flat", 4), ("rs_ag", 4),
+            ("auto", 1))
+
+    def step(x):
+        return {f"{fmt}/{algo}/{ch}": hvd.allreduce(
+            x, average=False, name=f"wire.{fmt}.{algo}.{ch}",
+            compression=fmt, algo=algo, channels=ch)
+            for fmt in ("none",) + WIRE_FORMATS for algo, ch in ways}
+
+    prog = hvd.spmd(step)
+    calls = [prog(x) for _ in range(3)]
+    if (prog.runs, prog.replays, prog.trace_count) != (2, 2, 1):
+        raise RuntimeError(f"decomposition program: {prog.runs} runs, "
+                           f"{prog.replays} replays, {prog.trace_count} "
+                           f"recordings (want 2, 2, 1)")
+    for call in calls:
+        for fmt in ("none",) + WIRE_FORMATS:
+            want = call[f"{fmt}/flat/1"]
+            if fmt == "none" and not torch.equal(want, x):
+                raise RuntimeError("flat at a world of 1 is not the "
+                                   "identity")
+            for algo, ch in ways[1:]:
+                if not torch.equal(call[f"{fmt}/{algo}/{ch}"], want):
+                    raise RuntimeError(f"{fmt}: algo={algo} channels={ch} "
+                                       f"differs from flat")
+    try:
+        hvd.spmd(lambda x: hvd.allreduce(
+            x, algo="hierarchical", name="wire.hierarchical"))(x)
+        raise RuntimeError("algo='hierarchical' at one slice did not raise")
+    except hvd.HorovodError as e:
+        if str(e) != HIERARCHICAL_ONE_SLICE:
+            raise RuntimeError(f"hierarchical at one slice: {e}") from None
+        refusal = str(e)
+    auto = strategy.select("auto", nbytes=4 * DECOMP_ELEMS,
+                           group=hstate.get_group(0))[0]
+    planned = {b.algo for b in FusedAllreduce(
+        "wire.auto", algo="auto").buckets([x])}
+    if auto != "flat" or planned != {"flat"}:
+        raise RuntimeError(f"auto resolved to {auto}, {planned}")
+    return {"outputs": len(calls[0]), "refusal": refusal, "auto": auto}
+
+
+def phase_wire(device) -> dict:
+    """Phase 16: wire compression and decomposition on the card."""
+    t0 = time.perf_counter()
+    buckets = resnet_gradient_buckets()
+    out = {"formats": check_wire_formats(device, buckets),
+           "timing": time_wire_formats(device, buckets)}
+    free_cuda()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out["step"] = compressed_step(device)
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = deterministic
+    out["decompositions"] = check_decompositions(device)
+    out["elements"] = sum(b.numel() for b in buckets)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def wire_lines(wr: dict, ident: str) -> list[str]:
+    """Phase 16's line, then one ``compression_ms`` JSON line a format."""
+    st, dc = wr["step"], wr["decompositions"]
+    ips = {k: statistics.median(v) for k, v in st["rates"].items()}
+    line = (
+        f"phase 16 wire compression and decomposition: ok on cuda:0; (a) "
+        f"ResNet-50's gradient ({wr['elements']} fp32 elements in "
+        f"{wr['timing']['bf16']['buckets']} buckets at the default fusion "
+        f"threshold), key {WIRE_KEY}: "
+        + ", ".join(f"{k} wire/scales/dequantized = the CPU's bit for bit "
+                    f"({v} values)" for k, v in wr["formats"].items())
+        + "; two runs on the card bit-identical; (b) compress + decompress "
+        f"a step, median of {WIRE_WINDOWS} windows (min-max), against the "
+        f"byte bound: " + "; ".join(
+            f"{k} {r['ms_median']:.4f} ms ({r['ms_min']:.4f}-"
+            f"{r['ms_max']:.4f}), bound {r['bound_ms']:.4f} ms, wire "
+            f"{r['wire_bytes']} of {r['fp32_bytes']} bytes"
+            for k, r in wr["timing"].items())
+        + f"; (c) ResNet-50 bf16 batch {WIRE_BATCH}, "
+        f"DistributedOptimizer(int8_block, error_feedback=True), "
+        f"{WIRE_STEPS} steps on a repeated batch: loss "
+        f"{st['losses'][0]:.4f} -> {st['losses'][-1]:.4f}, the captured "
+        f"replays = the eager steps bit for bit (losses and "
+        f"{st['tensors']} state tensors, {st['residuals']} residuals), "
+        f"buckets {st['buckets']}; images/s, median of "
+        f"{WIRE_AB_WINDOWS} windows of {WIRE_AB_STEPS} captured steps in "
+        f"turns: int8_block {ips['int8_block']:.1f} "
+        f"({', '.join(f'{v:.1f}' for v in st['rates']['int8_block'])}), "
+        f"uncompressed {ips['none']:.1f} "
+        f"({', '.join(f'{v:.1f}' for v in st['rates']['none'])}) — at one "
+        f"rank the wire saves nothing, so this prices compression's "
+        f"overhead alone; (d) rs_ag and 4 channels = flat bit for bit in "
+        f"a captured program for none and {'/'.join(WIRE_FORMATS)} "
+        f"({dc['outputs']} outputs), hierarchical at one slice raises "
+        f"\"{dc['refusal'][:60]}...\", auto resolves to {dc['auto']}; "
+        f"phase {wr['seconds']:.1f} s, on {ident}")
+    return [line] + [f"compression_ms {json.dumps(r)}"
+                     for r in wr["timing"].values()]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -3560,6 +3884,12 @@ def main() -> int:
     sp = phase_sparse(device)
     say(sparse_line(sp, ident) + f"; total "
         f"{time.perf_counter() - t_start:.0f} s")
+
+    wr = phase_wire(device)
+    lines = wire_lines(wr, ident)
+    say(lines[0] + f"; total {time.perf_counter() - t_start:.0f} s")
+    for line in lines[1:]:
+        say(line)
 
     say(json.dumps({"kernels": kernels}))
     hvd.shutdown()

@@ -110,4 +110,5 @@ from horovod_tpu_torch.training.callbacks import (  # noqa: F401
     StallWarningCallback,
 )
 from horovod_tpu_torch import training  # noqa: F401
+from horovod_tpu_torch.training import callbacks  # noqa: F401
 from horovod_tpu_torch.training.loop import Trainer  # noqa: F401

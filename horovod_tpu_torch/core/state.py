@@ -144,6 +144,7 @@ def init(group_ranks: Sequence[Sequence[int]] | None = None, *,
         _env.warn_unknown_env()
         _env.check_unported()
         _env.validate_serving_knobs()
+        _env.validate_exchange_knobs()
         _env.sparse_pad_capacity()
         local_rank = int(os.environ.get("LOCAL_RANK", "0"))
         dev = _resolve_device(device, local_rank)
@@ -204,6 +205,9 @@ def shutdown() -> None:
     with _state.lock:
         if not _state.initialized:
             return
+        from horovod_tpu_torch.ops import topology as _topology  # imports us
+
+        _topology.forget_groups()
         if _state.owns_default_pg:
             dist.destroy_process_group()
         else:

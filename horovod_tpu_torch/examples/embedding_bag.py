@@ -3,13 +3,12 @@ JAX package's ``examples/embedding_bag.py``: a large id table looked up by
 Zipf-hot bags, mean-pooled into a small classifier head. The table's
 gradient is an ``hvd.IndexedSlices``; ``hvd.allreduce_gradients`` exchanges
 it through the padded gather with dedup-and-merge (``--sparse-algo
-gather``) or densify + allreduce (``dense``), and the head's gradients
-through the fused dense buckets. The step is one ``hvd.spmd`` program (a
-CUDA graph on the card).
-
-``--sparse-algo auto`` and ``--compression`` other than ``none`` stand on
-the exchange stack of ROADMAP §A item 12, and raise naming it. The
-reference's closing print of the exchange plan waits for item 12 too.
+gather``), densify + allreduce (``dense``) or the density switch
+(``auto``), and the head's gradients through the fused dense buckets;
+``--compression`` quantizes the sparse value payload (gather form) and the
+dense buckets. The step is one ``hvd.spmd`` program (a CUDA graph on the
+card). The reference's closing print of the exchange plan waits for
+``ops/exchange.py`` (ROADMAP §A item 12(b)).
 
 Run:  python -m horovod_tpu_torch.examples.embedding_bag [--steps 100]
           [--sparse-algo dense] [--device cpu]
@@ -36,20 +35,15 @@ def main(argv=None) -> dict:
     parser.add_argument("--lr", type=float, default=0.5)
     parser.add_argument("--sparse-algo", default="gather",
                         choices=["gather", "dense", "auto"],
-                        help="sparse exchange (ops/sparse.py); 'auto' is "
-                             "ROADMAP §A item 12")
+                        help="sparse exchange (ops/sparse.py)")
     parser.add_argument("--compression", default="none",
                         choices=["none", "bf16", "int8", "int8_block",
                                  "int4"],
-                        help="wire format of the sparse value payload: "
-                             "only 'none' (the others are ROADMAP §A item "
-                             "12)")
+                        help="wire format of the exchange "
+                             "(ops/compression.py)")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     args = parser.parse_args(argv)
-    if args.compression != "none":
-        raise NotImplementedError(
-            f"--compression {args.compression} is not ported yet: ROADMAP "
-            f"§A item 12.")
+    comp = None if args.compression == "none" else args.compression
 
     hvd.init(device=args.device)
     dev = hvd.device()
@@ -66,7 +60,8 @@ def main(argv=None) -> dict:
         keys = list(grads)
         synced = hvd.allreduce_gradients([grads[k] for k in keys],
                                          name="embedding_bag.grads",
-                                         sparse_algo=args.sparse_algo)
+                                         sparse_algo=args.sparse_algo,
+                                         compression=comp)
         embedding_bag.apply_sgd(model, dict(zip(keys, synced)), lr=args.lr)
         return hvd.allreduce(loss, name="embedding_bag.loss")
 

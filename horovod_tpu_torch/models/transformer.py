@@ -65,6 +65,7 @@ from horovod_tpu_torch.parallel.sequence import local_attention
 from horovod_tpu_torch.serving.kv_cache import (dequantize_kv, kv_quantized,
                                                 quantize_kv,
                                                 resolve_kv_dtype)
+from horovod_tpu_torch.utils import rng as _rng
 
 
 class TransformerConfig(NamedTuple):
@@ -690,26 +691,11 @@ def generate(config: TransformerConfig, params: Transformer, prompt,
     return out
 
 
-# Counter-based sampling: splitmix64 over int64 tensors (two's-complement
-# wrap-around; ``>>`` on int64 is arithmetic, so logical shifts mask).
-def _i64(c: int) -> int:
-    return c - (1 << 64) if c >= 1 << 63 else c
-
-
-_GOLDEN = _i64(0x9E3779B97F4A7C15)
-_MIX1 = _i64(0xBF58476D1CE4E5B9)
-_MIX2 = _i64(0x94D049BB133111EB)
-
-
-def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
-    return (x >> s) & ((1 << (64 - s)) - 1)
-
-
-def _splitmix64(x: torch.Tensor) -> torch.Tensor:
-    z = x + _GOLDEN
-    z = (z ^ _srl(z, 30)) * _MIX1
-    z = (z ^ _srl(z, 27)) * _MIX2
-    return z ^ _srl(z, 31)
+# Counter-based sampling: splitmix64 over int64 tensors (utils/rng.py).
+_i64 = _rng.i64
+_GOLDEN, _MIX1, _MIX2 = _rng.GOLDEN, _rng.MIX1, _rng.MIX2
+_srl = _rng.srl
+_splitmix64 = _rng.splitmix64
 
 
 def sample_tokens(logits: torch.Tensor, temperature: float, seed: int,

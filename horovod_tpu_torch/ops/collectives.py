@@ -43,12 +43,22 @@ back (it is a member of the program's group, so it is not ``None``);
 ``allgather``, ``alltoall`` and ``reducescatter`` need a family whose
 groups have equal sizes and cover the program's group. The refusals keep
 the reference's text.
+
+Inside a program, ``allreduce`` also takes the reference's wire knobs:
+``compression=`` (``ops/compression.py``), ``algo=`` and ``channels=``
+(``ops/strategy.py``), ``cross_compression=`` and ``compression_key=``.
+Eager calls always run uncompressed and flat, and refuse them with the
+reference's text; a subset group takes the flat lowering (compressed or
+not) and refuses phased algorithms and ``channels > 1``; a family refuses
+compression and runs flat. The gradient path (``parallel/optimizer.py``)
+reaches the same lowering, :func:`compressed_sum`, per fusion bucket.
 """
 
 from __future__ import annotations
 
 import numbers
 import threading
+import zlib
 
 import torch
 import torch.distributed as dist
@@ -58,6 +68,8 @@ from horovod_tpu_torch.core import negotiate as _neg
 from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.core import timeline as _tl
 from horovod_tpu_torch.core.state import HorovodError
+from horovod_tpu_torch.ops import compression as _compression
+from horovod_tpu_torch.ops import strategy as _strategy
 
 _name_counters: dict[str, int] = {}
 _name_lock = threading.Lock()
@@ -236,20 +248,183 @@ def sum_into(buf: torch.Tensor, g: _state.Group) -> torch.Tensor:
     return buf
 
 
+def bucket_key(key, members, name: str, device):
+    """The caller's per-step key mixed with the bucket's salt (crc32 of its
+    member labels, else its name: stable across runs and ranks), so
+    buckets of one step draw independent noise; None stays None."""
+    if key is None:
+        return None
+    salt = "/".join(members) if members else name
+    return _compression.mix_key(
+        key, zlib.crc32(salt.encode("utf-8")) & 0x7FFFFFFF, device)
+
+
+def compressed_sum(x: torch.Tensor, g: _state.Group, comp, key, name: str,
+                   members=None, algo: str = "flat", topo=None,
+                   cross_spec=None, channels: int = 1) -> torch.Tensor:
+    """The group sum of ``x`` over ``g`` (this rank a member) through the
+    wire compressor ``comp`` (None: uncompressed) and the decomposition
+    ``algo``: a summable wire is quantized once, moved by every phase and
+    dequantized once; an unsummable one (int4) is gathered
+    (``strategy.lower_gathered``); a phase-asymmetric hierarchical bucket
+    compresses only its cross-host hop (``strategy.
+    lower_hierarchical_asym``). While error feedback collects, records
+    this rank's local dequantized contribution (None where it is exact or
+    not its own; ``compression.LocalContribution``)."""
+    intra_comp, cross_comp, asym = _compression.resolve_phase_formats(
+        comp, cross_spec)
+    if algo == "hierarchical" and asym:
+        _compression.record_local(None)
+        return _strategy.lower_hierarchical_asym(
+            x, g, topo, name, intra_comp, cross_comp,
+            bucket_key(key, members, name, x.device), channels=channels)
+    if comp is None or not comp.applies_to(x.dtype):
+        _compression.record_local(None)
+        return _strategy.lower_allreduce(x, algo, name, topo, g,
+                                         channels=channels)
+    key = bucket_key(key, members, name, x.device)
+    rank = g.group_rank_of(_state.global_rank())
+    if not comp.summable:
+        return _strategy.lower_gathered(x, comp, algo, name, g, key, rank,
+                                        channels=channels)
+    wctx = _compression.WireContext(
+        group_size=g.size, sum_width=g.size,
+        pmax=((lambda v: _strategy.all_sum(v, g.pg, dist.ReduceOp.MAX))
+              if g.size > 1 else (lambda v: v)),
+        rank_data=rank, key=key)
+    wire, meta = _strategy.quantize(name, comp, x, wctx)
+    _compression.record_local(
+        _compression.LocalContribution(comp, wire, meta, wctx))
+    summed = _strategy.lower_allreduce(wire, algo, name, topo, g,
+                                       channels=channels)
+    return _strategy.dequantize(
+        name, lambda: comp.decompress(summed, meta, x.dtype, wctx))
+
+
+def select_bucket_algo(spec: str, comp, cross_spec, dtype: torch.dtype,
+                       elems: int, g: _state.Group, restricted: bool,
+                       name: str, nbytes: int, topo=None):
+    """``strategy.select`` priced on what each candidate would move: the
+    gather-form flat of an unsummable wire, the per-phase bytes of the
+    phase-asymmetric hierarchical candidate."""
+    kw = {}
+    applies = comp is not None and comp.applies_to(dtype)
+    if not restricted and (applies or cross_spec is not None):
+        intra_c, cross_c, asym = _compression.resolve_phase_formats(
+            comp, cross_spec)
+        if asym and dtype.is_floating_point:
+            kw["phase_nbytes"] = (
+                _compression.wire_bytes(elems, dtype, intra_c),
+                _compression.wire_bytes(elems, dtype, cross_c))
+        if applies and not comp.summable:
+            kw["gather"] = True
+    return _strategy.select(spec, nbytes=nbytes, group=g,
+                            restricted=restricted, name=name, topo=topo,
+                            **kw)
+
+
+def check_restricted_channels(channels: int, name: str) -> None:
+    """Subset groups and families run one flat instance: an explicit
+    multi-channel request raises."""
+    if channels > 1:
+        raise HorovodError(
+            f"channels={channels} (tensor {name}) requires a full-axis "
+            f"single group: subset groups and group families only "
+            f"support the single-instance masked-psum lowering. Drop "
+            f"channels= or reduce on the full group.")
+
+
+def _refuse_eager_knobs(comp, cross_compression, algo_spec: str,
+                        ch: int) -> None:
+    """Eager value collectives run uncompressed and flat (the reference's
+    texts)."""
+    if comp is not None:
+        raise HorovodError(
+            f"compression={comp.name!r} is only supported inside hvd.spmd "
+            f"traced programs (the compiled gradient path); eager value "
+            f"collectives always run uncompressed. Drop compression= or "
+            f"move the call inside hvd.spmd.")
+    if cross_compression is not None:
+        raise HorovodError(
+            f"cross_compression={cross_compression!r} is only supported "
+            f"inside hvd.spmd traced programs: the per-phase wire format "
+            f"is a property of the compiled hierarchical lowering. Drop "
+            f"it or move the call inside hvd.spmd.")
+    if algo_spec != "flat":
+        raise HorovodError(
+            f"algo={algo_spec!r} is only supported inside hvd.spmd traced "
+            f"programs: the decomposition is a property of the compiled "
+            f"lowering. Eager collectives always run the flat psum; drop "
+            f"algo= or move the call inside hvd.spmd.")
+    if ch != 1:
+        raise HorovodError(
+            f"channels={ch} is only supported inside hvd.spmd traced "
+            f"programs: the channel split is a property of the compiled "
+            f"lowering. Eager collectives always run one instance; drop "
+            f"channels= or move the call inside hvd.spmd.")
+
+
 def allreduce(x: torch.Tensor, group=0, average: bool = True,
-              name: str | None = None) -> torch.Tensor | None:
+              name: str | None = None, members: tuple[str, ...] | None = None,
+              compression=None, compression_key=None, algo=None,
+              cross_compression=None, channels=None) -> torch.Tensor | None:
     """Sum (``average=True``: mean) of every member's tensor. ``group`` may
     be a family inside a program; a rank in none of its groups gets its
-    input back."""
+    input back. ``members``: the labels of a fusion bucket's tensors.
+
+    Inside a program: ``compression`` (a format name or a
+    :class:`~horovod_tpu_torch.ops.compression.Compressor`; None = off —
+    ``HOROVOD_COMPRESSION`` is the gradient path's default, not this
+    call's), ``compression_key`` (an int or a 0-d int64 tensor for the
+    stochastic formats), ``algo`` (``flat``/``rs_ag``/``hierarchical``/
+    ``auto``; None = flat), ``cross_compression`` (the hierarchical
+    cross-host hop's format) and ``channels`` (None = 1)."""
     name = _auto_name("HorovodAllreduce", name)
+    ch = _strategy.resolve_channels(channels)
+    comp = (None if compression is None
+            else _compression.active(compression))
+    algo_spec = _strategy.resolve_spec(algo)
     op = _neg.CollectiveOp.ALLREDUCE
+    ctx = _ctx.current()
+    full = (ctx is not None and _is_group_index(group)
+            and int(group) == ctx.group_index)
+    if ctx is None:
+        _refuse_eager_knobs(comp, cross_compression, algo_spec, ch)
+    elif not full:
+        # Subset groups and families: decided on every rank of the
+        # program, a non-member included, before any data moves.
+        if (not _is_group_index(group) and comp is not None
+                and comp.applies_to(x.dtype)):
+            raise HorovodError(
+                f"Gradient compression ({comp.name}) does not support "
+                f"group-family allreduce (tensor {name}): the slot-stacked "
+                f"family lowering shares one wire buffer across groups with "
+                f"different scales. Issue per-group compressed allreduces "
+                f"or drop compression=.")
+        _strategy.select(algo_spec, nbytes=0, group=None, restricted=True,
+                         name=name)
+        check_restricted_channels(ch, name)
     g, negotiating = _target(name, op, x, group)
     if g is None:
         return None if _is_group_index(group) else x.clone()
     if negotiating:
         _negotiate_one(g, name, op, x)
+    concrete, topo = "flat", None
+    if full:
+        applies = comp is not None and comp.applies_to(x.dtype)
+        concrete, topo = select_bucket_algo(
+            algo_spec, comp, cross_compression, x.dtype, x.numel(), g,
+            False, name, _compression.wire_bytes(
+                x.numel(), x.dtype, comp if applies else None,
+                sum_width=g.size))
     with _tl.activity(name, "ALLREDUCE"):
-        out = sum_into(x.clone(), g)
+        if comp is None and cross_compression is None \
+                and concrete == "flat" and ch == 1:
+            out = sum_into(x.clone(), g)
+        else:
+            out = compressed_sum(x, g, comp, compression_key, name, members,
+                                 algo=concrete, topo=topo,
+                                 cross_spec=cross_compression, channels=ch)
     return divide_avg(out, g.size) if average else out
 
 

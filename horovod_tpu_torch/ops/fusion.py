@@ -1,14 +1,19 @@
 """Tensor fusion: batch many small tensors into few large collectives.
 
-Counterpart of ``horovod_tpu/ops/fusion.py`` (its uncompressed, flat,
-enumeration-order plan). The plan is the reference's: buckets are
-contiguous runs of same-dtype tensors in submission order; a change of dtype,
-or a tensor that would push the bucket past ``HOROVOD_FUSION_THRESHOLD``
-bytes, closes the bucket; a threshold of 0 gives every tensor its own
-bucket. Each bucket is packed into one flat buffer
-(``MEMCPY_IN_FUSION_BUFFER``), reduced by ONE collective, and unpacked
-(``MEMCPY_OUT_FUSION_BUFFER``). A sparse gradient's exchange is planned as
-one :class:`SparseBucket` row (``ops/sparse.py``).
+Counterpart of ``horovod_tpu/ops/fusion.py`` (its enumeration-order plan;
+the priority schedule and ``fused_tree_apply`` are ROADMAP §A item 12(b)).
+The plan is the reference's: buckets are contiguous runs of same-dtype
+tensors in submission order; a change of dtype, or a tensor that would push
+the bucket past ``HOROVOD_FUSION_THRESHOLD`` bytes, closes the bucket; a
+threshold of 0 gives every tensor its own bucket. Each bucket is packed
+into one flat buffer (``MEMCPY_IN_FUSION_BUFFER``), reduced by ONE
+collective, and unpacked (``MEMCPY_OUT_FUSION_BUFFER``).
+
+Wire compression and the decomposition annotate a bucket (its wire dtype,
+its algorithm, its channel count, and the per-phase wire of a
+phase-asymmetric hierarchical bucket) but never move its boundaries, which
+are planned on the logical bytes. A sparse gradient's exchange is planned
+as one :class:`SparseBucket` row (``ops/sparse.py``).
 """
 
 from __future__ import annotations
@@ -21,18 +26,86 @@ import torch
 from horovod_tpu_torch.core import timeline as _tl
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
 @dataclasses.dataclass(frozen=True)
 class Bucket:
     """One fused collective: the indices of same-dtype tensors it carries,
-    their dtype, and their total bytes."""
+    their dtype and total bytes.
+
+    ``wire_dtype``: the dtype its collective moves under compression (None
+    = ``dtype``); ``wire_bits``: bits per logical element where they
+    differ from the wire dtype's width (int4: 4). ``algo``: its
+    decomposition (``ops/strategy.py``); ``channels``: its channel count;
+    ``priority``: its issue position. A phase-asymmetric hierarchical
+    bucket has no single wire: ``intra_wire_dtype`` (None = the logical
+    dtype) is what the intra-host phases move, ``cross_wire_dtype`` and
+    ``cross_wire_bits`` what the cross-host hop moves.
+    """
 
     indices: tuple[int, ...]
     dtype: torch.dtype
     total_bytes: int
+    wire_dtype: torch.dtype | None = None
+    algo: str = "flat"
+    priority: int = 0
+    wire_bits: int = 0
+    intra_wire_dtype: torch.dtype | None = None
+    cross_wire_dtype: torch.dtype | None = None
+    cross_wire_bits: int = 0
+    channels: int = 1
 
     @property
     def elems(self) -> int:
         return self.total_bytes // self.dtype.itemsize
+
+    @property
+    def bytes_on_wire(self) -> int:
+        """Bytes the bucket's (single-phase) collective moves."""
+        if self.wire_bits:
+            return self.elems * self.wire_bits // 8
+        if self.wire_dtype is None:
+            return self.total_bytes
+        return self.elems * self.wire_dtype.itemsize
+
+    @property
+    def cross_bytes_on_wire(self) -> int:
+        """Full-bucket-equivalent bytes of the cross-host hop."""
+        if self.cross_wire_dtype is None:
+            return self.bytes_on_wire
+        if self.cross_wire_bits:
+            return self.elems * self.cross_wire_bits // 8
+        return self.elems * self.cross_wire_dtype.itemsize
+
+    @property
+    def intra_bytes_on_wire(self) -> int:
+        """Full-bucket-equivalent bytes of one intra-host phase."""
+        if self.cross_wire_dtype is None:
+            return self.bytes_on_wire
+        if self.intra_wire_dtype is None:
+            return self.total_bytes
+        return self.elems * self.intra_wire_dtype.itemsize
+
+    def describe(self) -> str:
+        """One line: the reference's format."""
+        if self.cross_wire_dtype is not None:
+            intra = ("f" + str(self.dtype.itemsize * 8)
+                     if self.intra_wire_dtype is None
+                     else _dtype_name(self.intra_wire_dtype))
+            wire = (f" wire=intra:{intra}"
+                    f"/cross:{_dtype_name(self.cross_wire_dtype)}"
+                    f":{self.cross_bytes_on_wire}B")
+        elif self.wire_dtype is not None:
+            wire = (f" wire={_dtype_name(self.wire_dtype)}"
+                    f":{self.bytes_on_wire}B")
+        else:
+            wire = ""
+        return (f"bucket[{len(self.indices)} tensors, {self.elems} "
+                f"{_dtype_name(self.dtype)}, {self.total_bytes}B, "
+                f"algo={self.algo}{wire}, ch={self.channels}, "
+                f"prio={self.priority}]")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +118,9 @@ class SparseBucket:
     elements of one slice row; ``dense_rows`` the table's row count
     (``dense_shape[0]``); ``algo`` the resolved exchange, ``gather``
     (padded allgather + dedup-and-merge) or ``dense`` (densify +
-    allreduce). Values move in their own dtype (wire compression is ROADMAP
-    §A item 12), indices at ``index_itemsize`` bytes each.
+    allreduce). ``wire_dtype``/``wire_bits``: the gather-form value
+    payload's wire under compression (None = the logical dtype); indices
+    move uncompressed at ``index_itemsize`` bytes each.
     """
 
     index: int
@@ -55,18 +129,27 @@ class SparseBucket:
     row_elems: int
     dense_rows: int
     algo: str = "gather"
+    wire_dtype: torch.dtype | None = None
+    wire_bits: int = 0
     index_itemsize: int = 4
     label: str = ""
 
     @property
     def values_bytes(self) -> int:
-        """Bytes of one rank's padded value block."""
+        """Logical bytes of one rank's padded value block."""
         return self.rows * self.row_elems * self.dtype.itemsize
 
     @property
     def payload_wire_bytes(self) -> int:
-        """Bytes of one rank's gather payload: values and indices."""
-        return self.values_bytes + self.rows * self.index_itemsize
+        """Bytes of one rank's gather payload: the value block in its wire
+        format, and the indices."""
+        if self.wire_bits:
+            vals = self.rows * self.row_elems * self.wire_bits // 8
+        elif self.wire_dtype is not None:
+            vals = self.rows * self.row_elems * self.wire_dtype.itemsize
+        else:
+            vals = self.values_bytes
+        return vals + self.rows * self.index_itemsize
 
     @property
     def dense_bytes(self) -> int:
@@ -74,12 +157,132 @@ class SparseBucket:
         return self.dense_rows * self.row_elems * self.dtype.itemsize
 
     def describe(self) -> str:
-        dtype = str(self.dtype).removeprefix("torch.")
+        wire = ""
+        if self.wire_dtype is not None:
+            wire = f" wire={_dtype_name(self.wire_dtype)}"
         return (f"sparse[leaf {self.index}"
                 f"{' ' + self.label if self.label else ''}, "
-                f"{self.rows}x{self.row_elems} {dtype} of "
-                f"{self.dense_rows} rows, algo={self.algo}, "
+                f"{self.rows}x{self.row_elems} {_dtype_name(self.dtype)} of "
+                f"{self.dense_rows} rows, algo={self.algo}{wire}, "
                 f"payload={self.payload_wire_bytes}B]")
+
+
+def plan_buckets(leaves: Sequence[torch.Tensor], threshold_bytes: int,
+                 compression=None, algo=None, group_size: int | None = None,
+                 cross_compression=None) -> list[Bucket]:
+    """The reference's plan, annotated: ``compression`` (a resolved
+    compressor or None) stamps each bucket's wire dtype (``group_size``
+    is the in-wire sum width of the block budget); ``algo`` (a name or a
+    ``bucket -> name`` selector, which sees the wire-annotated bucket)
+    its decomposition; ``cross_compression`` the per-phase wire of
+    hierarchical buckets. Priorities are plan positions."""
+    buckets = plan_buckets_py(leaves, threshold_bytes)
+    buckets = _annotate_algo(_annotate_wire(buckets, compression,
+                                            group_size), algo)
+    buckets = _annotate_phase_wire(buckets, compression, cross_compression)
+    return [dataclasses.replace(b, priority=i)
+            for i, b in enumerate(buckets)]
+
+
+def _annotate_wire(buckets: list[Bucket], compression,
+                   group_size: int | None = None) -> list[Bucket]:
+    if compression is None:
+        return buckets
+    from horovod_tpu_torch.ops import compression as _comp
+
+    out = []
+    for b in buckets:
+        wire = _comp.wire_dtype_of(compression, b.dtype, group_size)
+        if wire == b.dtype:
+            out.append(b)
+            continue
+        bits = compression.WIRE_BITS
+        out.append(dataclasses.replace(
+            b, wire_dtype=wire,
+            wire_bits=(bits if bits and bits != wire.itemsize * 8 else 0)))
+    return out
+
+
+def _annotate_phase_wire(buckets: list[Bucket], compression,
+                         cross_compression=None) -> list[Bucket]:
+    """Per-phase wire formats of phase-asymmetric hierarchical buckets
+    (what ``strategy.lower_hierarchical_asym`` moves); their single-phase
+    ``wire_dtype`` is cleared."""
+    if compression is None and cross_compression is None:
+        return buckets
+    from horovod_tpu_torch.ops import compression as _comp
+
+    intra, cross, asym = _comp.resolve_phase_formats(compression,
+                                                     cross_compression)
+    if not asym:
+        return buckets
+    out = []
+    for b in buckets:
+        if b.algo != "hierarchical" or not b.dtype.is_floating_point:
+            out.append(b)
+            continue
+        cross_applies = cross is not None and cross.applies_to(b.dtype)
+        intra_dt = (None if intra is None
+                    else _comp.wire_dtype_of(intra, b.dtype, None))
+        if intra_dt is not None and intra_dt == b.dtype:
+            intra_dt = None
+        if not cross_applies and intra_dt is None:
+            out.append(dataclasses.replace(b, wire_dtype=None,
+                                           wire_bits=0))
+            continue
+        cross_dt = (_comp.wire_dtype_of(cross, b.dtype, None)
+                    if cross_applies else b.dtype)
+        cross_bits = cross.WIRE_BITS if cross_applies else 0
+        out.append(dataclasses.replace(
+            b, wire_dtype=None, wire_bits=0,
+            intra_wire_dtype=intra_dt, cross_wire_dtype=cross_dt,
+            cross_wire_bits=(cross_bits if cross_bits
+                             and cross_bits != cross_dt.itemsize * 8
+                             else 0)))
+    return out
+
+
+def _annotate_algo(buckets: list[Bucket], algo) -> list[Bucket]:
+    if algo is None:
+        return buckets
+    pick = algo if callable(algo) else (lambda b: algo)
+    return [dataclasses.replace(b, algo=pick(b)) for b in buckets]
+
+
+def _split_units(b: Bucket, world: int, slices: int, compression) -> int:
+    """How many units the channelized lowering of ``b`` can cut: shard
+    elements for the phased algorithms, packed block rows where a block
+    wire is what splits."""
+    elems = max(1, b.elems)
+    block = getattr(compression, "block", 0) or 0
+    unsummable = b.wire_bits == 4 or b.cross_wire_bits == 4
+    if b.algo == "rs_ag":
+        if unsummable and block:
+            nb = -(-elems // block)
+            return max(1, -(-nb // world))
+        return max(1, -(-elems // world))
+    if b.algo == "hierarchical":
+        local = (world // slices
+                 if slices > 1 and world % slices == 0 else 0)
+        if local > 1:
+            return max(1, -(-elems // local))
+        return elems
+    if unsummable and block:
+        return max(1, -(-elems // block))
+    return elems
+
+
+def assign_channels(buckets: list[Bucket], channels: int | None,
+                    world: int, slices: int, compression) -> list[Bucket]:
+    """Stamp an explicit channel count on every bucket (1-rank worlds and
+    no count: 1), clamped to what its lowering can cut. The cost model's
+    per-bucket choice under ``HOROVOD_MAX_CHANNELS`` is ROADMAP §A item
+    12(b)'s planner."""
+    if channels is None or world <= 1:
+        return buckets
+    return [dataclasses.replace(b, channels=max(1, min(
+        channels, _split_units(b, world, slices, compression))))
+        for b in buckets]
 
 
 def plan_buckets_py(leaves: Sequence[torch.Tensor],

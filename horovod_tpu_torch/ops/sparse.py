@@ -17,12 +17,22 @@ carries such a gradient (``dense[indices[i]] += values[i]``), and
 ``dense``
     Densify and allreduce the whole table.
 
+``auto``
+    The density switch: ``gather`` or ``dense``, whichever the α–β cost
+    model (``utils/costs.py``) prices cheaper over the group's topology;
+    ``HOROVOD_SPARSE_DENSITY_THRESHOLD`` overrides the model's crossover.
+
+``compression=`` quantizes the gather's VALUE payload in gather form: each
+rank compresses with ``sum_width=1`` (local scales, the whole integer
+range, nothing summed on the wire), the wire and its scales are gathered,
+and every rank's rows are dequantized into an fp32 accumulator before the
+merge; indices never compress. The dense exchange takes the same knob on
+its allreduce.
+
 Eager calls and subset groups run the reference's plain gather (no pad, no
-merge; on a subset group the members average and a non-member gets
-``None``, the port's convention) and refuse everything beyond it with the
-reference's text. ``algo="auto"`` (the density switch) and ``compression=``
-stand on the exchange stack of ROADMAP §A item 12 and raise
-``NotImplementedError`` naming it.
+merge, no compression; on a subset group the members average and a
+non-member gets ``None``, the port's convention) and refuse everything
+beyond it with the reference's text.
 
 The merge is deterministic on every device: a stable sort, then each
 segment's rows summed in order by ``torch.segment_reduce`` over offsets
@@ -45,7 +55,11 @@ from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.core import timeline as _tl
 from horovod_tpu_torch.core.state import HorovodError
 from horovod_tpu_torch.ops import collectives as _coll
+from horovod_tpu_torch.ops import compression as _compression
 from horovod_tpu_torch.ops import fusion as _fusion
+from horovod_tpu_torch.ops import strategy as _strategy
+from horovod_tpu_torch.ops import topology as _topology
+from horovod_tpu_torch.utils import costs as _costs
 from horovod_tpu_torch.utils import env as _env
 
 SPARSE_ALGORITHMS = ("gather", "dense")
@@ -102,22 +116,6 @@ def resolve_sparse_algo(spec) -> str:
             f"(allreduce_indexed_slices / allreduce_gradients "
             f"sparse_algo=).")
     return value
-
-
-def _refuse_unported(spec: str | None = None, compression=None) -> None:
-    """``auto`` and wire compression belong to ROADMAP §A item 12."""
-    if spec == "auto":
-        raise NotImplementedError(
-            "sparse algo='auto' (the density switch priced by the exchange "
-            "cost model) is not ported yet: ROADMAP §A item 12. Use "
-            "'gather' or 'dense'.")
-    if compression is not None and not (
-            isinstance(compression, str)
-            and compression.strip().lower() == "none"):
-        raise NotImplementedError(
-            f"compression={compression!r} on the sparse exchange is not "
-            f"ported yet: ROADMAP §A item 12. Drop compression= (or pass "
-            f"'none').")
 
 
 def dedup_merge(values: torch.Tensor, indices: torch.Tensor
@@ -185,38 +183,72 @@ def plan_sparse_exchange(slices: IndexedSlices, group: int = 0, algo=None,
                          ) -> _fusion.SparseBucket:
     """Resolve one IndexedSlices exchange to its plan row — the one decision
     source of :func:`allreduce_indexed_slices` and ``allreduce_gradients``.
-    Host-side and deterministic (static shapes)."""
+    Host-side and deterministic: the capacity from static shapes, ``auto``
+    from the cost model over the discovered topology."""
     spec = resolve_sparse_algo(algo)
-    _refuse_unported(spec, compression)
-    _state.get_group(group)
+    comp = None if compression is None else _compression.active(compression)
+    g = _state.get_group(group)
     n = int(slices.indices.shape[0])
+    cap = _resolve_capacity(n, pad_capacity)
     shape = tuple(slices.values.shape[1:])
     row_elems = 1
     for d in shape:
         row_elems *= int(d)
+    dense_rows = int(slices.dense_shape[0])
+    dtype = slices.values.dtype
+    idx_itemsize = slices.indices.dtype.itemsize
+    applies = comp is not None and comp.applies_to(dtype)
+    if spec == "auto":
+        topo = _topology.discover(g)
+        model = _costs.model_for(topo)
+        # Gather-form wire: sum_width=1; the dense candidate moves its own
+        # wire under the same knob.
+        row_wire = _compression.wire_bytes(row_elems, dtype,
+                                           comp if applies else None,
+                                           sum_width=1)
+        dense_elems = 1
+        for d in slices.dense_shape:
+            dense_elems *= int(d)
+        dense_wire = _compression.wire_bytes(dense_elems, dtype,
+                                             comp if applies else None,
+                                             sum_width=g.size)
+        spec = model.choose_sparse(
+            rows_per_rank=cap, row_bytes=row_wire + idx_itemsize,
+            dense_nbytes=dense_wire, dense_rows=dense_rows, topo=topo,
+            density_threshold=_env.sparse_density_threshold(),
+            gather_phases=3 if applies else 2,
+            dense_gather=applies and not comp.summable)
+    wire_dtype = None
+    wire_bits = 0
+    if spec == "gather" and applies:
+        wire_dtype = _compression.wire_dtype_of(comp, dtype, 1)
+        bits = comp.WIRE_BITS
+        wire_bits = (bits if bits and bits != wire_dtype.itemsize * 8
+                     else 0)
     return _fusion.SparseBucket(
-        index=index, dtype=slices.values.dtype,
-        rows=_resolve_capacity(n, pad_capacity), row_elems=row_elems,
-        dense_rows=int(slices.dense_shape[0]), algo=spec,
-        index_itemsize=slices.indices.dtype.itemsize, label=label)
+        index=index, dtype=dtype, rows=cap, row_elems=row_elems,
+        dense_rows=dense_rows, algo=spec, wire_dtype=wire_dtype,
+        wire_bits=wire_bits, index_itemsize=idx_itemsize, label=label)
 
 
 def allreduce_indexed_slices(slices: IndexedSlices, group: int = 0,
                              average: bool = True, name: str | None = None,
                              algo=None, compression=None,
-                             pad_capacity=None,
+                             compression_key=None, pad_capacity=None,
                              _plan: _fusion.SparseBucket | None = None
                              ) -> IndexedSlices | None:
     """Exchange sparse updates across the group (the reference's allgather
     of values and indices; ``average`` divides the values by the group's
     size). Inside an ``spmd`` program on its own group: the padded gather
-    with dedup-and-merge (``algo="gather"``, the default) or densify +
-    allreduce (``"dense"``). Eager calls and subset groups: the plain
-    gather. ``pad_capacity``: per-rank row capacity (default
-    ``HOROVOD_SPARSE_PAD_CAPACITY``; 0/unset = the natural row count).
-    A rank outside ``group`` gets ``None``. ``_plan``: the row
-    :func:`plan_sparse_exchange` resolved (``allreduce_gradients`` plans
-    once). Internal."""
+    with dedup-and-merge (``algo="gather"``, the default), densify +
+    allreduce (``"dense"``) or the density switch (``"auto"``);
+    ``compression`` quantizes the gather's value payload (gather form) or
+    the dense allreduce, ``compression_key`` keys its rounding. Eager calls
+    and subset groups: the plain gather. ``pad_capacity``: per-rank row
+    capacity (default ``HOROVOD_SPARSE_PAD_CAPACITY``; 0/unset = the
+    natural row count). A rank outside ``group`` gets ``None``.
+    ``_plan``: the row :func:`plan_sparse_exchange` resolved
+    (``allreduce_gradients`` plans once). Internal."""
     name = _coll._auto_name("HorovodSparseAllreduce", name)
     if not _coll._is_group_index(group):
         raise HorovodError(
@@ -224,21 +256,24 @@ def allreduce_indexed_slices(slices: IndexedSlices, group: int = 0,
             "IndexedSlices exchange targets a single group; issue one "
             "allreduce_indexed_slices per group.")
     spec = resolve_sparse_algo(algo)
-    _refuse_unported(compression=compression)
+    comp = None if compression is None else _compression.active(compression)
     ctx = _ctx.current()
     if ctx is None or int(group) != ctx.group_index:
-        _refuse_beyond_gather(spec, pad_capacity, name,
+        _refuse_beyond_gather(spec, comp, pad_capacity, name,
                               "eager calls" if ctx is None
                               else "subset groups")
         return _legacy_gather(slices, int(group), average, name)
     bucket = _plan if _plan is not None else plan_sparse_exchange(
-        slices, group=group, algo=spec, pad_capacity=pad_capacity)
+        slices, group=group, algo=spec, compression=comp,
+        pad_capacity=pad_capacity)
     if bucket.algo == "dense":
-        return _dense_exchange(slices, group, average, name)
-    return _gather_exchange(slices, group, average, name, bucket.rows)
+        return _dense_exchange(slices, group, average, name, comp,
+                               compression_key)
+    return _gather_exchange(slices, group, average, name, comp,
+                            compression_key, bucket.rows)
 
 
-def _refuse_beyond_gather(spec: str, pad_capacity, name: str,
+def _refuse_beyond_gather(spec: str, comp, pad_capacity, name: str,
                           where: str) -> None:
     """Eager calls and subset groups run the plain gather only."""
     if spec != "gather":
@@ -247,6 +282,12 @@ def _refuse_beyond_gather(spec: str, pad_capacity, name: str,
             f"single group inside hvd.spmd: {where} run the plain "
             f"reference gather exchange only. Drop algo= or reduce on "
             f"the full group.")
+    if comp is not None:
+        raise HorovodError(
+            f"Sparse value-payload compression ({comp.name}) requires the "
+            f"full-axis single group inside hvd.spmd (tensor {name}): "
+            f"{where} run the uncompressed reference gather exchange. "
+            f"Drop compression= or reduce on the full group.")
     if pad_capacity is not None:
         raise HorovodError(
             f"pad_capacity= (tensor {name}) requires the full-axis single "
@@ -270,26 +311,60 @@ def _legacy_gather(slices: IndexedSlices, group: int, average: bool,
 
 
 def _gather_exchange(slices: IndexedSlices, group: int, average: bool,
-                     name: str, cap: int) -> IndexedSlices:
-    """Pad → allgather value and index blocks → dedup-and-merge →
-    average."""
+                     name: str, comp, key, cap: int) -> IndexedSlices:
+    """Pad → (quantize) → allgather value (and scale) and index blocks →
+    dequantize into the fp32 accumulator → dedup-and-merge → average."""
+    g = _state.get_group(group)
     values, indices = _padded(slices, cap)
-    gvals = _coll.allgather(values, group=group, name=name + "_values")
+    orig_dtype = values.dtype
+    if comp is not None and comp.applies_to(orig_dtype):
+        # sum_width=1: nothing is summed on the wire, so every rank
+        # quantizes at the full integer range with LOCAL scales (the
+        # identity pmax), which travel beside the payload.
+        wctx = _compression.WireContext(
+            group_size=g.size, sum_width=1,
+            rank_data=g.group_rank_of(_state.global_rank()), key=key)
+        wire, meta = _strategy.quantize(name, comp, values, wctx)
+        gfn = _named_gather(group, g.size, [name + "_values",
+                                            name + "_scales"])
+        with _tl.activity(name, "DEQUANTIZE"):
+            rows = comp.gathered_rows(gfn, wire, meta, torch.float32, wctx)
+        gvals = rows.reshape((g.size * cap,) + tuple(values.shape[1:]))
+    else:
+        gvals = _coll.allgather(values, group=group, name=name + "_values")
     gidx = _coll.allgather(indices, group=group, name=name + "_indices")
     with _tl.activity(name, "SPARSE_DEDUP"):
         mvals, midx = dedup_merge(gvals, gidx)
     if average:
-        mvals = mvals / _state.get_group(group).size
-    return IndexedSlices(mvals.to(slices.values.dtype), midx,
+        mvals = mvals / g.size
+    return IndexedSlices(mvals.to(orig_dtype), midx.to(slices.indices.dtype),
                          slices.dense_shape)
 
 
+def _named_gather(group: int, gsize: int, names: list[str]):
+    """A ``gather_fn`` for :meth:`Compressor.gathered_rows`: each stacked
+    gather is a registered ``allgather``, named in call order (the wire
+    payload, then the scales)."""
+    calls = {"i": 0}
+
+    def gfn(a):
+        i = calls["i"]
+        calls["i"] = i + 1
+        label = names[i] if i < len(names) else f"{names[0]}_extra{i}"
+        a2 = a.reshape(1) if a.dim() == 0 else a
+        out = _coll.allgather(a2, group=group, name=label)
+        return out.reshape((gsize,) + tuple(a2.shape))
+
+    return gfn
+
+
 def _dense_exchange(slices: IndexedSlices, group: int, average: bool,
-                    name: str) -> IndexedSlices:
+                    name: str, comp=None, key=None) -> IndexedSlices:
     """Densify + allreduce of the whole table, returned in IndexedSlices
     form (row i at index i) so sparse applies work unchanged."""
     summed = _coll.allreduce(slices.to_dense(), group=group, average=average,
-                             name=name + "_dense")
+                             name=name + "_dense", compression=comp,
+                             compression_key=key)
     rows = slices.dense_shape[0]
     return IndexedSlices(
         summed, torch.arange(rows, dtype=slices.indices.dtype,

@@ -16,6 +16,20 @@ the ranks, as the JAX package validates once per trace.
 :func:`broadcast_variables` syncs parameters, buffers and optimizer state
 from a root rank. Overlapping the allreduce with backward is not done yet.
 
+The exchange's knobs are the reference's, each resolved as there
+(argument, then its environment default, then off): ``compression``
+(``HOROVOD_COMPRESSION``; ``ops/compression.py``), ``algo``
+(``HOROVOD_ALLREDUCE_ALGO``; ``ops/strategy.py``), ``cross_compression``
+(``HOROVOD_COMPRESSION_CROSS_SLICE``), ``channels``
+(``HOROVOD_EXCHANGE_CHANNELS``) and, on the wrapper, ``error_feedback``
+(``HOROVOD_ERROR_FEEDBACK``): each rank keeps the residual of its own
+quantization per float parameter, adds it to the next step's gradient and
+keeps the new one, in place, so a captured step replays it. The wrapper's
+``state_dict`` then holds ``{"inner": ..., "residual": ...}``, which
+``load_state_dict``, a checkpoint and :func:`broadcast_optimizer_state`
+carry bit for bit. Unlike the reference's, the gradient path also runs
+eagerly, compressed as in a program.
+
 Sparse gradients take the sparse exchange (``ops/sparse.py``): an
 ``IndexedSlices`` item of :func:`allreduce_gradients`, and a COO
 ``p.grad`` (``nn.Embedding(sparse=True)``) in :func:`DistributedOptimizer`,
@@ -36,34 +50,118 @@ from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.core import timeline as _tl
 from horovod_tpu_torch.core.state import HorovodError
 from horovod_tpu_torch.ops import collectives as _coll
+from horovod_tpu_torch.ops import compression as _compression
 from horovod_tpu_torch.ops import fusion as _fusion
 from horovod_tpu_torch.ops import sparse as _sparse
+from horovod_tpu_torch.ops import strategy as _strategy
+from horovod_tpu_torch.ops import topology as _topology
+from horovod_tpu_torch.utils import env as _env
+
+
+def _refuse_planner(schedule, priority_fn) -> None:
+    """``schedule="enum"`` is the plan this slice computes; the priority
+    schedule and ``priority_fn`` are the exchange planner's."""
+    if schedule is not None:
+        if not isinstance(schedule, str):
+            raise HorovodError(
+                f"schedule= must be None or a string, got "
+                f"{type(schedule).__name__}.")
+        value = schedule.strip().lower()
+        if value not in ("enum", "priority"):
+            raise HorovodError(
+                f"Unknown exchange schedule {schedule!r}; choose one of "
+                f"['enum', 'priority'] (HOROVOD_EXCHANGE_SCHEDULE / "
+                f"schedule=).")
+        if value == "priority":
+            raise NotImplementedError(
+                "schedule='priority' (the whole-step exchange planner) is "
+                "not ported yet: ROADMAP §A item 12(b). Use 'enum' or drop "
+                "schedule=.")
+    if priority_fn is not None:
+        raise NotImplementedError(
+            "priority_fn= (the priority exchange schedule) is not ported "
+            "yet: ROADMAP §A item 12(b). Drop the argument.")
 
 
 class FusedAllreduce:
     """In-place fused allreduce of a list of tensors over one group, with
     the bucket plan negotiated once per signature and cached on the
-    object (inside an ``spmd`` program: registered in its schedule)."""
+    object (inside an ``spmd`` program: registered in its schedule).
+
+    The wire knobs (``compression``, ``algo``, ``cross_compression``,
+    ``channels``; None = the environment default) are resolved when a
+    signature is first planned; each bucket carries its wire dtype,
+    algorithm and channel count (``Bucket.describe``)."""
 
     def __init__(self, name: str, group: int = 0, average: bool = True,
-                 fusion_threshold: int | None = None) -> None:
+                 fusion_threshold: int | None = None, compression=None,
+                 algo=None, cross_compression=None, channels=None) -> None:
         self.name = name
         self.group = group
         self.average = average
         self.fusion_threshold = fusion_threshold
+        self.compression = compression
+        self.algo = algo
+        self.cross_compression = cross_compression
+        self.channels = channels
         self._plans: dict = {}
 
+    def _restricted(self, g: _state.Group) -> bool:
+        """A group other than the program's (eagerly: the world's) takes
+        the flat lowering only."""
+        ctx = _ctx.current()
+        return g.index != (0 if ctx is None else ctx.group_index)
+
+    def _resolve(self, tensors, g: _state.Group, restricted: bool):
+        """The plan of a new signature: buckets with their wire, algorithm
+        and channels, and the resolved compressor and cross format."""
+        threshold = (_state.fusion_threshold()
+                     if self.fusion_threshold is None
+                     else self.fusion_threshold)
+        comp = _compression.active(self.compression)
+        algo_spec = (_strategy.gradient_algo_default() if self.algo is None
+                     else _strategy.resolve_spec(self.algo))
+        cross_spec = (self.cross_compression
+                      if self.cross_compression is not None
+                      else _env.compression_cross_slice_default())
+        channels = (_strategy.resolve_channels(self.channels)
+                    if self.channels is not None
+                    else _env.exchange_channels_default())
+        if restricted:
+            if channels is not None and channels > 1:
+                raise HorovodError(
+                    f"channels={channels} requires the full-axis "
+                    f"single group: subset groups and group families only "
+                    f"support the single-instance masked-psum lowering. "
+                    f"Use group=0 (the global group) or drop channels=.")
+            channels = None
+        topo = (_topology.discover(g) if not restricted
+                and algo_spec in ("auto", "hierarchical") else None)
+
+        def bucket_algo(bucket):
+            return _coll.select_bucket_algo(
+                algo_spec, comp, cross_spec, bucket.dtype, bucket.elems, g,
+                restricted, "gradient bucket", bucket.bytes_on_wire,
+                topo=topo)[0]
+
+        buckets = _fusion.plan_buckets(tensors, threshold, compression=comp,
+                                       algo=bucket_algo, group_size=g.size,
+                                       cross_compression=cross_spec)
+        buckets = _fusion.assign_channels(
+            buckets, channels, g.size, topo.num_slices if topo else 1, comp)
+        return buckets, comp, cross_spec, topo
+
     def _plan(self, tensors, g: _state.Group):
-        sig = tuple((t.dtype, tuple(t.shape)) for t in tensors)
+        restricted = self._restricted(g)
+        sig = (restricted,) + tuple((t.dtype, tuple(t.shape))
+                                    for t in tensors)
         plan = self._plans.get(sig)
         if plan is None:
-            threshold = (_state.fusion_threshold()
-                         if self.fusion_threshold is None
-                         else self.fusion_threshold)
-            buckets = _fusion.plan_buckets_py(tensors, threshold)
+            buckets, comp, cross_spec, topo = self._resolve(tensors, g,
+                                                            restricted)
             names = [f"{self.name}.bucket_{b}" for b in range(len(buckets))]
-            plan = (buckets, names, None)
-        buckets, names, negotiated = plan
+            plan = (buckets, names, (comp, cross_spec, topo), None)
+        buckets, names, wire, negotiated = plan
         # Inside a program the buckets register; the plan is negotiated
         # only where the per-call round runs (outside, or a first call).
         negotiating = False
@@ -81,32 +179,87 @@ class FusedAllreduce:
                               shape=(bk.elems,), group=g.index)
                  for b, bk in enumerate(buckets)], g)
             negotiated = True
-        self._plans[sig] = (buckets, names, negotiated)
-        return buckets, names
+        self._plans[sig] = (buckets, names, wire, negotiated)
+        return buckets, names, wire, restricted
 
-    def __call__(self, tensors: list[torch.Tensor]) -> list[torch.Tensor]:
+    def buckets(self, tensors) -> list:
+        """The plan of ``tensors``' signature (planned, not negotiated,
+        when new)."""
+        g = _state.get_group(self.group)
+        return self._resolve(tensors, g, self._restricted(g))[0]
+
+    def __call__(self, tensors: list[torch.Tensor], residuals=None,
+                 compression_key=None) -> list[torch.Tensor]:
+        """Reduce ``tensors`` in place. ``residuals`` (error feedback): one
+        tensor or None a tensor; each is overwritten with its tensor's
+        local quantization residual (zero where the bucket's contribution
+        was exact). ``compression_key``: the stochastic formats' per-step
+        key."""
         g = _state.get_group(self.group)
         if not tensors:
             return tensors
-        buckets, names = self._plan(tensors, g)
+        buckets, names, (comp, cross_spec, topo), restricted = self._plan(
+            tensors, g)
+        if residuals is not None and restricted:
+            raise HorovodError(
+                "error_residual requires the full-axis single group: a "
+                "subset-group or group-family exchange masks non-member "
+                "contributions, which would corrupt the residual algebra. "
+                "Use group=0 (the global group) or drop error feedback.")
         if g.pg is None:
             return tensors
 
         def reduce(flat, b):
+            bk = buckets[b]
+            members = tuple(f"{self.name}.{i}" for i in bk.indices)
             with _tl.activity(names[b], "ALLREDUCE"):
-                flat = _coll.sum_into(flat, g)
-            return _coll.divide_avg(flat, g.size) if self.average else flat
+                if comp is None and cross_spec is None \
+                        and bk.algo == "flat" and bk.channels == 1:
+                    _compression.record_local(None)
+                    out = _coll.sum_into(flat, g)
+                else:
+                    out = _coll.compressed_sum(
+                        flat, g, comp, compression_key, names[b], members,
+                        algo=bk.algo, topo=topo, cross_spec=cross_spec,
+                        channels=bk.channels)
+            return _coll.divide_avg(out, g.size) if self.average else out
 
-        _fusion.fused_apply_(tensors, buckets, reduce, names)
+        if residuals is None:
+            _fusion.fused_apply_(tensors, buckets, reduce, names)
+            return tensors
+
+        def reduce_keeping_residuals(flat, b):
+            with _compression.collect_local_contributions() as sink:
+                out = reduce(flat, b)
+            local = sink[0]
+            # The residual is computed before the reduced value replaces
+            # the contribution: the compressed lowerings leave ``flat``
+            # as it was.
+            resid = None if local is None else local.residual(flat)
+            offset = 0
+            for i in buckets[b].indices:
+                n = tensors[i].numel()
+                r = residuals[i]
+                if r is not None:
+                    if resid is None:
+                        r.zero_()
+                    else:
+                        r.copy_(resid[offset:offset + n].view_as(r))
+                offset += n
+            return out
+
+        _fusion.fused_apply_(tensors, buckets, reduce_keeping_residuals,
+                             names)
         return tensors
 
 
 def _exchange_sparse(item: _sparse.IndexedSlices, i: int, group: int,
-                     average: bool, sparse_algo, name: str
-                     ) -> _sparse.IndexedSlices:
+                     average: bool, sparse_algo, name: str, compression=None,
+                     compression_key=None) -> _sparse.IndexedSlices:
     """One sparse gradient's exchange: planned once and exchanged on the
-    program's group; a subset group takes the reference's plain gather, and
-    a rank outside it keeps its own gradient."""
+    program's group (its value payload compressed as ``compression``
+    says); a subset group takes the reference's plain gather,
+    uncompressed, and a rank outside it keeps its own gradient."""
     label = f"{name}.{i}"
     ctx = _ctx.current()
     if ctx is None or group != ctx.group_index:
@@ -115,24 +268,40 @@ def _exchange_sparse(item: _sparse.IndexedSlices, i: int, group: int,
             algo=sparse_algo)
         return item if out is None else out
     row = _sparse.plan_sparse_exchange(item, group=group, algo=sparse_algo,
-                                       index=i, label=label)
+                                       compression=compression, index=i,
+                                       label=label)
     return _sparse.allreduce_indexed_slices(
         item, group=group, average=average, name=label, algo=row.algo,
+        compression=compression, compression_key=compression_key,
         _plan=row)
 
 
 def allreduce_gradients(grads: list, group: int = 0, average: bool = True,
                         fusion_threshold: int | None = None,
                         name: str = "allreduce_gradients",
-                        sparse_algo=None) -> list:
+                        compression=None, compression_key=None, algo=None,
+                        schedule=None, priority_fn=None,
+                        cross_compression=None, error_residual=None,
+                        channels=None, sparse_algo=None):
     """Allreduce-average a list of gradients with tensor fusion; returns
     the list. Dense tensors are reduced in place through fused buckets.
     An :class:`~horovod_tpu_torch.ops.sparse.IndexedSlices` item takes the
     sparse exchange (``ops/sparse.py``; ``sparse_algo``: ``"gather"``, the
-    default, or ``"dense"``) and is replaced in the returned list by the
-    exchanged slices. Negotiates on every call: a training loop should
-    hold a :class:`FusedAllreduce` (as :func:`DistributedOptimizer` does)
-    to negotiate once per signature."""
+    default, ``"dense"`` or ``"auto"``) and is replaced in the returned
+    list by the exchanged slices. Negotiates on every call: a training loop
+    should hold a :class:`FusedAllreduce` (as :func:`DistributedOptimizer`
+    does) to negotiate once per signature.
+
+    The wire knobs are the reference's (module docstring); ``compression``
+    also quantizes the sparse items' value payloads, and
+    ``compression_key`` (an int or a 0-d int64 tensor) keys the stochastic
+    formats. ``error_residual``: a list congruent with ``grads`` (None for
+    an item without one): each dense float gradient contributes ``grad +
+    residual`` and the call returns ``(grads, new_residuals)``, the new
+    residual being the local quantization error (zero for an exact
+    bucket). ``schedule="enum"`` is the plan computed here; the priority
+    schedule and ``priority_fn`` raise (ROADMAP §A item 12(b))."""
+    _refuse_planner(schedule, priority_fn)
     sparse = [i for i, g in enumerate(grads)
               if isinstance(g, _sparse.IndexedSlices)]
     if sparse and not _coll._is_group_index(group):
@@ -140,24 +309,70 @@ def allreduce_gradients(grads: list, group: int = 0, average: bool = True,
             "Group-family sparse allreduce is not supported: an "
             "IndexedSlices exchange targets a single group; issue one "
             "allreduce_indexed_slices per group.")
+    comp = _compression.active(compression)
     for i in sparse:
         grads[i] = _exchange_sparse(grads[i], i, group, average,
-                                    sparse_algo, name)
-    FusedAllreduce(name, group, average, fusion_threshold)(
-        [g for i, g in enumerate(grads) if i not in sparse])
-    return grads
+                                    sparse_algo, name, comp,
+                                    compression_key)
+    dense = [i for i in range(len(grads)) if i not in sparse]
+    fused = FusedAllreduce(name, group, average, fusion_threshold,
+                           compression=comp or "none", algo=algo,
+                           cross_compression=cross_compression,
+                           channels=channels)
+    if error_residual is None:
+        fused([grads[i] for i in dense], compression_key=compression_key)
+        return grads
+    if len(error_residual) != len(grads):
+        raise HorovodError(
+            f"error_residual pytree has {len(error_residual)} leaves "
+            f"for {len(grads)} gradient leaves; it must mirror the "
+            f"gradient structure (ErrorFeedbackState.residual).")
+    # Sparse items keep their residual; an integer gradient is exact.
+    new_resid = [None if r is None else r.clone() for r in error_residual]
+    outs = []
+    for i in dense:
+        r = new_resid[i]
+        if r is not None and grads[i].dtype.is_floating_point:
+            grads[i].add_(error_residual[i].to(grads[i].dtype))
+            outs.append(r)
+        else:
+            if r is not None:
+                r.zero_()
+            outs.append(None)
+    fused([grads[i] for i in dense], residuals=outs,
+          compression_key=compression_key)
+    return grads, new_resid
 
 
 class _DistributedOptimizer:
     """The wrapper :func:`DistributedOptimizer` returns. ``param_groups``
     and ``state`` are the inner optimizer's, so LR schedules and momentum
-    correction act on it directly."""
+    correction act on it directly; with error feedback, ``residual`` maps
+    each float parameter's position to its residual tensor."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, group: int,
-                 average: bool, fusion_threshold: int | None) -> None:
+                 average: bool, fusion_threshold: int | None,
+                 compression=None, algo=None, cross_compression=None,
+                 channels=None, error_feedback: bool = False,
+                 sparse_algo=None) -> None:
         self.optimizer = optimizer
-        self._allreduce = FusedAllreduce("DistributedOptimizer.grads", group,
-                                         average, fusion_threshold)
+        self._allreduce = FusedAllreduce(
+            "DistributedOptimizer.grads", group, average, fusion_threshold,
+            compression=compression, algo=algo,
+            cross_compression=cross_compression, channels=channels)
+        self.sparse_algo = sparse_algo
+        self.error_feedback = error_feedback
+        self.residual: dict[int, torch.Tensor] = {}
+        if error_feedback:
+            # Zero on every rank; each then keeps its own residual.
+            with torch.no_grad():
+                self.residual = {
+                    i: torch.zeros_like(p)
+                    for i, p in enumerate(self._params())
+                    if p.dtype.is_floating_point}
+
+    def _params(self) -> list:
+        return [p for pg in self.optimizer.param_groups for p in pg["params"]]
 
     @property
     def param_groups(self):
@@ -168,13 +383,25 @@ class _DistributedOptimizer:
         return self.optimizer.state
 
     def synchronize(self) -> None:
-        """Average every gradient over the group: dense ones in place, and
-        a sparse COO one (``nn.Embedding(sparse=True)``) through the sparse
-        exchange, replaced by a COO gradient of the merged rows."""
-        params = [p for pg in self.optimizer.param_groups
-                  for p in pg["params"] if p.grad is not None]
-        coo = [p for p in params if p.grad.is_sparse]
-        self._allreduce([p.grad for p in params if not p.grad.is_sparse])
+        """Average every gradient over the group: dense ones in place
+        (with error feedback, ``grad + residual`` is what is compressed,
+        and the residual is updated in place), and a sparse COO one
+        (``nn.Embedding(sparse=True)``) through the sparse exchange,
+        replaced by a COO gradient of the merged rows."""
+        params = [(i, p) for i, p in enumerate(self._params())
+                  if p.grad is not None]
+        dense = [(i, p) for i, p in params if not p.grad.is_sparse]
+        coo = [p for _, p in params if p.grad.is_sparse]
+        grads = [p.grad for _, p in dense]
+        if self.error_feedback:
+            residuals = [self.residual.get(i) for i, _ in dense]
+            with torch.no_grad():
+                for g, r in zip(grads, residuals):
+                    if r is not None:
+                        g.add_(r)
+            self._allreduce(grads, residuals=residuals)
+        else:
+            self._allreduce(grads)
         for i, p in enumerate(coo):
             p.grad = self._exchange_coo(p.grad, i)
 
@@ -192,8 +419,11 @@ class _DistributedOptimizer:
         slices = _sparse.IndexedSlices(
             grad._values(), grad._indices()[0].to(torch.int32),
             tuple(grad.shape))
-        out = _exchange_sparse(slices, i, g, self._allreduce.average, None,
-                               f"{self._allreduce.name}.sparse")
+        out = _exchange_sparse(slices, i, g, self._allreduce.average,
+                               self.sparse_algo,
+                               f"{self._allreduce.name}.sparse",
+                               _compression.active(
+                                   self._allreduce.compression))
         values, indices = _sparse.dedup_merge(out.values, out.indices)
         return torch.sparse_coo_tensor(indices.long()[None], values,
                                        grad.shape)
@@ -206,23 +436,82 @@ class _DistributedOptimizer:
         self.optimizer.zero_grad(set_to_none=set_to_none)
 
     def state_dict(self) -> dict:
-        """The inner optimizer's ``state_dict`` (what a checkpoint saves)."""
-        return self.optimizer.state_dict()
+        """The inner optimizer's ``state_dict`` (what a checkpoint saves);
+        with error feedback ``{"inner": ..., "residual": {position:
+        tensor}}``."""
+        if not self.error_feedback:
+            return self.optimizer.state_dict()
+        return {"inner": self.optimizer.state_dict(),
+                "residual": {i: r.detach().clone()
+                             for i, r in self.residual.items()}}
 
     def load_state_dict(self, state_dict: dict) -> None:
-        self.optimizer.load_state_dict(state_dict)
+        """Restore :meth:`state_dict`; the residuals are copied into the
+        wrapper's own tensors, bit for bit."""
+        if not self.error_feedback:
+            self.optimizer.load_state_dict(state_dict)
+            return
+        if set(state_dict) != {"inner", "residual"}:
+            raise HorovodError(
+                f"DistributedOptimizer(error_feedback=True) restores a "
+                f"state dict of 'inner' and 'residual', got "
+                f"{sorted(state_dict)}.")
+        residual = {int(i): r for i, r in state_dict["residual"].items()}
+        if set(residual) != set(self.residual):
+            raise HorovodError(
+                f"error-feedback residuals for parameters "
+                f"{sorted(residual)}, but this optimizer keeps "
+                f"{sorted(self.residual)}.")
+        self.optimizer.load_state_dict(state_dict["inner"])
+        with torch.no_grad():
+            for i, r in residual.items():
+                self.residual[i].copy_(r)
 
 
 def DistributedOptimizer(optimizer: torch.optim.Optimizer, group: int = 0,
                          average: bool = True,
-                         fusion_threshold: int | None = None):
+                         fusion_threshold: int | None = None,
+                         sharded: bool = False, compression=None, algo=None,
+                         schedule=None, cross_compression=None,
+                         error_feedback: bool | None = None, channels=None,
+                         sparse_algo=None, sharding: str | None = None,
+                         fsdp_size: int | None = None):
     """Wrap ``optimizer`` so each ``step()`` first averages the gradients
     across ``group`` — the drop-in analog of ``hvd.DistributedOptimizer``.
     ``fusion_threshold`` overrides ``HOROVOD_FUSION_THRESHOLD`` (bytes; 0
-    gives one collective per gradient)."""
+    gives one collective per gradient). ``compression``, ``algo``,
+    ``cross_compression``, ``channels`` and ``error_feedback`` are the
+    reference's (module docstring); ``sparse_algo`` (``"gather"``,
+    ``"dense"`` or ``"auto"``) is the COO gradients' exchange.
+    ``schedule="enum"`` is the plan computed here. ``sharded=True`` and
+    ``sharding="zero2"|"zero3"`` (with ``fsdp_size``) are ZeRO, ROADMAP §A
+    item 12(d), and raise."""
     if isinstance(optimizer, _DistributedOptimizer):
         raise TypeError("optimizer is already a DistributedOptimizer.")
-    return _DistributedOptimizer(optimizer, group, average, fusion_threshold)
+    if error_feedback is None:
+        error_feedback = _env.error_feedback_default()
+    if sharding is not None:
+        value = str(sharding).strip().lower()
+        if value not in ("off", "zero2", "zero3"):
+            raise HorovodError(
+                f"sharding must be one of ['off', 'zero2', 'zero3'], got "
+                f"{sharding!r}")
+        if value != "off":
+            raise NotImplementedError(
+                f"sharding={value!r} (ZeRO-2/3 over the data x fsdp mesh) "
+                f"is not ported yet: ROADMAP §A item 12(d). Drop the "
+                f"argument or use sharding='off'.")
+    if sharded:
+        raise NotImplementedError(
+            "sharded=True (the ZeRO-1 sharded-state optimizer) is not "
+            "ported yet: ROADMAP §A item 12(d). Use sharded=False.")
+    _refuse_planner(schedule, None)
+    _sparse.resolve_sparse_algo(sparse_algo)
+    return _DistributedOptimizer(
+        optimizer, group, average, fusion_threshold,
+        compression=compression, algo=algo,
+        cross_compression=cross_compression, channels=channels,
+        error_feedback=bool(error_feedback), sparse_algo=sparse_algo)
 
 
 def _named_tensors(variables) -> list[tuple[str, torch.Tensor]]:
@@ -265,13 +554,16 @@ def broadcast_variables(variables, root_rank: int = 0, group: int = 0,
 
 def optimizer_state_tensors(optimizer) -> dict[str, torch.Tensor]:
     """The optimizer's state tensors (e.g. SGD momentum buffers), keyed by
-    parameter position and state key."""
+    parameter position and state key; a :func:`DistributedOptimizer` with
+    error feedback adds its residuals (``residual.<position>``)."""
     out = {}
     params = [p for pg in optimizer.param_groups for p in pg["params"]]
     for i, p in enumerate(params):
         for key, value in sorted(optimizer.state.get(p, {}).items()):
             if isinstance(value, torch.Tensor):
                 out[f"{i}.{key}"] = value
+    for i, r in sorted(getattr(optimizer, "residual", {}).items()):
+        out[f"residual.{i}"] = r
     return out
 
 

@@ -259,17 +259,22 @@ def _agree_newest_common(local_epochs: list[int], group: int, name: str
 
 
 def load(directory: str, template: dict | None = None,
-         epoch: int | None = None, *, verify: bool = True) -> dict:
+         epoch: int | None = None, group: int = 0, *,
+         verify: bool = True) -> dict:
     """The checkpoint's state dict (on the CPU), read with
     ``torch.load(weights_only=True)``. ``template`` (what
     :meth:`Trainer.train_state` returns), when given, must have the
-    payload's keys.
+    payload's keys. ``group`` is the reference's: once ``hvd.init`` has
+    run (or when it is not 0) it must name a group, and it places
+    nothing, since the tensors come back on the CPU.
 
     ``epoch=None`` resumes from the newest COMPLETE epoch (torn/corrupt
     ones are skipped with a warning); an explicit ``epoch`` that fails its
     integrity check raises instead of deserializing garbage
     (``verify=False`` skips that check when the caller has already
     CRC-verified the epoch, as :meth:`Trainer.restore`'s agreement has)."""
+    if group != 0 or _state.is_initialized():
+        _state.get_group(group)
     if epoch is None:
         epoch = latest_epoch(directory)
         if epoch < 0:

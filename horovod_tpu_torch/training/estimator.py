@@ -138,7 +138,7 @@ class Estimator(LRControlMixin):
         (what BroadcastGlobalVariablesHook runs); the programs record
         anew."""
         g = self.group if group is None else group
-        _opt.broadcast_global_variables(self.model, self.optimizer.optimizer,
+        _opt.broadcast_global_variables(self.model, self.optimizer,
                                         root_rank, g)
         for prog in self._programs.values():
             prog.reset()

@@ -316,7 +316,7 @@ class Trainer(LRControlMixin):
         ``root_rank`` — what BroadcastGlobalVariablesCallback runs. The
         step is recorded anew at its next call."""
         g = self.group if group is None else group
-        _opt.broadcast_global_variables(self.model, self.optimizer.optimizer,
+        _opt.broadcast_global_variables(self.model, self.optimizer,
                                         root_rank, g)
         self._step.reset()
 

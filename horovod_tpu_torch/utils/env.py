@@ -10,9 +10,16 @@ wait for a program's schedules (``core/multihost.py``), the ``HOROVOD_SERVE_*`` 
 serving engine (``horovod_tpu_torch.serving``), ``HOROVOD_FAULT_INJECT``
 arms the serving faults and ``torn_write`` (``core/resilience.py``), and
 ``HOROVOD_DATA_DIR`` and ``HOROVOD_PREFETCH_DEPTH`` place the datasets and
-set how far the input pipeline prefetches (``training/data.py``), and
-``HOROVOD_SPARSE_PAD_CAPACITY`` pads the sparse gather wire
-(``ops/sparse.py``).
+set how far the input pipeline prefetches (``training/data.py``),
+``HOROVOD_SPARSE_PAD_CAPACITY`` pads the sparse gather wire and
+``HOROVOD_SPARSE_DENSITY_THRESHOLD`` moves its density switch
+(``ops/sparse.py``), and the gradient exchange's knobs pick its wire format
+and decomposition: ``HOROVOD_COMPRESSION``, ``HOROVOD_COMPRESSION_BLOCK``,
+``HOROVOD_COMPRESSION_CROSS_SLICE`` and ``HOROVOD_ERROR_FEEDBACK``
+(``ops/compression.py``), ``HOROVOD_ALLREDUCE_ALGO`` and
+``HOROVOD_EXCHANGE_CHANNELS`` (``ops/strategy.py``),
+``HOROVOD_TOPOLOGY_SLICES`` (``ops/topology.py``) and
+``HOROVOD_TUNING_CACHE`` (``utils/costs.py``).
 
 Every other knob of the reference is registered too, with the ROADMAP §A
 item that ports it (:data:`UNPORTED_RESULT_KNOBS`,
@@ -35,7 +42,13 @@ DEFAULT_STALL_WARNING_TIME = 60.0  # seconds
 
 # The knobs the port reads.
 PORTED_KNOBS = frozenset({
+    "HOROVOD_ALLREDUCE_ALGO",
+    "HOROVOD_COMPRESSION",
+    "HOROVOD_COMPRESSION_BLOCK",
+    "HOROVOD_COMPRESSION_CROSS_SLICE",
     "HOROVOD_DATA_DIR",
+    "HOROVOD_ERROR_FEEDBACK",
+    "HOROVOD_EXCHANGE_CHANNELS",
     "HOROVOD_FAULT_INJECT",
     "HOROVOD_FUSION_THRESHOLD",
     "HOROVOD_NEGOTIATION_TIMEOUT",
@@ -51,21 +64,18 @@ PORTED_KNOBS = frozenset({
     "HOROVOD_SERVE_PREFIX_CACHE",
     "HOROVOD_SERVE_SPECULATE",
     "HOROVOD_SERVE_WATCHDOG_TIMEOUT",
+    "HOROVOD_SPARSE_DENSITY_THRESHOLD",
     "HOROVOD_SPARSE_PAD_CAPACITY",
     "HOROVOD_STALL_CHECK_TIME",
     "HOROVOD_TIMELINE",
+    "HOROVOD_TOPOLOGY_SLICES",
+    "HOROVOD_TUNING_CACHE",
 })
 
 # Knobs of the reference that change what a run computes, not ported yet:
 # name -> (ROADMAP §A item, what it does, the values that leave it off).
 # Set to anything else, each raises at hvd.init.
 UNPORTED_RESULT_KNOBS: dict[str, tuple[int, str, frozenset]] = {
-    "HOROVOD_ALLREDUCE_ALGO": (12, "the allreduce decomposition",
-                               frozenset({"", "flat"})),
-    "HOROVOD_COMPRESSION": (12, "gradient wire compression",
-                            frozenset({"", "none"})),
-    "HOROVOD_ERROR_FEEDBACK": (12, "compression error feedback",
-                               frozenset({"", "0"})),
     "HOROVOD_SHARDING": (12, "ZeRO sharding of optimizer state and "
                              "parameters", frozenset({"", "off"})),
     "HOROVOD_FSDP_AXIS_SIZE": (12, "the FSDP mesh axis of the ZeRO modes",
@@ -78,12 +88,9 @@ UNPORTED_RESULT_KNOBS: dict[str, tuple[int, str, frozenset]] = {
 # yet: name -> ROADMAP §A item. Each draws a warning at hvd.init.
 UNPORTED_TUNING_KNOBS: dict[str, int] = {
     "HOROVOD_AUTOTUNE": 16,
-    "HOROVOD_COMPRESSION_BLOCK": 12,
-    "HOROVOD_COMPRESSION_CROSS_SLICE": 12,
     "HOROVOD_EAGER_CACHE": 1,
     "HOROVOD_ELASTIC_JOIN_TIMEOUT": 15,
     "HOROVOD_ELASTIC_MIN_WORLD": 15,
-    "HOROVOD_EXCHANGE_CHANNELS": 12,
     "HOROVOD_EXCHANGE_SCHEDULE": 12,
     "HOROVOD_KV_BACKOFF_MS": 15,
     "HOROVOD_KV_RETRIES": 15,
@@ -94,13 +101,10 @@ UNPORTED_TUNING_KNOBS: dict[str, int] = {
     "HOROVOD_MODEL_MAX_STATES": 17,
     "HOROVOD_PROFILE": 16,
     "HOROVOD_RECALIBRATION": 12,
-    "HOROVOD_SPARSE_DENSITY_THRESHOLD": 12,
     "HOROVOD_TIMELINE_DEVICE": 16,
     "HOROVOD_TIMELINE_DEVICE_INTERVAL": 16,
-    "HOROVOD_TOPOLOGY_SLICES": 12,
     "HOROVOD_TUNED_CONFIG": 16,
     "HOROVOD_TUNE_BUDGET_S": 16,
-    "HOROVOD_TUNING_CACHE": 16,
 }
 
 # Knobs that only mean something under JAX: accepted, and nothing is said.
@@ -270,6 +274,173 @@ def prefetch_depth() -> int:
         raise ValueError(
             f"HOROVOD_PREFETCH_DEPTH must be >= 1, got {raw!r}")
     return depth
+
+
+# -- the gradient exchange's knobs (ops/compression.py, ops/strategy.py) ------
+
+
+def compression_default() -> str:
+    """``HOROVOD_COMPRESSION``: the default wire compression of the
+    *gradient* path (``allreduce_gradients`` / ``DistributedOptimizer``
+    with ``compression=None``) — ``none`` (default), ``bf16``, ``int8``,
+    ``int8_block`` or ``int4`` (``ops/compression.py``). Raw
+    ``hvd.allreduce`` calls never read it. An unknown value raises at the
+    first compressed exchange (``compression.resolve``)."""
+    raw = os.environ.get("HOROVOD_COMPRESSION")
+    if raw is None:
+        return "none"
+    return raw.strip().lower() or "none"
+
+
+def compression_block() -> int:
+    """``HOROVOD_COMPRESSION_BLOCK`` (default 256): elements per scale
+    block of ``int8_block``/``int4``. A positive even integer >= 8 (int4
+    packs two elements per wire byte); a typo raises at ``hvd.init``."""
+    raw = os.environ.get("HOROVOD_COMPRESSION_BLOCK")
+    if raw is None or not raw.strip():
+        return 256
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_COMPRESSION_BLOCK must be an even element count "
+            f">= 8, got {raw!r}") from None
+    if n < 8 or n % 2:
+        raise ValueError(
+            f"HOROVOD_COMPRESSION_BLOCK must be an even element count "
+            f">= 8 (int4 packs two elements per wire byte), got {raw!r}")
+    return n
+
+
+def error_feedback_default() -> bool:
+    """``HOROVOD_ERROR_FEEDBACK`` (default 0): ``DistributedOptimizer``
+    keeps each rank's quantization residual and adds it back before the
+    next step's compression. 0 or 1; anything else raises at
+    ``hvd.init``."""
+    raw = os.environ.get("HOROVOD_ERROR_FEEDBACK")
+    if raw is None or raw.strip() in ("", "0"):
+        return False
+    if raw.strip() == "1":
+        return True
+    raise ValueError(
+        f"HOROVOD_ERROR_FEEDBACK must be 0 or 1, got {raw!r}")
+
+
+def compression_cross_slice_default() -> str | None:
+    """``HOROVOD_COMPRESSION_CROSS_SLICE``: the wire format of the
+    hierarchical decomposition's cross-host hop on the gradient path
+    (``compression.resolve_phase_formats``); unset = the bucket
+    compressor's own policy, and an explicit ``none`` pins the hop to the
+    uncompressed dtype. Unknown names raise at ``hvd.init``."""
+    raw = os.environ.get("HOROVOD_COMPRESSION_CROSS_SLICE")
+    if raw is None or not raw.strip():
+        return None
+    value = raw.strip().lower()
+    from horovod_tpu_torch.ops import compression as _compression
+
+    if value not in _compression.registered_names():
+        raise ValueError(
+            f"HOROVOD_COMPRESSION_CROSS_SLICE must be one of "
+            f"{sorted(_compression.registered_names())}, got {raw!r}")
+    return value
+
+
+def allreduce_algo_default() -> str:
+    """``HOROVOD_ALLREDUCE_ALGO``: the default decomposition of the
+    gradient path's buckets — ``flat`` (default), ``rs_ag``,
+    ``hierarchical`` or ``auto`` (``ops/strategy.py``). Raw
+    ``hvd.allreduce`` calls never read it. Typos raise."""
+    raw = os.environ.get("HOROVOD_ALLREDUCE_ALGO")
+    if raw is None:
+        return "flat"
+    value = raw.strip().lower() or "flat"
+    if value not in ("flat", "rs_ag", "hierarchical", "auto"):
+        raise ValueError(
+            f"HOROVOD_ALLREDUCE_ALGO must be one of flat|rs_ag|"
+            f"hierarchical|auto, got {raw!r}")
+    return value
+
+
+def exchange_channels_default() -> int | None:
+    """``HOROVOD_EXCHANGE_CHANNELS``: the channel count of every eligible
+    gradient bucket (``ops/strategy.py``); unset = 1. A positive integer;
+    a typo raises at ``hvd.init``."""
+    raw = os.environ.get("HOROVOD_EXCHANGE_CHANNELS")
+    if raw is None or not raw.strip():
+        return None
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_EXCHANGE_CHANNELS must be a positive integer "
+            f"channel count, got {raw!r}") from None
+    if n < 1:
+        raise ValueError(
+            f"HOROVOD_EXCHANGE_CHANNELS must be >= 1, got {raw!r}")
+    return n
+
+
+def topology_slices() -> int:
+    """``HOROVOD_TOPOLOGY_SLICES=N``: treat a group as N equal contiguous
+    slices (hosts) instead of reading them off ``LOCAL_WORLD_SIZE``
+    (``ops/topology.py``). 0/unset = discovered. Typos raise."""
+    raw = os.environ.get("HOROVOD_TOPOLOGY_SLICES")
+    if raw is None or not raw.strip():
+        return 0
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_TOPOLOGY_SLICES must be an integer slice count, "
+            f"got {raw!r}") from None
+    if n < 0:
+        raise ValueError(
+            f"HOROVOD_TOPOLOGY_SLICES must be >= 0, got {raw!r}")
+    return n
+
+
+def sparse_density_threshold() -> float | None:
+    """``HOROVOD_SPARSE_DENSITY_THRESHOLD``: the sparse exchange's
+    ``algo='auto'`` densifies once gathered rows / table rows reach it
+    (``ops/sparse.py``); unset = the cost model's crossover
+    (``utils/costs.py``). A positive number (``inf`` pins the gather);
+    typos and non-positive values raise at ``hvd.init``."""
+    raw = os.environ.get("HOROVOD_SPARSE_DENSITY_THRESHOLD")
+    if raw is None or not raw.strip():
+        return None
+    try:
+        value = float(raw)
+    except ValueError:
+        value = float("nan")
+    if value != value:  # unparsable or NaN: refuse, never silently auto
+        raise ValueError(
+            f"HOROVOD_SPARSE_DENSITY_THRESHOLD must be a positive density "
+            f"fraction (gathered rows / table rows), got {raw!r}")
+    if value <= 0:
+        raise ValueError(
+            f"HOROVOD_SPARSE_DENSITY_THRESHOLD must be > 0 (a zero "
+            f"threshold would silently densify every sparse exchange), "
+            f"got {raw!r}")
+    return value
+
+
+def tuning_cache_path() -> str:
+    """``HOROVOD_TUNING_CACHE``: the allreduce tuning cache the cost model
+    reads (``utils/costs.py``). Default
+    ``~/.horovod_tpu_torch/allreduce_tuning.json``."""
+    return os.environ.get(
+        "HOROVOD_TUNING_CACHE",
+        os.path.join(os.path.expanduser("~"), ".horovod_tpu_torch",
+                     "allreduce_tuning.json"))
+
+
+def validate_exchange_knobs() -> None:
+    """Read the exchange knobs whose typos the reference refuses at
+    ``hvd.init`` (the others raise at their first use, as there)."""
+    for read in (compression_block, error_feedback_default,
+                 compression_cross_slice_default, exchange_channels_default,
+                 sparse_density_threshold):
+        read()
 
 
 # -- serving knobs (horovod_tpu_torch.serving) ---------------------------------

@@ -364,6 +364,28 @@ def test_save_and_load_round_trip_with_the_epoch(tmp_path):
         tck.load(str(tmp_path), {"model": {}})
 
 
+def test_load_takes_the_reference_group_argument(tmp_path):
+    """``load(directory, template, epoch, group)``, the reference's call:
+    ``group`` must name a group once hvd.init has run, and places nothing
+    (the tensors come back on the CPU; ROADMAP §C)."""
+    import horovod_tpu_torch as hvd
+
+    state = {"model": {"w": torch.arange(3.0)}, "epoch": 0}
+    tck.save(str(tmp_path), state, 2)
+    hvd.shutdown()
+    hvd.init(device="cpu")
+    try:
+        got = tck.load(str(tmp_path), state, 2, 0)
+        assert torch.equal(got["model"]["w"], state["model"]["w"])
+        assert got["model"]["w"].device.type == "cpu"
+        assert tck.load(str(tmp_path), state, epoch=2, group=0,
+                        verify=False)["epoch"] == 2
+        with pytest.raises(tck.HorovodError, match="Unknown group 3"):
+            tck.load(str(tmp_path), state, 2, group=3)
+    finally:
+        hvd.shutdown()
+
+
 def test_fit_resume_and_initial_epoch_are_exclusive(tmp_path):
     import horovod_tpu_torch as hvd
     from horovod_tpu.core.state import HorovodError

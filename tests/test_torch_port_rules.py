@@ -322,9 +322,6 @@ from horovod_tpu_torch.utils import env as tenv  # noqa: E402
 
 # A value the reference accepts that turns each result knob on.
 RESULT_VALUES = {
-    "HOROVOD_ALLREDUCE_ALGO": "rs_ag",
-    "HOROVOD_COMPRESSION": "int8",
-    "HOROVOD_ERROR_FEEDBACK": "1",
     "HOROVOD_SHARDING": "zero2",
     "HOROVOD_FSDP_AXIS_SIZE": "2",
     "HOROVOD_ELASTIC": "1",
@@ -408,6 +405,48 @@ def test_the_input_pipeline_knobs_are_ported(clean_env, name, value):
     assert hvd.is_initialized()
 
 
+# The gradient exchange's knobs (ROADMAP §A item 12(a) and the
+# decomposition half of 12(b)), each with a value the reference accepts.
+EXCHANGE_VALUES = {
+    "HOROVOD_ALLREDUCE_ALGO": "rs_ag",
+    "HOROVOD_COMPRESSION": "int8",
+    "HOROVOD_COMPRESSION_BLOCK": "64",
+    "HOROVOD_COMPRESSION_CROSS_SLICE": "int4",
+    "HOROVOD_ERROR_FEEDBACK": "1",
+    "HOROVOD_EXCHANGE_CHANNELS": "2",
+    "HOROVOD_SPARSE_DENSITY_THRESHOLD": "0.5",
+    "HOROVOD_TOPOLOGY_SLICES": "1",
+    "HOROVOD_TUNING_CACHE": "tuning.json",
+}
+# What item 12 still leaves: ZeRO (12(d)) and the exchange planner (12(b)).
+ITEM_12_LEFT = ("HOROVOD_EXCHANGE_SCHEDULE", "HOROVOD_FSDP_AXIS_SIZE",
+                "HOROVOD_MAX_CHANNELS", "HOROVOD_RECALIBRATION",
+                "HOROVOD_SHARDING")
+
+
+@pytest.mark.parametrize("name", sorted(EXCHANGE_VALUES))
+def test_the_exchange_knobs_are_ported(clean_env, name):
+    """Set to a value the reference accepts, each is read by the port and
+    draws neither a refusal nor a warning at hvd.init."""
+    assert name in tenv.PORTED_KNOBS
+    assert name not in tenv.UNPORTED_RESULT_KNOBS
+    assert name not in tenv.UNPORTED_TUNING_KNOBS
+    clean_env.setenv(name, EXCHANGE_VALUES[name])
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        hvd.init(device="cpu")
+    assert hvd.is_initialized()
+
+
+@pytest.mark.parametrize("name", ITEM_12_LEFT)
+def test_the_rest_of_item_12_still_refuses_or_warns(name):
+    item = (tenv.UNPORTED_RESULT_KNOBS[name][0]
+            if name in tenv.UNPORTED_RESULT_KNOBS
+            else tenv.UNPORTED_TUNING_KNOBS[name])
+    assert item == 12
+    assert name not in tenv.PORTED_KNOBS
+
+
 @pytest.mark.parametrize("name", sorted(tenv.JAX_ONLY_KNOBS))
 def test_a_jax_only_knob_draws_nothing(clean_env, name):
     clean_env.setenv(name, "8")
@@ -482,3 +521,69 @@ def test_stall_and_negotiation_timeout_parse_like_the_reference(
             == outcome(jenv.stall_warning_seconds))
     assert (outcome(tenv.negotiation_timeout_ms)
             == outcome(jenv.negotiation_timeout_ms))
+
+
+# -- the exchange's API surface (ROADMAP §A item 12) ----------------------------
+
+NEW_MODULES = ("ops/compression.py", "ops/strategy.py", "ops/topology.py",
+               "utils/costs.py", "utils/rng.py")
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_the_exchange_modules_are_held_to_the_no_jax_rule(module):
+    path = REPO / "horovod_tpu_torch" / module
+    assert path in _port_sources()
+    assert not sorted(set(_imported_roots(path)) & FORBIDDEN)
+
+
+WIRE_KEYWORDS = ("compression", "compression_key", "algo",
+                 "cross_compression", "channels", "error_residual",
+                 "error_feedback", "sparse_algo", "schedule", "priority_fn",
+                 "sharded", "sharding", "fsdp_size")
+
+
+@pytest.mark.parametrize("fn", ["allreduce", "allreduce_gradients",
+                                "DistributedOptimizer"])
+def test_every_exchange_keyword_of_the_reference_is_taken(fn):
+    """Every wire/algorithm/channel keyword of the reference's function is
+    in the port's signature (the planner's and ZeRO's too: they raise,
+    naming item 12)."""
+    import inspect
+
+    import horovod_tpu as jhvd
+
+    want = [k for k in inspect.signature(getattr(jhvd, fn)).parameters
+            if k in WIRE_KEYWORDS]
+    got = inspect.signature(getattr(hvd, fn)).parameters
+    assert want and all(k in got for k in want), sorted(set(want) - set(got))
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"schedule": "priority"}, "12(b)"), ({"sharded": True}, "12(d)"),
+    ({"sharding": "zero2"}, "12(d)"), ({"sharding": "zero3"}, "12(d)")])
+def test_the_planner_and_zero_raise_naming_item_12(kw, item):
+    import re
+
+    with pytest.raises(NotImplementedError, match=re.escape(f"item {item}")):
+        hvd.DistributedOptimizer(torch.optim.SGD(
+            [torch.nn.Parameter(torch.zeros(2))], lr=0.1), **kw)
+
+
+def test_priority_fn_raises_naming_item_12b(clean_env):
+    hvd.init(device="cpu")
+    with pytest.raises(NotImplementedError, match=r"item 12\(b\)"):
+        hvd.allreduce_gradients([torch.zeros(2)],
+                                priority_fn=lambda label, i: -i)
+
+
+def test_every_callback_of_the_reference_is_reachable_as_hvd_callbacks():
+    """``hvd.callbacks.<name>`` for every name of the JAX package's
+    ``training.callbacks`` module that the port has (ROADMAP §C)."""
+    from horovod_tpu.training import callbacks as jcb
+    from horovod_tpu_torch.training import callbacks as tcb
+
+    names = [n for n in vars(jcb) if not n.startswith("_")
+             and isinstance(getattr(jcb, n), type) and hasattr(tcb, n)]
+    assert "BroadcastGlobalVariablesCallback" in names
+    for n in names:
+        assert getattr(hvd.callbacks, n) is getattr(tcb, n)

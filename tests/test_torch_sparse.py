@@ -12,8 +12,9 @@ inside the parent-side functions.
 The data is integer-valued float32 with duplicate indices within and
 across ranks: addition is exact in any order, so the exchanges are held
 bit for bit (the averages divide by 4 or 3: bit for bit by 4, rtol 1e-6 by
-3). Refusal texts are the reference's byte for byte; ``algo="auto"`` and
-``compression=`` raise ``NotImplementedError`` naming ROADMAP §A item 12.
+3). Refusal texts are the reference's byte for byte. ``algo="auto"`` and
+``compression=`` (ROADMAP §A item 12) run in a program here and are held
+against the JAX package in ``tests/test_torch_compression.py``.
 """
 
 import numpy as np
@@ -179,7 +180,7 @@ def _port_world():
             lambda s: hvd.allreduce_gradients(
                 [s], sparse_algo="auto"))(s), NotImplementedError),
         "compression": _message(lambda: hvd.allreduce_indexed_slices(
-            s, compression="int8", name="comp"), NotImplementedError),
+            s, compression="int8", name="comp")),
     }
     out["errors"] = errors
     out["after"] = float(hvd.allreduce(torch.ones(1), name="after"))
@@ -271,6 +272,8 @@ def jax_side(jhvd):
         "unknown": _jax_message(jhvd, lambda: ais(one, algo="ring",
                                                   name="unknown")),
         "family": spmd_raises(ais, group=(0,), name="fam"),
+        "compression": _jax_message(jhvd, lambda: ais(
+            one, compression="int8", name="comp")),
     }
     return res
 
@@ -383,17 +386,20 @@ def test_refusals_match_jax(port, jax_side, key):
 
 @pytest.mark.parametrize("key", ["family_gradients", "auto",
                                  "auto_gradients", "compression"])
-def test_unported_options_and_sparse_families_raise(port, key):
-    want = {"family_gradients": "HorovodError: Group-family sparse "
-                                "allreduce is not supported",
-            "auto": "NotImplementedError: sparse algo='auto'",
-            "auto_gradients": "NotImplementedError: sparse algo='auto'",
-            "compression": "NotImplementedError: compression='int8'"}[key]
+def test_unported_options_and_sparse_families_raise(port, jax_side, key):
+    """A family with a sparse item raises. ``algo="auto"`` and the
+    compressed value payload are ported (ROADMAP §A item 12): ``auto``
+    runs in a program, and ``compression=`` on an eager call raises the
+    reference's text."""
     for r in range(WORLD):
         got = port[r]["errors"][key]
-        assert got.startswith(want), got
-        if key != "family_gradients":
-            assert "ROADMAP §A item 12" in got
+        if key == "family_gradients":
+            assert got.startswith("HorovodError: Group-family sparse "
+                                  "allreduce is not supported"), got
+        elif key == "compression":
+            assert got == jax_side["errors"]["compression"]
+        else:
+            assert got is None, got
 
 
 def test_the_world_survives_refusals(port):
