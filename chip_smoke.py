@@ -204,14 +204,28 @@ Phases, one line of output each:
     compression alone); (d) in a captured program, ``algo="rs_ag"`` and
     ``channels=4`` equal ``flat`` bit for bit for every format,
     ``algo="hierarchical"`` at one slice raises the reference's text, and
-    ``algo="auto"`` resolves to ``flat``.
+    ``algo="auto"`` resolves to ``flat``;
+17. the whole-step exchange planner (``ops/exchange.py``; no kernel of the
+    port lies on it beyond B1/B2): (a) phase 16's ResNet-50 (bf16, fused
+    BN, batch ``WIRE_BATCH``), 5 captured steps under
+    ``schedule="priority"`` and 5 under ``"enum"``, uncompressed and with
+    ``int8_block`` and error feedback: losses, parameters, buffers,
+    momenta and residuals bit-equal, B1 and B2 53 times a step at every
+    replay; (b) ``last_plan()`` after the steps has the hash of the JAX
+    package's plan of the same leaves (``PLAN_HASHES``, pinned by the
+    CPU tests), and a ``save`` -> ``from_json`` round
+    trip through ``_chip_smoke_plan/`` (gitignored, removed after) gives
+    the same plan; (c) wall ms a step of each run (median, min and max of
+    5 windows in turns) and the host's ms planning ResNet-50's and the
+    LM's gradients (at one rank every collective is the identity, so
+    ``priority`` has nothing to hide: equal times are the expected
+    reading).
 
-Each main path (5, 8 and 10, and each example of 14) runs with its
-kernels' launch counts set to 0 just before it and read just after; the
-kernels line's ``launches`` are phases 5 and 8's counts (the eager step
-and the 9 replays). Then a JSON line with each kernel's record, and last
-the result line
-``{"ok": true, "device": {...}}``. Any failed phase raises: the script then
+Each main path (5, 8 and 10, each example of 14, and each run of 17) runs
+with its kernels' launch counts set to 0 just before it and read just
+after; the kernels line's ``launches`` are phases 5 and 8's counts (the
+eager step and the 9 replays). Then a JSON line with each kernel's
+record, and last the result line ``{"ok": true, "device": {...}}``. Any failed phase raises: the script then
 exits non-zero and prints no result. It also fails without CUDA, and when
 the ``horovod_tpu_torch`` package is not beside it.
 
@@ -250,7 +264,8 @@ from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.ops import batchnorm as bn
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.ops import optim
-from horovod_tpu_torch.ops import compression, fusion, sparse, strategy
+from horovod_tpu_torch.ops import (compression, exchange, fusion, sparse,
+                                   strategy)
 from horovod_tpu_torch.ops.optim import AdamW
 from horovod_tpu_torch.parallel.optimizer import (FusedAllreduce,
                                                   optimizer_state_tensors)
@@ -3646,6 +3661,206 @@ def wire_lines(wr: dict, ident: str) -> list[str]:
                      for r in wr["timing"].values()]
 
 
+# -- the whole-step exchange planner (phase 17) -----------------------------------
+
+PLAN_STEPS = 5                 # (a): captured steps a run
+PLAN_WINDOWS = 5               # (c): timed windows a run, in turns
+PLAN_WINDOW_STEPS = 5
+PLAN_REPS = 20                 # (c): planning calls timed a side
+PLAN_DIR = os.path.join(HERE, "_chip_smoke_plan")   # (b): gitignored
+PLAN_CASES = (("none", False), ("int8_block", True))
+# (b): the hash of the priority plan of ResNet-50's gradients at one rank
+# (default threshold, ``flat``), a case of PLAN_CASES each: the JAX
+# package's plan of the same leaves, pinned on the CPU by
+# tests/test_torch_exchange.py::test_chip_smoke_pins_the_jax_plan_hash.
+PLAN_HASHES = {"none": "a1ea81f7", "int8_block": "81950534"}
+
+
+def _plan_trainer(device, schedule: str, comp: str, error_feedback: bool):
+    """Phase 16's ResNet-50 trainer (bf16, fused BN, SGD(WIRE_LR, momentum
+    0.9), weights from SEED) with the exchange planned under ``schedule``."""
+    model = seeded_resnet50(torch.bfloat16, device)
+    opt = hvd.DistributedOptimizer(
+        training.sgd(WIRE_LR, momentum=0.9)(model.parameters()),
+        compression=comp, error_feedback=error_feedback, schedule=schedule)
+    return hvd.Trainer(model, resnet.make_loss_fn(model), opt, has_aux=True)
+
+
+def _planned_steps(device, schedule, comp, error_feedback, batch) -> dict:
+    """(a): PLAN_STEPS captured steps, B1 and B2 counted at every replay;
+    the losses, the state and residuals after them, and the step's plan."""
+    trainer = _plan_trainer(device, schedule, comp, error_feedback)
+    bn.reset_launch_counts()
+    losses = [trainer.train_step(batch)[0] for _ in range(PLAN_STEPS)]
+    torch.cuda.synchronize()
+    launches = dict(bn.LAUNCHES)
+    plan = exchange.last_plan()
+    if plan is None or plan.mode != schedule:
+        raise RuntimeError(f"planner {schedule}/{comp}: the step's plan is "
+                           f"{plan and plan.mode}")
+    step = trainer._step
+    if (step.runs, step.replays) != (2, PLAN_STEPS - 1):
+        raise RuntimeError(f"planner {schedule}/{comp}: {step.runs} runs, "
+                           f"{step.replays} replays")
+    for k in ("channel_sums", "channel_grad_sums"):
+        if launches[k] != BN_LAYERS * PLAN_STEPS:
+            raise RuntimeError(
+                f"planner {schedule}/{comp}: {k} launched {launches[k]} "
+                f"times in {PLAN_STEPS} steps, expected {BN_LAYERS} a step")
+    values = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in values):
+        raise RuntimeError(f"planner {schedule}/{comp}: losses {values}")
+    return {"trainer": trainer, "losses": losses, "state": _wire_state(
+        trainer), "plan": plan, "launches": launches}
+
+
+def _check_plan_on_card(run: dict, comp: str) -> dict:
+    """(b): the step's plan against the JAX package's hash (PLAN_HASHES),
+    and a save -> from_json round trip through PLAN_DIR."""
+    card = run["plan"]
+    if card.plan_hash() != PLAN_HASHES[comp]:
+        raise RuntimeError(f"planner {comp}: the step's plan "
+                           f"{card.plan_hash()} is not the JAX package's "
+                           f"{PLAN_HASHES[comp]}")
+    os.makedirs(PLAN_DIR, exist_ok=True)
+    try:
+        path = card.save(os.path.join(PLAN_DIR, f"{comp}.exchange.json"))
+        with open(path) as f:
+            back = exchange.ExchangeSchedule.from_json(f.read())
+    finally:
+        shutil.rmtree(PLAN_DIR, ignore_errors=True)
+    if back != card or back.plan_hash() != card.plan_hash():
+        raise RuntimeError(f"planner {comp}: save -> from_json changed "
+                           f"the plan")
+    return {"hash": card.plan_hash(), "buckets": len(card.buckets),
+            "regions": list(card.region_thresholds)}
+
+
+def _step_ms(runs: dict, batch) -> dict:
+    """(c): wall ms a step of each run, PLAN_WINDOWS windows of
+    PLAN_WINDOW_STEPS captured steps, the runs in turns."""
+    out = {k: [] for k in runs}
+    order = list(runs)
+    for w in range(PLAN_WINDOWS):
+        for k in (order if w % 2 == 0 else order[::-1]):
+            trainer = runs[k]["trainer"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(PLAN_WINDOW_STEPS):
+                trainer.train_step(batch)
+            torch.cuda.synchronize()
+            out[k].append(1e3 * (time.perf_counter() - t0)
+                          / PLAN_WINDOW_STEPS)
+    return {k: {"ms_median": statistics.median(v), "ms_min": min(v),
+                "ms_max": max(v), "windows": len(v)}
+            for k, v in out.items()}
+
+
+def planning_ms(leaves) -> dict:
+    """(c): host ms of planning a new signature (``FusedAllreduce``'s
+    ``_resolve``: the algorithm choice and ``plan_exchange``) of
+    ``leaves``, a median of PLAN_REPS calls a mode."""
+    g = hstate.get_group(0)
+    out = {}
+    for mode in exchange.MODES:
+        fused = FusedAllreduce("plan", schedule=mode)
+        times = []
+        for _ in range(PLAN_REPS):
+            t0 = time.perf_counter()
+            fused._resolve(leaves, g, False)
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[mode] = {"ms_median": statistics.median(times),
+                     "ms_min": min(times), "ms_max": max(times)}
+    return out
+
+
+def phase_planner(device) -> dict:
+    """Phase 17: the exchange planner on the card."""
+    t0 = time.perf_counter()
+    batch = resnet.synthetic_imagenet(WIRE_BATCH, IMAGE, seed=SEED,
+                                      num_classes=CLASSES, device=device)
+    out = {"cases": {}}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for comp, ef in PLAN_CASES:
+            runs = {mode: _planned_steps(device, mode, comp, ef, batch)
+                    for mode in ("enum", "priority")}
+            enum, prio = runs["enum"], runs["priority"]
+            bad = [i for i, (a, b) in enumerate(zip(prio["losses"],
+                                                    enum["losses"]))
+                   if not torch.equal(_bits(a), _bits(b))]
+            diff = state_diff(prio["state"], enum["state"])
+            if bad or diff:
+                raise RuntimeError(
+                    f"planner {comp}: priority differs from enum: steps "
+                    f"{bad}, state {diff[:8]} ({len(diff)} of "
+                    f"{len(enum['state'])} tensors)")
+            residuals = [k for k in prio["state"] if k.startswith("residual/")]
+            if ef and not any(bool(prio["state"][k].any())
+                              for k in residuals):
+                raise RuntimeError(f"planner {comp}: every residual is zero")
+            out["cases"][comp] = {
+                "losses": [float(v) for v in prio["losses"]],
+                "tensors": len(enum["state"]), "residuals": len(residuals),
+                "plan": _check_plan_on_card(prio, comp),
+                "enum_buckets": len(enum["plan"].buckets),
+                "times": _step_ms(runs, batch)}
+            resnet_leaves = [torch.empty(p.shape, dtype=p.dtype,
+                                         device="meta")
+                             for p in prio["trainer"].model.parameters()]
+            del runs, enum, prio
+            free_cuda()
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = deterministic
+    with torch.device("meta"):
+        lm = transformer.Transformer(lm_config(torch.bfloat16),
+                                     generator=torch.Generator())
+    out["planning"] = {
+        "resnet50": dict(planning_ms(resnet_leaves),
+                         tensors=len(resnet_leaves)),
+        "lm": dict(planning_ms([torch.empty(p.shape, dtype=p.dtype,
+                                            device="meta")
+                                for p in lm.parameters()]),
+                   tensors=len(list(lm.parameters())))}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def planner_line(pl: dict, ident: str) -> str:
+    """Phase 17's line."""
+    def spread(r):
+        return (f"{r['ms_median']:.4f} ms ({r['ms_min']:.4f}-"
+                f"{r['ms_max']:.4f})")
+
+    cases = "; ".join(
+        f"{comp}{' + error feedback' if comp != 'none' else ''}: "
+        f"{PLAN_STEPS} captured steps under priority = enum bit for bit "
+        f"(losses {c['losses'][0]:.4f} -> {c['losses'][-1]:.4f}, "
+        f"{c['tensors']} state tensors, {c['residuals']} residuals), B1 "
+        f"and B2 {BN_LAYERS} a step at every replay; priority plan "
+        f"{c['plan']['hash']} ({c['plan']['buckets']} buckets, regions "
+        f"{c['plan']['regions']}; enum {c['enum_buckets']}) = the JAX "
+        f"package's plan of the same leaves, save -> from_json the same "
+        f"plan; wall "
+        f"ms a step, median of {PLAN_WINDOWS} windows of "
+        f"{PLAN_WINDOW_STEPS} (min-max): enum "
+        f"{spread(c['times']['enum'])}, priority "
+        f"{spread(c['times']['priority'])}"
+        for comp, c in pl["cases"].items())
+    planning = "; ".join(
+        f"{name} ({r['tensors']} tensors) enum {spread(r['enum'])}, "
+        f"priority {spread(r['priority'])}"
+        for name, r in pl["planning"].items())
+    return (f"phase 17 exchange planner: ok on cuda:0; ResNet-50 bf16 "
+            f"fused BN batch {WIRE_BATCH}, SGD({WIRE_LR}, momentum 0.9); "
+            f"{cases}; at one rank every collective is the identity, so "
+            f"priority has nothing to hide; host planning ms of a new "
+            f"signature, median of {PLAN_REPS} (min-max): {planning}; phase "
+            f"{pl['seconds']:.1f} s, on {ident}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -3890,6 +4105,10 @@ def main() -> int:
     say(lines[0] + f"; total {time.perf_counter() - t_start:.0f} s")
     for line in lines[1:]:
         say(line)
+
+    pl = phase_planner(device)
+    say(planner_line(pl, ident) + f"; total "
+        f"{time.perf_counter() - t_start:.0f} s")
 
     say(json.dumps({"kernels": kernels}))
     hvd.shutdown()

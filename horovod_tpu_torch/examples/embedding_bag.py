@@ -7,8 +7,8 @@ gather``), densify + allreduce (``dense``) or the density switch
 (``auto``), and the head's gradients through the fused dense buckets;
 ``--compression`` quantizes the sparse value payload (gather form) and the
 dense buckets. The step is one ``hvd.spmd`` program (a CUDA graph on the
-card). The reference's closing print of the exchange plan waits for
-``ops/exchange.py`` (ROADMAP §A item 12(b)).
+card). Rank 0 closes with the exchange plan's hash and its sparse row
+(``ops/exchange.py``).
 
 Run:  python -m horovod_tpu_torch.examples.embedding_bag [--steps 100]
           [--sparse-algo dense] [--device cpu]
@@ -22,6 +22,7 @@ import torch
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch.models import embedding_bag
+from horovod_tpu_torch.ops import exchange as hvd_exchange
 
 
 def main(argv=None) -> dict:
@@ -78,10 +79,17 @@ def main(argv=None) -> dict:
         if it % 20 == 0 and hvd.rank() == 0:
             print(f"step {it}: loss = {float(losses[-1]):.4f}")
     losses = [float(v) for v in losses]
+    plan = hvd_exchange.last_plan()
     if hvd.rank() == 0:
         print(f"final loss {losses[-1]:.4f} (from {losses[0]:.4f})")
+        if plan is not None and plan.sparse_buckets:
+            row = plan.sparse_buckets[0]
+            ratio = (hvd.size() * row.payload_wire_bytes
+                     / max(1, 2 * row.dense_bytes))
+            print(f"exchange plan {plan.plan_hash()}: {row.describe()}, "
+                  f"sparse-vs-dense wire ratio {ratio:.4f}")
     return {"losses": losses, "runs": step.runs, "replays": step.replays,
-            "model": model}
+            "model": model, "plan": plan}
 
 
 if __name__ == "__main__":

@@ -1,0 +1,620 @@
+"""Whole-step exchange planner: plan the ENTIRE gradient exchange.
+
+Counterpart of ``horovod_tpu/ops/exchange.py`` (its planner, artifact and
+exposed-communication accounting). The plan is computed on the host once
+per gradient signature, and its buckets are issued in the plan's order;
+a captured step replays them in that order.
+
+**Priority ordering**: backward produces gradients in reverse layer order,
+so issuing buckets in *reverse enumeration* order lets each bucket's
+collective start while the rest of the backward pass is still computing
+(once the exchange overlaps backward). An optional ``priority_fn(label,
+index) -> key`` re-ranks the gradients (lower key = issued earlier; ties
+keep reverse enumeration). Pure and deterministic: identical on every
+rank for identical shapes.
+
+**Per-region bucket sizing**: the reversed sequence is split into
+``N_REGIONS`` byte-quantile regions whose thresholds ramp geometrically
+from a cost-model floor up to the fusion threshold, power-of-two
+quantized. The floor comes from the topology's seed links, never from
+the per-host tuning cache, so every rank computes the same plan. When the
+compressor couples a bucket's members (a shared scale or block grid:
+``Compressor.elementwise`` False), the planner keeps the enumeration
+plan's bucket membership and reorders its issue only, so the numbers stay
+bit-exact.
+
+**Channels**: ``channels=`` (``HOROVOD_EXCHANGE_CHANNELS``) stamps every
+eligible bucket; otherwise the cheapest power-of-two count up to
+``max_channels`` (``HOROVOD_MAX_CHANNELS``, default 1 = off) from the
+per-channel α–β model (``utils/costs.py``).
+
+The committed plan is an :class:`ExchangeSchedule`, a JSON artifact
+(``.exchange.json``) whose bytes and hash equal the JAX package's for the
+same inputs: its layout names no interconnect level, and dtypes are
+written by numpy's names (``float32``, ``bfloat16``, ``int8``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import zlib
+
+import torch
+
+from horovod_tpu_torch.core.state import HorovodError
+from horovod_tpu_torch.ops import fusion as _fusion
+from horovod_tpu_torch.utils import costs as _costs
+from horovod_tpu_torch.utils import env as _env
+
+# The reference's artifact layout, byte for byte.
+ARTIFACT_SCHEMA = "horovod_tpu/exchange-schedule/v1"
+
+MODES = ("enum", "priority")
+
+# Regions of the per-layer sizing ramp.
+N_REGIONS = 4
+
+
+def resolve_mode(spec) -> str:
+    """Normalize a ``schedule=`` argument: ``None`` defers to
+    ``HOROVOD_EXCHANGE_SCHEDULE`` (default ``enum``); strings are
+    validated — typos raise."""
+    if spec is None:
+        return _env.exchange_schedule_default()
+    if not isinstance(spec, str):
+        raise HorovodError(
+            f"schedule= must be None or a string, got "
+            f"{type(spec).__name__}.")
+    value = spec.strip().lower()
+    if value not in MODES:
+        raise HorovodError(
+            f"Unknown exchange schedule {spec!r}; choose one of "
+            f"{list(MODES)} (HOROVOD_EXCHANGE_SCHEDULE / schedule=).")
+    return value
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticMeta:
+    """Provenance of an elastically re-planned schedule: the surviving
+    global ranks, the ranks the transition dropped and the runtime
+    generation. Serialized only when present (ROADMAP §A item 15 makes
+    it)."""
+
+    survivors: tuple[int, ...]
+    dropped: tuple[int, ...]
+    generation: int
+
+
+@dataclasses.dataclass(frozen=True)
+class FsdpMeta:
+    """The plan's FSDP section: the sharding mode, the mesh factorization,
+    and for zero3 the gather order with each leaf's gathered bytes and
+    wire dtype. Serialized only when present (ROADMAP §A item 12(d) makes
+    it)."""
+
+    mode: str                       # "zero2" | "zero3"
+    fsdp_size: int
+    data_size: int
+    gather_order: tuple[int, ...]   # leaf indices, issue order (zero3)
+    leaf_bytes: tuple[int, ...]     # gathered bytes per leaf, leaf order
+    wire_dtypes: tuple[str, ...]    # gather wire dtype per leaf
+
+
+@dataclasses.dataclass(frozen=True)
+class ExchangeSchedule:
+    """The committed whole-step exchange plan.
+
+    ``buckets`` are :class:`~horovod_tpu_torch.ops.fusion.Bucket` records
+    in issue order (``bucket.priority`` == position); ``members`` carries
+    each bucket's gradient labels (empty tuples when the caller had
+    none). ``leaf_bytes`` are the logical bytes of every gradient in
+    enumeration order. ``sparse_buckets`` are the plan's sparse
+    exchanges (:class:`~horovod_tpu_torch.ops.fusion.SparseBucket`),
+    serialized only when present.
+    """
+
+    mode: str
+    world_size: int
+    num_slices: int
+    threshold_bytes: int
+    region_thresholds: tuple[int, ...]
+    leaf_bytes: tuple[int, ...]
+    buckets: tuple[_fusion.Bucket, ...]
+    members: tuple[tuple[str, ...], ...]
+    sparse_buckets: tuple = ()
+    elastic: ElasticMeta | None = None
+    fsdp: FsdpMeta | None = None
+
+    def to_json(self) -> str:
+        """Canonical (sorted-keys, compact) JSON: byte-identical across
+        processes for identical inputs, and to the JAX package's."""
+        data = {
+            "schema": ARTIFACT_SCHEMA,
+            "mode": self.mode,
+            "world_size": self.world_size,
+            "num_slices": self.num_slices,
+            "threshold_bytes": self.threshold_bytes,
+            "region_thresholds": list(self.region_thresholds),
+            "leaf_bytes": list(self.leaf_bytes),
+            "buckets": [
+                self._bucket_row(b, m)
+                for b, m in zip(self.buckets, self.members)
+            ],
+        }
+        # The optional sections serialize only when present, so a plan
+        # without them keeps its bytes and hash.
+        if self.sparse_buckets:
+            data["sparse_buckets"] = [self._sparse_row(b)
+                                      for b in self.sparse_buckets]
+        if self.elastic is not None:
+            data["elastic"] = {
+                "survivors": list(self.elastic.survivors),
+                "dropped": list(self.elastic.dropped),
+                "generation": self.elastic.generation,
+            }
+        if self.fsdp is not None:
+            data["fsdp"] = {
+                "mode": self.fsdp.mode,
+                "fsdp_size": self.fsdp.fsdp_size,
+                "data_size": self.fsdp.data_size,
+                "gather_order": list(self.fsdp.gather_order),
+                "leaf_bytes": list(self.fsdp.leaf_bytes),
+                "wire_dtypes": list(self.fsdp.wire_dtypes),
+            }
+        return json.dumps(data, sort_keys=True, separators=(",", ":"))
+
+    @staticmethod
+    def _bucket_row(b: _fusion.Bucket, m) -> dict:
+        name = _fusion._dtype_name
+        row = {
+            "priority": b.priority,
+            "indices": list(b.indices),
+            "dtype": name(b.dtype),
+            "total_bytes": b.total_bytes,
+            "wire_dtype": (None if b.wire_dtype is None
+                           else name(b.wire_dtype)),
+            "algo": b.algo,
+            "members": list(m),
+        }
+        # Set only where they differ from the default, as in the
+        # reference, so single-wire single-channel plans keep their hash.
+        if b.channels != 1:
+            row["channels"] = b.channels
+        if b.wire_bits:
+            row["wire_bits"] = b.wire_bits
+        if b.cross_wire_dtype is not None:
+            row["cross_wire_dtype"] = name(b.cross_wire_dtype)
+            if b.cross_wire_bits:
+                row["cross_wire_bits"] = b.cross_wire_bits
+            if b.intra_wire_dtype is not None:
+                row["intra_wire_dtype"] = name(b.intra_wire_dtype)
+        return row
+
+    @staticmethod
+    def _sparse_row(b: _fusion.SparseBucket) -> dict:
+        name = _fusion._dtype_name
+        row = {
+            "leaf": b.index,
+            "dtype": name(b.dtype),
+            "rows": b.rows,
+            "row_elems": b.row_elems,
+            "dense_rows": b.dense_rows,
+            "algo": b.algo,
+            "index_itemsize": b.index_itemsize,
+        }
+        if b.label:
+            row["label"] = b.label
+        if b.wire_dtype is not None:
+            row["wire_dtype"] = name(b.wire_dtype)
+            if b.wire_bits:
+                row["wire_bits"] = b.wire_bits
+        return row
+
+    def plan_hash(self) -> str:
+        """Stable 8-hex-digit identity of the plan: crc32 of the
+        canonical JSON."""
+        return f"{zlib.crc32(self.to_json().encode('utf-8')) & 0xFFFFFFFF:08x}"
+
+    def save(self, path: str) -> str:
+        """Write the artifact (pretty-printed; the hash is computed over
+        the canonical form, so formatting doesn't change identity)."""
+        with open(path, "w") as f:
+            json.dump(json.loads(self.to_json()), f, indent=1,
+                      sort_keys=True)
+            f.write("\n")
+        return path
+
+    @staticmethod
+    def from_json(text: str) -> "ExchangeSchedule":
+        """Parse a serialized artifact; an unknown schema raises (never
+        field-guessed)."""
+        try:
+            data = json.loads(text)
+        except ValueError as e:
+            raise HorovodError(f"unreadable ExchangeSchedule JSON: {e}")
+        if not isinstance(data, dict) \
+                or data.get("schema") != ARTIFACT_SCHEMA:
+            raise HorovodError(
+                f"ExchangeSchedule schema mismatch: expected "
+                f"{ARTIFACT_SCHEMA!r}, got {data.get('schema')!r} — "
+                f"refusing to guess a stale layout.")
+        buckets, members = [], []
+        for row in data["buckets"]:
+            buckets.append(_fusion.Bucket(
+                indices=tuple(row["indices"]),
+                dtype=_dtype(row["dtype"]),
+                total_bytes=int(row["total_bytes"]),
+                wire_dtype=(None if row["wire_dtype"] is None
+                            else _dtype(row["wire_dtype"])),
+                algo=row["algo"],
+                priority=int(row["priority"]),
+                wire_bits=int(row.get("wire_bits", 0)),
+                intra_wire_dtype=(_dtype(row["intra_wire_dtype"])
+                                  if row.get("intra_wire_dtype") else None),
+                cross_wire_dtype=(_dtype(row["cross_wire_dtype"])
+                                  if row.get("cross_wire_dtype") else None),
+                cross_wire_bits=int(row.get("cross_wire_bits", 0)),
+                channels=int(row.get("channels", 1))))
+            members.append(tuple(row["members"]))
+        sparse = []
+        for row in data.get("sparse_buckets", []):
+            sparse.append(_fusion.SparseBucket(
+                index=int(row["leaf"]),
+                dtype=_dtype(row["dtype"]),
+                rows=int(row["rows"]),
+                row_elems=int(row["row_elems"]),
+                dense_rows=int(row["dense_rows"]),
+                algo=row["algo"],
+                wire_dtype=(_dtype(row["wire_dtype"])
+                            if row.get("wire_dtype") else None),
+                wire_bits=int(row.get("wire_bits", 0)),
+                index_itemsize=int(row.get("index_itemsize", 4)),
+                label=row.get("label", "")))
+        el = data.get("elastic")
+        elastic = (None if el is None else ElasticMeta(
+            survivors=tuple(int(r) for r in el["survivors"]),
+            dropped=tuple(int(r) for r in el["dropped"]),
+            generation=int(el["generation"])))
+        fs = data.get("fsdp")
+        fsdp = (None if fs is None else FsdpMeta(
+            mode=str(fs["mode"]),
+            fsdp_size=int(fs["fsdp_size"]),
+            data_size=int(fs["data_size"]),
+            gather_order=tuple(int(i) for i in fs["gather_order"]),
+            leaf_bytes=tuple(int(b) for b in fs["leaf_bytes"]),
+            wire_dtypes=tuple(str(d) for d in fs["wire_dtypes"])))
+        return ExchangeSchedule(
+            mode=data["mode"],
+            world_size=int(data["world_size"]),
+            num_slices=int(data["num_slices"]),
+            threshold_bytes=int(data["threshold_bytes"]),
+            region_thresholds=tuple(data["region_thresholds"]),
+            leaf_bytes=tuple(data["leaf_bytes"]),
+            buckets=tuple(buckets),
+            members=tuple(members),
+            sparse_buckets=tuple(sparse),
+            elastic=elastic,
+            fsdp=fsdp)
+
+    def with_elastic(self, survivors, dropped,
+                     generation: int) -> "ExchangeSchedule":
+        """A copy of the plan stamped with elastic provenance (a new plan
+        hash)."""
+        return dataclasses.replace(self, elastic=ElasticMeta(
+            survivors=tuple(int(r) for r in survivors),
+            dropped=tuple(int(r) for r in dropped),
+            generation=int(generation)))
+
+    def with_fsdp(self, meta: FsdpMeta) -> "ExchangeSchedule":
+        """A copy of the plan carrying the FSDP section (a new plan
+        hash)."""
+        return dataclasses.replace(self, fsdp=meta)
+
+    def describe_rows(self) -> list[str]:
+        """One line per exchange in issue order: the sparse exchanges
+        (issued first), then the buckets."""
+        return ([b.describe() for b in self.sparse_buckets]
+                + [b.describe() for b in self.buckets])
+
+
+# -- planning ---------------------------------------------------------------
+
+
+def _pow2(x: int) -> int:
+    """Round to the nearest power of two (>= 1): a calibrated constant
+    must move 2x before the plan moves."""
+    if x <= 1:
+        return 1
+    lower = 1 << (x.bit_length() - 1)
+    return lower << 1 if x - lower > (lower >> 1) else lower
+
+
+def _region_thresholds(base: int, model, topo) -> tuple[int, ...]:
+    """Per-region bucket-size thresholds in issue order (small early,
+    large late), power-of-two quantized. ``base`` (the fusion threshold)
+    is the ceiling; the floor is the α–β model's 90%-busbw point / 8."""
+    if base <= 0:
+        return ()  # fusion disabled: every leaf is its own bucket
+    floor = max(1, base >> (N_REGIONS - 1))
+    hint = None
+    if model is not None and topo is not None and topo.group_size > 1:
+        hint = model.fusion_threshold_bytes(topo) >> 3
+        hint = min(base, max(1 << 20, _pow2(hint)))
+    if hint is not None:
+        floor = min(base, max(floor, hint))
+    out = [min(base, _pow2(floor << k)) for k in range(N_REGIONS)]
+    out[-1] = base
+    return tuple(out)
+
+
+def _plan_ordered(order, leaves, thresholds, total_bytes):
+    """Bucket the leaf sequence ``order`` (original indices) into
+    contiguous same-dtype runs, each region's threshold chosen by the
+    cumulative byte position."""
+    buckets: list[_fusion.Bucket] = []
+    cur: list[int] = []
+    cur_dtype = None
+    cur_bytes = 0
+    seen_bytes = 0
+    n_regions = max(1, len(thresholds))
+
+    def threshold_at(pos_bytes: int) -> int:
+        if not thresholds:
+            return 0
+        region = min(n_regions - 1,
+                     pos_bytes * n_regions // max(1, total_bytes))
+        return thresholds[region]
+
+    def flush():
+        nonlocal cur, cur_bytes
+        if cur:
+            buckets.append(_fusion.Bucket(tuple(cur), cur_dtype, cur_bytes))
+            cur, cur_bytes = [], 0
+
+    for i in order:
+        leaf = leaves[i]
+        nbytes = _fusion.leaf_bytes(leaf)
+        limit = threshold_at(seen_bytes)
+        seen_bytes += nbytes
+        if limit <= 0:
+            flush()
+            buckets.append(_fusion.Bucket((i,), leaf.dtype, nbytes))
+            cur_dtype = None
+            continue
+        if cur and (leaf.dtype != cur_dtype
+                    or cur_bytes + nbytes > limit):
+            flush()
+        cur_dtype = leaf.dtype
+        cur.append(i)
+        cur_bytes += nbytes
+    flush()
+    return buckets
+
+
+def plan_exchange(leaves, threshold_bytes: int, *, mode: str,
+                  compression=None, algo=None, labels=None,
+                  topo=None, model=None, world_size: int | None = None,
+                  priority_fn=None,
+                  cross_compression=None,
+                  channels: int | None = None,
+                  max_channels: int | None = None,
+                  sparse=None) -> ExchangeSchedule:
+    """Plan the whole-step exchange over ``leaves`` (tensors, or any
+    object with ``.numel()`` or ``.size`` and a ``.dtype``: only sizes and
+    dtypes are read, so meta tensors do).
+
+    ``mode``: ``enum`` is the enumeration plan of
+    :func:`~horovod_tpu_torch.ops.fusion.plan_buckets` exactly;
+    ``priority`` applies reverse-layer issue order and per-region sizing.
+    ``compression`` is a resolved compressor or None; ``algo`` a name or
+    a per-bucket selector. ``topo``/``model`` feed the sizing floor and
+    the artifact's partition shape; omitted, the plan is world
+    ``world_size`` (default 1), one slice, byte-ramp floor only.
+
+    Cross-rank determinism: without an explicit ``model`` the floor and
+    the channel model come from the topology's seed links
+    (``CostModel(nvlink=topo.nvlink, ib=topo.ib)``), never from the
+    per-host tuning cache: a cache-fed floor could cross a power-of-two
+    boundary on one rank only and split the ranks across two plans. Pass
+    ``model=`` only when every rank is guaranteed the same constants.
+
+    ``channels``: explicit channel count for every eligible bucket;
+    ``max_channels``: cap of the planner's per-bucket choice (default 1 =
+    channelization off). ``sparse``: the step's sparse exchange rows
+    (``ops/sparse.py::plan_sparse_exchange``), recorded on the plan."""
+    leaves = list(leaves)
+    if mode not in MODES:
+        raise HorovodError(f"unknown exchange mode {mode!r}")
+    if labels is not None and len(labels) != len(leaves):
+        raise HorovodError(
+            f"plan_exchange: {len(labels)} labels for {len(leaves)} "
+            f"leaves.")
+    leaf_bytes = tuple(_fusion.leaf_bytes(l) for l in leaves)
+    world = (topo.group_size if topo is not None
+             else (world_size or 1))
+    slices = topo.num_slices if topo is not None else 1
+    if model is None and topo is not None:
+        model = _costs.CostModel(nvlink=topo.nvlink, ib=topo.ib)
+
+    comp_elementwise = (compression is None
+                        or getattr(compression, "elementwise", False))
+    regions: tuple[int, ...] = ()
+    if mode == "enum":
+        buckets = _fusion.plan_buckets(leaves, threshold_bytes,
+                                       compression=compression, algo=algo,
+                                       group_size=world,
+                                       cross_compression=cross_compression)
+    elif not comp_elementwise:
+        # Scale-coupled compressor (int8 and the block formats): bucket
+        # membership IS numerics, so keep the enumeration plan's
+        # membership and reverse its issue order only.
+        planned = _fusion.plan_buckets(leaves, threshold_bytes,
+                                       compression=compression, algo=algo,
+                                       group_size=world,
+                                       cross_compression=cross_compression)
+        buckets = [dataclasses.replace(b, priority=i)
+                   for i, b in enumerate(reversed(planned))]
+    else:
+        order = list(range(len(leaves)))[::-1]  # reverse enumeration
+        if priority_fn is not None:
+            def key(i):
+                label = labels[i] if labels is not None else str(i)
+                # Stable among equal keys: keep reverse-enumeration order.
+                return (priority_fn(label, i), -i)
+            order = sorted(range(len(leaves)), key=key)
+        regions = _region_thresholds(threshold_bytes, model, topo)
+        raw = _plan_ordered(order, leaves, regions, sum(leaf_bytes))
+        raw = _fusion._annotate_algo(
+            _fusion._annotate_wire(raw, compression, world), algo)
+        raw = _fusion._annotate_phase_wire(raw, compression,
+                                           cross_compression)
+        buckets = [dataclasses.replace(b, priority=i)
+                   for i, b in enumerate(raw)]
+    buckets = _assign_channels(buckets, topo, model, world, slices,
+                               channels, max_channels, compression)
+    members = tuple(
+        tuple(labels[i] for i in b.indices) if labels is not None else ()
+        for b in buckets)
+    return ExchangeSchedule(
+        mode=mode, world_size=world, num_slices=slices,
+        threshold_bytes=int(threshold_bytes),
+        region_thresholds=regions, leaf_bytes=leaf_bytes,
+        buckets=tuple(buckets), members=members,
+        sparse_buckets=tuple(sparse or ()))
+
+
+def _assign_channels(buckets, topo, model, world: int, slices: int,
+                     channels: int | None,
+                     max_channels: int | None, compression) -> list:
+    """Stamp each bucket's channel count: ``channels`` wins outright;
+    otherwise the per-channel α–β model's cheapest power-of-two count
+    <= ``max_channels``. Both resolve to 1 on 1-rank worlds and for a
+    bucket whose algorithm is not a concrete decomposition, and a count is
+    clamped to the units its lowering can cut
+    (:func:`~horovod_tpu_torch.ops.fusion._split_units`)."""
+    if channels is not None and channels < 1:
+        raise HorovodError(
+            f"plan_exchange: channels must be >= 1, got {channels}.")
+    cap = 1 if max_channels is None else int(max_channels)
+    if (channels is None and cap <= 1) or world <= 1:
+        return buckets
+    out = []
+    for b in buckets:
+        c = 1
+        if b.algo in _costs.ALGORITHMS:
+            if channels is not None:
+                c = channels
+            elif model is not None and topo is not None:
+                kwargs = {}
+                if b.algo == "hierarchical" \
+                        and b.cross_wire_dtype is not None:
+                    kwargs["cross_nbytes"] = b.cross_bytes_on_wire
+                    nbytes = b.intra_bytes_on_wire
+                else:
+                    nbytes = b.bytes_on_wire
+                if b.wire_bits == 4 and b.algo == "flat":
+                    kwargs["gather"] = True  # int4 gather-form pricing
+                c = model.choose_channels(b.algo, nbytes, topo, cap,
+                                          **kwargs)
+            c = max(1, min(c, _fusion._split_units(b, world, slices,
+                                                   compression)))
+        out.append(dataclasses.replace(b, channels=c) if c != b.channels
+                   else b)
+    return out
+
+
+# -- exposed-communication accounting ------------------------------------------
+
+
+def planned_exposed_comm_ms(sched: ExchangeSchedule, topo, model,
+                            compute_ms: float,
+                            comm_scale: float = 1.0) -> float:
+    """The α–β model's exposed (non-overlapped) communication of one step
+    under ``sched``, in ms — a prediction, not a measurement.
+
+    Backward runs ``[0, compute_ms]`` producing gradients in reverse
+    enumeration order at a rate proportional to their bytes; a bucket's
+    collective starts once its members exist and every earlier-issued
+    collective has finished (one serial wire), and lasts the model's
+    prediction for its wire bytes (x ``comm_scale``). Exposed time is the
+    wire-busy time after compute ends."""
+    total = sum(sched.leaf_bytes) or 1
+    ready_at = {}
+    cum = 0
+    for i in reversed(range(len(sched.leaf_bytes))):
+        cum += sched.leaf_bytes[i]
+        ready_at[i] = compute_ms * cum / total
+    t = 0.0
+    exposed = 0.0
+    for b in sched.buckets:
+        ready = max((ready_at[i] for i in b.indices), default=0.0)
+        algo = b.algo
+        if algo == "auto":
+            algo = (model.choose(b.bytes_on_wire, topo)
+                    if model is not None and topo is not None else "flat")
+        dur = 0.0
+        if model is not None and topo is not None and topo.group_size > 1:
+            if algo == "hierarchical" and b.cross_wire_dtype is not None:
+                pred = model.predict_us(
+                    algo, b.intra_bytes_on_wire, topo,
+                    cross_nbytes=b.cross_bytes_on_wire,
+                    channels=b.channels)
+            else:
+                pred = model.predict_us(algo, b.bytes_on_wire, topo,
+                                        channels=b.channels)
+            if pred != float("inf"):
+                dur = pred * 1e-3 * comm_scale
+        start = max(t, ready)
+        end = start + dur
+        if end > compute_ms:
+            exposed += end - max(start, compute_ms)
+        t = end
+    return exposed
+
+
+def exposed_comm_from_spans(comm_spans, compute_spans) -> float:
+    """Exposed communication from measured spans: the part of the union
+    of ``comm_spans`` not covered by the union of ``compute_spans``.
+    Spans are ``(start, duration)`` in one unit; the result is in it."""
+    def union(spans):
+        ivs = sorted((s, s + d) for s, d in spans if d > 0)
+        out = []
+        for s, e in ivs:
+            if out and s <= out[-1][1]:
+                out[-1] = (out[-1][0], max(out[-1][1], e))
+            else:
+                out.append((s, e))
+        return out
+
+    comm = union(comm_spans)
+    compute = union(compute_spans)
+    exposed = 0.0
+    for cs, ce in comm:
+        covered = 0.0
+        for ks, ke in compute:
+            lo, hi = max(cs, ks), min(ce, ke)
+            if hi > lo:
+                covered += hi - lo
+        exposed += (ce - cs) - covered
+    return exposed
+
+
+# -- the live plan ------------------------------------------------------------
+
+_live_plan: ExchangeSchedule | None = None
+
+
+def register_live_plan(sched: ExchangeSchedule) -> None:
+    """Record the plan of the most recent gradient exchange
+    (:func:`last_plan`)."""
+    global _live_plan
+    _live_plan = sched
+
+
+def last_plan() -> ExchangeSchedule | None:
+    return _live_plan

@@ -1,13 +1,15 @@
 """Tensor fusion: batch many small tensors into few large collectives.
 
-Counterpart of ``horovod_tpu/ops/fusion.py`` (its enumeration-order plan;
-the priority schedule and ``fused_tree_apply`` are ROADMAP §A item 12(b)).
-The plan is the reference's: buckets are contiguous runs of same-dtype
-tensors in submission order; a change of dtype, or a tensor that would push
-the bucket past ``HOROVOD_FUSION_THRESHOLD`` bytes, closes the bucket; a
-threshold of 0 gives every tensor its own bucket. Each bucket is packed
-into one flat buffer (``MEMCPY_IN_FUSION_BUFFER``), reduced by ONE
-collective, and unpacked (``MEMCPY_OUT_FUSION_BUFFER``).
+Counterpart of ``horovod_tpu/ops/fusion.py``. The enumeration-order plan
+is the reference's: buckets are contiguous runs of same-dtype tensors in
+submission order; a change of dtype, or a tensor that would push the
+bucket past ``HOROVOD_FUSION_THRESHOLD`` bytes, closes the bucket; a
+threshold of 0 gives every tensor its own bucket. The whole-step planner
+(``ops/exchange.py``) builds on it: its ``priority`` schedule reorders and
+resizes the buckets, and :func:`fused_apply_` issues a plan's buckets in
+the plan's order. Each bucket is packed into one flat buffer
+(``MEMCPY_IN_FUSION_BUFFER``), reduced by ONE collective, and unpacked
+(``MEMCPY_OUT_FUSION_BUFFER``).
 
 Wire compression and the decomposition annotate a bucket (its wire dtype,
 its algorithm, its channel count, and the per-phase wire of a
@@ -272,17 +274,12 @@ def _split_units(b: Bucket, world: int, slices: int, compression) -> int:
     return elems
 
 
-def assign_channels(buckets: list[Bucket], channels: int | None,
-                    world: int, slices: int, compression) -> list[Bucket]:
-    """Stamp an explicit channel count on every bucket (1-rank worlds and
-    no count: 1), clamped to what its lowering can cut. The cost model's
-    per-bucket choice under ``HOROVOD_MAX_CHANNELS`` is ROADMAP §A item
-    12(b)'s planner."""
-    if channels is None or world <= 1:
-        return buckets
-    return [dataclasses.replace(b, channels=max(1, min(
-        channels, _split_units(b, world, slices, compression))))
-        for b in buckets]
+def leaf_bytes(leaf) -> int:
+    """Logical bytes of a tensor, or of any object with ``.numel()`` or
+    an integer ``.size``, and a ``.dtype``."""
+    numel = getattr(leaf, "numel", None)
+    n = numel() if callable(numel) else leaf.size
+    return int(n) * leaf.dtype.itemsize
 
 
 def plan_buckets_py(leaves: Sequence[torch.Tensor],
@@ -300,7 +297,7 @@ def plan_buckets_py(leaves: Sequence[torch.Tensor],
             cur, cur_bytes = [], 0
 
     for i, leaf in enumerate(leaves):
-        nbytes = leaf.numel() * leaf.dtype.itemsize
+        nbytes = leaf_bytes(leaf)
         if threshold_bytes <= 0:
             buckets.append(Bucket((i,), leaf.dtype, nbytes))
             continue
@@ -314,13 +311,24 @@ def plan_buckets_py(leaves: Sequence[torch.Tensor],
     return buckets
 
 
-def fused_apply_(leaves: Sequence[torch.Tensor], buckets: Sequence[Bucket],
+def fused_apply_(leaves: Sequence[torch.Tensor], schedule,
                  collective: Callable[[torch.Tensor, int], torch.Tensor],
                  names: Sequence[str]) -> None:
-    """Run ``collective(flat, bucket_index) -> flat`` once per bucket and
-    write the results back into ``leaves`` in place. ``names[b]`` labels
-    bucket ``b`` on the timeline."""
-    for b, bucket in enumerate(buckets):
+    """Run ``collective(flat, b) -> flat`` once per bucket of ``schedule``
+    (an :class:`~horovod_tpu_torch.ops.exchange.ExchangeSchedule`), ``b``
+    its issue position, in the schedule's order, and write the results
+    back into ``leaves`` in place. ``names[b]`` labels bucket ``b`` on the
+    timeline, whose SCHEDULE activity (row ``_fusion_buffer``) records the
+    plan's hash and mode and each bucket, as the reference's does."""
+    tl = _tl.session()
+    if tl.active:
+        tl.start_activity("_fusion_buffer", "SCHEDULE")
+        tl.event("_fusion_buffer",
+                 f"plan={schedule.plan_hash()} mode={schedule.mode}", "X")
+        for bucket in schedule.buckets:
+            tl.event("_fusion_buffer", bucket.describe(), "X")
+        tl.end_activity("_fusion_buffer", "SCHEDULE")
+    for b, bucket in enumerate(schedule.buckets):
         name = names[b]
         with _tl.activity(name, "MEMCPY_IN_FUSION_BUFFER"):
             if len(bucket.indices) == 1:
@@ -335,3 +343,23 @@ def fused_apply_(leaves: Sequence[torch.Tensor], buckets: Sequence[Bucket],
                 n = leaves[i].numel()
                 leaves[i].copy_(flat[offset: offset + n].view_as(leaves[i]))
                 offset += n
+
+
+def fused_tree_apply(tree, collective: Callable[[torch.Tensor],
+                                                torch.Tensor],
+                     threshold_bytes: int):
+    """The reference's pytree wrapper: ``collective(flat) -> flat`` over
+    the fused buckets of ``tree``'s tensors (nested dicts, lists and
+    tuples), enumeration plan at ``threshold_bytes``; returns a new tree
+    of the same structure and leaves ``tree`` as it was."""
+    from torch.utils import _pytree as pytree
+
+    from horovod_tpu_torch.ops import exchange as _exchange
+
+    leaves, spec = pytree.tree_flatten(tree)
+    out = [t.clone() for t in leaves]
+    plan = _exchange.plan_exchange(out, threshold_bytes, mode="enum")
+    fused_apply_(out, plan, lambda flat, b: collective(flat),
+                 [f"fused_tree_apply.bucket_{b}"
+                  for b in range(len(plan.buckets))])
+    return pytree.tree_unflatten(out, spec)

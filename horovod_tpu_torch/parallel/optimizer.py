@@ -7,12 +7,16 @@ Counterpart of ``horovod_tpu/parallel/optimizer.py`` (its replicated path).
 momentum and statistics see the same averaged gradient on every rank, as in
 the reference where the allreduce happens before apply.
 
-The bucket plan is negotiated once per gradient signature (the dtypes and
+The exchange plan (``ops/exchange.py``: the enumeration plan, or with
+``schedule="priority"`` reverse-layer issue order and per-region bucket
+sizes) is built and negotiated once per gradient signature (the dtypes and
 shapes of the gradients, in order) and cached; a step whose signature has
-been seen moves data only. Inside an ``spmd`` program the buckets register
-in the program's schedule instead (name, dtype, size and the labels of
-their members), which the program's one schedule validation checks across
-the ranks, as the JAX package validates once per trace.
+been seen moves data only, issuing the buckets in the plan's order. Inside
+an ``spmd`` program the buckets register in the program's schedule instead
+(name, dtype, size and the labels of their members), in plan order, which
+the program's one schedule validation checks across the ranks, as the JAX
+package validates once per trace. Each gradient exchange registers its
+plan: ``exchange.last_plan()`` is the most recent one.
 :func:`broadcast_variables` syncs parameters, buffers and optimizer state
 from a root rank. Overlapping the allreduce with backward is not done yet.
 
@@ -21,7 +25,9 @@ The exchange's knobs are the reference's, each resolved as there
 (``HOROVOD_COMPRESSION``; ``ops/compression.py``), ``algo``
 (``HOROVOD_ALLREDUCE_ALGO``; ``ops/strategy.py``), ``cross_compression``
 (``HOROVOD_COMPRESSION_CROSS_SLICE``), ``channels``
-(``HOROVOD_EXCHANGE_CHANNELS``) and, on the wrapper, ``error_feedback``
+(``HOROVOD_EXCHANGE_CHANNELS``, and ``HOROVOD_MAX_CHANNELS`` for the
+planner's own choice), ``schedule`` (``HOROVOD_EXCHANGE_SCHEDULE``) and,
+on the wrapper, ``error_feedback``
 (``HOROVOD_ERROR_FEEDBACK``): each rank keeps the residual of its own
 quantization per float parameter, adds it to the next step's gradient and
 keeps the new one, in place, so a captured step replays it. The wrapper's
@@ -40,6 +46,7 @@ eagerly only: inside a captured step program it raises.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import torch
@@ -51,6 +58,7 @@ from horovod_tpu_torch.core import timeline as _tl
 from horovod_tpu_torch.core.state import HorovodError
 from horovod_tpu_torch.ops import collectives as _coll
 from horovod_tpu_torch.ops import compression as _compression
+from horovod_tpu_torch.ops import exchange as _exchange
 from horovod_tpu_torch.ops import fusion as _fusion
 from horovod_tpu_torch.ops import sparse as _sparse
 from horovod_tpu_torch.ops import strategy as _strategy
@@ -58,44 +66,32 @@ from horovod_tpu_torch.ops import topology as _topology
 from horovod_tpu_torch.utils import env as _env
 
 
-def _refuse_planner(schedule, priority_fn) -> None:
-    """``schedule="enum"`` is the plan this slice computes; the priority
-    schedule and ``priority_fn`` are the exchange planner's."""
-    if schedule is not None:
-        if not isinstance(schedule, str):
-            raise HorovodError(
-                f"schedule= must be None or a string, got "
-                f"{type(schedule).__name__}.")
-        value = schedule.strip().lower()
-        if value not in ("enum", "priority"):
-            raise HorovodError(
-                f"Unknown exchange schedule {schedule!r}; choose one of "
-                f"['enum', 'priority'] (HOROVOD_EXCHANGE_SCHEDULE / "
-                f"schedule=).")
-        if value == "priority":
-            raise NotImplementedError(
-                "schedule='priority' (the whole-step exchange planner) is "
-                "not ported yet: ROADMAP §A item 12(b). Use 'enum' or drop "
-                "schedule=.")
-    if priority_fn is not None:
-        raise NotImplementedError(
-            "priority_fn= (the priority exchange schedule) is not ported "
-            "yet: ROADMAP §A item 12(b). Drop the argument.")
-
-
 class FusedAllreduce:
     """In-place fused allreduce of a list of tensors over one group, with
-    the bucket plan negotiated once per signature and cached on the
-    object (inside an ``spmd`` program: registered in its schedule).
+    the exchange plan (``ops/exchange.py``) built and negotiated once per
+    signature and cached on the object (inside an ``spmd`` program: its
+    buckets registered in the program's schedule, in plan order).
 
     The wire knobs (``compression``, ``algo``, ``cross_compression``,
     ``channels``; None = the environment default) are resolved when a
     signature is first planned; each bucket carries its wire dtype,
-    algorithm and channel count (``Bucket.describe``)."""
+    algorithm and channel count (``Bucket.describe``). The planner's
+    knobs are explicit, since their environment defaults are the gradient
+    path's (:func:`allreduce_gradients`, :func:`DistributedOptimizer`):
+    ``schedule`` is ``"enum"`` (None) or ``"priority"``;
+    ``priority_fn(label, index)`` re-ranks a priority plan, where
+    ``label`` is the member label the exchange registers for tensor
+    ``index``: ``<name>.<index>``; ``max_channels`` caps the planner's
+    channel choice (None: 1, off). :attr:`plan` is the plan of the most
+    recent call."""
 
     def __init__(self, name: str, group: int = 0, average: bool = True,
                  fusion_threshold: int | None = None, compression=None,
-                 algo=None, cross_compression=None, channels=None) -> None:
+                 algo=None, cross_compression=None, channels=None,
+                 schedule=None, priority_fn=None,
+                 max_channels: int | None = None) -> None:
+        if schedule is not None:
+            _exchange.resolve_mode(schedule)
         self.name = name
         self.group = group
         self.average = average
@@ -104,6 +100,10 @@ class FusedAllreduce:
         self.algo = algo
         self.cross_compression = cross_compression
         self.channels = channels
+        self.schedule = schedule
+        self.priority_fn = priority_fn
+        self.max_channels = max_channels
+        self.plan: _exchange.ExchangeSchedule | None = None
         self._plans: dict = {}
 
     def _restricted(self, g: _state.Group) -> bool:
@@ -113,8 +113,10 @@ class FusedAllreduce:
         return g.index != (0 if ctx is None else ctx.group_index)
 
     def _resolve(self, tensors, g: _state.Group, restricted: bool):
-        """The plan of a new signature: buckets with their wire, algorithm
-        and channels, and the resolved compressor and cross format."""
+        """The plan of a new signature (an ``ExchangeSchedule``), and the
+        resolved compressor, cross format and topology."""
+        mode = ("enum" if self.schedule is None
+                else _exchange.resolve_mode(self.schedule))
         threshold = (_state.fusion_threshold()
                      if self.fusion_threshold is None
                      else self.fusion_threshold)
@@ -127,6 +129,7 @@ class FusedAllreduce:
         channels = (_strategy.resolve_channels(self.channels)
                     if self.channels is not None
                     else _env.exchange_channels_default())
+        cap = 1 if self.max_channels is None else self.max_channels
         if restricted:
             if channels is not None and channels > 1:
                 raise HorovodError(
@@ -134,9 +137,13 @@ class FusedAllreduce:
                     f"single group: subset groups and group families only "
                     f"support the single-instance masked-psum lowering. "
                     f"Use group=0 (the global group) or drop channels=.")
-            channels = None
+            channels, cap = None, 1
+        # The priority planner's sizing floor and the channel model read
+        # the topology's seed links (plan_exchange), never the tuning
+        # cache, so every rank computes the same plan.
         topo = (_topology.discover(g) if not restricted
-                and algo_spec in ("auto", "hierarchical") else None)
+                and (algo_spec in ("auto", "hierarchical")
+                     or mode == "priority" or cap > 1) else None)
 
         def bucket_algo(bucket):
             return _coll.select_bucket_algo(
@@ -144,12 +151,14 @@ class FusedAllreduce:
                 restricted, "gradient bucket", bucket.bytes_on_wire,
                 topo=topo)[0]
 
-        buckets = _fusion.plan_buckets(tensors, threshold, compression=comp,
-                                       algo=bucket_algo, group_size=g.size,
-                                       cross_compression=cross_spec)
-        buckets = _fusion.assign_channels(
-            buckets, channels, g.size, topo.num_slices if topo else 1, comp)
-        return buckets, comp, cross_spec, topo
+        plan = _exchange.plan_exchange(
+            tensors, threshold, mode=mode, compression=comp,
+            algo=bucket_algo,
+            labels=[f"{self.name}.{i}" for i in range(len(tensors))],
+            topo=topo, world_size=g.size, priority_fn=self.priority_fn,
+            cross_compression=cross_spec, channels=channels,
+            max_channels=cap)
+        return plan, comp, cross_spec, topo
 
     def _plan(self, tensors, g: _state.Group):
         restricted = self._restricted(g)
@@ -157,19 +166,20 @@ class FusedAllreduce:
                                     for t in tensors)
         plan = self._plans.get(sig)
         if plan is None:
-            buckets, comp, cross_spec, topo = self._resolve(tensors, g,
-                                                            restricted)
-            names = [f"{self.name}.bucket_{b}" for b in range(len(buckets))]
-            plan = (buckets, names, (comp, cross_spec, topo), None)
-        buckets, names, wire, negotiated = plan
+            sched, comp, cross_spec, topo = self._resolve(tensors, g,
+                                                          restricted)
+            names = [f"{self.name}.bucket_{b}"
+                     for b in range(len(sched.buckets))]
+            plan = (sched, names, (comp, cross_spec, topo), None)
+        sched, names, wire, negotiated = plan
         # Inside a program the buckets register; the plan is negotiated
         # only where the per-call round runs (outside, or a first call).
         negotiating = False
-        for b, bk in enumerate(buckets):
+        for b, (bk, members) in enumerate(zip(sched.buckets,
+                                              sched.members)):
             negotiating |= _coll.program_register(
                 g, names[b], _neg.CollectiveOp.ALLREDUCE, bk.dtype,
-                (bk.elems,), members=tuple(f"{self.name}.{i}"
-                                           for i in bk.indices))
+                (bk.elems,), members=members)
         if negotiating and not negotiated and g.pg is not None:
             me = g.group_rank_of(_state.global_rank())
             _neg.negotiate(
@@ -177,16 +187,20 @@ class FusedAllreduce:
                               op=_neg.CollectiveOp.ALLREDUCE,
                               dtype=_coll.dtype_name(bk.dtype),
                               shape=(bk.elems,), group=g.index)
-                 for b, bk in enumerate(buckets)], g)
+                 for b, bk in enumerate(sched.buckets)], g)
             negotiated = True
-        self._plans[sig] = (buckets, names, wire, negotiated)
-        return buckets, names, wire, restricted
+        self._plans[sig] = (sched, names, wire, negotiated)
+        self.plan = sched
+        return sched, names, wire, restricted
 
-    def buckets(self, tensors) -> list:
-        """The plan of ``tensors``' signature (planned, not negotiated,
-        when new)."""
+    def plan_of(self, tensors) -> _exchange.ExchangeSchedule:
+        """``tensors``' plan (planned, not negotiated nor cached)."""
         g = _state.get_group(self.group)
         return self._resolve(tensors, g, self._restricted(g))[0]
+
+    def buckets(self, tensors) -> list:
+        """The buckets of ``tensors``' plan, in issue order."""
+        return list(self.plan_of(tensors).buckets)
 
     def __call__(self, tensors: list[torch.Tensor], residuals=None,
                  compression_key=None) -> list[torch.Tensor]:
@@ -195,11 +209,12 @@ class FusedAllreduce:
         local quantization residual (zero where the bucket's contribution
         was exact). ``compression_key``: the stochastic formats' per-step
         key."""
-        g = _state.get_group(self.group)
         if not tensors:
             return tensors
-        buckets, names, (comp, cross_spec, topo), restricted = self._plan(
+        g = _state.get_group(self.group)
+        sched, names, (comp, cross_spec, topo), restricted = self._plan(
             tensors, g)
+        buckets = sched.buckets
         if residuals is not None and restricted:
             raise HorovodError(
                 "error_residual requires the full-axis single group: a "
@@ -211,7 +226,7 @@ class FusedAllreduce:
 
         def reduce(flat, b):
             bk = buckets[b]
-            members = tuple(f"{self.name}.{i}" for i in bk.indices)
+            members = sched.members[b]
             with _tl.activity(names[b], "ALLREDUCE"):
                 if comp is None and cross_spec is None \
                         and bk.algo == "flat" and bk.channels == 1:
@@ -225,7 +240,7 @@ class FusedAllreduce:
             return _coll.divide_avg(out, g.size) if self.average else out
 
         if residuals is None:
-            _fusion.fused_apply_(tensors, buckets, reduce, names)
+            _fusion.fused_apply_(tensors, sched, reduce, names)
             return tensors
 
         def reduce_keeping_residuals(flat, b):
@@ -248,32 +263,34 @@ class FusedAllreduce:
                 offset += n
             return out
 
-        _fusion.fused_apply_(tensors, buckets, reduce_keeping_residuals,
+        _fusion.fused_apply_(tensors, sched, reduce_keeping_residuals,
                              names)
         return tensors
 
 
 def _exchange_sparse(item: _sparse.IndexedSlices, i: int, group: int,
                      average: bool, sparse_algo, name: str, compression=None,
-                     compression_key=None) -> _sparse.IndexedSlices:
+                     compression_key=None):
     """One sparse gradient's exchange: planned once and exchanged on the
     program's group (its value payload compressed as ``compression``
     says); a subset group takes the reference's plain gather,
-    uncompressed, and a rank outside it keeps its own gradient."""
+    uncompressed, and a rank outside it keeps its own gradient. Returns
+    the exchanged slices and the plan's row (None on a subset group,
+    which the reference leaves out of the plan)."""
     label = f"{name}.{i}"
     ctx = _ctx.current()
     if ctx is None or group != ctx.group_index:
         out = _sparse.allreduce_indexed_slices(
             item, group=group, average=average, name=label,
             algo=sparse_algo)
-        return item if out is None else out
+        return (item if out is None else out), None
     row = _sparse.plan_sparse_exchange(item, group=group, algo=sparse_algo,
                                        compression=compression, index=i,
                                        label=label)
     return _sparse.allreduce_indexed_slices(
         item, group=group, average=average, name=label, algo=row.algo,
         compression=compression, compression_key=compression_key,
-        _plan=row)
+        _plan=row), row
 
 
 def allreduce_gradients(grads: list, group: int = 0, average: bool = True,
@@ -299,9 +316,15 @@ def allreduce_gradients(grads: list, group: int = 0, average: bool = True,
     an item without one): each dense float gradient contributes ``grad +
     residual`` and the call returns ``(grads, new_residuals)``, the new
     residual being the local quantization error (zero for an exact
-    bucket). ``schedule="enum"`` is the plan computed here; the priority
-    schedule and ``priority_fn`` raise (ROADMAP §A item 12(b))."""
-    _refuse_planner(schedule, priority_fn)
+    bucket).
+
+    ``schedule`` (``"enum"``, the default of ``HOROVOD_EXCHANGE_SCHEDULE``,
+    or ``"priority"``) and ``priority_fn(label, index)`` pick the exchange
+    plan (``ops/exchange.py``; ``HOROVOD_MAX_CHANNELS`` caps its channel
+    choice); ``index`` is the tensor's position among the dense items and
+    ``label`` is ``<name>.<index>``. The call's plan, the sparse items'
+    rows included, is :func:`~horovod_tpu_torch.ops.exchange.last_plan`
+    afterwards."""
     sparse = [i for i, g in enumerate(grads)
               if isinstance(g, _sparse.IndexedSlices)]
     if sparse and not _coll._is_group_index(group):
@@ -310,38 +333,49 @@ def allreduce_gradients(grads: list, group: int = 0, average: bool = True,
             "IndexedSlices exchange targets a single group; issue one "
             "allreduce_indexed_slices per group.")
     comp = _compression.active(compression)
-    for i in sparse:
-        grads[i] = _exchange_sparse(grads[i], i, group, average,
-                                    sparse_algo, name, comp,
-                                    compression_key)
-    dense = [i for i in range(len(grads)) if i not in sparse]
     fused = FusedAllreduce(name, group, average, fusion_threshold,
                            compression=comp or "none", algo=algo,
                            cross_compression=cross_compression,
-                           channels=channels)
-    if error_residual is None:
-        fused([grads[i] for i in dense], compression_key=compression_key)
-        return grads
-    if len(error_residual) != len(grads):
-        raise HorovodError(
-            f"error_residual pytree has {len(error_residual)} leaves "
-            f"for {len(grads)} gradient leaves; it must mirror the "
-            f"gradient structure (ErrorFeedbackState.residual).")
-    # Sparse items keep their residual; an integer gradient is exact.
-    new_resid = [None if r is None else r.clone() for r in error_residual]
-    outs = []
-    for i in dense:
-        r = new_resid[i]
-        if r is not None and grads[i].dtype.is_floating_point:
-            grads[i].add_(error_residual[i].to(grads[i].dtype))
-            outs.append(r)
-        else:
-            if r is not None:
-                r.zero_()
-            outs.append(None)
+                           channels=channels,
+                           schedule=_exchange.resolve_mode(schedule),
+                           priority_fn=priority_fn,
+                           max_channels=_env.max_channels())
+    rows = []
+    for i in sparse:
+        grads[i], row = _exchange_sparse(grads[i], i, group, average,
+                                         sparse_algo, name, comp,
+                                         compression_key)
+        if row is not None:
+            rows.append(row)
+    dense = [i for i in range(len(grads)) if i not in sparse]
+    outs = new_resid = None
+    if error_residual is not None:
+        if len(error_residual) != len(grads):
+            raise HorovodError(
+                f"error_residual pytree has {len(error_residual)} leaves "
+                f"for {len(grads)} gradient leaves; it must mirror the "
+                f"gradient structure (ErrorFeedbackState.residual).")
+        # Sparse items keep their residual; an integer gradient is exact.
+        new_resid = [None if r is None else r.clone()
+                     for r in error_residual]
+        outs = []
+        for i in dense:
+            r = new_resid[i]
+            if r is not None and grads[i].dtype.is_floating_point:
+                grads[i].add_(error_residual[i].to(grads[i].dtype))
+                outs.append(r)
+            else:
+                if r is not None:
+                    r.zero_()
+                outs.append(None)
     fused([grads[i] for i in dense], residuals=outs,
           compression_key=compression_key)
-    return grads, new_resid
+    if dense or rows:
+        # The whole exchange's plan: the dense buckets and the sparse rows.
+        plan = fused.plan if dense else fused.plan_of([])
+        _exchange.register_live_plan(
+            dataclasses.replace(plan, sparse_buckets=tuple(rows)))
+    return grads if error_residual is None else (grads, new_resid)
 
 
 class _DistributedOptimizer:
@@ -354,12 +388,14 @@ class _DistributedOptimizer:
                  average: bool, fusion_threshold: int | None,
                  compression=None, algo=None, cross_compression=None,
                  channels=None, error_feedback: bool = False,
-                 sparse_algo=None) -> None:
+                 sparse_algo=None, schedule: str = "enum",
+                 max_channels: int = 1) -> None:
         self.optimizer = optimizer
         self._allreduce = FusedAllreduce(
             "DistributedOptimizer.grads", group, average, fusion_threshold,
             compression=compression, algo=algo,
-            cross_compression=cross_compression, channels=channels)
+            cross_compression=cross_compression, channels=channels,
+            schedule=schedule, max_channels=max_channels)
         self.sparse_algo = sparse_algo
         self.error_feedback = error_feedback
         self.residual: dict[int, torch.Tensor] = {}
@@ -402,6 +438,8 @@ class _DistributedOptimizer:
             self._allreduce(grads, residuals=residuals)
         else:
             self._allreduce(grads)
+        if grads:
+            _exchange.register_live_plan(self._allreduce.plan)
         for i, p in enumerate(coo):
             p.grad = self._exchange_coo(p.grad, i)
 
@@ -419,11 +457,11 @@ class _DistributedOptimizer:
         slices = _sparse.IndexedSlices(
             grad._values(), grad._indices()[0].to(torch.int32),
             tuple(grad.shape))
-        out = _exchange_sparse(slices, i, g, self._allreduce.average,
-                               self.sparse_algo,
-                               f"{self._allreduce.name}.sparse",
-                               _compression.active(
-                                   self._allreduce.compression))
+        out, _ = _exchange_sparse(slices, i, g, self._allreduce.average,
+                                  self.sparse_algo,
+                                  f"{self._allreduce.name}.sparse",
+                                  _compression.active(
+                                      self._allreduce.compression))
         values, indices = _sparse.dedup_merge(out.values, out.indices)
         return torch.sparse_coo_tensor(indices.long()[None], values,
                                        grad.shape)
@@ -483,7 +521,11 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, group: int = 0,
     ``cross_compression``, ``channels`` and ``error_feedback`` are the
     reference's (module docstring); ``sparse_algo`` (``"gather"``,
     ``"dense"`` or ``"auto"``) is the COO gradients' exchange.
-    ``schedule="enum"`` is the plan computed here. ``sharded=True`` and
+    ``schedule`` (``"enum"``/``"priority"``, default
+    ``HOROVOD_EXCHANGE_SCHEDULE``) picks the exchange plan
+    (``ops/exchange.py``; ``HOROVOD_MAX_CHANNELS`` caps its channel
+    choice), both knobs read here; a step's plan is ``last_plan()`` after
+    it (the COO gradients' rows are not in it). ``sharded=True`` and
     ``sharding="zero2"|"zero3"`` (with ``fsdp_size``) are ZeRO, ROADMAP §A
     item 12(d), and raise."""
     if isinstance(optimizer, _DistributedOptimizer):
@@ -505,13 +547,14 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, group: int = 0,
         raise NotImplementedError(
             "sharded=True (the ZeRO-1 sharded-state optimizer) is not "
             "ported yet: ROADMAP §A item 12(d). Use sharded=False.")
-    _refuse_planner(schedule, None)
     _sparse.resolve_sparse_algo(sparse_algo)
     return _DistributedOptimizer(
         optimizer, group, average, fusion_threshold,
         compression=compression, algo=algo,
         cross_compression=cross_compression, channels=channels,
-        error_feedback=bool(error_feedback), sparse_algo=sparse_algo)
+        error_feedback=bool(error_feedback), sparse_algo=sparse_algo,
+        schedule=_exchange.resolve_mode(schedule),
+        max_channels=_env.max_channels())
 
 
 def _named_tensors(variables) -> list[tuple[str, torch.Tensor]]:

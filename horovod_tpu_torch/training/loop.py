@@ -268,6 +268,9 @@ class Trainer(LRControlMixin):
     parameters). ``steps_per_call``: optimizer steps in one program (one
     call of :meth:`train_step`, which then takes K batches stacked along a
     new leading dim and returns the mean loss of its K steps).
+    ``schedule``: the gradient exchange's plan (``"enum"``/``"priority"``;
+    None defers to ``HOROVOD_EXCHANGE_SCHEDULE``), passed to the
+    :func:`DistributedOptimizer` made here.
 
     On the card the step is captured as a CUDA graph (:func:`spmd`), so
     ``loss_fn`` must not synchronise with the host, and the optimizer must
@@ -281,7 +284,7 @@ class Trainer(LRControlMixin):
     def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer,
                  group: int = 0, has_aux: bool = False,
                  fusion_threshold: int | None = None,
-                 steps_per_call: int = 1) -> None:
+                 steps_per_call: int = 1, schedule: str | None = None) -> None:
         if steps_per_call < 1:
             raise HorovodError("steps_per_call must be >= 1.")
         self.model = model
@@ -290,7 +293,8 @@ class Trainer(LRControlMixin):
             optimizer = optimizer(model.parameters())
         if not isinstance(optimizer, _opt._DistributedOptimizer):
             optimizer = _opt.DistributedOptimizer(
-                optimizer, group=group, fusion_threshold=fusion_threshold)
+                optimizer, group=group, fusion_threshold=fusion_threshold,
+                schedule=schedule)
         self.optimizer = optimizer
         self.group = group
         self.has_aux = has_aux

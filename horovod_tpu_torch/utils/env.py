@@ -18,6 +18,8 @@ and decomposition: ``HOROVOD_COMPRESSION``, ``HOROVOD_COMPRESSION_BLOCK``,
 ``HOROVOD_COMPRESSION_CROSS_SLICE`` and ``HOROVOD_ERROR_FEEDBACK``
 (``ops/compression.py``), ``HOROVOD_ALLREDUCE_ALGO`` and
 ``HOROVOD_EXCHANGE_CHANNELS`` (``ops/strategy.py``),
+``HOROVOD_EXCHANGE_SCHEDULE`` and ``HOROVOD_MAX_CHANNELS``
+(``ops/exchange.py``),
 ``HOROVOD_TOPOLOGY_SLICES`` (``ops/topology.py``) and
 ``HOROVOD_TUNING_CACHE`` (``utils/costs.py``).
 
@@ -49,8 +51,10 @@ PORTED_KNOBS = frozenset({
     "HOROVOD_DATA_DIR",
     "HOROVOD_ERROR_FEEDBACK",
     "HOROVOD_EXCHANGE_CHANNELS",
+    "HOROVOD_EXCHANGE_SCHEDULE",
     "HOROVOD_FAULT_INJECT",
     "HOROVOD_FUSION_THRESHOLD",
+    "HOROVOD_MAX_CHANNELS",
     "HOROVOD_NEGOTIATION_TIMEOUT",
     "HOROVOD_PREFETCH_DEPTH",
     "HOROVOD_SCHEDULE_TIMEOUT",
@@ -91,16 +95,14 @@ UNPORTED_TUNING_KNOBS: dict[str, int] = {
     "HOROVOD_EAGER_CACHE": 1,
     "HOROVOD_ELASTIC_JOIN_TIMEOUT": 15,
     "HOROVOD_ELASTIC_MIN_WORLD": 15,
-    "HOROVOD_EXCHANGE_SCHEDULE": 12,
     "HOROVOD_KV_BACKOFF_MS": 15,
     "HOROVOD_KV_RETRIES": 15,
     "HOROVOD_LIVENESS_INTERVAL": 15,
     "HOROVOD_LIVENESS_TIMEOUT": 15,
-    "HOROVOD_MAX_CHANNELS": 12,
     "HOROVOD_MODEL_FAULTS": 17,
     "HOROVOD_MODEL_MAX_STATES": 17,
     "HOROVOD_PROFILE": 16,
-    "HOROVOD_RECALIBRATION": 12,
+    "HOROVOD_RECALIBRATION": 16,
     "HOROVOD_TIMELINE_DEVICE": 16,
     "HOROVOD_TIMELINE_DEVICE_INTERVAL": 16,
     "HOROVOD_TUNED_CONFIG": 16,
@@ -380,6 +382,42 @@ def exchange_channels_default() -> int | None:
     return n
 
 
+def exchange_schedule_default() -> str:
+    """``HOROVOD_EXCHANGE_SCHEDULE``: the gradient path's exchange schedule
+    when ``schedule=None`` (``ops/exchange.py``): ``enum`` (default: the
+    enumeration plan) or ``priority`` (reverse-layer issue order with
+    per-region bucket sizing). Typos raise."""
+    raw = os.environ.get("HOROVOD_EXCHANGE_SCHEDULE")
+    if raw is None:
+        return "enum"
+    value = raw.strip().lower() or "enum"
+    if value not in ("enum", "priority"):
+        raise ValueError(
+            f"HOROVOD_EXCHANGE_SCHEDULE must be enum|priority, got {raw!r}")
+    return value
+
+
+def max_channels() -> int:
+    """``HOROVOD_MAX_CHANNELS`` (default 1 = channelization off): the cap
+    of the exchange planner's per-bucket channel choice, the cheapest
+    power-of-two count up to it by the per-channel α–β model
+    (``ops/exchange.py``). A positive integer; a typo raises at
+    ``hvd.init``."""
+    raw = os.environ.get("HOROVOD_MAX_CHANNELS")
+    if raw is None or not raw.strip():
+        return 1
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_MAX_CHANNELS must be a positive integer channel "
+            f"cap, got {raw!r}") from None
+    if n < 1:
+        raise ValueError(
+            f"HOROVOD_MAX_CHANNELS must be >= 1, got {raw!r}")
+    return n
+
+
 def topology_slices() -> int:
     """``HOROVOD_TOPOLOGY_SLICES=N``: treat a group as N equal contiguous
     slices (hosts) instead of reading them off ``LOCAL_WORLD_SIZE``
@@ -439,7 +477,7 @@ def validate_exchange_knobs() -> None:
     ``hvd.init`` (the others raise at their first use, as there)."""
     for read in (compression_block, error_feedback_default,
                  compression_cross_slice_default, exchange_channels_default,
-                 sparse_density_threshold):
+                 max_channels, sparse_density_threshold):
         read()
 
 

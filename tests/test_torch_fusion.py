@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from horovod_tpu.ops import fusion as jfusion
+from horovod_tpu_torch.ops import exchange as texchange
 from horovod_tpu_torch.ops import fusion as tfusion
 
 DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16),
@@ -58,14 +59,16 @@ def test_fused_apply_round_trips_in_place():
               torch.randn(7, generator=g).to(torch.bfloat16),
               torch.randn(6, generator=g)]
     before = [t.clone() for t in leaves]
-    buckets = tfusion.plan_buckets_py(leaves, 1024)
+    plan = texchange.plan_exchange(leaves, 1024, mode="enum")
+    buckets = plan.buckets
+    assert list(buckets) == tfusion.plan_buckets(leaves, 1024)
     calls = []
 
     def collective(flat, b):
         calls.append((b, flat.numel()))
         return flat * 2
 
-    tfusion.fused_apply_(leaves, buckets, collective,
+    tfusion.fused_apply_(leaves, plan, collective,
                          [f"b{i}" for i in range(len(buckets))])
     assert [n for _, n in calls] == [b.elems for b in buckets]
     assert len(calls) == len(buckets) == 3

@@ -405,8 +405,8 @@ def test_the_input_pipeline_knobs_are_ported(clean_env, name, value):
     assert hvd.is_initialized()
 
 
-# The gradient exchange's knobs (ROADMAP §A item 12(a) and the
-# decomposition half of 12(b)), each with a value the reference accepts.
+# The gradient exchange's knobs (ROADMAP §A item 12(a), the decomposition
+# half of 12(b) and its planner), each with a value the reference accepts.
 EXCHANGE_VALUES = {
     "HOROVOD_ALLREDUCE_ALGO": "rs_ag",
     "HOROVOD_COMPRESSION": "int8",
@@ -414,14 +414,14 @@ EXCHANGE_VALUES = {
     "HOROVOD_COMPRESSION_CROSS_SLICE": "int4",
     "HOROVOD_ERROR_FEEDBACK": "1",
     "HOROVOD_EXCHANGE_CHANNELS": "2",
+    "HOROVOD_EXCHANGE_SCHEDULE": "priority",
+    "HOROVOD_MAX_CHANNELS": "4",
     "HOROVOD_SPARSE_DENSITY_THRESHOLD": "0.5",
     "HOROVOD_TOPOLOGY_SLICES": "1",
     "HOROVOD_TUNING_CACHE": "tuning.json",
 }
-# What item 12 still leaves: ZeRO (12(d)) and the exchange planner (12(b)).
-ITEM_12_LEFT = ("HOROVOD_EXCHANGE_SCHEDULE", "HOROVOD_FSDP_AXIS_SIZE",
-                "HOROVOD_MAX_CHANNELS", "HOROVOD_RECALIBRATION",
-                "HOROVOD_SHARDING")
+# What item 12 still leaves: ZeRO (12(d)).
+ITEM_12_LEFT = ("HOROVOD_FSDP_AXIS_SIZE", "HOROVOD_SHARDING")
 
 
 @pytest.mark.parametrize("name", sorted(EXCHANGE_VALUES))
@@ -445,6 +445,17 @@ def test_the_rest_of_item_12_still_refuses_or_warns(name):
             else tenv.UNPORTED_TUNING_KNOBS[name])
     assert item == 12
     assert name not in tenv.PORTED_KNOBS
+
+
+def test_recalibration_still_warns_naming_item_16(clean_env):
+    """The α–β recalibration loop's only live feed is the device-span
+    profiler (``core/xprof.py``'s counterpart, ROADMAP §A item 16), so
+    ``HOROVOD_RECALIBRATION`` waits for it and warns."""
+    assert tenv.UNPORTED_TUNING_KNOBS["HOROVOD_RECALIBRATION"] == 16
+    assert "HOROVOD_RECALIBRATION" not in tenv.PORTED_KNOBS
+    clean_env.setenv("HOROVOD_RECALIBRATION", "1")
+    with pytest.warns(UserWarning, match=r"HOROVOD_RECALIBRATION .*item 16"):
+        hvd.init(device="cpu")
 
 
 @pytest.mark.parametrize("name", sorted(tenv.JAX_ONLY_KNOBS))
@@ -525,8 +536,8 @@ def test_stall_and_negotiation_timeout_parse_like_the_reference(
 
 # -- the exchange's API surface (ROADMAP §A item 12) ----------------------------
 
-NEW_MODULES = ("ops/compression.py", "ops/strategy.py", "ops/topology.py",
-               "utils/costs.py", "utils/rng.py")
+NEW_MODULES = ("ops/compression.py", "ops/exchange.py", "ops/strategy.py",
+               "ops/topology.py", "utils/costs.py", "utils/rng.py")
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
@@ -545,9 +556,9 @@ WIRE_KEYWORDS = ("compression", "compression_key", "algo",
 @pytest.mark.parametrize("fn", ["allreduce", "allreduce_gradients",
                                 "DistributedOptimizer"])
 def test_every_exchange_keyword_of_the_reference_is_taken(fn):
-    """Every wire/algorithm/channel keyword of the reference's function is
-    in the port's signature (the planner's and ZeRO's too: they raise,
-    naming item 12)."""
+    """Every wire/algorithm/channel/schedule keyword of the reference's
+    function is in the port's signature (ZeRO's too: they raise, naming
+    item 12(d))."""
     import inspect
 
     import horovod_tpu as jhvd
@@ -559,8 +570,8 @@ def test_every_exchange_keyword_of_the_reference_is_taken(fn):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"schedule": "priority"}, "12(b)"), ({"sharded": True}, "12(d)"),
-    ({"sharding": "zero2"}, "12(d)"), ({"sharding": "zero3"}, "12(d)")])
+    ({"sharded": True}, "12(d)"), ({"sharding": "zero2"}, "12(d)"),
+    ({"sharding": "zero3"}, "12(d)")])
 def test_the_planner_and_zero_raise_naming_item_12(kw, item):
     import re
 
@@ -569,11 +580,27 @@ def test_the_planner_and_zero_raise_naming_item_12(kw, item):
             [torch.nn.Parameter(torch.zeros(2))], lr=0.1), **kw)
 
 
-def test_priority_fn_raises_naming_item_12b(clean_env):
+@pytest.mark.parametrize("kw", [{"schedule": "priority"},
+                                {"schedule": "enum"},
+                                {"sharding": "off", "schedule": "priority"}])
+def test_the_planner_is_taken_by_the_optimizer(kw):
+    """``schedule=`` (ROADMAP §A item 12(b)'s planner) no longer raises."""
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(
+        [torch.nn.Parameter(torch.zeros(2))], lr=0.1), **kw)
+    assert opt._allreduce.schedule == kw["schedule"]
+
+
+def test_priority_fn_is_taken_by_the_gradient_path(clean_env):
+    from horovod_tpu_torch.ops import exchange
+
     hvd.init(device="cpu")
-    with pytest.raises(NotImplementedError, match=r"item 12\(b\)"):
-        hvd.allreduce_gradients([torch.zeros(2)],
-                                priority_fn=lambda label, i: -i)
+    hvd.allreduce_gradients([torch.zeros(2), torch.zeros(3)],
+                            schedule="priority",
+                            priority_fn=lambda label, i: i)
+    plan = exchange.last_plan()
+    assert plan.mode == "priority"
+    assert plan.members == (("allreduce_gradients.0",
+                             "allreduce_gradients.1"),)
 
 
 def test_every_callback_of_the_reference_is_reachable_as_hvd_callbacks():

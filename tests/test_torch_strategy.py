@@ -586,6 +586,7 @@ def test_bucket_annotations_and_descriptions_match_jax():
     from horovod_tpu.ops import exchange as jex
     from horovod_tpu.ops import fusion as jf
     from horovod_tpu_torch.ops import compression as tc
+    from horovod_tpu_torch.ops import exchange as tex
     from horovod_tpu_torch.ops import fusion as tf
 
     shapes = [(300,), (7, 9), (513,), (2, 2)]
@@ -612,7 +613,7 @@ def test_bucket_annotations_and_descriptions_match_jax():
                 tb = tf.plan_buckets(tl, 1500, compression=tcomp, algo=algo,
                                      group_size=4, cross_compression=cross)
                 jb = jex._assign_channels(jb, None, None, 4, 2, 3, 1, jcomp)
-                tb = tf.assign_channels(tb, 3, 4, 2, tcomp)
+                tb = tex._assign_channels(tb, None, None, 4, 2, 3, 1, tcomp)
                 assert [b.describe() for b in tb] == \
                     [b.describe() for b in jb]
                 assert [(b.bytes_on_wire, b.intra_bytes_on_wire,
