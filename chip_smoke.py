@@ -219,12 +219,32 @@ Phases, one line of output each:
     5 windows in turns) and the host's ms planning ResNet-50's and the
     LM's gradients (at one rank every collective is the identity, so
     ``priority`` has nothing to hide: equal times are the expected
-    reading).
+    reading);
+18. ZeRO-1/2/3 (``parallel/sharded.py``) at one rank over NCCL (fsdp 1 x
+    data 1, so every exchange is the identity: this shows the shard
+    layout, the inner update on the shards, the gather-on-use forward and
+    the capture, not the wire): (a) phase 8's LM (bf16, B=2, T=8192, fused
+    head, ``AdamW(3e-4, weight_decay=0.1)``), 10 captured ``Trainer``
+    steps under ``sharding="off"``, ``"zero2"`` and ``"zero3"``: losses
+    and final parameters bit-identical across the arms, B3 and B4 8 times
+    a step and A1 once in each, and each arm's step ms; (b) phase 5's
+    ResNet-50 (bf16, fused BN, batch 128, ``SGD(0.1, momentum=0.9)``),
+    ``Trainer(sharded=True)`` (ZeRO-1) against ``sharded=False``, 10
+    captured steps: losses, parameters, BN buffers and momenta
+    bit-identical, B1 and B2 53 times a step; (c) the zero3 trainer's
+    state through ``checkpoint.save_sharded`` (epoch 0, then epoch 1 torn
+    under ``HOROVOD_FAULT_INJECT=torn_write@epoch=1``) and
+    ``load_sharded(epoch=None)``: epoch 0 back bit for bit, the torn one
+    skipped with its warning (``_chip_smoke_zero/``, gitignored, removed
+    after); (d) the zero3 step's ``last_plan()`` carries the fsdp section
+    and has the hash of the JAX package's plan of the same leaves
+    (``ZERO3_PLAN_HASH``, pinned by the CPU tests).
 
-Each main path (5, 8 and 10, each example of 14, and each run of 17) runs
-with its kernels' launch counts set to 0 just before it and read just
-after; the kernels line's ``launches`` are phases 5 and 8's counts (the
-eager step and the 9 replays). Then a JSON line with each kernel's
+Each main path (5, 8 and 10, each example of 14, each run of 17 and each
+arm of 18) runs with its kernels' launch counts set to 0 just before it
+and read just after; the kernels line's ``launches`` are phases 5 and 8's
+counts (the eager step and the 9 replays), and ``launches_phase18`` each
+arm's count in phase 18. Then a JSON line with each kernel's
 record, and last the result line ``{"ok": true, "device": {...}}``. Any failed phase raises: the script then
 exits non-zero and prints no result. It also fails without CUDA, and when
 the ``horovod_tpu_torch`` package is not beside it.
@@ -3861,6 +3881,264 @@ def planner_line(pl: dict, ident: str) -> str:
             f"{pl['seconds']:.1f} s, on {ident}")
 
 
+# -- ZeRO-1/2/3 on the data x fsdp mesh (phase 18) ---------------------------------
+
+ZERO_STEPS = 10                # (a), (b): captured steps an arm
+ZERO_DIR = os.path.join(HERE, "_chip_smoke_zero")   # (c): gitignored
+ZERO_ARMS = ("off", "zero2", "zero3")
+# (d): the hash of the zero3 step's plan of the LM's gradients at one rank
+# (the fsdp section included): the JAX package's plan of the same leaves,
+# pinned on the CPU by
+# tests/test_torch_fsdp.py::test_chip_smoke_pins_the_jax_zero3_plan_hash.
+ZERO3_PLAN_HASH = "3b549afc"
+
+
+def _zero_params(trainer) -> list[torch.Tensor]:
+    """A trainer's parameters as full tensors, cloned (zero3: its shards,
+    cut back to the parameters' shapes)."""
+    opt = trainer.optimizer
+    if trainer.sharding != "zero3":
+        return [p.detach().clone() for p in trainer.model.parameters()]
+    return [s[:math.prod(shape)].view(shape).clone()
+            for s, shape in zip(opt.shards, opt._shapes)]
+
+
+def _timed_steps(trainer, batch, steps: int):
+    """``steps`` calls of the captured step, each timed (host wall, ended by
+    a device sync): the losses and the ms of each step."""
+    losses, ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(batch)[0])
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return losses, ms
+
+
+def _same_run(a: dict, b: dict) -> list[str]:
+    """Where two arms' losses and parameters differ, bit for bit (a
+    non-finite loss counts as a difference)."""
+    bad = [f"loss {i} {float(x)}" for i, x in enumerate(a["losses"])
+           if not math.isfinite(float(x))]
+    bad += [f"loss {i}" for i, (x, y) in enumerate(zip(a["losses"],
+                                                      b["losses"]))
+           if not torch.equal(_bits(x), _bits(y))]
+    return bad + [f"param {i}" for i, (x, y) in enumerate(zip(a["params"],
+                                                             b["params"]))
+                  if x.shape != y.shape or not torch.equal(_bits(x),
+                                                           _bits(y))]
+
+
+def zero_lm_arm(device, sharding: str, tokens, keep: bool = False) -> dict:
+    """(a): bench.py's LM under ``sharding``, AdamW(3e-4, weight_decay
+    0.1), ZERO_STEPS captured steps on one batch; B3, B4 and A1 counted."""
+    cfg = lm_config(torch.bfloat16)
+    model = transformer.init_params(cfg, seed=SEED, device=device)
+    trainer = hvd.Trainer(model, transformer.make_loss_fn(cfg,
+                                                          fused_head=True),
+                          AdamW(model.parameters(), 3e-4, weight_decay=0.1),
+                          sharding=sharding)
+    reset_launch_counts()
+    losses, ms = _timed_steps(trainer, tokens, ZERO_STEPS)
+    launches = {k: v for k, v in launch_counts().items()
+                if k in ("flash_fwd", "flash_bwd", "adamw")}
+    check_captured(trainer, launches, {"flash_fwd": LM_LAYERS,
+                                       "flash_bwd": LM_LAYERS, "adamw": 1})
+    out = {"losses": losses, "ms": ms, "launches": launches,
+           "params": _zero_params(trainer), "plan": exchange.last_plan()}
+    if keep:
+        out["trainer"] = trainer
+    return out
+
+
+def zero_resnet_arm(device, sharded: bool, batch) -> dict:
+    """(b): ResNet-50 (bf16, fused BN) with SGD(0.1, momentum 0.9), ZeRO-1
+    or not, ZERO_STEPS captured steps; B1 and B2 counted."""
+    model = seeded_resnet50(torch.bfloat16, device)
+    trainer = hvd.Trainer(model, resnet.make_loss_fn(model),
+                          torch.optim.SGD(model.parameters(), lr=0.1,
+                                          momentum=0.9),
+                          has_aux=True, sharded=sharded)
+    reset_launch_counts()
+    losses, ms = _timed_steps(trainer, batch, ZERO_STEPS)
+    launches = {k: v for k, v in launch_counts().items()
+                if k in ("channel_sums", "channel_grad_sums")}
+    check_captured(trainer, launches, {k: BN_LAYERS for k in launches})
+    opt = trainer.optimizer
+    params = list(model.parameters())
+    if sharded:
+        # The momenta of each (param group, dtype) bucket: at one rank the
+        # shard is the bucket's whole flat vector.
+        momenta = [opt.state[s]["momentum_buffer"][:total]
+                   for s, (_, total, _) in zip(opt.shards, opt._buckets)]
+        order = [i for idx, _, _ in opt._buckets for i in idx]
+    else:
+        momenta = [torch.cat([opt.state[params[i]]["momentum_buffer"]
+                              .reshape(-1) for i in idx])
+                   for idx in _resnet_buckets(params)]
+        order = [i for idx in _resnet_buckets(params) for i in idx]
+    state = {f"momentum/{b}": m.detach().clone()
+             for b, m in enumerate(momenta)}
+    state.update({f"model/{k}": v.detach().clone()
+                  for k, v in model.state_dict().items()})
+    return {"losses": losses, "ms": ms, "launches": launches,
+            "params": [p.detach().clone() for p in params], "state": state,
+            "order": order}
+
+
+def _resnet_buckets(params) -> list[list[int]]:
+    """ZeRO-1's buckets of one param group: the parameters by dtype, in
+    order of first appearance."""
+    by_dt: dict = {}
+    for i, p in enumerate(params):
+        by_dt.setdefault(p.dtype, []).append(i)
+    return list(by_dt.values())
+
+
+def zero_checkpoint(trainer) -> dict:
+    """(c): the zero3 trainer's state through ``save_sharded`` (epoch 0,
+    then epoch 1 torn by ``HOROVOD_FAULT_INJECT=torn_write@epoch=1``) and
+    ``load_sharded(epoch=None)``, which must fall back to epoch 0 and
+    return its state bit for bit."""
+    shutil.rmtree(ZERO_DIR, ignore_errors=True)
+    saved = _cpu_tree(trainer.train_state())
+    before = os.environ.get("HOROVOD_FAULT_INJECT")
+    try:
+        t0 = time.perf_counter()
+        path = checkpoint.save_sharded(ZERO_DIR, trainer.train_state(), 0)
+        save_s = time.perf_counter() - t0
+        os.environ["HOROVOD_FAULT_INJECT"] = "torn_write@epoch=1"
+        resilience.reset_injector()
+        checkpoint.save_sharded(ZERO_DIR, trainer.train_state(), 1)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            back = checkpoint.load_sharded(ZERO_DIR, saved)
+            load_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+    finally:
+        if before is None:
+            os.environ.pop("HOROVOD_FAULT_INJECT", None)
+        else:
+            os.environ["HOROVOD_FAULT_INJECT"] = before
+        resilience.reset_injector()
+        shutil.rmtree(ZERO_DIR, ignore_errors=True)
+    torn = [str(w.message) for w in caught
+            if "epoch 1 " in str(w.message) and "torn write" in str(w.message)]
+    if back.get("epoch") != 0 or not torn:
+        raise RuntimeError(
+            f"zero checkpoint: load_sharded(epoch=None) returned epoch "
+            f"{back.get('epoch')} (expected 0), warnings "
+            f"{[str(w.message) for w in caught]}")
+    diff = _tree_diff(dict(saved, epoch=0), back)
+    if diff:
+        raise RuntimeError(f"zero checkpoint: the loaded state differs from "
+                           f"the saved one: {diff[:8]} ({len(diff)})")
+    return {"tensors": len(_leaves(saved)), "bytes": nbytes,
+            "save_s": save_s, "load_s": load_s, "torn": torn[0]}
+
+
+def phase_zero(device) -> dict:
+    """Phase 18: ZeRO-1/2/3 on the card, one rank (F = 1, so every
+    exchange is the identity): the shard layout, the inner update on the
+    shards, the gather-on-use forward and the capture."""
+    t0 = time.perf_counter()
+    out = {}
+    cfg = lm_config(torch.bfloat16)
+    tokens = transformer.synthetic_tokens(LM_BATCH, LM_T, cfg.vocab_size,
+                                          seed=SEED, device=device)
+    lm = {}
+    for arm in ZERO_ARMS:
+        lm[arm] = zero_lm_arm(device, arm, tokens, keep=arm == "zero3")
+        if arm == "zero3":
+            trainer = lm[arm].pop("trainer")
+            out["checkpoint"] = zero_checkpoint(trainer)
+            del trainer
+        free_cuda()
+    for arm in ZERO_ARMS[1:]:
+        diff = _same_run(lm["off"], lm[arm])
+        if diff:
+            raise RuntimeError(f"zero LM: {arm} differs from off: {diff[:8]} "
+                               f"({len(diff)})")
+    plan = lm["zero3"]["plan"]
+    if plan is None or plan.fsdp is None or plan.fsdp.mode != "zero3":
+        raise RuntimeError(f"zero LM: the zero3 step's plan has no zero3 "
+                           f"fsdp section: {plan and plan.fsdp}")
+    if plan.plan_hash() != ZERO3_PLAN_HASH:
+        raise RuntimeError(f"zero LM: the zero3 plan {plan.plan_hash()} is "
+                           f"not the JAX package's {ZERO3_PLAN_HASH}")
+    out["plan"] = {"hash": plan.plan_hash(), "buckets": len(plan.buckets),
+                   "gathers": len(plan.fsdp.gather_order)}
+    out["lm"] = {arm: {"losses": [float(v) for v in r["losses"]],
+                       "ms": r["ms"], "launches": r["launches"],
+                       "tensors": len(r["params"])}
+                 for arm, r in lm.items()}
+    del lm
+    free_cuda()
+    batch = resnet.synthetic_imagenet(BATCH, IMAGE, seed=SEED,
+                                      num_classes=CLASSES, device=device)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rn = {arm: zero_resnet_arm(device, arm == "zero1", batch)
+              for arm in ("off", "zero1")}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    diff = _same_run(rn["off"], rn["zero1"])
+    diff += [k for k in rn["off"]["state"]
+             if not torch.equal(_bits(rn["off"]["state"][k]),
+                                _bits(rn["zero1"]["state"][k]))]
+    if rn["off"]["order"] != rn["zero1"]["order"]:
+        diff.append("bucket order")
+    if diff:
+        raise RuntimeError(f"zero ResNet-50: ZeRO-1 differs from off: "
+                           f"{diff[:8]} ({len(diff)})")
+    out["resnet50"] = {arm: {"losses": [float(v) for v in r["losses"]],
+                             "ms": r["ms"], "launches": r["launches"],
+                             "tensors": len(r["state"])}
+                       for arm, r in rn.items()}
+    del rn
+    free_cuda()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def zero_line(z: dict, ident: str) -> str:
+    """Phase 18's line."""
+    def ms(r):
+        steady = r["ms"][2:]
+        return (f"{statistics.median(steady):.2f} ms (min "
+                f"{min(steady):.2f}, max {max(steady):.2f})")
+
+    lm = "; ".join(f"{arm} {ms(r)}, launches {r['launches']}"
+                   for arm, r in z["lm"].items())
+    rn = "; ".join(f"{arm} {ms(r)}, launches {r['launches']}"
+                   for arm, r in z["resnet50"].items())
+    ck = z["checkpoint"]
+    first = z["lm"]["off"]["losses"]
+    rfirst = z["resnet50"]["off"]["losses"]
+    return (f"phase 18 zero: ok on cuda:0, one rank (fsdp 1 x data 1); (a) "
+            f"the LM ({LM_LAYERS} layers, B={LM_BATCH} T={LM_T} bf16 fused "
+            f"head, AdamW(3e-4, wd 0.1)), {ZERO_STEPS} captured steps under "
+            f"sharding off, zero2, zero3: losses ({first[0]:.4f} -> "
+            f"{first[-1]:.4f}) and {z['lm']['off']['tensors']} final "
+            f"parameters bit-identical across the arms; step ms, median of "
+            f"steps 3-{ZERO_STEPS}: {lm}; (b) ResNet-50 (bf16 fused BN, "
+            f"batch {BATCH}, SGD(0.1, momentum 0.9)) sharded=True against "
+            f"sharded=False, {ZERO_STEPS} captured steps: losses "
+            f"({rfirst[0]:.4f} -> {rfirst[-1]:.4f}), parameters, BN buffers "
+            f"and momenta ({z['resnet50']['off']['tensors']} tensors) "
+            f"bit-identical; {rn}; (c) the zero3 state ({ck['tensors']} "
+            f"tensors, {ck['bytes']} bytes) through save_sharded -> "
+            f"load_sharded(epoch=None) bit for bit, the torn epoch 1 "
+            f"skipped (\"{ck['torn']}\"), save {ck['save_s']:.2f} s, load "
+            f"{ck['load_s']:.2f} s; (d) the zero3 plan {z['plan']['hash']} "
+            f"({z['plan']['buckets']} reduce rows, {z['plan']['gathers']} "
+            f"gathers) = the JAX package's plan of the same leaves; phase "
+            f"{z['seconds']:.1f} s, on {ident}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -4109,6 +4387,15 @@ def main() -> int:
     pl = phase_planner(device)
     say(planner_line(pl, ident) + f"; total "
         f"{time.perf_counter() - t_start:.0f} s")
+
+    zr = phase_zero(device)
+    say(zero_line(zr, ident) + f"; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+    for k in kernels:
+        runs = zr["lm"] if k["name"] in ("flash_fwd", "flash_bwd",
+                                         "adamw") else zr["resnet50"]
+        k["launches_phase18"] = {arm: r["launches"][k["name"]]
+                                 for arm, r in runs.items()}
 
     say(json.dumps({"kernels": kernels}))
     hvd.shutdown()

@@ -142,6 +142,7 @@ def init(group_ranks: Sequence[Sequence[int]] | None = None, *,
         if _state.initialized:
             return
         _env.warn_unknown_env()
+        _env.validate_sharding_knobs()
         _env.check_unported()
         _env.validate_serving_knobs()
         _env.validate_exchange_knobs()

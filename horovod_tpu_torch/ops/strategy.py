@@ -1,7 +1,9 @@
 """Allreduce decompositions: how a fusion bucket becomes wire collectives.
 
-Counterpart of ``horovod_tpu/ops/strategy.py`` (its replicated lowerings;
-the FSDP ones are ROADMAP §A item 12(d)). Each lowering computes the same
+Counterpart of ``horovod_tpu/ops/strategy.py``: its replicated lowerings,
+and at the end the FSDP ones of the sharded modes (the reduce-scatter
+prefix of a replicated lowering, and the parameter gather). Each
+replicated lowering computes the same
 group sum; a decomposition may re-associate the floating-point reduction,
 so results are bit-exact across algorithms on integer-valued data:
 
@@ -526,3 +528,135 @@ def lower_gathered(x, comp, algo: str, name: str, g, key, rank_data,
     for d in orig_shape:
         size *= d
     return full.reshape(-1)[:size].reshape(orig_shape).to(x.dtype)
+
+
+# -- the FSDP lowerings (ops/mesh.py's data × fsdp mesh) ------------------------
+# The ZeRO-2/3 gradient exchange is the reduce-scatter PREFIX of the
+# replicated decompositions, with the trailing all-gather left out, and the
+# ZeRO-3 gather-on-use is one all-gather of a parameter shard. Each case
+# below runs the same collectives, on the same process groups and tensors,
+# as the matching replicated lowering (one host: the ``rs_ag`` prefix;
+# several: the ``hierarchical`` / ``lower_hierarchical_asym`` prefix), so
+# the reduced shard IS that lowering's shard before its all-gather, element
+# for element.
+
+
+def fsdp_exchange_groups(fmesh, g, topo):
+    """``(fsdp, data)`` process groups of this rank for one FSDP exchange
+    (``ops/topology.py::fsdp_groups``): in the default multi-host layout
+    the hierarchical lowering's intra/cross groups themselves."""
+    return _topology.fsdp_groups(g, fmesh, topo)
+
+
+def lower_fsdp_grad_exchange(x, fmesh, name: str, comp, key, g, topo):
+    """Reduce one gradient tensor to this rank's flat shard: quantize (per
+    the case below) → reduce-scatter over the ``fsdp`` process group →
+    all-reduce over the ``data`` one → dequantize the SHARD. Returns
+    ``(shard, size)``: the group-SUMMED shard (the caller divides for the
+    average) of the zero-padded flat layout ``fmesh.padded_numel(numel,
+    block)``, and the size of that layout before the fsdp padding.
+
+    * ``comp`` None or elementwise / one scale (none, bf16, int8): quantize
+      once on the whole tensor (the scale is shape-agnostic, so the shard
+      dequantizes directly); reduce-scatter and all-reduce the wire.
+    * blocked summable (int8_block), one data group: the ``rs_ag`` path on
+      the flattened block wire; the shard dequantizes through the
+      per-element scales sliced at this rank's offset (a shard boundary
+      may cut a block).
+    * blocked summable across hosts with fsdp = one host: the
+      ``lower_hierarchical_asym`` mirror — full-precision reduce-scatter
+      over NVLink, quantize the shard, integer all-reduce across hosts,
+      dequantize. Other layouts refuse.
+
+    Unsummable wires (int4) have no shard-keeping prefix and raise."""
+    F, D, W = fmesh.fsdp_size, fmesh.data_size, fmesh.group_size
+    fpg, dpg = fsdp_exchange_groups(fmesh, g, topo)
+    block = getattr(comp, "block", None) if comp is not None else None
+    orig_dtype = x.dtype
+    rank = g.group_rank_of(_state.global_rank())
+    if comp is not None and not comp.summable:
+        raise HorovodError(
+            f"compression {comp.name!r} (tensor {name}) has an "
+            f"unsummable wire format: its gather-based exchange has no "
+            f"reduce-scatter prefix for the sharded modes to keep. Use "
+            f"none/bf16/int8/int8_block with sharding, or sharding='off'.")
+
+    def scatter(flat):
+        with _phase(name, "REDUCE_SCATTER"):
+            return _reduce_scatter(flat, fpg, F) if F > 1 else flat.clone()
+
+    def group_max(v):
+        return all_sum(v, g.pg, dist.ReduceOp.MAX) if W > 1 else v
+
+    if comp is None or block is None:
+        if comp is not None:
+            wctx = _compression.WireContext(
+                group_size=W, sum_width=W, pmax=group_max, rank_data=rank,
+                key=key)
+            wire, meta = quantize(name, comp, x, wctx)
+        else:
+            wire, meta, wctx = x, None, None
+        flat, size = _flatten_pad(wire, F)
+        shard = scatter(flat)
+        if D > 1:
+            with _phase(name, "CROSS_SLICE"):
+                shard = all_sum(shard, dpg)
+        if comp is not None:
+            summed = shard
+            shard = dequantize(name, lambda: comp.decompress(
+                summed, meta, orig_dtype, wctx))
+        return shard, size
+
+    if D == 1:
+        wctx = _compression.WireContext(
+            group_size=W, sum_width=W, pmax=group_max, rank_data=rank,
+            key=key)
+        wire, meta = quantize(name, comp, x, wctx)
+        unit, _shape = meta
+        wflat, wsize = _flatten_pad(wire, F)
+        shard = scatter(wflat)
+        shard_len = wflat.shape[0] // F
+        # Per-element scales in the wire-flat layout, sliced at this rank's
+        # element offset: a shard boundary may cut a block.
+        unit_flat = unit.repeat_interleave(block)
+        if wflat.shape[0] > wsize:
+            unit_flat = torch.cat(
+                [unit_flat, unit_flat.new_zeros(wflat.shape[0] - wsize)])
+        local = rank % F
+        u = unit_flat[local * shard_len:(local + 1) * shard_len]
+        summed = shard
+        return dequantize(name, lambda: (summed * u).to(orig_dtype)), wsize
+
+    if not (fmesh.multi_slice and fmesh.matches_slices()):
+        raise HorovodError(
+            f"compression {comp.name!r} (tensor {name}) with sharding "
+            f"requires the fsdp axis to be exactly one ICI slice "
+            f"(fsdp_size={F}, data_size={D}, num_slices="
+            f"{fmesh.num_slices}): the phase-asymmetric cross-slice "
+            f"scheme quantizes the per-slice shard. Drop "
+            f"HOROVOD_FSDP_AXIS_SIZE or use none/bf16 compression.")
+    flat, size = _flatten_pad(x, F)
+    shard = scatter(flat)
+    wctx = _compression.WireContext(
+        group_size=W, sum_width=D,
+        pmax=lambda v: all_sum(v, dpg, dist.ReduceOp.MAX),
+        rank_data=rank,
+        key=key if key is not None else bitsum_key(shard, 0x5319))
+    wire, meta = quantize(name, comp, shard, wctx)
+    summed = _cross_sum_channels(name, wire, dpg, 1)
+    out = dequantize(name, lambda: comp.decompress(summed, meta, orig_dtype,
+                                                   wctx))
+    return out.reshape(-1), size
+
+
+def lower_fsdp_param_gather(shard, fmesh, name: str, g, topo):
+    """The ZeRO-3 gather-on-use (and the ZeRO-2 gather of the new
+    parameters): all-gather one flat parameter shard over the ``fsdp``
+    process group, at the parameter dtype (a quantized wire would change
+    the forward's numerics), under its own ``FSDP_GATHER`` activity. At
+    fsdp size 1 the shard is the whole tensor and is returned as it is."""
+    if fmesh.fsdp_size <= 1:
+        return shard
+    fpg, _ = fsdp_exchange_groups(fmesh, g, topo)
+    with _phase(name, "FSDP_GATHER"):
+        return _all_gather(shard, fpg, fmesh.fsdp_size)

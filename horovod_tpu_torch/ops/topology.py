@@ -171,11 +171,61 @@ def level_groups(group: "_state.Group", topo: Topology):
     return _level_memo[key]
 
 
+# (group ranks, fsdp size, data size, slice_of) -> (fsdp process group,
+# data process group) of this process.
+_fsdp_memo: dict[tuple, tuple] = {}
+
+
+def fsdp_groups(group: "_state.Group", fmesh, topo: Topology):
+    """``(fsdp, data)`` process groups of this rank for the ``data × fsdp``
+    mesh ``fmesh`` (``ops/mesh.py``) of ``group``; ``data`` is None when
+    the data axis is trivial. The default multi-host layout (fsdp = one
+    host) reuses :func:`level_groups`' intra/cross groups, and an fsdp
+    axis that covers the group is the group's own process group, so the
+    sharded exchange runs on the very groups the replicated lowerings
+    use. Any other layout makes a process group per partition of each
+    axis: every rank of the world creates every one of them, in one order,
+    eagerly, as :func:`level_groups` does."""
+    if fmesh.multi_slice and fmesh.matches_slices():
+        return level_groups(group, topo)
+    fparts, dparts = fmesh.fsdp_groups(), fmesh.data_groups()
+    if fparts is None:
+        return group.pg, None
+    key = (group.ranks, fmesh.fsdp_size, fmesh.data_size, topo.slice_of)
+    hit = _fsdp_memo.get(key)
+    if hit is not None:
+        return hit
+    if group.size != _state.global_size():
+        raise HorovodError(
+            f"the sharded exchange on group {group.index} ({group.size} of "
+            f"{_state.global_size()} ranks) with fsdp_size="
+            f"{fmesh.fsdp_size}: the fsdp and data process groups are "
+            f"created by every rank of the world, so the port shards over "
+            f"a group that spans the world.")
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise HorovodError(
+            "the sharded exchange's process groups must be created "
+            "eagerly: call the step once outside a CUDA graph capture "
+            "(the first call of an hvd.spmd program is eager).")
+    me = _state.global_rank()
+    mine = [None, None]
+    for axis, parts in enumerate((fparts, dparts)):
+        for members in parts or ():
+            ranks = sorted(group.ranks[r] for r in members)
+            pg = dist.new_group(ranks)
+            if me in ranks:
+                mine[axis] = pg
+    _fsdp_memo[key] = tuple(mine)
+    return _fsdp_memo[key]
+
+
 def forget_groups() -> None:
-    """Destroy the two-level process groups and drop the memoized
+    """Destroy the two-level and fsdp process groups and drop the memoized
     topologies (``shutdown``)."""
-    for pgs in _level_memo.values():
+    for pgs in (*_level_memo.values(), *_fsdp_memo.values()):
         for pg in pgs:
-            dist.destroy_process_group(pg)
+            if pg is not None:
+                dist.destroy_process_group(pg)
     _level_memo.clear()
+    _fsdp_memo.clear()
     _discover_memo.clear()

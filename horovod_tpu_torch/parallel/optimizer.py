@@ -60,9 +60,11 @@ from horovod_tpu_torch.ops import collectives as _coll
 from horovod_tpu_torch.ops import compression as _compression
 from horovod_tpu_torch.ops import exchange as _exchange
 from horovod_tpu_torch.ops import fusion as _fusion
+from horovod_tpu_torch.ops import mesh as _mesh
 from horovod_tpu_torch.ops import sparse as _sparse
 from horovod_tpu_torch.ops import strategy as _strategy
 from horovod_tpu_torch.ops import topology as _topology
+from horovod_tpu_torch.parallel import sharded as _sharded
 from horovod_tpu_torch.utils import env as _env
 
 
@@ -513,7 +515,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, group: int = 0,
                          schedule=None, cross_compression=None,
                          error_feedback: bool | None = None, channels=None,
                          sparse_algo=None, sharding: str | None = None,
-                         fsdp_size: int | None = None):
+                         fsdp_size: int | None = None, params=None):
     """Wrap ``optimizer`` so each ``step()`` first averages the gradients
     across ``group`` — the drop-in analog of ``hvd.DistributedOptimizer``.
     ``fusion_threshold`` overrides ``HOROVOD_FUSION_THRESHOLD`` (bytes; 0
@@ -525,28 +527,112 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, group: int = 0,
     ``HOROVOD_EXCHANGE_SCHEDULE``) picks the exchange plan
     (``ops/exchange.py``; ``HOROVOD_MAX_CHANNELS`` caps its channel
     choice), both knobs read here; a step's plan is ``last_plan()`` after
-    it (the COO gradients' rows are not in it). ``sharded=True`` and
-    ``sharding="zero2"|"zero3"`` (with ``fsdp_size``) are ZeRO, ROADMAP §A
-    item 12(d), and raise."""
+    it (the COO gradients' rows are not in it).
+
+    ``sharded=True`` is ZeRO-1 and ``sharding="zero2"|"zero3"`` (None:
+    ``HOROVOD_SHARDING``; ``fsdp_size``: ``HOROVOD_FSDP_AXIS_SIZE``, else
+    one host) ZeRO-2/3 over the ``data × fsdp`` mesh
+    (``parallel/sharded.py``); their steps run inside ``hvd.spmd``, and
+    ``zero3`` returns a :class:`~horovod_tpu_torch.parallel.sharded.
+    Zero3Optimizer`, whose step shape ``Trainer(sharding='zero3')`` drives.
+    Gradient ``compression`` composes (bf16 for ZeRO-1; none, bf16, int8
+    and int8_block for ZeRO-2/3); the knobs a sharded exchange leaves no
+    room for raise, with the reference's texts. A sharded mode also takes
+    an optimizer builder (``training.sgd``/``adam``) for ``optimizer``,
+    built over the shards of ``params``."""
     if isinstance(optimizer, _DistributedOptimizer):
         raise TypeError("optimizer is already a DistributedOptimizer.")
     if error_feedback is None:
         error_feedback = _env.error_feedback_default()
-    if sharding is not None:
-        value = str(sharding).strip().lower()
-        if value not in ("off", "zero2", "zero3"):
+    sharding_mode = _mesh.resolve_sharding(sharding)
+    if sharding_mode != "off":
+        if sharded:
             raise HorovodError(
-                f"sharding must be one of ['off', 'zero2', 'zero3'], got "
-                f"{sharding!r}")
-        if value != "off":
-            raise NotImplementedError(
-                f"sharding={value!r} (ZeRO-2/3 over the data x fsdp mesh) "
-                f"is not ported yet: ROADMAP §A item 12(d). Drop the "
-                f"argument or use sharding='off'.")
+                f"sharded=True (ZeRO-1) and sharding={sharding_mode!r} "
+                f"(ZeRO-2/3) are different sharded-state schemes; pick "
+                f"one. Drop sharded=True to use the FSDP modes.")
+        for arg, value, why in (
+                ("sparse_algo", sparse_algo,
+                 "sparse IndexedSlices gradients are not supported"),
+                ("channels", channels,
+                 "its per-leaf exchange has no bucket channel instances"),
+                ("cross_compression", cross_compression,
+                 "the cross-slice wire format is fixed by the "
+                 "compressor's own phase-asymmetric policy"),
+                ("fusion_threshold", fusion_threshold,
+                 "the exchange is per-leaf by construction (shards must "
+                 "map back to layers for gather-on-use)"),
+                ("algo", algo,
+                 "the exchange already IS the reduce-scatter prefix of "
+                 "the topology's own decomposition"),
+                ("schedule", schedule,
+                 "issue order is the plan's fsdp gather order, not a "
+                 "bucket schedule")):
+            if value is not None:
+                raise HorovodError(
+                    f"{arg}= does not apply to the sharded "
+                    f"({sharding_mode}) optimizer: {why}. Drop the "
+                    f"argument or use sharding='off'.")
+        if error_feedback:
+            raise HorovodError(
+                f"error_feedback is not supported by the sharded "
+                f"({sharding_mode}) optimizer: its state is a flat "
+                f"per-leaf shard pytree and the shard-keeping exchange "
+                f"has no per-rank attributable quantization error. Use "
+                f"sharding='off' (or compression='bf16', which needs no "
+                f"compensation).")
+        cls = (_sharded.Zero2Optimizer if sharding_mode == "zero2"
+               else _sharded.Zero3Optimizer)
+        return cls(optimizer, group=group, average=average,
+                   compression=compression, fsdp_size=fsdp_size,
+                   params=params)
     if sharded:
-        raise NotImplementedError(
-            "sharded=True (the ZeRO-1 sharded-state optimizer) is not "
-            "ported yet: ROADMAP §A item 12(d). Use sharded=False.")
+        if sparse_algo is not None:
+            raise HorovodError(
+                "sparse_algo= does not apply to the sharded (ZeRO-1) "
+                "optimizer: sparse IndexedSlices gradients are not "
+                "supported there at all. Drop the argument or use "
+                "sharded=False.")
+        if channels is not None:
+            raise HorovodError(
+                "channels= does not apply to the sharded (ZeRO-1) "
+                "optimizer: its exchange is one flat reduce-scatter per "
+                "dtype, not per-bucket channel instances. Drop the "
+                "argument or use sharded=False.")
+        if cross_compression is not None:
+            raise HorovodError(
+                "cross_compression does not apply to the sharded "
+                "(ZeRO-1) optimizer: its exchange is one flat "
+                "reduce-scatter per dtype with no hierarchical phases. "
+                "Drop the argument or use sharded=False.")
+        if error_feedback:
+            raise HorovodError(
+                "error_feedback is not supported by the sharded (ZeRO-1) "
+                "optimizer: its state is a flat 1/n shard pytree, not "
+                "per-parameter, so there is nowhere to carry per-leaf "
+                "residuals. Use sharded=False (or compression='bf16', "
+                "which needs no compensation).")
+        if fusion_threshold is not None:
+            raise HorovodError(
+                "fusion_threshold does not apply to the sharded (ZeRO-1) "
+                "optimizer: it already moves one flat reduce-scatter per "
+                "dtype, so there is nothing to fuse. Drop the argument or "
+                "use sharded=False.")
+        if algo is not None:
+            raise HorovodError(
+                "algo= does not apply to the sharded (ZeRO-1) optimizer: "
+                "its exchange already IS the reduce-scatter + all-gather "
+                "decomposition. Drop the argument or use sharded=False.")
+        if schedule is not None:
+            raise HorovodError(
+                "schedule= does not apply to the sharded (ZeRO-1) "
+                "optimizer: it moves one flat reduce-scatter per dtype, "
+                "so there is no bucket issue order to schedule. Drop the "
+                "argument or use sharded=False.")
+        return _sharded.ShardedOptimizer(optimizer, group=group,
+                                         average=average,
+                                         compression=compression,
+                                         params=params)
     _sparse.resolve_sparse_algo(sparse_algo)
     return _DistributedOptimizer(
         optimizer, group, average, fusion_threshold,

@@ -21,9 +21,15 @@ state_dict, "epoch": N}`` (:meth:`Trainer.train_state`), serialized to bytes
 first so that the CRC covers exactly the bytes written, in
 ``checkpoint-NNNNN.pt``, and it is read back with ``torch.load(...,
 weights_only=True)``. (The reference writes flax msgpack,
-``checkpoint-NNNNN.msgpack``: an intended divergence, ROADMAP §C.) The
-sharded convention (``save_sharded``/``load_sharded``) waits for ZeRO,
-ROADMAP §A item 12.
+``checkpoint-NNNNN.msgpack``: an intended divergence, ROADMAP §C.)
+
+The sharded convention is for rank-divergent state (the ZeRO modes' shards:
+``Trainer(sharded=True)``, ``sharding="zero2"|"zero3"``): EVERY rank calls
+:func:`save_sharded` and writes its own ``checkpoint-NNNNN.shardRRR.pt``
+(RRR its global rank: a process is a rank, where the reference writes one
+file a process) with its own manifest, and :func:`load_sharded` reads the
+rank's own file back, agreeing with the group on the epoch when asked for
+the newest.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from horovod_tpu_torch.core.state import HorovodError
 from horovod_tpu_torch.ops import collectives as _coll
 
 _FILE_RE = re.compile(r"checkpoint-(\d+)\.pt$")
+_SHARD_FILE_RE = re.compile(r"checkpoint-(\d+)\.shard\d+\.pt$")
 
 
 def _path(directory: str, epoch: int) -> str:
@@ -52,6 +59,21 @@ def _path(directory: str, epoch: int) -> str:
 
 def _manifest_path(directory: str, epoch: int) -> str:
     return os.path.join(directory, f"checkpoint-{epoch:05d}.manifest.json")
+
+
+def _shard_path(directory: str, epoch: int, pid: int) -> str:
+    return os.path.join(directory, f"checkpoint-{epoch:05d}.shard{pid:03d}.pt")
+
+
+def _shard_manifest_path(directory: str, epoch: int, pid: int) -> str:
+    return os.path.join(
+        directory, f"checkpoint-{epoch:05d}.shard{pid:03d}.manifest.json")
+
+
+def _pid() -> int:
+    """The shard index of this process: its global rank (0 before
+    ``hvd.init``)."""
+    return _state.global_rank() if _state.is_initialized() else 0
 
 
 def _atomic_write(path: str, data: bytes, *, fault_epoch: int | None = None
@@ -142,6 +164,18 @@ def verify_epoch(directory: str, epoch: int,
                             _manifest_path(directory, epoch), crc=crc)
 
 
+def verify_sharded_epoch(directory: str, epoch: int,
+                         pid: int | None = None,
+                         *, crc: bool = True) -> tuple[bool, str]:
+    """Is THIS rank's shard of ``epoch`` complete? (Each rank verifies only
+    the shard it will load; ``pid`` names another.)"""
+    if pid is None:
+        pid = _pid()
+    return _verify_manifest(directory, _shard_path(directory, epoch, pid),
+                            _shard_manifest_path(directory, epoch, pid),
+                            crc=crc)
+
+
 def save(directory: str, state: dict, epoch: int) -> str:
     """Write a checkpoint (the caller applies the rank-0 gate; the
     ModelCheckpointCallback does). ``state`` is what
@@ -160,29 +194,6 @@ def save(directory: str, state: dict, epoch: int) -> str:
     _write_manifest(_manifest_path(directory, epoch), epoch,
                     {os.path.basename(path): data})
     return path
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"checkpoint.{what}: the sharded convention (one file a rank, for "
-        f"ZeRO-sharded state) is not ported: ROADMAP §A item 12.")
-
-
-def save_sharded(directory: str, state: dict, epoch: int,
-                 group: int = 0) -> str | None:
-    """Not ported: waits for ZeRO (ROADMAP §A item 12)."""
-    _not_ported("save_sharded")
-
-
-def load_sharded(directory: str, template: dict, epoch: int | None = None,
-                 group: int = 0, *, verify: bool = True) -> dict:
-    """Not ported: waits for ZeRO (ROADMAP §A item 12)."""
-    _not_ported("load_sharded")
-
-
-def latest_sharded_epoch(directory: str, *, verify: bool = True) -> int:
-    """Not ported: waits for ZeRO (ROADMAP §A item 12)."""
-    _not_ported("latest_sharded_epoch")
 
 
 def _scan_epochs(directory: str, pattern) -> list[int]:
@@ -236,6 +247,109 @@ def latest_epoch(directory: str, *, verify: bool = True) -> int:
     epochs = _verified_epochs(
         directory, _FILE_RE, lambda e: verify_epoch(directory, e),
         "checkpoint", limit=1)
+    return epochs[0] if epochs else -1
+
+
+def save_sharded(directory: str, state: dict, epoch: int,
+                 group: int = 0) -> str | None:
+    """Write this rank's SHARDED state (what :meth:`Trainer.train_state`
+    returns under a ZeRO mode): EVERY rank calls this and writes its own
+    shard file — no rank-0 gate, nothing is dropped. A rank that is not a
+    member of ``group`` has no shard and writes nothing (returns None).
+    Restore with :func:`load_sharded` under the same ranks. Atomic, with a
+    CRC32 manifest, as :func:`save`."""
+    if _state.rank(group) < 0:
+        return None
+    os.makedirs(directory, exist_ok=True)
+    buf = io.BytesIO()
+    torch.save(dict(state, epoch=epoch), buf)
+    data = buf.getvalue()
+    pid = _pid()
+    path = _shard_path(directory, epoch, pid)
+    _atomic_write(path, data, fault_epoch=epoch)
+    _write_manifest(_shard_manifest_path(directory, epoch, pid), epoch,
+                    {os.path.basename(path): data})
+    return path
+
+
+def load_sharded(directory: str, template: dict, epoch: int | None = None,
+                 group: int = 0, *, verify: bool = True) -> dict:
+    """Restore this rank's sharded state saved by :func:`save_sharded`
+    (its own shard file, on the CPU, through ``torch.load(weights_only=
+    True)``); ``template`` must have the payload's keys. A rank that is
+    not a member of ``group`` returns ``template`` unchanged (but still
+    takes part in the ``epoch=None`` agreement).
+
+    ``epoch=None`` is a COLLECTIVE: every rank size-verifies its own shards
+    and the group agrees on the newest epoch verified on EVERY rank (the
+    set intersection of :func:`agree_on_resume_epoch`), which each rank
+    then CRC-verifies. Without the agreement a rank whose newest shard is
+    torn would restore an older epoch than its peers. No rank has a
+    loadable shard -> ``FileNotFoundError``; some do but no epoch is
+    loadable everywhere -> ``HorovodError``. An explicit ``epoch`` that
+    fails its integrity check raises (``verify=False`` skips that
+    check)."""
+    member = _state.rank(group) >= 0
+    pid = _pid()
+    if epoch is None:
+        local_epochs = _verified_epochs(
+            directory, _SHARD_FILE_RE,
+            lambda e: verify_sharded_epoch(directory, e, pid, crc=False),
+            "sharded checkpoint", limit=_AGREE_K) if member else []
+        epoch, newest = _agree_newest_common(
+            local_epochs, group, "hvd.agree_sharded_epoch")
+        if not member:
+            return template
+        if epoch < 0:
+            if newest >= 0:
+                raise HorovodError(
+                    f"No sharded checkpoint epoch in {directory} is "
+                    f"loadable on EVERY process (the newest loadable epoch "
+                    f"on some process is {newest}). A torn shard from a "
+                    f"crashed writer, or a process topology change, leaves "
+                    f"that process unable to match its peers; restore the "
+                    f"missing shard or resume from a replicated-convention "
+                    f"checkpoint.")
+            raise FileNotFoundError(f"No sharded checkpoints in {directory}.")
+        ok, why = verify_sharded_epoch(directory, epoch, pid)
+        if not ok:
+            raise HorovodError(
+                f"Agreed sharded resume epoch {epoch} (shard {pid}) in "
+                f"{directory} failed its CRC check: {why}. Delete or move "
+                f"the corrupt shard and resume again.")
+    else:
+        if not member:
+            return template
+        if verify:
+            ok, why = verify_sharded_epoch(directory, epoch, pid)
+            if not ok:
+                raise HorovodError(
+                    f"Sharded checkpoint epoch {epoch} (shard {pid}) in "
+                    f"{directory} failed its integrity check: {why}. Pass "
+                    f"epoch=None to resume from the newest complete "
+                    f"checkpoint instead.")
+    with open(_shard_path(directory, epoch, pid), "rb") as f:
+        restored = torch.load(f, map_location="cpu", weights_only=True)
+    if template is not None and set(restored) != set(template):
+        raise HorovodError(
+            f"Sharded checkpoint epoch {epoch} (shard {pid}) in "
+            f"{directory} holds {sorted(restored)}, but the state to "
+            f"restore has {sorted(template)}.")
+    return restored
+
+
+def latest_sharded_epoch(directory: str, *, verify: bool = True) -> int:
+    """Newest sharded-checkpoint epoch whose shard for THIS rank is
+    complete (shard files only), or -1. Torn/corrupt shards are skipped
+    with a warning, like :func:`latest_epoch`."""
+    if not verify:
+        epochs = _scan_epochs(directory, _SHARD_FILE_RE)
+        return epochs[0] if epochs else -1
+    pid = _pid()
+    epochs = _verified_epochs(
+        directory, _SHARD_FILE_RE,
+        lambda e: verify_sharded_epoch(directory, e, pid),
+        "sharded checkpoint", limit=1)
     return epochs[0] if epochs else -1
 
 

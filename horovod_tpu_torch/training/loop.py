@@ -21,8 +21,18 @@ parameters' device, as ``optax.inject_hyperparams`` keeps it in the
 optimizer state, so
 :meth:`LRControlMixin.set_lr` reaches a captured step. :meth:`Trainer.
 restore` (``fit(resume=...)``) resumes from the newest checkpoint every
-rank can load (``training/checkpoint.py``). Elastic training and ZeRO are
-not ported yet.
+rank can load (``training/checkpoint.py``).
+
+``Trainer(sharded=True)`` trains with ZeRO-1 and ``sharding="zero2"|
+"zero3"`` (None: ``HOROVOD_SHARDING``) with ZeRO-2/3 over the ``data ×
+fsdp`` mesh (``parallel/sharded.py``). ZeRO-1 and zero2 keep the step's
+shape: the wrapper's ``step()`` reduces the gradients to shards, updates
+them and gathers the new parameters. zero3 changes it: the module's
+parameters live as shards, and each step gathers them, runs forward and
+backward on the gathered tensors, and updates shard to shard. Sharded
+state persists through ``checkpoint.save_sharded``/``load_sharded``:
+``restore`` and ``sync_state`` refuse it, as the reference's do. Elastic
+training is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,9 +45,12 @@ import torch.utils._pytree as pytree
 
 from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.core.state import HorovodError
+from horovod_tpu_torch.ops import mesh as _mesh
 from horovod_tpu_torch.ops import optim as _optim
 from horovod_tpu_torch.parallel import optimizer as _opt
+from horovod_tpu_torch.parallel import sharded as _sharded
 from horovod_tpu_torch.parallel import spmd as _spmd
+from horovod_tpu_torch.utils import env as _env
 
 
 class SGD(torch.optim.Optimizer):
@@ -270,7 +283,10 @@ class Trainer(LRControlMixin):
     new leading dim and returns the mean loss of its K steps).
     ``schedule``: the gradient exchange's plan (``"enum"``/``"priority"``;
     None defers to ``HOROVOD_EXCHANGE_SCHEDULE``), passed to the
-    :func:`DistributedOptimizer` made here.
+    :func:`DistributedOptimizer` made here. ``sharded=True`` (ZeRO-1) and
+    ``sharding`` (``"off"``/``"zero2"``/``"zero3"``; None defers to
+    ``HOROVOD_SHARDING``) pick the sharded modes (module docstring); a
+    builder is then built over the shards.
 
     On the card the step is captured as a CUDA graph (:func:`spmd`), so
     ``loss_fn`` must not synchronise with the host, and the optimizer must
@@ -284,17 +300,32 @@ class Trainer(LRControlMixin):
     def __init__(self, model: torch.nn.Module, loss_fn: Callable, optimizer,
                  group: int = 0, has_aux: bool = False,
                  fusion_threshold: int | None = None,
-                 steps_per_call: int = 1, schedule: str | None = None) -> None:
+                 steps_per_call: int = 1, schedule: str | None = None,
+                 sharded: bool = False, sharding: str | None = None) -> None:
         if steps_per_call < 1:
             raise HorovodError("steps_per_call must be >= 1.")
         self.model = model
         self.loss_fn = loss_fn
-        if isinstance(optimizer, OptimizerBuilder):
+        self.sharding = _mesh.resolve_sharding(sharding)
+        if self.sharding != "off" and _env.elastic_requested():
+            raise HorovodError(
+                f"HOROVOD_ELASTIC=1 is incompatible with Trainer("
+                f"sharding={self.sharding!r}): the elastic shrink/regrow "
+                f"path re-replicates training state and would desync "
+                f"sharded (ZeRO-2/3) layouts. Use the replicated path "
+                f"(sharding='off') with elastic training.")
+        if isinstance(optimizer, OptimizerBuilder) and not (
+                sharded or self.sharding != "off"):
             optimizer = optimizer(model.parameters())
-        if not isinstance(optimizer, _opt._DistributedOptimizer):
+        if not isinstance(optimizer, (_opt._DistributedOptimizer,
+                                      _sharded._Sharded)):
             optimizer = _opt.DistributedOptimizer(
                 optimizer, group=group, fusion_threshold=fusion_threshold,
-                schedule=schedule)
+                schedule=schedule, sharded=sharded, sharding=self.sharding,
+                params=list(model.parameters()))
+        if self.sharding == "zero3":
+            optimizer.bind(model)
+            optimizer.init(optimizer.init_shards())
         self.optimizer = optimizer
         self.group = group
         self.has_aux = has_aux
@@ -318,7 +349,16 @@ class Trainer(LRControlMixin):
     def sync_state(self, root_rank: int = 0, group: int | None = None) -> None:
         """Broadcast parameters, buffers and optimizer state from
         ``root_rank`` — what BroadcastGlobalVariablesCallback runs. The
-        step is recorded anew at its next call."""
+        step is recorded anew at its next call. Sharded (zero2/zero3)
+        state is rank-divergent and refused."""
+        if self.sharding != "off":
+            raise HorovodError(
+                f"Trainer.sync_state does not apply to sharding="
+                f"{self.sharding!r}: optimizer state (and for zero3, "
+                f"parameters) is intentionally rank-divergent — rank "
+                f"d*F+f holds fsdp shard f — so broadcasting one rank's "
+                f"rows would overwrite every other shard. Sharded state "
+                f"persists via checkpoint.save_sharded/load_sharded.")
         g = self.group if group is None else group
         _opt.broadcast_global_variables(self.model, self.optimizer,
                                         root_rank, g)
@@ -326,10 +366,25 @@ class Trainer(LRControlMixin):
 
     def train_state(self) -> dict:
         """What a checkpoint holds: the model's and the optimizer's state
-        dicts and the epoch."""
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict(),
-                "epoch": self.epoch}
+        dicts and the epoch; under zero3 also this rank's parameter shards
+        (``"shards"``; the module's own parameters are released)."""
+        state = {"model": self.model.state_dict(),
+                 "optimizer": self.optimizer.state_dict(),
+                 "epoch": self.epoch}
+        if self.sharding == "zero3":
+            state["shards"] = list(self.optimizer.shards)
+        return state
+
+    def load_state(self, state: dict) -> None:
+        """Load what :meth:`train_state` returned (e.g. from
+        ``checkpoint.load_sharded``) into this trainer, in place."""
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        if self.sharding == "zero3":
+            with torch.no_grad():
+                for shard, t in zip(self.optimizer.shards, state["shards"]):
+                    shard.copy_(t)
+        self.epoch = int(state["epoch"])
 
     def restore(self, directory: str) -> int:
         """Crash-safe resume (what ``fit(resume=...)`` calls): agree with
@@ -345,6 +400,13 @@ class Trainer(LRControlMixin):
         unchanged when the directory holds no loadable checkpoint)."""
         from horovod_tpu_torch.training import checkpoint as _ckpt
 
+        if self.sharding != "off":
+            raise HorovodError(
+                f"Trainer.restore/fit(resume=...) supports only the "
+                f"replicated path; sharding={self.sharding!r} state is "
+                f"rank-divergent (each rank holds its own fsdp shard) "
+                f"and must round-trip via "
+                f"checkpoint.save_sharded/load_sharded.")
         if _state.rank(self.group) < 0:
             # The agreement hands a memberless process only its LOCAL scan,
             # so it could branch away from the members' restore sequence
@@ -377,14 +439,29 @@ class Trainer(LRControlMixin):
         (``set_to_none=False``), so a captured step reads and writes the
         same tensors at every replay."""
         self.model.train()
-        self.optimizer.zero_grad(set_to_none=False)
-        out = self.loss_fn(self.model, batch)
-        loss, aux = out if self.has_aux else (out, {})
-        loss.backward()
-        self.optimizer.step()
+        if self.sharding == "zero3":
+            loss, aux = self._zero3_grads(batch)
+        else:
+            self.optimizer.zero_grad(set_to_none=False)
+            out = self.loss_fn(self.model, batch)
+            loss, aux = out if self.has_aux else (out, {})
+            loss.backward()
+            self.optimizer.step()
         self._sync_buffers([b for b in self.model.buffers()
                             if b.dtype.is_floating_point])
         return loss.detach(), aux
+
+    def _zero3_grads(self, batch):
+        """The zero3 step shape: gather the parameters, forward and
+        backward on the gathered tensors, update shard to shard."""
+        opt = self.optimizer
+        full = opt.gather_params()
+        with opt.swapped(self.model, full):
+            out = self.loss_fn(self.model, batch)
+            loss, aux = out if self.has_aux else (out, {})
+            loss.backward()
+        opt.apply_gradients([t.grad for t in full])
+        return loss, aux
 
     def _build_step(self) -> _spmd.Spmd:
         # The program reaches the trainer through a weak reference: the

@@ -21,7 +21,9 @@ and decomposition: ``HOROVOD_COMPRESSION``, ``HOROVOD_COMPRESSION_BLOCK``,
 ``HOROVOD_EXCHANGE_SCHEDULE`` and ``HOROVOD_MAX_CHANNELS``
 (``ops/exchange.py``),
 ``HOROVOD_TOPOLOGY_SLICES`` (``ops/topology.py``) and
-``HOROVOD_TUNING_CACHE`` (``utils/costs.py``).
+``HOROVOD_TUNING_CACHE`` (``utils/costs.py``), and ``HOROVOD_SHARDING`` and
+``HOROVOD_FSDP_AXIS_SIZE`` pick the ZeRO mode and its mesh
+(``ops/mesh.py``).
 
 Every other knob of the reference is registered too, with the ROADMAP §A
 item that ports it (:data:`UNPORTED_RESULT_KNOBS`,
@@ -53,6 +55,7 @@ PORTED_KNOBS = frozenset({
     "HOROVOD_EXCHANGE_CHANNELS",
     "HOROVOD_EXCHANGE_SCHEDULE",
     "HOROVOD_FAULT_INJECT",
+    "HOROVOD_FSDP_AXIS_SIZE",
     "HOROVOD_FUSION_THRESHOLD",
     "HOROVOD_MAX_CHANNELS",
     "HOROVOD_NEGOTIATION_TIMEOUT",
@@ -68,6 +71,7 @@ PORTED_KNOBS = frozenset({
     "HOROVOD_SERVE_PREFIX_CACHE",
     "HOROVOD_SERVE_SPECULATE",
     "HOROVOD_SERVE_WATCHDOG_TIMEOUT",
+    "HOROVOD_SHARDING",
     "HOROVOD_SPARSE_DENSITY_THRESHOLD",
     "HOROVOD_SPARSE_PAD_CAPACITY",
     "HOROVOD_STALL_CHECK_TIME",
@@ -80,10 +84,6 @@ PORTED_KNOBS = frozenset({
 # name -> (ROADMAP §A item, what it does, the values that leave it off).
 # Set to anything else, each raises at hvd.init.
 UNPORTED_RESULT_KNOBS: dict[str, tuple[int, str, frozenset]] = {
-    "HOROVOD_SHARDING": (12, "ZeRO sharding of optimizer state and "
-                             "parameters", frozenset({"", "off"})),
-    "HOROVOD_FSDP_AXIS_SIZE": (12, "the FSDP mesh axis of the ZeRO modes",
-                               frozenset({""})),
     "HOROVOD_ELASTIC": (15, "elastic shrink and regrow",
                         frozenset({"", "0"})),
 }
@@ -253,6 +253,73 @@ def check_unported(environ=None) -> None:
                 f"{name} is set but not ported: ROADMAP §A item {item}. It "
                 f"only tunes timing or reporting; the run goes on without "
                 f"it.", stacklevel=2)
+
+
+def sharding_mode() -> str:
+    """``HOROVOD_SHARDING`` (default ``off``): the sharding mode that
+    ``DistributedOptimizer`` and ``Trainer`` take for ``sharding=None`` —
+    ``off`` (replicated), ``zero2`` (reduce-scattered gradients and
+    optimizer state sharded 1/fsdp_size, replicated parameters) or
+    ``zero3`` (the parameters sharded too, gathered on use;
+    ``ops/mesh.py``, ``parallel/sharded.py``). A typo raises at
+    ``hvd.init``."""
+    raw = os.environ.get("HOROVOD_SHARDING")
+    if raw is None:
+        return "off"
+    value = raw.strip().lower() or "off"
+    if value not in ("off", "zero2", "zero3"):
+        raise ValueError(
+            f"HOROVOD_SHARDING must be off|zero2|zero3, got {raw!r}")
+    return value
+
+
+def fsdp_axis_size() -> int | None:
+    """``HOROVOD_FSDP_AXIS_SIZE`` (default unset = auto): the size of the
+    ``fsdp`` mesh axis of the zero2/zero3 modes (``ops/mesh.py``). Auto is
+    one host on a multi-host topology (shards gather over NVLink while the
+    ``data`` axis spans the hosts) and the whole group on one host; an
+    override must divide the ranks of a host, which is checked where the
+    mesh is built. A typo raises at ``hvd.init``."""
+    raw = os.environ.get("HOROVOD_FSDP_AXIS_SIZE")
+    if raw is None or not raw.strip():
+        return None
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_FSDP_AXIS_SIZE must be a positive integer axis "
+            f"size, got {raw!r}") from None
+    if n < 1:
+        raise ValueError(
+            f"HOROVOD_FSDP_AXIS_SIZE must be >= 1, got {raw!r}")
+    return n
+
+
+def elastic_requested() -> bool:
+    """``HOROVOD_ELASTIC=1``: the elastic runtime is asked for (which the
+    port refuses at ``hvd.init``: ROADMAP §A item 15)."""
+    return os.environ.get("HOROVOD_ELASTIC", "").strip() == "1"
+
+
+def validate_sharding_knobs() -> None:
+    """The reference's ``hvd.init`` checks of the sharding knobs: both
+    parsed (a typo raises), then sharding with ``HOROVOD_ELASTIC=1``
+    refused with its text. Called before :func:`check_unported`, so that
+    combination names the conflict rather than the unported elastic
+    runtime."""
+    from horovod_tpu_torch.core.state import HorovodError
+
+    mode = sharding_mode()
+    fsdp_axis_size()
+    if elastic_requested() and mode != "off":
+        raise HorovodError(
+            f"HOROVOD_ELASTIC=1 is incompatible with "
+            f"HOROVOD_SHARDING={mode}: the elastic "
+            f"shrink/regrow path re-replicates training state and "
+            f"would desync sharded (ZeRO-2/3) layouts on reshard. "
+            f"Use the replicated path (HOROVOD_SHARDING=off) with "
+            f"elastic training, or drop HOROVOD_ELASTIC for "
+            f"sharded runs.")
 
 
 def prefetch_depth() -> int:

@@ -17,7 +17,9 @@
   one epoch back on both ranks, and the resumed 2-rank run ends bit for bit
   where the uninterrupted run ends; a process outside the trainer's group
   is refused.
-* ``fit(resume=, initial_epoch=)`` and the sharded convention are refused.
+* ``fit(resume=, initial_epoch=)`` is refused; each function of the sharded
+  convention round-trips in a one-rank world (``tests/test_torch_fsdp.py``
+  holds it against four ranks).
 
 The spawned children import this module, so JAX is imported only inside
 the parent-side functions.
@@ -418,9 +420,35 @@ def test_resume_from_an_empty_directory_starts_fresh(tmp_path):
 
 
 @pytest.mark.parametrize("fn", ["save_sharded", "load_sharded",
-                                "latest_sharded_epoch"])
-def test_the_sharded_convention_is_not_ported(fn):
-    args = {"save_sharded": ("d", {}, 0), "load_sharded": ("d", {}),
-            "latest_sharded_epoch": ("d",)}[fn]
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 12"):
-        getattr(tck, fn)(*args)
+                                "latest_sharded_epoch",
+                                "verify_sharded_epoch"])
+def test_each_sharded_checkpoint_function_round_trips(tmp_path, fn):
+    """A rank's shard file (``checkpoint-NNNNN.shardRRR.pt``) written by
+    ``save_sharded`` is found, verified and read back bit for bit."""
+    import horovod_tpu_torch as hvd
+
+    hvd.init(device="cpu")
+    try:
+        d = str(tmp_path)
+        state = {"model": {"w": torch.arange(6.0)},
+                 "shards": [torch.ones(3, dtype=torch.bfloat16)],
+                 "epoch": 0}
+        path = tck.save_sharded(d, state, 4)
+        if fn == "save_sharded":
+            assert os.path.basename(path) == "checkpoint-00004.shard000.pt"
+            assert os.path.exists(os.path.join(
+                d, "checkpoint-00004.shard000.manifest.json"))
+        elif fn == "load_sharded":
+            for epoch in (None, 4):
+                back = tck.load_sharded(d, state, epoch=epoch)
+                assert back["epoch"] == 4
+                assert torch.equal(back["model"]["w"], state["model"]["w"])
+                assert torch.equal(back["shards"][0], state["shards"][0])
+        elif fn == "latest_sharded_epoch":
+            assert tck.latest_sharded_epoch(d) == 4
+            assert tck.latest_epoch(d) == -1  # a family of its own
+        else:
+            assert tck.verify_sharded_epoch(d, 4) == (True, "ok")
+            assert tck.verify_sharded_epoch(d, 3)[0] is False
+    finally:
+        hvd.shutdown()

@@ -322,8 +322,6 @@ from horovod_tpu_torch.utils import env as tenv  # noqa: E402
 
 # A value the reference accepts that turns each result knob on.
 RESULT_VALUES = {
-    "HOROVOD_SHARDING": "zero2",
-    "HOROVOD_FSDP_AXIS_SIZE": "2",
     "HOROVOD_ELASTIC": "1",
 }
 OFF_VALUES = {
@@ -420,8 +418,12 @@ EXCHANGE_VALUES = {
     "HOROVOD_TOPOLOGY_SLICES": "1",
     "HOROVOD_TUNING_CACHE": "tuning.json",
 }
-# What item 12 still leaves: ZeRO (12(d)).
-ITEM_12_LEFT = ("HOROVOD_FSDP_AXIS_SIZE", "HOROVOD_SHARDING")
+# ZeRO's knobs (ROADMAP §A item 12(d)), each with values the reference
+# accepts: the two that were result knobs here, and one more of each.
+SHARDING_VALUES = [("HOROVOD_SHARDING", "zero2"),
+                   ("HOROVOD_SHARDING", "zero3"),
+                   ("HOROVOD_FSDP_AXIS_SIZE", "2"),
+                   ("HOROVOD_FSDP_AXIS_SIZE", "1")]
 
 
 @pytest.mark.parametrize("name", sorted(EXCHANGE_VALUES))
@@ -438,13 +440,25 @@ def test_the_exchange_knobs_are_ported(clean_env, name):
     assert hvd.is_initialized()
 
 
-@pytest.mark.parametrize("name", ITEM_12_LEFT)
-def test_the_rest_of_item_12_still_refuses_or_warns(name):
-    item = (tenv.UNPORTED_RESULT_KNOBS[name][0]
-            if name in tenv.UNPORTED_RESULT_KNOBS
-            else tenv.UNPORTED_TUNING_KNOBS[name])
-    assert item == 12
-    assert name not in tenv.PORTED_KNOBS
+@pytest.mark.parametrize("name,value", SHARDING_VALUES)
+def test_the_sharding_knobs_are_ported(clean_env, name, value):
+    """HOROVOD_SHARDING and HOROVOD_FSDP_AXIS_SIZE (ROADMAP §A item 12(d))
+    are read by the port: set, they draw neither a refusal nor a warning
+    at hvd.init, and the sharding mode is what ``sharding=None`` takes."""
+    from horovod_tpu_torch.ops import mesh
+
+    assert name in tenv.PORTED_KNOBS
+    assert name not in tenv.UNPORTED_RESULT_KNOBS
+    assert name not in tenv.UNPORTED_TUNING_KNOBS
+    clean_env.setenv(name, value)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        hvd.init(device="cpu")
+    assert hvd.is_initialized()
+    if name == "HOROVOD_SHARDING":
+        assert mesh.resolve_sharding(None) == value
+    else:
+        assert tenv.fsdp_axis_size() == int(value)
 
 
 def test_recalibration_still_warns_naming_item_16(clean_env):
@@ -557,8 +571,7 @@ WIRE_KEYWORDS = ("compression", "compression_key", "algo",
                                 "DistributedOptimizer"])
 def test_every_exchange_keyword_of_the_reference_is_taken(fn):
     """Every wire/algorithm/channel/schedule keyword of the reference's
-    function is in the port's signature (ZeRO's too: they raise, naming
-    item 12(d))."""
+    function is in the port's signature (ZeRO's too)."""
     import inspect
 
     import horovod_tpu as jhvd
@@ -569,15 +582,23 @@ def test_every_exchange_keyword_of_the_reference_is_taken(fn):
     assert want and all(k in got for k in want), sorted(set(want) - set(got))
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"sharded": True}, "12(d)"), ({"sharding": "zero2"}, "12(d)"),
-    ({"sharding": "zero3"}, "12(d)")])
-def test_the_planner_and_zero_raise_naming_item_12(kw, item):
-    import re
-
-    with pytest.raises(NotImplementedError, match=re.escape(f"item {item}")):
-        hvd.DistributedOptimizer(torch.optim.SGD(
-            [torch.nn.Parameter(torch.zeros(2))], lr=0.1), **kw)
+@pytest.mark.parametrize("kw,kind", [
+    ({"sharded": True}, "ShardedOptimizer"),
+    ({"sharding": "zero2"}, "Zero2Optimizer"),
+    ({"sharding": "zero3"}, "Zero3Optimizer"),
+    ({"sharding": "zero2", "fsdp_size": 1}, "Zero2Optimizer")])
+def test_zero_is_taken_by_the_optimizer(clean_env, kw, kind):
+    """``sharded=True`` and ``sharding="zero2"|"zero3"`` (with
+    ``fsdp_size``; ROADMAP §A item 12(d)) no longer raise: the optimizer
+    returns the sharded wrapper, its inner optimizer built over the
+    shards."""
+    hvd.init(device="cpu")
+    param = torch.nn.Parameter(torch.zeros(2))
+    opt = hvd.DistributedOptimizer(torch.optim.SGD([param], lr=0.1), **kw)
+    assert type(opt).__name__ == kind
+    if kind != "Zero3Optimizer":
+        assert [p.shape for g in opt.param_groups for p in g["params"]] \
+            == [(2,)]
 
 
 @pytest.mark.parametrize("kw", [{"schedule": "priority"},
