@@ -238,13 +238,38 @@ Phases, one line of output each:
     skipped with its warning (``_chip_smoke_zero/``, gitignored, removed
     after); (d) the zero3 step's ``last_plan()`` carries the fsdp section
     and has the hash of the JAX package's plan of the same leaves
-    (``ZERO3_PLAN_HASH``, pinned by the CPU tests).
+    (``ZERO3_PLAN_HASH``, pinned by the CPU tests);
+19. sequence parallelism (``parallel/sequence.py``): (a) a 4-rank ring
+    replayed on one card: the LM's attention (``LM_ATTN_SHAPE``, bf16,
+    causal) cut into 4 shards of 2048, and for each virtual rank r and
+    step s the port's own ring step (``sequence.ring_step``, flash body)
+    on the shard that rank holds then, src = (r − s) mod 4, contiguous
+    and zigzag; the hops are left out, so B3 and B4 run at exactly the
+    offsets a 4-rank ring gives them (shards wholly in the causal future,
+    dead rows, a nonzero LSE cotangent from the merge). O, the LSE and
+    dq, dk, dv of the concatenated outputs are held to phase 6's row
+    limits against ``flash_attention_lse`` at full T (B3/B4), against
+    B3/B4's plain versions at full T, and against the same replay through
+    the plain versions; each replay runs twice and must give the same
+    bits; (b) phase 8's LM at world 1 (8 layers, B=2, T=8192, bf16,
+    ``AdamW(3e-4, weight_decay=0.1)``), 10 captured ``Trainer`` steps
+    under ``attention='ring'`` (fused head), ``'ring'`` with
+    ``sp_layout='zigzag'`` (logits head: zigzag refuses the fused one) and
+    ``'ulysses'`` (fused head): finite, falling losses, each first loss
+    within ``SP_LOSS_TOL`` of phase 8's (the same function, up to the
+    merge's roundings; zigzag's of B times it, as the reference's zigzag
+    loss is), and the launches a step of ``SP_LAUNCHES``
+    (the ring's recompute doubles B3; zigzag attends four chunk pairs a
+    layer); each arm's step ms; (c) the ported example
+    ``long_context_transformer`` at world 1 prints the reference's
+    message and launches nothing.
 
-Each main path (5, 8 and 10, each example of 14, each run of 17 and each
-arm of 18) runs with its kernels' launch counts set to 0 just before it
-and read just after; the kernels line's ``launches`` are phases 5 and 8's
-counts (the eager step and the 9 replays), and ``launches_phase18`` each
-arm's count in phase 18. Then a JSON line with each kernel's
+Each main path (5, 8 and 10, each example of 14, each run of 17, each
+arm of 18 and of 19 (b)) runs with its kernels' launch counts set to 0
+just before it and read just after; the kernels line's ``launches`` are
+phases 5 and 8's counts (the eager step and the 9 replays), and
+``launches_phase18`` and ``launches_phase19`` each arm's count in phases
+18 and 19. Then a JSON line with each kernel's
 record, and last the result line ``{"ok": true, "device": {...}}``. Any failed phase raises: the script then
 exits non-zero and prints no result. It also fails without CUDA, and when
 the ``horovod_tpu_torch`` package is not beside it.
@@ -257,6 +282,7 @@ full fp32; the main path computes in bf16, which TF32 does not touch.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import itertools
 import json
@@ -287,6 +313,7 @@ from horovod_tpu_torch.ops import optim
 from horovod_tpu_torch.ops import (compression, exchange, fusion, sparse,
                                    strategy)
 from horovod_tpu_torch.ops.optim import AdamW
+from horovod_tpu_torch.parallel import sequence
 from horovod_tpu_torch.parallel.optimizer import (FusedAllreduce,
                                                   optimizer_state_tensors)
 from horovod_tpu_torch import training
@@ -4139,6 +4166,237 @@ def zero_line(z: dict, ident: str) -> str:
             f"{z['seconds']:.1f} s, on {ident}")
 
 
+# -- sequence parallelism (phase 19) -------------------------------------------
+
+SP_RING = 4                    # (a): the virtual ranks of the replayed ring
+SP_STEPS = STEPS               # (b): captured steps an arm
+# (b): each arm's first loss against phase 8's, relative: the same
+# function on the same weights and tokens, but the ring merges its
+# partials (bf16 outputs) by their LSE and zigzag leaves out the one
+# transition across its chunk boundary (1 of 8191 a row), each a
+# difference of ~1e-3 at most.
+SP_LOSS_TOL = 2e-2
+# The reference's zigzag loss (models/transformer.py:412-413, kept by the
+# port for parity) divides the masked sum over all B rows by one row's
+# transition count: B times the mean. Its first loss is held as that.
+SP_LOSS_SCALE = {"zigzag": LM_BATCH}
+SP_ARMS = {"ring": dict(attention="ring"),
+           "zigzag": dict(attention="ring", sp_layout="zigzag"),
+           "ulysses": dict(attention="ulysses")}
+# (b): launches a step. At world 1 the ring has one step a layer, run
+# under torch.utils.checkpoint, so the backward runs B3 again before B4;
+# zigzag attends its two chunks' four pairs a step (the pair wholly in
+# the causal future included), each recomputed; Ulysses attends once,
+# uncheckpointed, as the local path does.
+SP_LAUNCHES = {
+    "ring": {"flash_fwd": 2 * LM_LAYERS, "flash_bwd": LM_LAYERS,
+             "adamw": 1},
+    "zigzag": {"flash_fwd": 8 * LM_LAYERS, "flash_bwd": 4 * LM_LAYERS,
+               "adamw": 1},
+    "ulysses": {"flash_fwd": LM_LAYERS, "flash_bwd": LM_LAYERS, "adamw": 1},
+}
+
+
+def _ring_shards(x, layout):
+    """The SP_RING shards of (B, T, ...) a ring of that many ranks holds."""
+    if layout == "zigzag":
+        return list(sequence.zigzag_shard(x, SP_RING).unbind(0))
+    return list(x.chunk(SP_RING, dim=1))
+
+
+def _ring_join(parts, layout):
+    if layout == "zigzag":
+        return sequence.zigzag_unshard(torch.stack(parts))
+    return torch.cat(parts, dim=1)
+
+
+def ring_replay(q, k, v, g_out, layout: str) -> tuple:
+    """(O, LSE, dq, dk, dv) of a SP_RING-rank ring over (q, k, v) replayed on
+    one card: for each virtual rank r, the port's ring step at each step s
+    on the shard r holds then (src = (r - s) mod SP_RING), no hops; then
+    backward of the concatenated outputs against ``g_out``. The LSE is
+    each row's m + log(l) of the merged state."""
+    q, k, v = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    t_local = q.shape[1] // SP_RING
+    chunks = 2 if layout == "zigzag" else 1
+    qs, ks, vs = (_ring_shards(t, layout) for t in (q, k, v))
+
+    def offsets(r):
+        return sequence.chunk_offsets(r, SP_RING, t_local, chunks)
+
+    outs, lses = [], []
+    for r in range(SP_RING):
+        state = sequence.ring_state(qs[r], chunks, "flash")
+        for s in range(SP_RING):
+            src = (r - s) % SP_RING
+            state = sequence.ring_step(qs[r], ks[src], vs[src], state,
+                                       offsets(r), offsets(src),
+                                       causal=True)
+        outs.append(sequence.ring_output(state, "flash", q.dtype))
+        lses.append(torch.cat([(m + torch.log(l)).detach()
+                               for m, l, _ in state], dim=1))
+    out = _ring_join(outs, layout)
+    out.backward(g_out)
+    lse = _ring_join(lses, layout).transpose(1, 2).contiguous()
+    return (out.detach(), lse, q.grad, k.grad, v.grad)
+
+
+@contextlib.contextmanager
+def _through_plain():
+    """Route B3/B4's dispatch to their plain versions for a ``with`` block
+    (the autograd function calls ``fa.flash_fwd``/``fa.flash_bwd``)."""
+    fwd, bwd = fa.flash_fwd, fa.flash_bwd
+    fa.flash_fwd, fa.flash_bwd = fa.flash_fwd_plain, fa.flash_bwd_plain
+    try:
+        yield
+    finally:
+        fa.flash_fwd, fa.flash_bwd = fwd, bwd
+
+
+def check_ring_replay(device) -> dict:
+    """(a): the replayed ring, both layouts, against full-T B3/B4, full-T
+    plain B3/B4 and the replay through the plain versions."""
+    b, t, h, hkv, d = LM_ATTN_SHAPE
+    q, k, v, g_out, _, _ = _flash_inputs(b, t, t, h, hkv, d, torch.bfloat16,
+                                         device, SEED + 19)
+    full = _flash_kernels(q, k, v, g_out, None, dict(causal=True))
+    p_out, p_lse = fa.flash_fwd_plain(q, k, v, causal=True)
+    plain = (p_out, p_lse, *fa.flash_bwd_plain(q, k, v, p_out, p_lse, g_out,
+                                               causal=True))
+    out = {}
+    for layout in ("contiguous", "zigzag"):
+        fa.reset_launch_counts()
+        got = ring_replay(q, k, v, g_out, layout)
+        launches = dict(fa.LAUNCHES)
+        again = ring_replay(q, k, v, g_out, layout)
+        torch.cuda.synchronize()
+        differ = [n for n, a, c in zip(("O", "lse") + FLASH_OUTPUTS[1:],
+                                       got, again) if not torch.equal(a, c)]
+        if differ:
+            raise RuntimeError(f"ring replay ({layout}) is not deterministic:"
+                               f" a second run changed {differ}")
+        with _through_plain():
+            by_plain = ring_replay(q, k, v, g_out, layout)
+        rec = {"launches": launches}
+        for name, want in (("full", full), ("full_plain", plain),
+                           ("replay_plain", by_plain)):
+            errs = _flash_errors(got, want)
+            fault = _flash_faults(errs)
+            if fault:
+                raise RuntimeError(
+                    f"ring replay ({layout}) vs {name}: beyond the limits "
+                    f"(row {FLASH_ROW_TOL}, lse {LSE_TOL}): {fault}")
+            rec[name] = errs
+        out[layout] = rec
+        del got, again, by_plain
+        free_cuda()
+    return out
+
+
+def sp_lm_arm(device, arm: str, tokens) -> dict:
+    """(b): phase 8's LM under one SP arm at world 1, SP_STEPS captured
+    ``Trainer`` steps on one batch; B3, B4 and A1 counted."""
+    cfg = lm_config(torch.bfloat16)._replace(**SP_ARMS[arm])
+    model = transformer.init_params(cfg, seed=SEED, device=device)
+    trainer = hvd.Trainer(
+        model, transformer.make_loss_fn(
+            cfg, sp_rank=lambda: hvd.rank(cfg.sp_group),
+            fused_head=arm != "zigzag"),
+        AdamW(model.parameters(), 3e-4, weight_decay=0.1))
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launch_counts()
+    losses, ms = _timed_steps(trainer, tokens, SP_STEPS)
+    launches = {k: v for k, v in launch_counts().items()
+                if k in ("flash_fwd", "flash_bwd", "adamw")}
+    losses = [float(x) for x in losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"sp LM {arm}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"sp LM {arm}: loss did not fall: {losses}")
+    check_captured(trainer, launches, SP_LAUNCHES[arm])
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    del trainer, model
+    free_cuda()
+    return {"losses": losses, "ms": ms, "launches": launches,
+            "peak_gib": peak}
+
+
+def phase_sequence(device, local_first_loss: float | None = None) -> dict:
+    """Phase 19: sequence parallelism at one rank (module docstring).
+    ``local_first_loss``: phase 8's first loss (None: one eager step of
+    the local arm here)."""
+    t0 = time.perf_counter()
+    out = {"replay": check_ring_replay(device)}
+    cfg = lm_config(torch.bfloat16)
+    tokens = transformer.synthetic_tokens(LM_BATCH, LM_T, cfg.vocab_size,
+                                          seed=SEED, device=device)
+    if local_first_loss is None:
+        model = transformer.init_params(cfg, seed=SEED, device=device)
+        trainer = hvd.Trainer(model, transformer.make_loss_fn(
+            cfg, fused_head=True), AdamW(model.parameters(), 3e-4,
+                                         weight_decay=0.1))
+        local_first_loss = float(trainer.train_step(tokens)[0])
+        del trainer, model
+        free_cuda()
+    out["local_first_loss"] = local_first_loss
+    out["lm"] = {}
+    for arm in SP_ARMS:
+        r = sp_lm_arm(device, arm, tokens)
+        want = SP_LOSS_SCALE.get(arm, 1) * local_first_loss
+        rel = abs(r["losses"][0] - want) / abs(want)
+        if not rel <= SP_LOSS_TOL:
+            raise RuntimeError(
+                f"sp LM {arm}: first loss {r['losses'][0]:.6f} vs "
+                f"{want:.6f} (the local arm's {local_first_loss:.6f}), rel "
+                f"err {rel:.3e} (limit {SP_LOSS_TOL})")
+        r["first_rel"] = rel
+        out["lm"][arm] = r
+    from horovod_tpu_torch.examples import long_context_transformer
+
+    reset_launch_counts()
+    got = long_context_transformer.main([])
+    if got is not None or any(launch_counts().values()):
+        raise RuntimeError(f"long_context_transformer at world 1 ran: "
+                           f"{got}, launches {launch_counts()}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def sequence_line(sq: dict, ident: str) -> str:
+    """Phase 19's line."""
+    def errs(e):
+        return ", ".join(f"{n} {e[n]:.2e}" for n in FLASH_OUTPUTS) + \
+            f", lse {e['lse']:.2e}"
+
+    rp = "; ".join(
+        f"{layout}: launches {r['launches']}, vs full-T B3/B4 {errs(r['full'])}"
+        f"; vs full-T plain {errs(r['full_plain'])}; vs the replay through "
+        f"the plain versions {errs(r['replay_plain'])}"
+        for layout, r in sq["replay"].items())
+
+    def ms(r):
+        steady = r["ms"][2:]
+        return (f"{statistics.median(steady):.2f} ms (min "
+                f"{min(steady):.2f}, max {max(steady):.2f})")
+
+    lm = "; ".join(
+        f"{arm}: loss {r['losses'][0]:.4f} -> {r['losses'][-1]:.4f} (first "
+        f"vs local{' x B' if arm in SP_LOSS_SCALE else ''} rel err "
+        f"{r['first_rel']:.2e}), launches {r['launches']} "
+        f"({SP_LAUNCHES[arm]} a step), step {ms(r)}, peak memory "
+        f"{r['peak_gib']:.1f} GiB" for arm, r in sq["lm"].items())
+    return (f"phase 19 sequence: ok; (a) a {SP_RING}-rank ring replayed on "
+            f"one card at {LM_ATTN_SHAPE} causal bf16 (shards of "
+            f"{LM_ATTN_SHAPE[1] // SP_RING}), each replay twice and "
+            f"bit-identical, worst row err (limit {FLASH_ROW_TOL}) and lse "
+            f"err (limit {LSE_TOL}): {rp}; (b) the LM ({LM_LAYERS} layers, "
+            f"B={LM_BATCH} T={LM_T} bf16, AdamW(3e-4, wd 0.1)) at world 1, "
+            f"{SP_STEPS} captured steps, local first loss "
+            f"{sq['local_first_loss']:.4f} (limit {SP_LOSS_TOL}): {lm}; (c) "
+            f"long_context_transformer at world 1 returned without a "
+            f"launch; phase {sq['seconds']:.1f} s, on {ident}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -4396,6 +4654,14 @@ def main() -> int:
                                          "adamw") else zr["resnet50"]
         k["launches_phase18"] = {arm: r["launches"][k["name"]]
                                  for arm, r in runs.items()}
+
+    sq = phase_sequence(device, lm_losses[0])
+    say(sequence_line(sq, ident) + f"; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+    for k in kernels:
+        if k["name"] in ("flash_fwd", "flash_bwd", "adamw"):
+            k["launches_phase19"] = {arm: r["launches"][k["name"]]
+                                     for arm, r in sq["lm"].items()}
 
     say(json.dumps({"kernels": kernels}))
     hvd.shutdown()

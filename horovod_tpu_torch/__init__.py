@@ -25,13 +25,18 @@ package's rank-axis helpers for a world where a process is a rank.
 
 The long-context LM (``models/transformer.py``) trains the same way, with
 ``ops.optim.AdamW`` and ``make_loss_fn(config, fused_head=True)``; its
-attention above 2048 tokens runs on the flash kernels B3/B4. The same LM
+attention above 2048 tokens runs on the flash kernels B3/B4. Its sequence
+can be sharded over a group (``attention='ring'``/``'ulysses'``,
+``ring_attention``, ``ulysses_attention`` and the zigzag layout's
+``zigzag_shard``/``zigzag_unshard``/``zigzag_positions``), and
+``allreduce_gradients``/``DistributedOptimizer`` take a group family
+(``group=(1, 2)``) inside a program. The same LM
 serves through ``hvd.serving.Engine`` (paged KV cache, continuous batching)
 and ``models.transformer.generate`` (dense KV cache).
 
 The reference's training entry points are here too: the MNIST models
 (``models/mnist.py``), the input pipeline (``training.data``: sharded
-datasets, ``prefetch_to_device``), ``training.Estimator``, and the nine
+datasets, ``prefetch_to_device``), ``training.Estimator``, and the ten
 examples, ``python -m horovod_tpu_torch.examples.<name>``.
 
 Sparse gradients are ``hvd.IndexedSlices``: ``allreduce_gradients`` and
@@ -76,7 +81,14 @@ from horovod_tpu_torch.ops.sparse import (  # noqa: F401
     IndexedSlices,
     allreduce_indexed_slices,
 )
-from horovod_tpu_torch.parallel.sequence import local_attention  # noqa: F401
+from horovod_tpu_torch.parallel.sequence import (  # noqa: F401
+    local_attention,
+    ring_attention,
+    ulysses_attention,
+    zigzag_positions,
+    zigzag_shard,
+    zigzag_unshard,
+)
 from horovod_tpu_torch.parallel.spmd import (  # noqa: F401
     device_put_ranked,
     local_values,

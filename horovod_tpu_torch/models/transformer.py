@@ -5,9 +5,18 @@ the same network, parameter for parameter, so weights carry across
 (:func:`from_flax_params`) and both frameworks compute the same function.
 Pre-norm blocks (RMSNorm → attention → RMSNorm → GELU MLP), rotary position
 embeddings, grouped-query attention (``num_kv_heads``), an optional sliding
-``window`` and packed-sequence ``segment_ids``. Attention goes through
+``window`` and packed-sequence ``segment_ids``. The attention strategy is
+the reference's: ``'local'`` (every rank sees its whole sequence, through
 :func:`~horovod_tpu_torch.parallel.sequence.local_attention`, which sends
-sequences longer than 2048 tokens on the GPU to the flash kernels B3/B4.
+sequences longer than 2048 tokens on the GPU to the flash kernels B3/B4),
+``'ring'`` (the sequence sharded over the ``sp_group``'s ranks, exact
+attention by :func:`~horovod_tpu_torch.parallel.sequence.ring_attention`,
+``sp_layout`` contiguous or zigzag) or ``'ulysses'`` (sharded, head-parallel
+attention by :func:`~horovod_tpu_torch.parallel.sequence.ulysses_attention`).
+Under ``'ring'``/``'ulysses'`` the model takes the local shard and its rotary
+phases come from global positions (``shard_offset``, or ``positions`` for a
+zigzag shard); both run inside an ``hvd.spmd`` program. Parameters are the
+same under every strategy.
 
 Parameters keep flax's shapes and are fp32; each op casts them and its
 input to the compute ``dtype`` (bf16 by default), as flax's ``dtype`` does:
@@ -43,10 +52,6 @@ RMSNorm sums the statistics in an order independent of the number of rows,
 its products run on at most 8 rows at a time, and the attend takes one
 query position at a time (the card's reductions and products otherwise
 round by their shapes).
-
-Not ported yet: sequence-parallel attention (``attention='ring'`` /
-``'ulysses'``, the ``'zigzag'`` layout — ROADMAP §A item 13); those raise
-``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,9 +64,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.models.resnet import lecun_normal_
 from horovod_tpu_torch.ops.losses import default_chunk, fused_cross_entropy
-from horovod_tpu_torch.parallel.sequence import local_attention
+from horovod_tpu_torch.parallel.sequence import (local_attention,
+                                                 ring_attention,
+                                                 ulysses_attention,
+                                                 zigzag_positions)
 from horovod_tpu_torch.serving.kv_cache import (dequantize_kv, kv_quantized,
                                                 quantize_kv,
                                                 resolve_kv_dtype)
@@ -76,28 +85,14 @@ class TransformerConfig(NamedTuple):
     mlp_dim: int = 2048
     max_seq_len: int = 2048
     dtype: torch.dtype = torch.bfloat16
-    attention: str = "local"      # only 'local' is ported
-    sp_group: int = 0
+    attention: str = "local"      # 'local' | 'ring' | 'ulysses'
+    sp_group: int = 0             # context-parallel group for ring/ulysses
     num_kv_heads: int | None = None  # GQA/MQA: fewer K/V heads (None = MHA)
-    sp_layout: str = "contiguous"
+    sp_layout: str = "contiguous"    # ring only: 'contiguous' | 'zigzag'
     decode: bool = False          # one-token KV-cache decoding
     window: int | None = None     # sliding-window attention (causal SWA)
     kv_dtype: str = "model"       # paged-KV pool format ('model' = dtype;
                                   # fp32|bf16|int8_block|int4 — serving)
-
-
-def _not_ported(config: TransformerConfig) -> None:
-    if config.attention in ("ring", "ulysses"):
-        raise NotImplementedError(
-            f"attention={config.attention!r} (sequence parallelism) is not "
-            f"ported to horovod_tpu_torch yet: ROADMAP §A item 13. Use "
-            f"attention='local'.")
-    if config.attention != "local":
-        raise ValueError(f"Unknown attention strategy {config.attention!r}.")
-    if config.sp_layout != "contiguous":
-        raise NotImplementedError(
-            f"sp_layout={config.sp_layout!r} belongs to ring attention, "
-            f"which is not ported yet: ROADMAP §A item 13.")
 
 
 def _rotary_tables(positions: torch.Tensor, d: int):
@@ -270,9 +265,33 @@ class Attention(nn.Module):
         cfg = self.config
         b, t, _ = x.shape
         q, k, v = self._qkv(x, _rotary_tables(positions, self.d))
-        out = local_attention(q, k, v, causal=True, window=cfg.window,
-                              q_segment_ids=segment_ids,
-                              kv_segment_ids=segment_ids)
+        segs = {}
+        if segment_ids is not None:
+            segs = dict(q_segment_ids=segment_ids,
+                        kv_segment_ids=segment_ids)
+        if cfg.attention == "ring":
+            out = ring_attention(q, k, v, group=cfg.sp_group, causal=True,
+                                 layout=cfg.sp_layout, window=cfg.window,
+                                 **segs)
+        elif cfg.attention == "ulysses":
+            if self.hkv != self.h:
+                # The all-to-all swaps the head axis against the sequence
+                # axis, which needs equal head counts: expand the grouped
+                # K/V heads locally (the ring carries Hkv heads instead).
+                k = k.repeat_interleave(self.h // self.hkv, dim=2)
+                v = v.repeat_interleave(self.h // self.hkv, dim=2)
+            if cfg.window is not None:
+                raise ValueError(
+                    "window is not supported with attention='ulysses'; "
+                    "use 'local' or 'ring'.")
+            out = ulysses_attention(q, k, v, group=cfg.sp_group,
+                                    causal=True, **segs)
+        elif cfg.attention == "local":
+            out = local_attention(q, k, v, causal=True, window=cfg.window,
+                                  **segs)
+        else:
+            raise ValueError(
+                f"Unknown attention strategy {cfg.attention!r}.")
         return _dense(out.reshape(b, t, self.h * self.d), self.out,
                       cfg.dtype)
 
@@ -354,8 +373,10 @@ class Transformer(nn.Module):
     """Decoder-only LM over a whole sequence: ``tokens`` (B, T) int →
     fp32 logits (B, T, V), or the final-norm hidden states (B, T, E) in
     ``dtype`` with ``return_hidden=True`` (what the fused loss takes).
-    ``shard_offset``: global position of the first token; ``positions``:
-    explicit (T,) positions overriding it. Weights are initialised as flax
+    ``shard_offset``: global position of the first token (``sp_rank ·
+    T_local`` under sequence parallelism); ``positions``: explicit (T,)
+    positions overriding it, required for ``sp_layout='zigzag'`` shards
+    (:func:`~horovod_tpu_torch.parallel.sequence.zigzag_positions`). Weights are initialised as flax
     initialises the reference (LeCun-normal kernels, N(0, 0.02) embedding,
     unit norm scales), drawing from ``generator``. :meth:`decode` is one
     decode step against a KV cache (the reference's ``decode=True``
@@ -364,7 +385,6 @@ class Transformer(nn.Module):
     def __init__(self, config: TransformerConfig,
                  generator: torch.Generator | None = None) -> None:
         super().__init__()
-        _not_ported(config)
         self.config = config
         e, v = config.embed_dim, config.vocab_size
         self.embed = nn.Parameter(
@@ -382,7 +402,18 @@ class Transformer(nn.Module):
                 "decode=True runs one-token steps against a KV cache: call "
                 "decode(tokens, cache=init_cache(...)) or decode(tokens, "
                 "kv_views=...) (the serving engine's paged views).")
+        cfg = self.config
+        if cfg.sp_layout == "zigzag" and cfg.attention != "ring":
+            raise ValueError(
+                "sp_layout='zigzag' only applies to attention='ring' "
+                f"(got {cfg.attention!r}); zigzag-sharded data under any "
+                "other strategy would silently misplace positions.")
         if positions is None:
+            if cfg.sp_layout == "zigzag":
+                raise ValueError(
+                    "sp_layout='zigzag' shards are not contiguous: pass "
+                    "positions=hvd.zigzag_positions(hvd.rank(sp_group), "
+                    "t_local, group_size) from inside the step function.")
             positions = shard_offset + torch.arange(tokens.shape[1],
                                                     device=tokens.device)
         x = F.embedding(tokens, self.embed.to(self.config.dtype))
@@ -512,27 +543,65 @@ def init_params(config: TransformerConfig, seed: int = 0,
     return Transformer(config, generator=g).to(device)
 
 
-def make_loss_fn(config: TransformerConfig, fused_head: bool = False):
-    """``loss_fn(model, tokens) -> loss``: next-token cross-entropy, mean
-    over the B·(T − 1) transitions, for :class:`~horovod_tpu_torch.Trainer`.
+def make_loss_fn(config: TransformerConfig, sp_rank=None,
+                 fused_head: bool = False):
+    """``loss_fn(model, tokens) -> loss``: next-token cross-entropy over the
+    local shard, for :class:`~horovod_tpu_torch.Trainer` (tokens: (B,
+    T_local)).
 
     ``fused_head=True`` runs the lm_head product inside
     :func:`~horovod_tpu_torch.ops.losses.fused_cross_entropy` (chunked
     vocabulary): the (N, V) logits never materialize, at the cost of one
-    extra head-product recompute in the backward. Plain data parallelism
-    only (the reference's ``sp_rank`` is for sequence parallelism, not
-    ported yet)."""
-    _not_ported(config)
+    extra head-product recompute in the backward. Contiguous layouts only.
+
+    ``sp_rank``: under sequence parallelism, a callable that returns this
+    rank's rank in the SP group (``lambda: hvd.rank(config.sp_group)``);
+    None for plain data parallelism. The shard starts at global position
+    ``sp_rank() · T_local``, and each shard trains on its own T_local − 1
+    transitions (the one across a shard boundary has its logit on the
+    previous rank); the loss is their mean.
+
+    With ``sp_layout='zigzag'`` the shard is two non-adjacent chunks: the
+    positions come from :func:`~horovod_tpu_torch.parallel.sequence.
+    zigzag_positions`, and the pair straddling the chunk boundary in the
+    middle of the shard is no transition, so it is masked out. As in the
+    reference, the masked sum over all B rows is divided by one row's
+    count of transitions: the zigzag loss is B times the mean."""
+    zigzag = (config.sp_layout == "zigzag"
+              and config.attention == "ring")
 
     def loss_fn(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+        t_local = tokens.shape[1]
         targets = tokens[:, 1:].reshape(-1).long()
+        if zigzag:
+            if fused_head:
+                raise ValueError(
+                    "fused_head=True is not supported with "
+                    "sp_layout='zigzag' (the cross-chunk loss masking is "
+                    "not plumbed through the fused path).")
+            if sp_rank is None:
+                raise ValueError(
+                    "sp_layout='zigzag' needs sp_rank (the SP group rank "
+                    "determines the shard's chunk positions).")
+            pos = zigzag_positions(sp_rank(), t_local,
+                                   _state.size(config.sp_group),
+                                   device=tokens.device)
+            logits = model(tokens, positions=pos)
+            per_tok = F.cross_entropy(
+                logits[:, :-1].reshape(-1, logits.shape[-1]), targets,
+                reduction="none").view(tokens.shape[0], t_local - 1)
+            # Transition c-1 -> c crosses the non-adjacent chunk boundary.
+            valid = (torch.arange(t_local - 1, device=tokens.device)
+                     != t_local // 2 - 1)
+            return (per_tok * valid[None]).sum() / valid.sum()
+        offset = 0 if sp_rank is None else sp_rank() * t_local
         if fused_head:
-            hidden = model(tokens, return_hidden=True)
+            hidden = model(tokens, shard_offset=offset, return_hidden=True)
             w = model.lm_head.to(config.dtype)
             x2 = hidden[:, :-1].reshape(-1, hidden.shape[-1])
             return fused_cross_entropy(x2, w, targets,
                                        chunk=default_chunk(w.shape[1]))
-        logits = model(tokens)
+        logits = model(tokens, shard_offset=offset)
         pred = logits[:, :-1].reshape(-1, logits.shape[-1])
         return F.cross_entropy(pred, targets)
 

@@ -185,7 +185,8 @@ def _family_group(ctx: _ctx.ProgramContext, family: tuple, opname: str,
 
 
 def _target(name: str, op: _neg.CollectiveOp, x: torch.Tensor, group,
-            root_rank: int = -1) -> tuple[_state.Group | None, bool]:
+            root_rank: int = -1,
+            members=None) -> tuple[_state.Group | None, bool]:
     """Register a collective and resolve where it runs: its group (for a
     family, the family group this rank is in) and whether the per-call
     negotiation runs. The group is None on a rank that takes no part."""
@@ -201,7 +202,8 @@ def _target(name: str, op: _neg.CollectiveOp, x: torch.Tensor, group,
             f"Group-family {opname} is only available inside hvd.spmd "
             f"traced code; eagerly, issue one {opname} per group.")
     family = tuple(int(gi) for gi in group)
-    ctx.register(name, op.name, dtype_name(x.dtype), tuple(x.shape), family)
+    ctx.register(name, op.name, dtype_name(x.dtype), tuple(x.shape), family,
+                 members=members)
     g = _family_group(ctx, family, opname,
                       uniform=op != _neg.CollectiveOp.ALLREDUCE)
     return g, ctx.negotiate
@@ -404,7 +406,7 @@ def allreduce(x: torch.Tensor, group=0, average: bool = True,
         _strategy.select(algo_spec, nbytes=0, group=None, restricted=True,
                          name=name)
         check_restricted_channels(ch, name)
-    g, negotiating = _target(name, op, x, group)
+    g, negotiating = _target(name, op, x, group, members=members)
     if g is None:
         return None if _is_group_index(group) else x.clone()
     if negotiating:

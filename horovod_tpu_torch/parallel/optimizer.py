@@ -108,11 +108,19 @@ class FusedAllreduce:
         self.plan: _exchange.ExchangeSchedule | None = None
         self._plans: dict = {}
 
-    def _restricted(self, g: _state.Group) -> bool:
-        """A group other than the program's (eagerly: the world's) takes
-        the flat lowering only."""
+    def _group(self) -> _state.Group | None:
+        """The exchange's group; None for a group family, whose members
+        each reduce on their own family group's process group."""
+        if _coll._is_group_index(self.group):
+            return _state.get_group(self.group)
+        return None
+
+    def _restricted(self, g: _state.Group | None) -> bool:
+        """A family, or a group other than the program's (eagerly: the
+        world's), takes the flat lowering only."""
         ctx = _ctx.current()
-        return g.index != (0 if ctx is None else ctx.group_index)
+        return g is None or g.index != (0 if ctx is None
+                                        else ctx.group_index)
 
     def _resolve(self, tensors, g: _state.Group, restricted: bool):
         """The plan of a new signature (an ``ExchangeSchedule``), and the
@@ -157,7 +165,8 @@ class FusedAllreduce:
             tensors, threshold, mode=mode, compression=comp,
             algo=bucket_algo,
             labels=[f"{self.name}.{i}" for i in range(len(tensors))],
-            topo=topo, world_size=g.size, priority_fn=self.priority_fn,
+            topo=topo, world_size=None if g is None else g.size,
+            priority_fn=self.priority_fn,
             cross_compression=cross_spec, channels=channels,
             max_channels=cap)
         return plan, comp, cross_spec, topo
@@ -174,6 +183,12 @@ class FusedAllreduce:
                      for b in range(len(sched.buckets))]
             plan = (sched, names, (comp, cross_spec, topo), None)
         sched, names, wire, negotiated = plan
+        if g is None:
+            # A family's buckets register and negotiate one by one, in the
+            # family allreduce (ops/collectives.py), as the reference's do.
+            self._plans[sig] = plan
+            self.plan = sched
+            return sched, names, wire, restricted
         # Inside a program the buckets register; the plan is negotiated
         # only where the per-call round runs (outside, or a first call).
         negotiating = False
@@ -197,7 +212,7 @@ class FusedAllreduce:
 
     def plan_of(self, tensors) -> _exchange.ExchangeSchedule:
         """``tensors``' plan (planned, not negotiated nor cached)."""
-        g = _state.get_group(self.group)
+        g = self._group()
         return self._resolve(tensors, g, self._restricted(g))[0]
 
     def buckets(self, tensors) -> list:
@@ -213,7 +228,11 @@ class FusedAllreduce:
         key."""
         if not tensors:
             return tensors
-        g = _state.get_group(self.group)
+        g = self._group()
+        if g is None and _ctx.current() is None:
+            raise HorovodError(
+                "Group-family allreduce is only available inside hvd.spmd "
+                "traced code; eagerly, issue one allreduce per group.")
         sched, names, (comp, cross_spec, topo), restricted = self._plan(
             tensors, g)
         buckets = sched.buckets
@@ -223,6 +242,18 @@ class FusedAllreduce:
                 "subset-group or group-family exchange masks non-member "
                 "contributions, which would corrupt the residual algebra. "
                 "Use group=0 (the global group) or drop error feedback.")
+        if g is None:
+            # Each bucket is one family allreduce: it reduces on this
+            # rank's family group (a rank in none keeps its values) and
+            # refuses compression with the reference's text. Its name is
+            # the collective's auto name, as the reference's buckets'.
+            _fusion.fused_apply_(
+                tensors, sched,
+                lambda flat, b: _coll.allreduce(
+                    flat, group=self.group, average=self.average,
+                    members=sched.members[b], compression=comp),
+                names)
+            return tensors
         if g.pg is None:
             return tensors
 
@@ -456,6 +487,11 @@ class _DistributedOptimizer:
                 "of models/word2vec.py) and exchange it with "
                 "hvd.allreduce_gradients, or step this optimizer eagerly.")
         g = self._allreduce.group
+        if not _coll._is_group_index(g):
+            raise HorovodError(
+                "Group-family sparse allreduce is not supported: an "
+                "IndexedSlices exchange targets a single group; issue one "
+                "allreduce_indexed_slices per group.")
         slices = _sparse.IndexedSlices(
             grad._values(), grad._indices()[0].to(torch.int32),
             tuple(grad.shape))

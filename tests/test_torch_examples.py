@@ -4,7 +4,8 @@ and the tiny flags of the JAX package's ``tests/test_examples.py``, and
 must exit 0 (the examples check themselves: ``lm_generate`` raises unless
 every served request equals ``generate``, ``grouped_collectives`` unless
 every rank sees the reference's values). ``grouped_collectives`` runs in
-a 5-rank gloo world (``horovod_tpu_torch.run.run``).
+a 5-rank gloo world and ``long_context_transformer`` in a 4-rank one
+(``horovod_tpu_torch.run.run``).
 """
 
 import os
@@ -93,6 +94,41 @@ def test_grouped_collectives_in_a_five_rank_gloo_world(tmp_path):
     assert "grouped collectives OK" in proc.stdout
     assert ("'s1': [3.0, 3.0, 3.0, 3.0, 4.0], "
             "'s2': [0.0, 1.0, 9.0, 9.0, 9.0]") in proc.stdout
+
+
+@pytest.mark.parametrize("attention", ["ring", "ulysses"])
+def test_long_context_transformer_in_a_four_rank_gloo_world(tmp_path,
+                                                             attention):
+    """2 DP x 2 SP over gloo, the reference's test flags on one repeated
+    batch: finite, falling losses, and the parameters equal on every rank
+    (gradients averaged over group 0)."""
+    code = ("import math\n"
+            "from horovod_tpu_torch.run import run\n"
+            "from horovod_tpu_torch.examples import "
+            "long_context_transformer as m\n"
+            "outs = run(m.main, 4, device='cpu', args=(['--device', 'cpu', "
+            "'--steps', '4', '--seq-len', '64', '--batch-size', '1', "
+            "'--num-layers', '1', '--embed-dim', '32', '--num-heads', '4', "
+            f"'--attention', '{attention}', '--repeat-batch'],), "
+            "timeout=240)\n"
+            "losses = outs[0]['losses']\n"
+            "assert all(o['losses'] == losses for o in outs), outs\n"
+            "assert all(math.isfinite(v) for v in losses), losses\n"
+            "assert losses[-1] < losses[0], losses\n"
+            "assert len({o['params_crc'] for o in outs}) == 1, outs\n"
+            "print('long context OK', losses)\n")
+    proc = _run(["-c", code], tmp_path)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert "4 devices as 2-way DP x 2-way SP" in proc.stdout
+    assert "long context OK" in proc.stdout
+
+
+def test_long_context_transformer_needs_two_ranks(capsys):
+    from horovod_tpu_torch.examples import long_context_transformer
+
+    assert long_context_transformer.main(["--device", "cpu"]) is None
+    assert ("needs an even device count >= 2 (have 1)"
+            in capsys.readouterr().out)
 
 
 def test_grouped_collectives_needs_five_ranks(capsys):

@@ -130,19 +130,70 @@ def test_examples_default_to_the_gpu(monkeypatch, name):
 
     mod = importlib.import_module(f"horovod_tpu_torch.examples.{name}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    # grouped_collectives returns early in a world of fewer than 5 ranks.
-    monkeypatch.setenv("WORLD_SIZE", "5")
+    # grouped_collectives returns early in a world of fewer than 5 ranks,
+    # long_context_transformer in one of an odd number.
+    monkeypatch.setenv("WORLD_SIZE", "6")
     hvd.shutdown()
     with pytest.raises(hvd.HorovodError, match="device='cpu'"):
         mod.main([])
     assert not hvd.is_initialized()
 
 
+NINE_EXAMPLES = ["embedding_bag", "grouped_collectives", "imagenet_resnet50",
+                 "keras_mnist", "keras_mnist_advanced", "lm_generate",
+                 "mnist", "mnist_estimator", "word2vec"]
+
+
 def test_the_nine_examples_are_ported():
-    assert EXAMPLES == sorted([
-        "embedding_bag", "grouped_collectives", "imagenet_resnet50",
-        "keras_mnist", "keras_mnist_advanced", "lm_generate", "mnist",
-        "mnist_estimator", "word2vec"])
+    assert set(NINE_EXAMPLES) <= set(EXAMPLES)
+
+
+def test_the_ten_examples_are_ported():
+    assert EXAMPLES == sorted(NINE_EXAMPLES + ["long_context_transformer"])
+
+
+@pytest.mark.parametrize("module", ["parallel/sequence.py",
+                                    "examples/long_context_transformer.py"])
+def test_the_sequence_modules_are_held_to_the_no_jax_rule(module):
+    path = REPO / "horovod_tpu_torch" / module
+    assert path in _port_sources()
+    assert not sorted(set(_imported_roots(path)) & FORBIDDEN)
+
+
+def test_make_loss_fn_takes_the_references_parameters():
+    """``make_loss_fn(config, sp_rank=None, fused_head=False)``: a caller
+    passing ``fused_head`` by position gets it where the reference puts
+    it."""
+    import inspect
+
+    from horovod_tpu.models import transformer as jt
+    from horovod_tpu_torch.models import transformer as tt
+
+    def params(fn):
+        return [(p.name, p.default) for p in
+                inspect.signature(fn).parameters.values()]
+
+    assert params(tt.make_loss_fn) == params(jt.make_loss_fn)
+    assert [n for n, _ in params(tt.make_loss_fn)] == [
+        "config", "sp_rank", "fused_head"]
+
+
+@pytest.mark.parametrize("kw", [dict(attention="ring"),
+                                dict(attention="ring", sp_layout="zigzag"),
+                                dict(attention="ulysses")],
+                         ids=["ring", "zigzag", "ulysses"])
+def test_sequence_parallel_lm_defaults_to_the_gpu(monkeypatch, kw):
+    """A ring or Ulysses config builds like a local one: on the GPU by
+    default, raising without CUDA, and on the CPU when asked."""
+    from horovod_tpu_torch.models import transformer as tt
+
+    cfg = tt.TransformerConfig(vocab_size=17, num_layers=1, num_heads=2,
+                               embed_dim=8, mlp_dim=16, max_seq_len=8,
+                               dtype=torch.float32, **kw)
+    assert isinstance(tt.init_params(cfg, device="cpu"), tt.Transformer)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tt.init_params(cfg)
 
 
 @pytest.mark.parametrize("kw,what", [

@@ -149,15 +149,25 @@ def test_loss_and_gradients_match_flax(fused_head):
 
 
 def test_not_ported_paths_raise():
+    """The sequence-parallel paths, once refused here, are ported
+    (tests/test_torch_sequence.py): they build, and they raise only where
+    the reference does — ring and Ulysses attention outside an
+    ``hvd.spmd`` program, the zigzag layout under local attention."""
+    from horovod_tpu_torch.core.state import HorovodError
     from horovod_tpu_torch.models import transformer as tt
 
-    for kw, match in ((dict(attention="ring"), "ROADMAP §A item 13"),
-                      (dict(attention="ulysses"), "ROADMAP §A item 13"),
-                      (dict(sp_layout="zigzag"), "ROADMAP §A item 13")):
-        with pytest.raises(NotImplementedError, match=match):
-            tt.Transformer(_port_config(**kw))
-        with pytest.raises(NotImplementedError, match=match):
-            tt.make_loss_fn(_port_config(**kw))
+    tokens = torch.zeros((1, 8), dtype=torch.long)
+    for kw, match in ((dict(attention="ring"), "ring_attention must be "
+                       "called inside an hvd.spmd-wrapped step function"),
+                      (dict(attention="ulysses"), "ulysses_attention must "
+                       "be called inside an hvd.spmd-wrapped step "
+                       "function"),
+                      (dict(sp_layout="zigzag"), "only applies to "
+                       "attention='ring'")):
+        model = tt.Transformer(_port_config(**kw))
+        loss_fn = tt.make_loss_fn(_port_config(**kw))
+        with pytest.raises((ValueError, HorovodError), match=match):
+            loss_fn(model, tokens)
     # The decode side is ported (tests/test_torch_decode.py): a decode
     # config builds, and its forward points at decode().
     model = tt.Transformer(_port_config(decode=True))
