@@ -263,13 +263,41 @@ Phases, one line of output each:
     layer); each arm's step ms; (c) the ported example
     ``long_context_transformer`` at world 1 prints the reference's
     message and launches nothing.
+20. tensor, expert and pipeline parallelism (``parallel/tensor.py``,
+    ``expert.py``, ``pipeline.py``) at one rank: (a) the TP transformer's
+    block at the LM's width (E=1024, H=8, D=128, mlp 4096, B=2, T=8192,
+    causal, bf16) replayed for tp = 2 and 4 virtual ranks, each running
+    the port's per-rank arithmetic (``tensor.attention_shard``,
+    ``mlp_shard``: B3/B4 at H/tp heads) on its column and row shards, the
+    partials summed in rank order; its output and the gradients of x and
+    every weight from a seeded cotangent held to ``TP_ROW_TOL`` (each
+    row's relative L2 error) against the dense block (tp = 1) through
+    B3/B4 and through their plain versions; each replay twice,
+    bit-identical, launching B3 and B4 tp times; (b) the ported
+    ``tp_transformer``'s loss and step at world 1 (``hvd.init([[0], [0],
+    [0]])``: TP family ``(1,)``, DP family ``(2,)``; V=32768, bf16,
+    ``training.adam``), 10 steps captured by ``hvd.spmd``: finite, falling
+    losses, B3, B4 and A1 once a step, and the first loss equal bit for
+    bit to the same block written without the TP functions; (c)
+    ``moe_mlp`` at world 1 (one expert) and a 4-expert EP group replayed
+    through the layer's per-rank steps (``expert.route``, ``dispatch``,
+    ``expert_mlp``, ``combine``) for k=1 and k=2, each against per-token
+    dense routing in fp32 (``MOE_ROW_TOL``, the dropped choices counted
+    and the same), then ``moe_transformer`` at world 1, 10 captured steps
+    as in (b); (d) ``gpipe`` and ``pipeline_1f1b`` at one stage over 4
+    microbatches of one LM block (Hkv=4, T=8192): gpipe's outputs and
+    gradients equal to the block run microbatch by microbatch bit for
+    bit, 1F1B's loss and gradients against gpipe + autograd
+    (``PIPE_LOSS_TOL``, ``PIPE_ROW_TOL``); (e) ``tp_transformer`` at
+    world 1 returns without a launch, and ``parallelism_zoo`` runs the
+    modes one rank can (DP, PP, SP, EP) and skips TP.
 
 Each main path (5, 8 and 10, each example of 14, each run of 17, each
-arm of 18 and of 19 (b)) runs with its kernels' launch counts set to 0
-just before it and read just after; the kernels line's ``launches`` are
-phases 5 and 8's counts (the eager step and the 9 replays), and
-``launches_phase18`` and ``launches_phase19`` each arm's count in phases
-18 and 19. Then a JSON line with each kernel's
+arm of 18, of 19 (b) and of 20) runs with its kernels' launch counts set
+to 0 just before it and read just after; the kernels line's
+``launches`` are phases 5 and 8's counts (the eager step and the 9
+replays), and ``launches_phase18``, ``launches_phase19`` and
+``launches_phase20`` each arm's count in phases 18, 19 and 20. Then a JSON line with each kernel's
 record, and last the result line ``{"ok": true, "device": {...}}``. Any failed phase raises: the script then
 exits non-zero and prints no result. It also fails without CUDA, and when
 the ``horovod_tpu_torch`` package is not beside it.
@@ -313,7 +341,10 @@ from horovod_tpu_torch.ops import optim
 from horovod_tpu_torch.ops import (compression, exchange, fusion, sparse,
                                    strategy)
 from horovod_tpu_torch.ops.optim import AdamW
-from horovod_tpu_torch.parallel import sequence
+from horovod_tpu_torch.examples import moe_transformer as moe_example
+from horovod_tpu_torch.examples import parallelism_zoo as zoo_example
+from horovod_tpu_torch.examples import tp_transformer as tp_example
+from horovod_tpu_torch.parallel import expert, sequence, tensor
 from horovod_tpu_torch.parallel.optimizer import (FusedAllreduce,
                                                   optimizer_state_tensors)
 from horovod_tpu_torch import training
@@ -3930,14 +3961,15 @@ def _zero_params(trainer) -> list[torch.Tensor]:
             for s, shape in zip(opt.shards, opt._shapes)]
 
 
-def _timed_steps(trainer, batch, steps: int):
-    """``steps`` calls of the captured step, each timed (host wall, ended by
-    a device sync): the losses and the ms of each step."""
+def _timed_steps(step, batch, steps: int):
+    """``steps`` calls of a captured step (``step(batch) -> loss``), each
+    timed (host wall, ended by a device sync): the losses and the ms of
+    each step."""
     losses, ms = [], []
     for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        losses.append(trainer.train_step(batch)[0])
+        losses.append(step(batch))
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
     return losses, ms
@@ -3967,7 +3999,8 @@ def zero_lm_arm(device, sharding: str, tokens, keep: bool = False) -> dict:
                           AdamW(model.parameters(), 3e-4, weight_decay=0.1),
                           sharding=sharding)
     reset_launch_counts()
-    losses, ms = _timed_steps(trainer, tokens, ZERO_STEPS)
+    losses, ms = _timed_steps(lambda b: trainer.train_step(b)[0], tokens,
+                              ZERO_STEPS)
     launches = {k: v for k, v in launch_counts().items()
                 if k in ("flash_fwd", "flash_bwd", "adamw")}
     check_captured(trainer, launches, {"flash_fwd": LM_LAYERS,
@@ -3988,7 +4021,8 @@ def zero_resnet_arm(device, sharded: bool, batch) -> dict:
                                           momentum=0.9),
                           has_aux=True, sharded=sharded)
     reset_launch_counts()
-    losses, ms = _timed_steps(trainer, batch, ZERO_STEPS)
+    losses, ms = _timed_steps(lambda b: trainer.train_step(b)[0], batch,
+                              ZERO_STEPS)
     launches = {k: v for k, v in launch_counts().items()
                 if k in ("channel_sums", "channel_grad_sums")}
     check_captured(trainer, launches, {k: BN_LAYERS for k in launches})
@@ -4305,7 +4339,8 @@ def sp_lm_arm(device, arm: str, tokens) -> dict:
         AdamW(model.parameters(), 3e-4, weight_decay=0.1))
     torch.cuda.reset_peak_memory_stats(device)
     reset_launch_counts()
-    losses, ms = _timed_steps(trainer, tokens, SP_STEPS)
+    losses, ms = _timed_steps(lambda b: trainer.train_step(b)[0], tokens,
+                              SP_STEPS)
     launches = {k: v for k, v in launch_counts().items()
                 if k in ("flash_fwd", "flash_bwd", "adamw")}
     losses = [float(x) for x in losses]
@@ -4395,6 +4430,465 @@ def sequence_line(sq: dict, ident: str) -> str:
             f"{sq['local_first_loss']:.4f} (limit {SP_LOSS_TOL}): {lm}; (c) "
             f"long_context_transformer at world 1 returned without a "
             f"launch; phase {sq['seconds']:.1f} s, on {ident}")
+
+
+# -- tensor, expert and pipeline parallelism (phase 20) -------------------------
+
+TP_DEGREES = (2, 4)            # (a): the virtual ranks of a replayed TP block
+TP_E, TP_HEADS, TP_MLP = 1024, 8, 4096   # the LM's width (D = 128)
+TP_VOCAB = 32_768
+PAR_STEPS = STEPS              # (b), (c): captured steps
+# (a): the worst row's relative L2 error of the replayed block's output and
+# gradients against the dense block. The replay adds tp bf16 partials
+# (each rounded once) where the dense block rounds one sum.
+TP_ROW_TOL = 2e-2
+# (c): the replayed MoE layer (bf16) against per-token dense routing in
+# fp32, rows of the tokens kept; dropped rows must be 0 on both.
+MOE_EXPERTS = 4                # the replayed EP group's virtual ranks
+MOE_ROW_TOL = 3e-2
+# (d): gpipe/1F1B microbatches of one LM block at full width (Hkv=4).
+PIPE_M = 4
+# (d): 1F1B against gpipe + autograd: the worst row's relative L2 error of
+# each gradient, and the loss's relative error.
+PIPE_ROW_TOL = 1e-2
+PIPE_LOSS_TOL = 1e-3
+PAR_LAUNCHES = {
+    "tp_transformer": {"flash_fwd": 1, "flash_bwd": 1, "adamw": 1},
+    "moe_transformer": {"flash_fwd": 1, "flash_bwd": 1, "adamw": 1},
+}
+
+
+def _seeded(shape, seed, device, scale=1.0, dtype=torch.bfloat16):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return (torch.randn(shape, generator=g) * scale).to(device, dtype)
+
+
+def tp_block(x, w, tp: int) -> torch.Tensor:
+    """The TP transformer's block (``x + attention``, then ``+ MLP``) as tp
+    virtual ranks compute it: each runs the port's per-rank arithmetic
+    (``tensor.attention_shard``/``mlp_shard``) on its column and row
+    shards of ``w``, and the partials are summed in rank order, as the
+    family allreduce sums them. tp = 1 is the dense block."""
+    h = TP_HEADS // tp
+
+    def cols(name, r):
+        c = w[name].shape[1] // tp
+        return w[name][:, r * c:(r + 1) * c]
+
+    def rows(name, r):
+        c = w[name].shape[0] // tp
+        return w[name][r * c:(r + 1) * c]
+
+    parts = [tensor.attention_shard(x, cols("wq", r), cols("wk", r),
+                                    cols("wv", r), rows("wo", r), h)
+             for r in range(tp)]
+    y = x + sum(parts)
+    parts = [tensor.mlp_shard(y, cols("w1", r), None, rows("w2", r))
+             for r in range(tp)]
+    return y + sum(parts)
+
+
+TP_OUTPUTS = ("out", "dx", "dwq", "dwk", "dwv", "dwo", "dw1", "dw2")
+
+
+def tp_replay(x, w, g, tp: int) -> tuple:
+    """(output, dx, dW…) of :func:`tp_block` at ``tp`` from the seeded
+    cotangent ``g``."""
+    x = x.detach().clone().requires_grad_(True)
+    ws = {k: v.detach().clone().requires_grad_(True) for k, v in w.items()}
+    out = tp_block(x, ws, tp)
+    out.backward(g)
+    return (out.detach(), x.grad) + tuple(ws[k].grad for k in
+                                          ("wq", "wk", "wv", "wo", "w1",
+                                           "w2"))
+
+
+def tp_inputs(device):
+    b, t = LM_BATCH, LM_T
+    e, m = TP_E, TP_MLP
+    w = {k: _seeded(s, SEED + 20 + i, device, 1 / math.sqrt(s[0]))
+         for i, (k, s) in enumerate((("wq", (e, e)), ("wk", (e, e)),
+                                     ("wv", (e, e)), ("wo", (e, e)),
+                                     ("w1", (e, m)), ("w2", (m, e))))}
+    return (_seeded((b, t, e), SEED + 30, device), w,
+            _seeded((b, t, e), SEED + 31, device))
+
+
+def check_tp_replay(device) -> dict:
+    """(a): the TP block replayed at each tp of TP_DEGREES against the dense
+    block through B3/B4 and through their plain versions."""
+    x, w, g = tp_inputs(device)
+    dense = tp_replay(x, w, g, 1)
+    with _through_plain():
+        plain = tp_replay(x, w, g, 1)
+    out = {}
+    for tp in TP_DEGREES:
+        fa.reset_launch_counts()
+        got = tp_replay(x, w, g, tp)
+        launches = {k: fa.LAUNCHES[k] for k in ("flash_fwd", "flash_bwd")}
+        again = tp_replay(x, w, g, tp)
+        torch.cuda.synchronize()
+        differ = [n for n, a, c in zip(TP_OUTPUTS, got, again)
+                  if not torch.equal(a, c)]
+        if differ:
+            raise RuntimeError(f"TP replay (tp={tp}) is not deterministic: "
+                               f"a second run changed {differ}")
+        if launches != {"flash_fwd": tp, "flash_bwd": tp}:
+            raise RuntimeError(f"TP replay (tp={tp}): launches {launches}, "
+                               f"want B3 and B4 {tp} each")
+        rec = {"launches": launches}
+        for name, want in (("dense", dense), ("dense_plain", plain)):
+            errs = {n: _row_err(a, b) for n, a, b in zip(TP_OUTPUTS, got,
+                                                         want)}
+            bad = {n: e for n, e in errs.items() if not e <= TP_ROW_TOL}
+            if bad:
+                raise RuntimeError(f"TP replay (tp={tp}) vs {name}: beyond "
+                                   f"{TP_ROW_TOL}: {bad}")
+            rec[name] = errs
+        out[tp] = rec
+        del got, again
+        free_cuda()
+    out["dense_vs_plain"] = {n: _row_err(a, b) for n, a, b in
+                             zip(TP_OUTPUTS, dense, plain)}
+    return out
+
+
+def _check_training(name, step, losses, launches) -> None:
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError(f"{name}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"{name}: loss did not fall: {losses}")
+    want = {k: v * PAR_STEPS for k, v in PAR_LAUNCHES[name].items()}
+    if launches != want or (step.runs, step.replays) != (2, PAR_STEPS - 1):
+        raise RuntimeError(
+            f"{name}: launches {launches} (want {want}), runs {step.runs}, "
+            f"replays {step.replays} (want 2, {PAR_STEPS - 1})")
+
+
+def tp_transformer_world1(device, tokens) -> dict:
+    """(b): the ported example's loss and step at world 1 (TP family (1,),
+    DP family (2,)), PAR_STEPS captured steps; its first loss against the
+    same block written without the TP functions."""
+    hvd.shutdown()
+    hvd.init([[0], [0], [0]])
+    full = tp_example.init_params(TP_VOCAB, TP_E, TP_MLP, seed=SEED,
+                                  device=device, dtype=torch.bfloat16)
+    with torch.no_grad():
+        x = full["embed"][tokens]
+        b, t, _ = x.shape
+
+        def heads(wn):
+            return (x @ full[wn]).reshape(b, t, TP_HEADS, -1)
+
+        attn = sequence.local_attention(heads("wq"), heads("wk"),
+                                        heads("wv"), causal=True)
+        x = x + attn.reshape(b, t, -1) @ full["wo"]
+        x = x + F.gelu(x @ full["w1"], approximate="tanh") @ full["w2"]
+        logits = x @ full["out"]
+        dense = F.cross_entropy(logits[:, :-1].float().reshape(
+            -1, TP_VOCAB), tokens[:, 1:].reshape(-1))
+        del x, attn, logits
+    rep, shd = tp_example.split(full, (1,))
+    opt = training.adam(3e-4)(list(rep.values()) + list(shd.values()))
+    step = hvd.spmd(tp_example.train_step(rep, shd, opt, TP_HEADS,
+                                          tp_family=(1,), dp_family=(2,)))
+    reset_launch_counts()
+    losses, ms = _timed_steps(step, tokens, PAR_STEPS)
+    losses = [float(v) for v in losses]
+    launches = {k: v for k, v in launch_counts().items()
+                if k in ("flash_fwd", "flash_bwd", "adamw")}
+    _check_training("tp_transformer", step, losses, launches)
+    first_err = abs(losses[0] - float(dense))
+    del rep, shd, opt, step, full
+    free_cuda()
+    return {"losses": losses, "ms": ms, "launches": launches,
+            "dense_first": float(dense), "first_equal": first_err == 0.0,
+            "first_err": first_err}
+
+
+def moe_dense_reference(xs, gate, experts, k: int, cap: int):
+    """Per-token dense routing in fp32 for the replayed EP group: each
+    source's router probabilities from the same bf16 logits as the layer,
+    its top-k by a stable descending sort (a tie to the lower expert, the
+    layer's rule: bf16 logits tie often), capacity positions in source
+    order (first choices before second choices), and every kept choice's
+    expert MLP run on the token in fp32. Returns the outputs and the number
+    of dropped choices."""
+    outs, dropped = [], 0
+    for xf in xs:
+        probs = torch.softmax((xf @ gate).float(), dim=-1)
+        top_p, top_e = (t[:, :k] for t in probs.sort(
+            dim=-1, descending=True, stable=True))
+        if k == 2:
+            top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+        out = torch.zeros(xf.shape, device=xf.device)
+        used = torch.zeros(len(experts), dtype=torch.long,
+                           device=xf.device)
+        for c in range(k):
+            for e, (w1, b1, w2, b2) in enumerate(experts):
+                idx = (top_e[:, c] == e).nonzero().flatten()   # source order
+                room = int(cap - used[e])
+                keep = idx[:max(room, 0)]
+                used[e] += len(idx)
+                dropped += len(idx) - len(keep)
+                h = F.gelu(xf[keep].float() @ w1.float() + b1.float(),
+                           approximate="tanh")
+                y = h @ w2.float() + b2.float()
+                out[keep] += top_p[keep, c][:, None] * y
+        outs.append(out)
+    return outs, dropped
+
+
+def moe_replay(xs, gate, experts, k: int, cap: int):
+    """The MoE layer over MOE_EXPERTS virtual ranks on one card, through
+    the port's per-rank steps (``expert.route``, ``dispatch``,
+    ``expert_mlp``, ``combine``) with the two all-to-alls done as the
+    transposes they are."""
+    routed = [expert.route(xf, gate, cap, k) for xf in xs]
+    sends = [expert.dispatch(xf, r[2]).to(xf.dtype)
+             for xf, r in zip(xs, routed)]
+    n = len(experts)
+    recvs = [torch.stack([sends[src][e] for src in range(n)])
+             for e in range(n)]
+    bufs = [expert.expert_mlp(recv, *experts[e])
+            for e, recv in enumerate(recvs)]
+    backs = [torch.stack([bufs[e][src] for e in range(n)])
+             for src in range(n)]
+    return [expert.combine(back, r[1], r[2])
+            for back, r in zip(backs, routed)]
+
+
+def check_moe(device) -> dict:
+    """(c)'s layer checks: ``moe_mlp`` at world 1 (one expert, k=1), and a
+    MOE_EXPERTS-rank EP group replayed for k=1 and k=2, each against
+    per-token dense routing in fp32."""
+    e, f = TP_E, TP_MLP
+    tokens = LM_BATCH * LM_T
+    out = {}
+
+    def rows(got, want):
+        kept = want.abs().sum(-1) > 0
+        if not torch.equal(got.float().abs().sum(-1) > 0, kept):
+            raise RuntimeError("MoE: the dropped tokens differ from the "
+                               "dense routing's")
+        return _row_err(got[kept], want[kept])
+
+    def expert_weights(i):
+        return (_seeded((e, f), SEED + 40 + 4 * i, device, 1 / math.sqrt(e)),
+                _seeded((f,), SEED + 41 + 4 * i, device, 0.1),
+                _seeded((f, e), SEED + 42 + 4 * i, device, 1 / math.sqrt(f)),
+                _seeded((e,), SEED + 43 + 4 * i, device, 0.1))
+
+    x = _seeded((LM_BATCH, LM_T, e), SEED + 50, device)
+    one = expert_weights(0)
+    gate1 = _seeded((e, 1), SEED + 51, device, 1 / math.sqrt(e))
+    got = hvd.spmd(lambda x: hvd.moe_mlp(x, gate1, *one)[0])(x)
+    cap1 = expert.moe_capacity(tokens, 1)
+    want, dropped = moe_dense_reference([x.reshape(tokens, e)], gate1,
+                                        [one], 1, cap1)
+    err = rows(got.reshape(tokens, e), want[0])
+    if not err <= MOE_ROW_TOL:
+        raise RuntimeError(f"moe_mlp (world 1) vs dense: {err:.3e} (limit "
+                           f"{MOE_ROW_TOL})")
+    out["world1"] = {"err": err, "dropped": dropped, "cap": cap1}
+    experts = [expert_weights(i) for i in range(MOE_EXPERTS)]
+    gate = _seeded((e, MOE_EXPERTS), SEED + 52, device, 1 / math.sqrt(e))
+    xs = list(x.reshape(MOE_EXPERTS, tokens // MOE_EXPERTS, e).unbind(0))
+    cap = expert.moe_capacity(tokens // MOE_EXPERTS, MOE_EXPERTS)
+    for k in (1, 2):
+        got = moe_replay(xs, gate, experts, k, cap)
+        want, dropped = moe_dense_reference(xs, gate, experts, k, cap)
+        err = max(rows(a, b) for a, b in zip(got, want))
+        if not err <= MOE_ROW_TOL:
+            raise RuntimeError(f"MoE replay k={k} vs dense: {err:.3e} "
+                               f"(limit {MOE_ROW_TOL})")
+        out[f"k{k}"] = {"err": err, "dropped": dropped, "cap": cap,
+                        "choices": k * tokens}
+    free_cuda()
+    return out
+
+
+def moe_transformer_world1(device, tokens) -> dict:
+    """(c): the ported example at world 1 (one expert), PAR_STEPS captured
+    steps."""
+    hvd.shutdown()
+    hvd.init()
+    rep, exp = moe_example.init_params(TP_VOCAB, TP_E, TP_MLP, 1, 0,
+                                       seed=SEED, device=device,
+                                       dtype=torch.bfloat16)
+    params = list(rep.values()) + list(exp.values())
+    for p in params:
+        p.requires_grad_(True)
+    opt = training.adam(3e-4)(params)
+    step = hvd.spmd(moe_example.train_step(rep, exp, opt, TP_HEADS))
+    reset_launch_counts()
+    losses, ms = _timed_steps(step, tokens, PAR_STEPS)
+    losses = [float(v) for v in losses]
+    launches = {k: v for k, v in launch_counts().items()
+                if k in ("flash_fwd", "flash_bwd", "adamw")}
+    _check_training("moe_transformer", step, losses, launches)
+    del rep, exp, params, opt, step
+    free_cuda()
+    return {"losses": losses, "ms": ms, "launches": launches}
+
+
+def check_pipeline(device) -> dict:
+    """(d): gpipe and pipeline_1f1b at world 1 (one stage) over PIPE_M
+    microbatches of one LM block (B=1, T=8192): gpipe's outputs and
+    gradients against the block run microbatch by microbatch (the
+    gradients summed last microbatch first, as gpipe's backward does), bit
+    for bit; 1F1B's loss and gradients against gpipe plus autograd."""
+    cfg = lm_config(torch.bfloat16, num_layers=1)
+    gen = torch.Generator().manual_seed(SEED + 60)
+    block = transformer.Block(cfg, gen).to(device)
+    params = {k: v.detach() for k, v in block.named_parameters()}
+    names = list(params)
+    positions = torch.arange(LM_T, device=device)
+    mbs = _seeded((PIPE_M, 1, LM_T, cfg.embed_dim), SEED + 61, device)
+    g = _seeded((PIPE_M, 1, LM_T, cfg.embed_dim), SEED + 62, device)
+
+    def stage(p, x):
+        return torch.func.functional_call(block, p, (x, positions))
+
+    def run_gpipe(params, mbs):
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        y = hvd.gpipe(stage, p, mbs)
+        return (y.detach(),) + torch.autograd.grad(y, list(p.values()), g)
+
+    fa.reset_launch_counts()
+    got = hvd.spmd(run_gpipe)(params, mbs)
+    torch.cuda.synchronize()
+    gpipe_launches = {k: fa.LAUNCHES[k] for k in ("flash_fwd", "flash_bwd")}
+    p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    outs, acc = [None] * PIPE_M, None
+    for j in reversed(range(PIPE_M)):
+        y = stage(p, mbs[j])
+        outs[j] = y.detach()
+        d = torch.autograd.grad(y, list(p.values()), g[j])
+        acc = d if acc is None else tuple(a + b for a, b in zip(acc, d))
+    seq = (torch.stack(outs),) + acc
+    differ = [n for n, a, b in zip(["out"] + names, got, seq)
+              if not torch.equal(a, b)]
+    out = {"gpipe_launches": gpipe_launches, "gpipe_differ": differ}
+    if differ:
+        raise RuntimeError(f"gpipe at one stage differs from the block run "
+                           f"in turn at {differ}")
+
+    def loss_fn(y):
+        return y.float().pow(2).mean()
+
+    def run_1f1b(params, mbs):
+        return hvd.pipeline_1f1b(stage, params, mbs, loss_fn)
+
+    def run_gpipe_loss(params, mbs):
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        y = hvd.gpipe(stage, p, mbs)
+        loss = sum(loss_fn(y[j]) for j in range(PIPE_M)) / PIPE_M
+        return (loss.detach(),) + torch.autograd.grad(loss,
+                                                      list(p.values()))
+
+    fa.reset_launch_counts()
+    loss, grads = hvd.spmd(run_1f1b)(params, mbs)
+    torch.cuda.synchronize()
+    out["1f1b_launches"] = {k: fa.LAUNCHES[k]
+                            for k in ("flash_fwd", "flash_bwd")}
+    want = hvd.spmd(run_gpipe_loss)(params, mbs)
+    out["loss_rel"] = abs(float(loss) - float(want[0])) / abs(float(want[0]))
+    out["grad_err"] = max(_row_err(grads[k], w)
+                          for k, w in zip(names, want[1:]))
+    if not (out["loss_rel"] <= PIPE_LOSS_TOL
+            and out["grad_err"] <= PIPE_ROW_TOL):
+        raise RuntimeError(f"1F1B vs gpipe + autograd: loss rel "
+                           f"{out['loss_rel']:.3e} (limit {PIPE_LOSS_TOL}), "
+                           f"worst gradient row {out['grad_err']:.3e} "
+                           f"(limit {PIPE_ROW_TOL})")
+    if (gpipe_launches != {"flash_fwd": 2 * PIPE_M, "flash_bwd": PIPE_M}
+            or out["1f1b_launches"] != {"flash_fwd": 2 * PIPE_M,
+                                        "flash_bwd": PIPE_M}):
+        raise RuntimeError(f"pipeline launches: gpipe {gpipe_launches}, "
+                           f"1F1B {out['1f1b_launches']}")
+    out["loss"] = float(loss)
+    del block, got, seq, grads, want
+    free_cuda()
+    return out
+
+
+def phase_parallel(device) -> dict:
+    """Phase 20: tensor, expert and pipeline parallelism at one rank
+    (module docstring)."""
+    t0 = time.perf_counter()
+    out = {"tp_replay": check_tp_replay(device)}
+    tokens = transformer.synthetic_tokens(LM_BATCH, LM_T, TP_VOCAB,
+                                          seed=SEED, device=device)
+    out["tp_transformer"] = tp_transformer_world1(device, tokens)
+    out["moe"] = check_moe(device)
+    out["moe_transformer"] = moe_transformer_world1(device, tokens)
+    out["pipeline"] = check_pipeline(device)
+    reset_launch_counts()
+    got = tp_example.main([])
+    if got is not None or any(launch_counts().values()):
+        raise RuntimeError(f"tp_transformer at world 1 ran: {got}, "
+                           f"launches {launch_counts()}")
+    hvd.shutdown()
+    out["zoo"] = zoo_example.main([])
+    if out["zoo"]["TP"] != "skipped" or "skipped" in [
+            v for k, v in out["zoo"].items() if k != "TP"]:
+        raise RuntimeError(f"parallelism_zoo at world 1: {out['zoo']}")
+    hvd.init()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def parallel_line(pr: dict, ident: str) -> str:
+    """Phase 20's line."""
+    def errs(e):
+        return ", ".join(f"{n} {e[n]:.2e}" for n in TP_OUTPUTS)
+
+    def ms(r):
+        steady = r["ms"][2:]
+        return (f"{statistics.median(steady):.2f} ms (min "
+                f"{min(steady):.2f}, max {max(steady):.2f})")
+
+    rp = pr["tp_replay"]
+    tp_rec = "; ".join(
+        f"tp={tp}: launches {rp[tp]['launches']}, vs dense B3/B4 "
+        f"{errs(rp[tp]['dense'])}; vs dense plain "
+        f"{errs(rp[tp]['dense_plain'])}" for tp in TP_DEGREES)
+    tt, mt, moe, pp = (pr["tp_transformer"], pr["moe_transformer"],
+                       pr["moe"], pr["pipeline"])
+    first = ("equal bit for bit" if tt["first_equal"] else
+             f"differs by {tt['first_err']:.3e}")
+    zoo = ", ".join(f"{k}: {v}" for k, v in pr["zoo"].items())
+    return (f"phase 20 parallel: ok; (a) the TP block (E={TP_E} H="
+            f"{TP_HEADS} D={TP_E // TP_HEADS} mlp {TP_MLP}, B={LM_BATCH} "
+            f"T={LM_T} causal bf16) replayed rank by rank, each replay "
+            f"twice and bit-identical, worst row err (limit {TP_ROW_TOL}): "
+            f"{tp_rec}; dense B3/B4 vs dense plain "
+            f"{errs(rp['dense_vs_plain'])}; (b) tp_transformer's step at "
+            f"world 1 (TP (1,), DP (2,), V={TP_VOCAB}), {PAR_STEPS} captured"
+            f" steps: loss {tt['losses'][0]:.4f} -> {tt['losses'][-1]:.4f}, "
+            f"first loss vs the block without the TP functions "
+            f"({tt['dense_first']:.6f}) {first}, launches {tt['launches']}, "
+            f"step {ms(tt)}; (c) moe_mlp at world 1 (k=1, cap "
+            f"{moe['world1']['cap']}) vs dense fp32 routing "
+            f"{moe['world1']['err']:.2e}, {moe['world1']['dropped']} "
+            f"dropped; a {MOE_EXPERTS}-expert group replayed (cap "
+            f"{moe['k1']['cap']}): k=1 {moe['k1']['err']:.2e} with "
+            f"{moe['k1']['dropped']} of {moe['k1']['choices']} choices "
+            f"dropped, k=2 {moe['k2']['err']:.2e} with "
+            f"{moe['k2']['dropped']} of {moe['k2']['choices']} dropped "
+            f"(limit {MOE_ROW_TOL}); moe_transformer at world 1, "
+            f"{PAR_STEPS} captured steps: loss {mt['losses'][0]:.4f} -> "
+            f"{mt['losses'][-1]:.4f}, launches {mt['launches']}, step "
+            f"{ms(mt)}; (d) one LM block (Hkv=4), {PIPE_M} microbatches of "
+            f"T={LM_T}: gpipe = the block in turn bit for bit (launches "
+            f"{pp['gpipe_launches']}), 1F1B (launches "
+            f"{pp['1f1b_launches']}) vs gpipe + autograd loss rel "
+            f"{pp['loss_rel']:.2e} (limit {PIPE_LOSS_TOL}), worst gradient "
+            f"row {pp['grad_err']:.2e} (limit {PIPE_ROW_TOL}); (e) "
+            f"tp_transformer at world 1 returned without a launch; "
+            f"parallelism_zoo: {zoo}; phase {pr['seconds']:.1f} s, on "
+            f"{ident}")
 
 
 def main() -> int:
@@ -4662,6 +5156,20 @@ def main() -> int:
         if k["name"] in ("flash_fwd", "flash_bwd", "adamw"):
             k["launches_phase19"] = {arm: r["launches"][k["name"]]
                                      for arm, r in sq["lm"].items()}
+
+    pr = phase_parallel(device)
+    say(parallel_line(pr, ident) + f"; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+    for k in kernels:
+        if k["name"] in ("flash_fwd", "flash_bwd", "adamw"):
+            k["launches_phase20"] = {
+                **{f"tp_replay_{tp}": pr["tp_replay"][tp]["launches"].get(
+                    k["name"], 0) for tp in TP_DEGREES},
+                "tp_transformer": pr["tp_transformer"]["launches"][k["name"]],
+                "moe_transformer": pr["moe_transformer"]["launches"][
+                    k["name"]],
+                "gpipe": pr["pipeline"]["gpipe_launches"].get(k["name"], 0),
+                "1f1b": pr["pipeline"]["1f1b_launches"].get(k["name"], 0)}
 
     say(json.dumps({"kernels": kernels}))
     hvd.shutdown()

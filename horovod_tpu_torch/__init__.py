@@ -30,14 +30,19 @@ can be sharded over a group (``attention='ring'``/``'ulysses'``,
 ``ring_attention``, ``ulysses_attention`` and the zigzag layout's
 ``zigzag_shard``/``zigzag_unshard``/``zigzag_positions``), and
 ``allreduce_gradients``/``DistributedOptimizer`` take a group family
-(``group=(1, 2)``) inside a program. The same LM
+(``group=(1, 2)``) inside a program. Tensor, expert and pipeline
+parallelism are the reference's functions too (``tp_attention``,
+``tp_mlp``, ``tp_mlp_sp``, ``column_parallel``/``row_parallel`` over
+``shard_columns``/``shard_rows``; ``moe_mlp``; ``gpipe``,
+``pipeline_1f1b`` over ``stage_split``). The same LM
 serves through ``hvd.serving.Engine`` (paged KV cache, continuous batching)
 and ``models.transformer.generate`` (dense KV cache).
 
 The reference's training entry points are here too: the MNIST models
 (``models/mnist.py``), the input pipeline (``training.data``: sharded
-datasets, ``prefetch_to_device``), ``training.Estimator``, and the ten
-examples, ``python -m horovod_tpu_torch.examples.<name>``.
+datasets, ``prefetch_to_device``), ``training.Estimator``, and the
+reference's thirteen examples, ``python -m
+horovod_tpu_torch.examples.<name>``.
 
 Sparse gradients are ``hvd.IndexedSlices``: ``allreduce_gradients`` and
 ``allreduce_indexed_slices`` exchange them by allgather with
@@ -46,6 +51,8 @@ and the embedding bag (``models/embedding_bag.py``) train.
 
 The package imports no JAX and nothing of ``horovod_tpu``.
 """
+
+__version__ = "0.1.0"
 
 from horovod_tpu_torch.core.state import (  # noqa: F401
     HorovodError,
@@ -72,6 +79,11 @@ from horovod_tpu_torch.ops.collectives import (  # noqa: F401
     gather,
     reducescatter,
 )
+from horovod_tpu_torch.ops.compression import (  # noqa: F401
+    Bf16Compressor,
+    Compressor,
+    Int8Compressor,
+)
 from horovod_tpu_torch.ops.flash_attention import (  # noqa: F401
     blockwise_attention,
     flash_attention,
@@ -81,6 +93,15 @@ from horovod_tpu_torch.ops.sparse import (  # noqa: F401
     IndexedSlices,
     allreduce_indexed_slices,
 )
+from horovod_tpu_torch.parallel.expert import (  # noqa: F401
+    moe_capacity,
+    moe_mlp,
+)
+from horovod_tpu_torch.parallel.pipeline import (  # noqa: F401
+    gpipe,
+    pipeline_1f1b,
+    stage_split,
+)
 from horovod_tpu_torch.parallel.sequence import (  # noqa: F401
     local_attention,
     ring_attention,
@@ -88,6 +109,15 @@ from horovod_tpu_torch.parallel.sequence import (  # noqa: F401
     zigzag_positions,
     zigzag_shard,
     zigzag_unshard,
+)
+from horovod_tpu_torch.parallel.tensor import (  # noqa: F401
+    column_parallel,
+    row_parallel,
+    shard_columns,
+    shard_rows,
+    tp_attention,
+    tp_mlp,
+    tp_mlp_sp,
 )
 from horovod_tpu_torch.parallel.spmd import (  # noqa: F401
     device_put_ranked,
@@ -102,6 +132,7 @@ from horovod_tpu_torch.parallel.optimizer import (  # noqa: F401
     broadcast_global_variables,
     broadcast_optimizer_state,
     broadcast_variables,
+    sharded_optimizer,
 )
 from horovod_tpu_torch.run import run  # noqa: F401
 from horovod_tpu_torch import serving  # noqa: F401

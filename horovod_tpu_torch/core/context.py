@@ -115,3 +115,11 @@ def enter(group_index: int, negotiate: bool = False) -> _Scope:
     program of ``group``."""
     return _Scope(ProgramContext(group_index=group_index,
                                  negotiate=negotiate))
+
+
+def resume(ctx: ProgramContext | None) -> _Scope:
+    """``with resume(ctx):`` — make ``ctx`` (a program's context saved in
+    an autograd function's forward) current again, for the collectives of
+    its backward: autograd runs a CUDA backward on a thread of its own,
+    where no context is set. None: run outside any program."""
+    return _Scope(ctx)

@@ -19,6 +19,11 @@ frameworks compute the same function.
 * **Norms.** ``norm_impl="flax"`` (the default, as in JAX) runs the plain
   :class:`~horovod_tpu_torch.models.layers.BatchNorm`; ``"fused"`` runs
   :class:`~horovod_tpu_torch.models.layers.FusedBatchNorm` on kernels B1/B2.
+* **Presets.** ``ResNet18``, ``ResNet50``, ``ResNet101``, ``ResNet152`` and
+  ``create_resnet50``, as in the reference. Its ``init_variables`` (flax's
+  ``model.init`` on a dummy batch) has no counterpart: the module draws its
+  weights in its constructor (``generator=``), and ``state_dict()`` holds
+  what the reference's variables hold.
 """
 
 from __future__ import annotations
@@ -178,8 +183,31 @@ class ResNet(nn.Module):
         return x.float()
 
 
+# The reference's presets (``horovod_tpu/models/resnet.py:108-111``); its
+# ResNet-18 uses bottleneck blocks too.
+def ResNet18(**kwargs) -> ResNet:
+    return ResNet(stage_sizes=[2, 2, 2, 2], **kwargs)
+
+
 def ResNet50(**kwargs) -> ResNet:
     return ResNet(stage_sizes=[3, 4, 6, 3], **kwargs)
+
+
+def ResNet101(**kwargs) -> ResNet:
+    return ResNet(stage_sizes=[3, 4, 23, 3], **kwargs)
+
+
+def ResNet152(**kwargs) -> ResNet:
+    return ResNet(stage_sizes=[3, 8, 36, 3], **kwargs)
+
+
+def create_resnet50(num_classes: int = 1000, dtype=torch.bfloat16,
+                    group: int | None = None, **kwargs) -> ResNet:
+    """The reference's ``create_resnet50``; its ``axis_name`` (BN synced
+    over a mesh axis) is ``group`` here (BN synced over that group, with
+    ``norm_impl="fused"``)."""
+    return ResNet50(num_classes=num_classes, dtype=dtype, group=group,
+                    **kwargs)
 
 
 def is_kernel(name: str) -> bool:

@@ -545,3 +545,27 @@ def alltoall(x: torch.Tensor, group=0,
     with _tl.activity(name, "ALLTOALL"):
         dist.all_to_all_single(out, buf, group=g.pg)
     return out.to(x.dtype)
+
+
+class AllToAll(torch.autograd.Function):
+    """:func:`alltoall` over ``group`` (registered and, in a program's
+    first call, negotiated) under ``name``, with an autograd transpose:
+    the backward is the same exchange on ``ring``'s process group (the
+    family group this rank is in), unregistered, as the reference's
+    transposed all-to-all is XLA's and not a collective of its own. A rank
+    outside the group gets its input back (and discards it)."""
+
+    @staticmethod
+    def forward(ctx, x, group, ring, name=None):
+        ctx.ring = ring
+        out = alltoall(x.contiguous(), group=group, name=name)
+        return x.clone() if out is None else out
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.ring is None:
+            return g, None, None, None
+        g = g.contiguous()
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g, group=ctx.ring.pg)
+        return out, None, None, None

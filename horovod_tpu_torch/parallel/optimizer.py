@@ -687,6 +687,34 @@ def _named_tensors(variables) -> list[tuple[str, torch.Tensor]]:
     return [(str(i), t) for i, t in enumerate(variables)]
 
 
+def sharded_optimizer(optimizer, group: int = 0, average: bool = True,
+                      compression=None, params=None):
+    """ZeRO-1 (the reference's ``sharded_optimizer``): reduce-scatter the
+    gradients, update a 1/n state shard, all-gather the parameters —
+    :class:`~horovod_tpu_torch.parallel.sharded.ShardedOptimizer`, which
+    ``DistributedOptimizer(sharded=True)`` also returns. ``optimizer`` is
+    a ``torch.optim`` optimizer that has not stepped, or a
+    ``training.sgd``/``adam`` builder with the ``params`` it shards (the
+    reference takes an optax transformation). ``compression="bf16"``
+    moves both collectives in bfloat16; int8 and the block formats are
+    refused with the reference's text."""
+    return _sharded.ShardedOptimizer(optimizer, group=group, average=average,
+                                     compression=compression, params=params)
+
+
+def sharded_zero2_optimizer(optimizer, group: int = 0, average: bool = True,
+                            compression=None, fsdp_size: int | None = None,
+                            params=None):
+    """ZeRO-2 on the ``data × fsdp`` mesh (the reference's
+    ``sharded_zero2_optimizer``):
+    :class:`~horovod_tpu_torch.parallel.sharded.Zero2Optimizer`, which
+    ``DistributedOptimizer(sharding="zero2")`` also returns; ``optimizer``
+    and ``params`` as in :func:`sharded_optimizer`."""
+    return _sharded.Zero2Optimizer(optimizer, group=group, average=average,
+                                   compression=compression,
+                                   fsdp_size=fsdp_size, params=params)
+
+
 def broadcast_variables(variables, root_rank: int = 0, group: int = 0,
                         name: str = "broadcast_variables") -> None:
     """Overwrite, in place, every tensor of ``variables`` (an ``nn.Module``'s

@@ -479,27 +479,6 @@ def zigzag_positions(group_rank, t_local: int, group_size: int, *,
 # -- Ulysses ------------------------------------------------------------------------
 
 
-class _AllToAll(torch.autograd.Function):
-    """``hvd.alltoall`` over ``group`` (registered and, in a program's
-    first call, negotiated); its backward is the same exchange on the
-    rank's own group's process group, the transpose of an equal-split
-    all-to-all. A rank outside the group gets its input back (and
-    discards it)."""
-
-    @staticmethod
-    def forward(ctx, x, group, ring):
-        ctx.ring = ring
-        out = _coll.alltoall(x.contiguous(), group=group)
-        return x.clone() if out is None else out
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous()
-        out = torch.empty_like(g)
-        dist.all_to_all_single(out, g, group=ctx.ring.pg)
-        return out, None, None
-
-
 def ulysses_attention(q, k, v, group: int = 0, causal: bool = True,
                       sm_scale: float | None = None,
                       attn_fn=None, q_segment_ids=None,
@@ -541,13 +520,13 @@ def ulysses_attention(q, k, v, group: int = 0, causal: bool = True,
 
     def seq_to_heads(x):
         # (B, T, H, D) -> (H, T, B, D): the exchanged axis leads.
-        xs = _AllToAll.apply(x.permute(2, 1, 0, 3), group, ring)
+        xs = _coll.AllToAll.apply(x.permute(2, 1, 0, 3), group, ring)
         xs = xs.reshape(gsize, hs, t_local, b, d).permute(3, 0, 2, 1, 4)
         return xs.reshape(b, gsize * t_local, hs, d)
 
     def heads_to_seq(x):
         xs = x.reshape(b, gsize, t_local, hs, d).permute(1, 3, 2, 0, 4)
-        xs = _AllToAll.apply(xs.reshape(h, t_local, b, d), group, ring)
+        xs = _coll.AllToAll.apply(xs.reshape(h, t_local, b, d), group, ring)
         return xs.permute(2, 1, 0, 3)
 
     def full_segs(segs):

@@ -375,9 +375,22 @@ class Trainer(LRControlMixin):
             state["shards"] = list(self.optimizer.shards)
         return state
 
-    def load_state(self, state: dict) -> None:
+    def load_state(self, state: dict, *reference_args,
+                   **reference_kwargs) -> None:
         """Load what :meth:`train_state` returned (e.g. from
-        ``checkpoint.load_sharded``) into this trainer, in place."""
+        ``checkpoint.load_sharded``) into this trainer, in place. The
+        reference's ``load_state(params_stacked, opt_state_stacked,
+        epoch=0)`` takes rank-stacked trees, which the port has none of (a
+        process is a rank): that call raises a ``TypeError``."""
+        if reference_args or reference_kwargs or not isinstance(state,
+                                                                dict):
+            raise TypeError(
+                "Trainer.load_state takes one argument, the dict that "
+                "train_state() returns ({'model', 'optimizer', 'epoch'}), "
+                "not the reference's (params_stacked, opt_state_stacked, "
+                "epoch): a process is a rank here, so there are no "
+                "rank-stacked trees. Load a checkpoint's state dicts "
+                "through train_state()'s form.")
         self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
         if self.sharding == "zero3":

@@ -452,3 +452,28 @@ def test_each_sharded_checkpoint_function_round_trips(tmp_path, fn):
             assert tck.verify_sharded_epoch(d, 3)[0] is False
     finally:
         hvd.shutdown()
+
+
+@pytest.mark.parametrize("call", ["three_arguments", "epoch_keyword",
+                                  "stacked_tree"])
+def test_load_state_takes_train_states_dict_not_stacked_trees(call):
+    """``Trainer.load_state(state)`` takes what ``train_state()`` returns
+    (an intended divergence: a process is a rank, so there are no
+    rank-stacked trees); the reference's ``load_state(params_stacked,
+    opt_state_stacked, epoch=0)`` raises a ``TypeError`` naming
+    ``train_state()``."""
+    import horovod_tpu_torch as hvd
+
+    hvd.init(device="cpu")
+    try:
+        t = _trainer(0)
+        state = t.train_state()
+        params = [p.detach().clone() for p in t.model.parameters()]
+        with pytest.raises(TypeError, match=r"train_state\(\)"):
+            {"three_arguments": lambda: t.load_state(params, {}, 3),
+             "epoch_keyword": lambda: t.load_state(params, {}, epoch=3),
+             "stacked_tree": lambda: t.load_state(params)}[call]()
+        t.load_state(dict(state, epoch=5))
+        assert t.epoch == 5
+    finally:
+        hvd.shutdown()

@@ -147,3 +147,67 @@ def test_loss_and_grads_match_jax(norm_impl):
     for name, p in tmodel.named_parameters():
         scale = float(np.abs(want[name].numpy()).max())
         _close(p.grad, want[name], rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.parametrize("preset,stages", [
+    ("ResNet18", [2, 2, 2, 2]), ("ResNet50", [3, 4, 6, 3]),
+    ("ResNet101", [3, 4, 23, 3]), ("ResNet152", [3, 8, 36, 3])])
+def test_presets_have_the_references_stage_sizes(preset, stages):
+    """The reference's presets (``horovod_tpu/models/resnet.py:108-111``),
+    bottleneck blocks throughout (ResNet-18 too)."""
+    jmodel = getattr(jresnet, preset)(num_classes=10)
+    tmodel = getattr(tresnet, preset)(num_classes=10, num_filters=2)
+    assert list(jmodel.stage_sizes) == stages == tmodel.stage_sizes
+    assert len(tmodel.blocks) == sum(stages)
+    assert all(isinstance(b, tresnet.BottleneckBlock) for b in tmodel.blocks)
+
+
+def test_create_resnet50_is_the_references_preset():
+    tmodel = tresnet.create_resnet50(num_classes=10, num_filters=2)
+    assert tmodel.stage_sizes == [3, 4, 6, 3]
+    assert tmodel.dtype == torch.bfloat16 and tmodel.num_classes == 10
+
+
+def _seeded_variables(model, seed):
+    """Variables of the model's structure (``jax.eval_shape`` of its init:
+    flax's init of 101 layers takes tens of seconds on the CPU) drawn from
+    a seed: fan-in-scaled normal kernels, BN scales in [0.5, 1], variances
+    in [0.5, 1.5], small normal biases and means."""
+    shapes = jax.eval_shape(functools.partial(model.init, train=False),
+                            jax.random.PRNGKey(seed),
+                            jnp.zeros((1, 32, 32, 3), jnp.float32))
+    rng = np.random.RandomState(seed)
+
+    def draw(path, leaf):
+        key = path[-1].key
+        if key == "var":
+            return (rng.rand(*leaf.shape) + 0.5).astype(np.float32)
+        if key == "scale":
+            return (rng.rand(*leaf.shape) * 0.5 + 0.5).astype(np.float32)
+        if key == "kernel":
+            fan_in = int(np.prod(leaf.shape[:-1]))
+            return (rng.randn(*leaf.shape) / np.sqrt(fan_in)).astype(
+                np.float32)
+        return (rng.randn(*leaf.shape) * 0.1).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, shapes)
+
+
+def test_resnet101_forward_matches_flax():
+    """ResNet-101 (stages [3, 4, 23, 3]; 8 filters, 10 classes, fp32) on
+    one 32 px image, eval mode, weights carried by
+    ``from_flax_variables``."""
+    jmodel = jresnet.ResNet101(num_classes=10, num_filters=8,
+                               dtype=jnp.float32)
+    variables = _seeded_variables(jmodel, seed=3)
+    tmodel = tresnet.ResNet101(num_classes=10, num_filters=8,
+                               dtype=torch.float32)
+    tmodel.load_state_dict(tresnet.from_flax_variables(variables))
+    images, _ = _batch(1, 32, seed=4)
+    jlogits = jax.jit(functools.partial(jmodel.apply, train=False))(
+        variables, jnp.asarray(images))
+    tmodel.eval()
+    with torch.no_grad():
+        tlogits = tmodel(torch.from_numpy(images))
+    assert tlogits.shape == (1, 10)
+    _close(tlogits, jlogits)
