@@ -291,13 +291,42 @@ Phases, one line of output each:
     (``PIPE_LOSS_TOL``, ``PIPE_ROW_TOL``); (e) ``tp_transformer`` at
     world 1 returns without a launch, and ``parallelism_zoo`` runs the
     modes one rank can (DP, PP, SP, EP) and skips TP.
+21. profile-guided tuning and the device timeline (``horovod_tpu_torch/
+    tune``, ``core/xprof.py``, ``parallel/spmd.py``'s sampling): (a)
+    ``hvd.tune()`` at world 1 with the live timer (``tune/calibrate.py::
+    allreduce_seconds`` and the tiny LM): the samples, the seconds against
+    ``HOROVOD_TUNE_BUDGET_S``, the LM's compute window, the committed
+    knobs (the defaults: one rank fits no constant, so every candidate
+    ties), ``verify_tuned_config`` of the written pair (no finding) and
+    ``tune_report()``; (b) ``measure_lm_ab`` of a candidate off the
+    defaults (``AB_KNOBS``), both arms' ms a step; (c) a verified pair of
+    ``TUNED_KNOBS`` under ``HOROVOD_TUNED_CONFIG`` at ``hvd.init``, then
+    phase 8's LM for ``TUNE_STEPS`` captured steps: ``tune_report()`` says
+    ``tuned`` for each knob, ``last_plan()`` is the committed plan, the
+    losses equal the same knobs set by env bit for bit, and an env knob
+    set beside the config wins; (d) ``HOROVOD_TIMELINE_DEVICE=1`` at
+    interval 2 on 5 calls of ResNet-50 (fused BN) and of phase 8's LM: 3
+    of 5 calls sampled, one ``DEVICE_STEP`` each and no
+    ``NO_DEVICE_PLANE`` (a sampled call with no CUDA event fails), the
+    port's kernels by name on the ``_kernels`` row, as many as the
+    profiler recorded in the sampled calls (each kernel in each call),
+    the wrappers' counts 53 / 8 / 1 a call over the 5 calls, a sampled
+    call's records printed where the profiler missed a launch, the
+    collective spans matched (none unless the card ran an NCCL kernel:
+    the NCCL kernels of a step are printed), the losses equal the same
+    calls without the device mode bit for bit, and each call's wall ms;
+    (e) ``xprof.timed_steps(strict=True)`` on the LM's step: the device
+    window beside the wall clock. Writes ``_chip_smoke_tune/``
+    (gitignored) and removes it.
 
 Each main path (5, 8 and 10, each example of 14, each run of 17, each
 arm of 18, of 19 (b) and of 20) runs with its kernels' launch counts set
 to 0 just before it and read just after; the kernels line's
 ``launches`` are phases 5 and 8's counts (the eager step and the 9
-replays), and ``launches_phase18``, ``launches_phase19`` and
-``launches_phase20`` each arm's count in phases 18, 19 and 20. Then a JSON line with each kernel's
+replays), ``launches_phase18``, ``launches_phase19`` and
+``launches_phase20`` each arm's count in phases 18, 19 and 20, and
+``launches_phase21`` the launches the device timeline of phase 21 (d)
+shows in its 3 sampled calls. Then a JSON line with each kernel's
 record, and last the result line ``{"ok": true, "device": {...}}``. Any failed phase raises: the script then
 exits non-zero and prints no result. It also fails without CUDA, and when
 the ``horovod_tpu_torch`` package is not beside it.
@@ -319,6 +348,7 @@ import os
 import shutil
 import statistics
 import gc
+import importlib
 import subprocess
 import sys
 import time
@@ -4891,6 +4921,432 @@ def parallel_line(pr: dict, ident: str) -> str:
             f"{ident}")
 
 
+# -- profile-guided tuning and the device timeline (phase 21) --------------------
+
+TUNE_DIR = os.path.join(HERE, "_chip_smoke_tune")    # gitignored
+TUNE_STEPS = 3            # (c): an LM run's captured steps (eager, capture,
+                          # replay)
+TIMELINE_CALLS = 5        # (d): calls of each step in the device mode
+TIMELINE_INTERVAL = 2     # (d): HOROVOD_TIMELINE_DEVICE_INTERVAL
+TIMED_TRIALS = 3          # (e): timed_steps' trials
+# (c): the committed pair's knobs (every one off its default).
+TUNED_KNOBS = {"HOROVOD_COMPRESSION": "bf16",
+               "HOROVOD_EXCHANGE_SCHEDULE": "priority",
+               "HOROVOD_FUSION_THRESHOLD": 16 << 20}
+# (b): the candidate measure_lm_ab holds against the defaults.
+AB_KNOBS = {"HOROVOD_EXCHANGE_SCHEDULE": "priority",
+            "HOROVOD_COMPRESSION": "bf16"}
+TIMELINE_KERNELS = {"lm": ("flash_fwd", "flash_bwd", "adamw"),
+                    "resnet50": ("channel_sums", "channel_grad_sums")}
+
+
+@contextlib.contextmanager
+def env_knobs(**knobs):
+    """``os.environ`` with ``knobs`` set (None unsets one), restored after."""
+    before = {k: os.environ.get(k) for k in knobs}
+    try:
+        for k, v in knobs.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = str(v)
+        yield
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def world_with(**knobs):
+    """The world re-initialised under ``knobs`` for the block (the
+    timeline and the tuned config are read at ``hvd.init``, the exchange
+    knobs at a step), shut down before they are restored, and the default
+    world after it."""
+    hvd.shutdown()
+    try:
+        with env_knobs(**knobs):
+            hvd.init()
+            yield
+            hvd.shutdown()
+    finally:
+        hvd.shutdown()
+        hvd.init()
+
+
+def lm_trainer(device):
+    """Phase 8's LM trainer (8 layers, bf16, fused head,
+    ``DistributedOptimizer(AdamW(3e-4, weight_decay=0.1))``), weights from
+    SEED."""
+    cfg = lm_config(torch.bfloat16)
+    model = transformer.init_params(cfg, seed=SEED, device=device)
+    opt = hvd.DistributedOptimizer(AdamW(model.parameters(), 3e-4,
+                                         weight_decay=0.1))
+    return hvd.Trainer(model, transformer.make_loss_fn(cfg,
+                                                       fused_head=True), opt)
+
+
+def resnet_trainer(device):
+    """Phase 5's ResNet-50 trainer (bf16, fused BN: B1/B2, SGD(0.1,
+    momentum 0.9))."""
+    model = seeded_resnet50(torch.bfloat16, device)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9))
+    return hvd.Trainer(model, resnet.make_loss_fn(model), opt, has_aux=True)
+
+
+def timed_calls(trainer, batch, calls: int) -> tuple[list, list]:
+    """``calls`` calls of the trainer's step: the losses (on the host) and
+    each call's wall ms, each ended by a device sync."""
+    losses, ms = [], []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss.detach().cpu())
+    return losses, ms
+
+
+def same_bits(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+
+
+def tune_live(device) -> dict:
+    """(a): ``hvd.tune()`` at world 1 with the live timer; the pair it
+    commits verified, and the provenance report."""
+    from horovod_tpu_torch.analysis import schedule as verify
+    from horovod_tpu_torch.tune import apply as tune_apply
+    from horovod_tpu_torch.utils import env as knobs_env
+
+    # The pass hvd.tune() prices with, kept on its way (the package
+    # re-exports a function named ``tune``: the module by its name).
+    tune_pkg = importlib.import_module("horovod_tpu_torch.tune")
+    calibrate, passes = tune_pkg.calibrate, []
+    tune_pkg.calibrate = lambda *a, **kw: passes.append(
+        calibrate(*a, **kw)) or passes[-1]
+    path = os.path.join(TUNE_DIR, "live.tuned.json")
+    t0 = time.perf_counter()
+    try:
+        config = hvd.tune(path=path)
+    finally:
+        tune_pkg.calibrate = calibrate
+    seconds = time.perf_counter() - t0
+    [cal] = passes
+    with open(path) as f:
+        findings = verify.verify_tuned_config(f.read(), path=path)
+    if findings:
+        raise RuntimeError(f"hvd.tune()'s pair fails verification: "
+                           f"{[str(x) for x in findings]}")
+    report = hvd.tune_report()
+    if not report["active"] or report["hash"] != config.config_hash():
+        raise RuntimeError(f"hvd.tune() applied nothing: {report}")
+    if cal.compute_window_s is None or not cal.compute_window_s > 0:
+        raise RuntimeError(f"the tiny LM's window: {cal.compute_window_s}")
+    tune_apply.deactivate()
+    return {"config": config, "cal": cal, "seconds": seconds,
+            "report": report, "budget_s": knobs_env.tune_budget_seconds()}
+
+
+def ab_arms(device) -> dict:
+    """(b): ``measure_lm_ab`` with a candidate off the defaults."""
+    from horovod_tpu_torch.ops import topology
+    from horovod_tpu_torch.tune import TunedConfig
+    from horovod_tpu_torch.tune.calibrate import measure_lm_ab
+
+    kind = topology.discover(hvd.get_group(0)).device_kind
+    cand = TunedConfig(device_kind=kind,
+                       world_size=1, num_slices=1, constants={},
+                       knobs=dict(AB_KNOBS),
+                       exchange_artifact="ab.exchange.json",
+                       exchange_plan_hash="00000000")
+    default_s, tuned_s = measure_lm_ab(cand)
+    return {"default_ms": 1e3 * default_s, "tuned_ms": 1e3 * tuned_s}
+
+
+def committed_pair(device) -> tuple[str, object]:
+    """(c): a verified ``.tuned.json`` + ``.exchange.json`` pair of
+    TUNED_KNOBS, its plan the one the LM's gradient path makes under them
+    (the ``DistributedOptimizer.grads.<i>`` labels)."""
+    from horovod_tpu_torch.analysis import schedule as verify
+    from horovod_tpu_torch.ops import topology
+    from horovod_tpu_torch.tune import TunedConfig
+
+    with torch.device("meta"):
+        model = transformer.Transformer(lm_config(torch.bfloat16))
+    leaves = list(model.parameters())
+    topo = topology.discover(hvd.get_group(0))
+    plan = exchange.plan_exchange(
+        leaves, TUNED_KNOBS["HOROVOD_FUSION_THRESHOLD"],
+        mode=TUNED_KNOBS["HOROVOD_EXCHANGE_SCHEDULE"],
+        compression=compression.resolve(TUNED_KNOBS["HOROVOD_COMPRESSION"]),
+        algo="flat", topo=topo, world_size=1, max_channels=1,
+        labels=[f"DistributedOptimizer.grads.{i}"
+                for i in range(len(leaves))])
+    path = os.path.join(TUNE_DIR, "lm.tuned.json")
+    plan.save(path[:-len(".tuned.json")] + ".exchange.json")
+    config = TunedConfig(
+        device_kind=topo.device_kind, world_size=1, num_slices=1,
+        constants={}, knobs=dict(TUNED_KNOBS),
+        exchange_artifact="lm.exchange.json",
+        exchange_plan_hash=plan.plan_hash())
+    config.save(path)
+    with open(path) as f:
+        findings = verify.verify_tuned_config(f.read(), path=path)
+    if findings:
+        raise RuntimeError(f"the committed pair fails verification: "
+                           f"{[str(x) for x in findings]}")
+    return path, plan
+
+
+def lm_run(device, tokens, steps: int) -> dict:
+    """The LM's captured steps; the losses' bits and the step's plan."""
+    trainer = lm_trainer(device)
+    losses, _ = timed_calls(trainer, tokens, steps)
+    out = {"losses": losses, "plan": exchange.last_plan(),
+           "report": hvd.tune_report()}
+    del trainer
+    free_cuda()
+    return out
+
+
+def tuned_lm(device) -> dict:
+    """(c): HOROVOD_TUNED_CONFIG applied at hvd.init against the same
+    knobs set by env, and an env knob beside the config."""
+    path, plan = committed_pair(device)
+    tokens = transformer.synthetic_tokens(LM_BATCH, LM_T, 32_768, seed=SEED,
+                                          device=device)
+    with world_with(HOROVOD_TUNED_CONFIG=path):
+        tuned = lm_run(device, tokens, TUNE_STEPS)
+    sources = {k: tuned["report"]["knobs"][k]["source"] for k in TUNED_KNOBS}
+    if set(sources.values()) != {"tuned"}:
+        raise RuntimeError(f"tune_report() under the config: {sources}")
+    if tuned["plan"].to_json() != plan.to_json():
+        raise RuntimeError(
+            f"last_plan() {tuned['plan'].plan_hash()} != the committed plan "
+            f"{plan.plan_hash()}: {tuned['plan'].describe_rows()[:3]}")
+    with world_with(**TUNED_KNOBS):
+        by_env = lm_run(device, tokens, TUNE_STEPS)
+    if not same_bits(tuned["losses"], by_env["losses"]):
+        raise RuntimeError("the tuned config's losses differ from the same "
+                           "knobs set by env")
+    with world_with(HOROVOD_TUNED_CONFIG=path,
+                    HOROVOD_EXCHANGE_SCHEDULE="enum"):
+        beside = lm_run(device, tokens, 1)
+    knobs = beside["report"]["knobs"]
+    if (knobs["HOROVOD_EXCHANGE_SCHEDULE"]["source"] != "env"
+            or beside["plan"].mode != "enum"
+            or knobs["HOROVOD_COMPRESSION"]["source"] != "tuned"
+            or beside["plan"].threshold_bytes != TUNED_KNOBS[
+                "HOROVOD_FUSION_THRESHOLD"]):
+        raise RuntimeError(f"env beside the config: {knobs}, plan mode "
+                           f"{beside['plan'].mode}")
+    return {"plan": plan, "losses": [float(v) for v in tuned["losses"]],
+            "sources": sources, "beside": knobs["HOROVOD_EXCHANGE_SCHEDULE"]}
+
+
+def read_timeline(path: str) -> list:
+    """The timeline's events, each with its row's name as ``row``."""
+    with open(path) as f:
+        lines = [ln.strip().rstrip(",") for ln in f if ln.strip() not in
+                 ("[", "]", "")]
+    events = [json.loads(ln) for ln in lines]
+    rows = {e["pid"]: e["args"]["name"] for e in events
+            if e["name"] == "process_name"}
+    return [dict(e, row=rows.get(e["pid"])) for e in events
+            if e.get("ph") != "M"]
+
+
+def timeline_run(name: str, device) -> dict:
+    """(d): TIMELINE_CALLS calls of one workload's step in the device mode
+    (interval TIMELINE_INTERVAL), against the same calls unsampled; the
+    unsampled trainer and its batch are returned for (e)."""
+    from horovod_tpu_torch.core import xprof
+    from horovod_tpu_torch.ops import launches
+
+    make = lm_trainer if name == "lm" else resnet_trainer
+    if name == "lm":
+        batch = transformer.synthetic_tokens(LM_BATCH, LM_T, 32_768,
+                                             seed=SEED, device=device)
+    else:
+        batch = resnet.synthetic_imagenet(BATCH, IMAGE, seed=SEED,
+                                          num_classes=CLASSES, device=device)
+    path = os.path.join(TUNE_DIR, f"{name}.timeline.json")
+    # Each sampled call's device events as the profiler returned them:
+    # what the timeline's spans are held to.
+    profiled, sessions = xprof.profiled_events, []
+
+    def recorded(run_once):
+        out = profiled(run_once)
+        sessions.append(out[1])
+        return out
+
+    with world_with(HOROVOD_TIMELINE=path, HOROVOD_TIMELINE_DEVICE=1,
+                    HOROVOD_TIMELINE_DEVICE_INTERVAL=TIMELINE_INTERVAL):
+        trainer = make(device)
+        reset_launch_counts()
+        xprof.profiled_events = recorded
+        try:
+            sampled_losses, sampled_ms = timed_calls(trainer, batch,
+                                                     TIMELINE_CALLS)
+        finally:
+            xprof.profiled_events = profiled
+        wrapped = {k: v for k, v in launch_counts().items() if v}
+        sampled = trainer._step.sampled
+        del trainer
+        free_cuda()
+    trainer = make(device)
+    plain_losses, plain_ms = timed_calls(trainer, batch, TIMELINE_CALLS)
+    # The NCCL kernels the card ran in a step (world 1), by name.
+    _, events, _ = xprof.profiled_events(lambda: trainer.train_step(batch))
+    nccl = sorted({n for n, _, _ in events if "nccl" in n.lower()})
+    want = TIMELINE_CALLS // TIMELINE_INTERVAL + 1
+    if not sampled == len(sessions) == want:
+        raise RuntimeError(f"{name}: {sampled} of {TIMELINE_CALLS} calls "
+                           f"sampled at interval {TIMELINE_INTERVAL} "
+                           f"({len(sessions)} profiler sessions)")
+    if not same_bits(sampled_losses, plain_losses):
+        raise RuntimeError(f"{name}: sampled losses differ from unsampled")
+    tl = read_timeline(path)
+    steps = [e for e in tl if e["name"] == "DEVICE_STEP"]
+    if len(steps) != sampled or any(e["row"] != "_device" for e in steps):
+        raise RuntimeError(f"{name}: {len(steps)} DEVICE_STEP spans for "
+                           f"{sampled} sampled calls")
+    if any(e["name"] == "NO_DEVICE_PLANE" for e in tl):
+        raise RuntimeError(f"{name}: a sampled call saw no CUDA event")
+    per_step = {"flash_fwd": LM_LAYERS, "flash_bwd": LM_LAYERS, "adamw": 1,
+                "channel_sums": BN_LAYERS, "channel_grad_sums": BN_LAYERS}
+    counts, records = {}, {}
+    for wrapper in TIMELINE_KERNELS[name]:
+        fn = launches.KERNELS[wrapper][0]
+        counts[wrapper] = sum(1 for e in tl if e["row"] == "_kernels"
+                              and e["name"] == fn)
+        # Each sampled call's records of the kernel, by the profiler.
+        records[wrapper] = [sum(1 for n, _, _ in ev
+                                if xprof.kernel_base(n) == fn)
+                            for ev in sessions]
+        if counts[wrapper] != sum(records[wrapper]) \
+                or 0 in records[wrapper]:
+            raise RuntimeError(
+                f"{name}: the timeline's {fn} spans {counts[wrapper]}, the "
+                f"profiler's records in the sampled calls "
+                f"{records[wrapper]} (the wrapper launches "
+                f"{per_step[wrapper]} a call)")
+    # What the profiler did not record of the wrappers' launches (CUPTI
+    # can lose a record; the timeline shows what it was given).
+    if wrapped != {k: per_step[k] * TIMELINE_CALLS for k in records}:
+        raise RuntimeError(f"{name}: the wrappers launched {wrapped} in "
+                           f"{TIMELINE_CALLS} calls")
+    missed = {k: v for k, v in records.items()
+              if v != [per_step[k]] * sampled}
+    colls = [e for e in tl if e["name"].startswith("XLA_")]
+    if bool(colls) != any(xprof.kernel_base(n) in xprof._COLL_KIND
+                          for n in nccl):
+        raise RuntimeError(f"{name}: {len(colls)} collective spans, NCCL "
+                           f"kernels {nccl}")
+    return {
+        "trainer": trainer, "batch": batch,
+        "sampled": sampled, "spans": len(tl), "counts": counts,
+        "missed": missed, "wrapped": wrapped,
+        "kernel_spans": sum(1 for e in tl if e["row"] == "_kernels"),
+        "collective_spans": len(colls), "nccl": nccl,
+        "events_a_step": len(events),
+        "device_step_ms": [e["dur"] / 1e3 for e in steps],
+        "sampled_ms": sampled_ms, "plain_ms": plain_ms}
+
+
+def phase_tuning(device) -> dict:
+    """Phase 21: hvd.tune, a tuned config on the LM's step, the device
+    timeline on the LM's and ResNet-50's steps, and timed_steps (module
+    docstring)."""
+    from horovod_tpu_torch.core import xprof
+
+    t0 = time.perf_counter()
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    os.makedirs(TUNE_DIR)
+    try:
+        out = {"tune": tune_live(device), "ab": ab_arms(device),
+               "tuned": tuned_lm(device), "timeline": {}}
+        for name in ("resnet50", "lm"):
+            r = timeline_run(name, device)
+            trainer, batch = r.pop("trainer"), r.pop("batch")
+            out["timeline"][name] = r
+            if name == "resnet50":
+                del trainer
+                free_cuda()
+        info = {}
+        device_s = xprof.timed_steps(lambda: trainer.train_step(batch), 1,
+                                     trials=TIMED_TRIALS, strict=True,
+                                     info=info)
+        wall = min(_timed(lambda: trainer.train_step(batch))
+                   for _ in range(TIMED_TRIALS))
+        if info["timing"] != "device":
+            raise RuntimeError(f"timed_steps on the card: {info}")
+        out["timed"] = {"device_ms": 1e3 * device_s, "wall_ms": 1e3 * wall}
+        del trainer
+        free_cuda()
+    finally:
+        shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def tuning_line(tn: dict, ident: str) -> str:
+    """Phase 21's line."""
+    tu, ab, tc, tm = tn["tune"], tn["ab"], tn["tuned"], tn["timed"]
+    cal = tu["cal"]
+
+    def tl(name):
+        r = tn["timeline"][name]
+        return (f"{name}: {r['sampled']} of {TIMELINE_CALLS} calls sampled,"
+                f" {r['spans']} spans, DEVICE_STEP "
+                + ", ".join(f"{v:.2f}" for v in r["device_step_ms"])
+                + f" ms, kernel spans {r['counts']} ({r['kernel_spans']} on "
+                f"_kernels) = the profiler's records of the sampled calls, "
+                + (f"short of the wrappers' launches ({r['wrapped']} in "
+                   f"{TIMELINE_CALLS} calls): the profiler's records a "
+                   f"sampled call {r['missed']}"
+                   if r["missed"] else "every launch of the wrappers")
+                + f", {r['collective_spans']} collective spans "
+                f"matched, NCCL kernels in a step {r['nccl'] or 'none'} (of "
+                f"{r['events_a_step']} device events), sampled = unsampled "
+                f"losses bit for bit; wall ms a call sampled "
+                + ", ".join(f"{r['sampled_ms'][i]:.1f}" for i in (0, 2, 4))
+                + " (calls 1, 3, 5), unsampled "
+                + ", ".join(f"{r['sampled_ms'][i]:.1f}" for i in (1, 3))
+                + " (calls 2, 4); without the device mode "
+                + ", ".join(f"{v:.1f}" for v in r["plain_ms"]))
+
+    return (f"phase 21 tuning: ok; (a) hvd.tune() at world 1, live timer: "
+            f"{cal.samples} samples in {cal.seconds_spent:.2f} s of the "
+            f"{tu['budget_s']:.0f} s budget (tune {tu['seconds']:.2f} s), "
+            f"constants {cal.constants or '{} (one rank: no fit)'}, tiny "
+            f"LM window {1e3 * cal.compute_window_s:.3f} ms, committed "
+            f"{tu['config'].knobs} (hash {tu['config'].config_hash()}, "
+            f"plan {tu['config'].exchange_plan_hash}), verify_tuned_config "
+            f"[] , tune_report sources "
+            f"{ {k: v['source'] for k, v in tu['report']['knobs'].items()} }"
+            f"; (b) measure_lm_ab({AB_KNOBS}): default "
+            f"{ab['default_ms']:.3f} ms, candidate {ab['tuned_ms']:.3f} ms a "
+            f"step; (c) HOROVOD_TUNED_CONFIG of {TUNED_KNOBS} (verified, "
+            f"plan {tc['plan'].plan_hash()}, {len(tc['plan'].buckets)} "
+            f"buckets) on phase 8's LM, {TUNE_STEPS} captured steps: sources "
+            f"{tc['sources']}, last_plan() = the committed plan, losses "
+            + ", ".join(f"{v:.4f}" for v in tc["losses"])
+            + f" = the same knobs by env bit for bit, "
+            f"HOROVOD_EXCHANGE_SCHEDULE=enum beside the config: "
+            f"{tc['beside']}; (d) HOROVOD_TIMELINE_DEVICE=1, interval "
+            f"{TIMELINE_INTERVAL}: {tl('lm')}; {tl('resnet50')}; (e) "
+            f"timed_steps(strict=True) on the LM step: device window "
+            f"{tm['device_ms']:.2f} ms, wall {tm['wall_ms']:.2f} ms "
+            f"(best of {TIMED_TRIALS}); phase {tn['seconds']:.1f} s, on "
+            f"{ident}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -5170,6 +5626,14 @@ def main() -> int:
                     k["name"]],
                 "gpipe": pr["pipeline"]["gpipe_launches"].get(k["name"], 0),
                 "1f1b": pr["pipeline"]["1f1b_launches"].get(k["name"], 0)}
+
+    tn = phase_tuning(device)
+    say(tuning_line(tn, ident) + f"; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+    for k in kernels:
+        for name, r in tn["timeline"].items():
+            if k["name"] in r["counts"]:
+                k["launches_phase21"] = r["counts"][k["name"]]
 
     say(json.dumps({"kernels": kernels}))
     hvd.shutdown()

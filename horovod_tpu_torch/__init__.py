@@ -49,6 +49,14 @@ Sparse gradients are ``hvd.IndexedSlices``: ``allreduce_gradients`` and
 dedup-and-merge (``ops/sparse.py``), as word2vec (``models/word2vec.py``)
 and the embedding bag (``models/embedding_bag.py``) train.
 
+``hvd.tune()`` calibrates the exchange, searches its knobs on the cost
+model and commits a verified ``.tuned.json`` + ``.exchange.json`` pair
+(``HOROVOD_PROFILE=auto`` does it at ``hvd.init``;
+``HOROVOD_TUNED_CONFIG`` applies a committed pair), with explicit env >
+tuned > default everywhere (``hvd.tune_report()``); the timeline's device
+mode (``HOROVOD_TIMELINE_DEVICE=1``) samples step programs under
+``torch.profiler``.
+
 The package imports no JAX and nothing of ``horovod_tpu``.
 """
 
@@ -155,3 +163,8 @@ from horovod_tpu_torch.training.callbacks import (  # noqa: F401
 from horovod_tpu_torch import training  # noqa: F401
 from horovod_tpu_torch.training import callbacks  # noqa: F401
 from horovod_tpu_torch.training.loop import Trainer  # noqa: F401
+from horovod_tpu_torch.tune import (  # noqa: F401
+    TunedConfig,
+    tune,
+    tune_report,
+)

@@ -146,6 +146,7 @@ def init(group_ranks: Sequence[Sequence[int]] | None = None, *,
         _env.check_unported()
         _env.validate_serving_knobs()
         _env.validate_exchange_knobs()
+        _env.validate_tuning_knobs()
         _env.sparse_pad_capacity()
         local_rank = int(os.environ.get("LOCAL_RANK", "0"))
         dev = _resolve_device(device, local_rank)
@@ -195,14 +196,31 @@ def init(group_ranks: Sequence[Sequence[int]] | None = None, *,
         _state.initialized = True
         if rank == 0:  # coordinator-only timeline, as in the reference
             _timeline.maybe_start()
+    # Profile-guided configuration (``horovod_tpu_torch/tune``), outside
+    # the lock: applying an artifact reads hvd.size(), and
+    # HOROVOD_PROFILE=auto runs live collectives. With both knobs set,
+    # auto tunes anew and commits to the HOROVOD_TUNED_CONFIG path.
+    if _env.profile_mode() == "auto":
+        from horovod_tpu_torch.tune import tune as _tune
+
+        _tune()
+    else:
+        tuned_path = _env.tuned_config_path()
+        if tuned_path is not None:
+            from horovod_tpu_torch.tune import apply_committed
+
+            apply_committed(tuned_path)
 
 
 def shutdown() -> None:
     """Tear the runtime down: the timeline, the groups init created, and the
     default process group when init created it."""
     from horovod_tpu_torch.ops import collectives as _coll  # imports us
+    from horovod_tpu_torch.tune import apply as _tune_apply
 
     _timeline.stop()
+    # A re-init at another world must not inherit the applied knobs.
+    _tune_apply.deactivate()
     with _state.lock:
         if not _state.initialized:
             return

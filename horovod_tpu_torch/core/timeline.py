@@ -26,6 +26,18 @@ convicted a dispatch) and RECOVER (a journaled request resumed).
 
 On the GPU these are enqueue times: the host stamps them around calls that
 return before the device finishes.
+
+With ``HOROVOD_TIMELINE_DEVICE=1`` (latched when the timeline starts) a
+program's runs are sampled instead (``parallel/spmd.py``): its first call,
+and every N-th with ``HOROVOD_TIMELINE_DEVICE_INTERVAL=N``, runs under
+``torch.profiler``, and the device's kernels, mapped onto the schedule by
+``core/xprof.py``, enter the file through :meth:`Timeline.event_at` with
+device timestamps: DEVICE_STEP on the ``_device`` row, XLA_<OP> on each
+collective's row and its members' rows, and MEMCPY_IN/OUT_FUSION_BUFFER
+on ``_fusion_buffer``. A sampled call whose session holds no device event
+(the CPU) leaves an instant NO_DEVICE_PLANE on ``_device``. Unsampled calls
+write nothing and wait for nothing. ``hvd.tune``'s activation writes an
+instant tick on the ``tune`` row.
 """
 
 from __future__ import annotations
@@ -79,6 +91,19 @@ class _PyTimeline:
                 self._f.flush()
                 self._last_flush = now
 
+    def event_at(self, tensor: str, activity: str, ts_us: float,
+                 dur_us: float) -> None:
+        """A complete ('X') event at an explicit host-monotonic timestamp
+        (µs): how device spans enter the file."""
+        with self._lock:
+            if self._closed:
+                return
+            self._f.write(json.dumps({
+                "name": activity, "ph": "X",
+                "ts": round(ts_us - self._t0, 3),
+                "dur": round(dur_us, 3),
+                "pid": self._pid(tensor)}) + ",\n")
+
     def close(self) -> None:
         """Flush and close; idempotent."""
         with self._lock:
@@ -95,6 +120,7 @@ class Timeline:
 
     def __init__(self) -> None:
         self._py: _PyTimeline | None = None
+        self._device_mode = False
 
     @property
     def active(self) -> bool:
@@ -102,7 +128,19 @@ class Timeline:
 
     def start(self, path: str) -> None:
         if self._py is None:
+            # Latched here: flipping HOROVOD_TIMELINE_DEVICE later cannot
+            # switch a running timeline's mode.
+            self._device_mode = _env.timeline_device_mode()
             self._py = _PyTimeline(path)
+
+    @property
+    def device_mode(self) -> bool:
+        """Whether ``HOROVOD_TIMELINE_DEVICE=1`` was set when the timeline
+        started (before it starts: the live variable): programs' spans then
+        come from sampled profiler sessions with device timestamps."""
+        if self._py is not None:
+            return self._device_mode
+        return _env.timeline_device_mode()
 
     def event(self, tensor: str, activity: str, phase: str) -> None:
         if self._py is not None:
@@ -117,6 +155,24 @@ class Timeline:
 
     def end_activity(self, tensor: str, activity: str) -> None:
         self.event(tensor, activity, "E")
+
+    def event_at(self, tensor: str, activity: str, ts_us: float,
+                 dur_us: float) -> None:
+        """A complete event at an explicit host-monotonic timestamp (a
+        device span). Only the device mode writes them: in host mode the
+        span is dropped with a warning."""
+        if self._py is None:
+            return
+        if not self._device_mode:
+            import warnings
+
+            warnings.warn(
+                "Timeline.event_at called while the timeline is in host "
+                "mode (HOROVOD_TIMELINE_DEVICE was not set when the "
+                "timeline started) — device-true span dropped. Set the "
+                "variable before horovod_tpu_torch.init().", stacklevel=2)
+            return
+        self._py.event_at(tensor, activity, ts_us, dur_us)
 
     def stop(self) -> None:
         if self._py is not None:

@@ -32,6 +32,16 @@ The committed plan is an :class:`ExchangeSchedule`, a JSON artifact
 (``.exchange.json``) whose bytes and hash equal the JAX package's for the
 same inputs: its layout names no interconnect level, and dtypes are
 written by numpy's names (``float32``, ``bfloat16``, ``int8``).
+
+**The measured half**: ``plan_exchange(compute_window_s=)`` takes the
+tuner's measured compute window into the sizing floor;
+:func:`measured_exposed_comm_ms` reads exposed communication off a
+profiler session; the :class:`Recalibrator` refits the α–β constants from
+measured collectives and persists them to the tuning cache (levels
+``nvlink``/``ib``), fed by the device timeline's sampled calls through
+:func:`observe_xla_spans` (``HOROVOD_RECALIBRATION``, default on). The
+planner itself never reads the cache (above); ``HOROVOD_AUTOTUNE=1`` and
+``hvd.tune()`` do.
 """
 
 from __future__ import annotations
@@ -334,16 +344,24 @@ def _pow2(x: int) -> int:
     return lower << 1 if x - lower > (lower >> 1) else lower
 
 
-def _region_thresholds(base: int, model, topo) -> tuple[int, ...]:
+def _region_thresholds(base: int, model, topo,
+                       compute_window_s: float | None) -> tuple[int, ...]:
     """Per-region bucket-size thresholds in issue order (small early,
     large late), power-of-two quantized. ``base`` (the fusion threshold)
-    is the ceiling; the floor is the α–β model's 90%-busbw point / 8."""
+    is the ceiling; the floor is the α–β model's 90%-busbw point / 8 and,
+    when a measured compute window is known, at least the bytes a
+    1/(2R)-window chunk of communication carries."""
     if base <= 0:
         return ()  # fusion disabled: every leaf is its own bucket
     floor = max(1, base >> (N_REGIONS - 1))
     hint = None
     if model is not None and topo is not None and topo.group_size > 1:
         hint = model.fusion_threshold_bytes(topo) >> 3
+        if compute_window_s is not None and compute_window_s > 0:
+            link = model.ib if topo.multi_slice else model.nvlink
+            window_bytes = int(link.gbps * 1e9 * compute_window_s
+                               / (2 * N_REGIONS))
+            hint = max(hint, window_bytes)
         hint = min(base, max(1 << 20, _pow2(hint)))
     if hint is not None:
         floor = min(base, max(floor, hint))
@@ -400,6 +418,7 @@ def plan_exchange(leaves, threshold_bytes: int, *, mode: str,
                   compression=None, algo=None, labels=None,
                   topo=None, model=None, world_size: int | None = None,
                   priority_fn=None,
+                  compute_window_s: float | None = None,
                   cross_compression=None,
                   channels: int | None = None,
                   max_channels: int | None = None,
@@ -422,6 +441,10 @@ def plan_exchange(leaves, threshold_bytes: int, *, mode: str,
     per-host tuning cache: a cache-fed floor could cross a power-of-two
     boundary on one rank only and split the ranks across two plans. Pass
     ``model=`` only when every rank is guaranteed the same constants.
+
+    ``compute_window_s``: a measured compute window of the step (the
+    tuner's profile, ``tune/calibrate.py``), which raises the priority
+    plan's sizing floor to what a window's share of the wire carries.
 
     ``channels``: explicit channel count for every eligible bucket;
     ``max_channels``: cap of the planner's per-bucket choice (default 1 =
@@ -467,7 +490,8 @@ def plan_exchange(leaves, threshold_bytes: int, *, mode: str,
                 # Stable among equal keys: keep reverse-enumeration order.
                 return (priority_fn(label, i), -i)
             order = sorted(range(len(leaves)), key=key)
-        regions = _region_thresholds(threshold_bytes, model, topo)
+        regions = _region_thresholds(threshold_bytes, model, topo,
+                                     compute_window_s)
         raw = _plan_ordered(order, leaves, regions, sum(leaf_bytes))
         raw = _fusion._annotate_algo(
             _fusion._annotate_wire(raw, compression, world), algo)
@@ -604,7 +628,232 @@ def exposed_comm_from_spans(comm_spans, compute_spans) -> float:
     return exposed
 
 
-# -- the live plan ------------------------------------------------------------
+def measured_exposed_comm_ms(run_once, steps: int = 1) -> float | None:
+    """Exposed communication per step as the device ran it: one call of
+    ``run_once`` under ``torch.profiler``, its device events split into
+    communication (NCCL's collectives, ``core/xprof.py``'s classifier) and
+    compute (every other kernel or copy), and the non-overlapped
+    communication ms through :func:`exposed_comm_from_spans`. None when
+    the session has no device events (the CPU): callers fall back to the
+    planned estimate."""
+    from horovod_tpu_torch.core import xprof as _xprof
+
+    events = _xprof.profiled_events(run_once)[1]
+    if not events:
+        return None
+    comm, compute = [], []
+    for name, start, dur in events:
+        base = _xprof.kernel_base(name)
+        base = base.removesuffix("-start").removesuffix("-done")
+        (comm if base in _xprof._COLL_KIND else compute).append(
+            (start, dur))
+    return exposed_comm_from_spans(comm, compute) / 1e3 / max(1, steps)
+
+
+# -- always-on α–β recalibration --------------------------------------------
+
+
+def _itemsize(dtype) -> int:
+    """Bytes an element of a schedule row's dtype name (``float32`` or
+    ``torch.float32``)."""
+    name = str(dtype).removeprefix("torch.")
+    return torch.empty((), dtype=getattr(torch, name)).element_size()
+
+
+class Recalibrator:
+    """Online least-squares refresh of the α–β constants from measured
+    collective times, persisted to the tuning cache (``utils/costs.py``).
+
+    Per level (``"nvlink"``/``"ib"``) the running sums of a straight-line
+    fit ``t = α + x/β`` over the ring-normalized regressor ``x = ring·S``
+    are kept (n, Σx, Σt, Σxt, Σx²), so samples of different world sizes,
+    and sums continued from a prior run's cache, mix correctly; every
+    ``PERSIST_EVERY`` observations the merged constants are written to
+    ``HOROVOD_TUNING_CACHE``, continuing a prior run's sums (its
+    ``recalibration`` section; a cache of another schema or device kind
+    is ignored). Constants are rounded (α to 0.01 µs, β to 0.001 GB/s) so
+    that equal measurements write byte-identical caches on every rank.
+    The reference's class, with the port's level names."""
+
+    PERSIST_EVERY = 8
+
+    def __init__(self) -> None:
+        self._sums: dict[str, dict] = {}
+        self._since_persist = 0
+        self._seeded = False
+
+    # -- observation ---------------------------------------------------------
+
+    def observe(self, level: str, nbytes: int, seconds: float,
+                world: int) -> None:
+        """One measured collective: ``nbytes`` on the wire took
+        ``seconds`` over a ``world``-rank group at interconnect
+        ``level``. A world of one rank moves nothing and is ignored."""
+        if nbytes <= 0 or seconds <= 0 or world < 2:
+            return
+        x = 2 * (world - 1) / world * float(nbytes)  # ring-normalized
+        s = self._sums.setdefault(level, dict(
+            n=0, s=0.0, t=0.0, st=0.0, ss=0.0))
+        s["n"] += 1
+        s["s"] += x
+        s["t"] += float(seconds)
+        s["st"] += x * float(seconds)
+        s["ss"] += x ** 2
+        self._since_persist += 1
+
+    def observe_channels(self, level: str, channels: int, nbytes: int,
+                         seconds: float, world: int) -> None:
+        """One measured multi-channel collective: ``channels`` concurrent
+        instances together moved ``nbytes`` wire bytes in ``seconds`` of
+        wall time. The implied bandwidth multiplier against the level's
+        single-channel β fit is one efficiency sample (``eta = 1 +
+        (C-1)·eff``, ``utils/costs.py::CostModel.channel_eta``), folded
+        into a running mean that persists as the level's ``ch_eff``.
+        Skipped while the level has no β fit to compare with."""
+        if channels < 2 or nbytes <= 0 or seconds <= 0 or world < 2:
+            return
+        fit = self._fit(self._sums.get(level, {}) or {"n": 0})
+        if fit is None:
+            return
+        _, gbps = fit
+        ring = 2 * (world - 1) / world
+        t1 = ring * float(nbytes) / (gbps * 1e9)  # single-channel bw time
+        eta = t1 / float(seconds)
+        eff = max(0.0, min(1.0, (eta - 1.0) / (channels - 1)))
+        s = self._sums.setdefault(level, dict(
+            n=0, s=0.0, t=0.0, st=0.0, ss=0.0))
+        s["ch_n"] = int(s.get("ch_n", 0)) + 1
+        s["ch_e"] = float(s.get("ch_e", 0.0)) + eff
+        self._since_persist += 1
+
+    def _fit(self, s: dict):
+        """(alpha_us, gbps) from one level's sums, or None when the fit
+        is degenerate (fewer than 2 distinct sizes)."""
+        n = s["n"]
+        if n < 2:
+            return None
+        var = n * s["ss"] - s["s"] ** 2
+        if var <= 0:
+            return None  # one size observed repeatedly: no slope
+        slope = (n * s["st"] - s["s"] * s["t"]) / var
+        intercept = (s["t"] - slope * s["s"]) / n
+        # Clamped to physical values rather than poisoning the cache: a
+        # noisy host can fit a negative α. The slope is 1/β directly.
+        alpha_us = max(intercept * 1e6, 0.1)
+        gbps = max(1.0 / max(slope, 1e-15) / 1e9, 0.01)
+        return round(alpha_us, 2), round(gbps, 3)
+
+    def constants(self) -> dict:
+        """Fitted ``{"nvlink": {"alpha_us", "gbps"[, "ch_eff"]}, ...}``
+        for every level with a non-degenerate fit (the cache's layout);
+        ``ch_eff`` once a multi-channel observation was folded in (rounded
+        to 0.01)."""
+        out = {}
+        for level, s in self._sums.items():
+            fit = self._fit(s)
+            if fit is not None:
+                entry = {"alpha_us": fit[0], "gbps": fit[1]}
+                if s.get("ch_n", 0) > 0:
+                    entry["ch_eff"] = round(s["ch_e"] / s["ch_n"], 2)
+                out[level] = entry
+        return out
+
+    # -- persistence ---------------------------------------------------------
+
+    def _seed_from_cache(self, device_kind: str, path=None) -> None:
+        """Continue a previous run's fit: fold the cache's recalibration
+        sums into ours, once. An unreadable or stale section is absent."""
+        self._seeded = True
+        cache = _costs.load_tuning_cache(path)
+        if not cache or cache.get("device_kind") != device_kind:
+            return
+        prior = cache.get("recalibration")
+        if not isinstance(prior, dict):
+            return
+        for level, p in prior.items():
+            if not isinstance(p, dict):
+                continue
+            try:
+                vals = {k: float(p[k]) for k in ("s", "t", "st", "ss")}
+                n = int(p["n"])
+            except (KeyError, TypeError, ValueError):
+                continue  # corrupt section: ignored, never misread
+            if n < 0 or vals["s"] < 0 or vals["t"] < 0:
+                continue
+            s = self._sums.setdefault(level, dict(
+                n=0, s=0.0, t=0.0, st=0.0, ss=0.0))
+            s["n"] += n
+            for k in ("s", "t", "st", "ss"):
+                s[k] += vals[k]
+            # Channel-efficiency sums are optional and validated on their
+            # own: a corrupt pair is dropped, the α–β sums are kept.
+            try:
+                ch_n = int(p.get("ch_n", 0))
+                ch_e = float(p.get("ch_e", 0.0))
+            except (TypeError, ValueError):
+                continue
+            if ch_n > 0 and 0.0 <= ch_e <= ch_n:
+                s["ch_n"] = int(s.get("ch_n", 0)) + ch_n
+                s["ch_e"] = float(s.get("ch_e", 0.0)) + ch_e
+
+    def maybe_persist(self, topo, path=None, force: bool = False) -> bool:
+        """Write the refreshed constants when due (every
+        ``PERSIST_EVERY`` observations, or ``force``). Returns whether a
+        write happened."""
+        if not _env.recalibration_enabled():
+            return False
+        if not force and self._since_persist < self.PERSIST_EVERY:
+            return False
+        if not self._seeded:
+            self._seed_from_cache(topo.device_kind, path)
+        constants = self.constants()
+        if not constants:
+            return False
+        # Keep what a prior calibration measured: the other level's
+        # constants, a measured fusion threshold (HOROVOD_AUTOTUNE=1 reads
+        # it) and the raw measurement rows.
+        cache = _costs.load_tuning_cache(path)
+        merged: dict = {}
+        measured = None
+        threshold = None
+        if cache and cache.get("device_kind") == topo.device_kind:
+            merged = dict(cache.get("constants") or {})
+            measured = cache.get("measured")
+            raw = cache.get("fusion_threshold")
+            if isinstance(raw, (int, float)) and raw > 0:
+                threshold = int(raw)
+        merged.update(constants)
+        if threshold is None:
+            # Power-of-two quantized like the region thresholds: every
+            # rank plans HOROVOD_AUTOTUNE=1 buckets with it, and a raw
+            # per-host fit would split the ranks' plans.
+            model = _costs.model_from_constants(merged, topo)
+            threshold = min(256 << 20, max(
+                1 << 20, _pow2(model.fusion_threshold_bytes(topo))))
+        _costs.save_tuning_cache(
+            merged, device_kind=topo.device_kind, world=topo.group_size,
+            fusion_threshold=threshold, measured=measured,
+            recalibration={level: dict(s)
+                           for level, s in self._sums.items()},
+            path=path)
+        self._since_persist = 0
+        return True
+
+
+_recalibrator = Recalibrator()
+
+
+def recalibrator() -> Recalibrator:
+    return _recalibrator
+
+
+def reset_recalibration() -> None:
+    """Fresh in-process recalibration state."""
+    global _recalibrator
+    _recalibrator = Recalibrator()
+
+
+# -- the live plan and the device-span feedback -----------------------------
 
 _live_plan: ExchangeSchedule | None = None
 
@@ -618,3 +867,80 @@ def register_live_plan(sched: ExchangeSchedule) -> None:
 
 def last_plan() -> ExchangeSchedule | None:
     return _live_plan
+
+
+_SPAN_ACTIVITIES = ("XLA_ALLREDUCE", "XLA_REDUCESCATTER", "XLA_ALLGATHER")
+
+
+def observe_xla_spans(spans, sched_entries) -> None:
+    """Feed the device timeline's collective spans into the recalibrator.
+    ``spans`` are ``(row, activity, start_us, dur_us)`` from
+    ``core/xprof.py::map_device_spans``; ``sched_entries`` the program's
+    schedule rows ``[name, op, dtype, shape, group, root, members]``,
+    which give each row its payload bytes (the registered plan's wire
+    bytes where its members match). The level is ``ib`` when the plan
+    spans hosts, else ``nvlink``. Never raises: a feedback fault must not
+    take the timeline down. (The reference's name: the spans are the
+    device's, named as the reference names them.)"""
+    if not _env.recalibration_enabled():
+        return
+    try:
+        from horovod_tpu_torch.core import state as _state
+        from horovod_tpu_torch.ops import topology as _topology
+
+        by_name = {e[0]: e for e in sched_entries}
+        plan = _live_plan
+        wire_by_members = {}
+        ch_by_members = {}
+        if plan is not None:
+            for b, m in zip(plan.buckets, plan.members):
+                wire_by_members[m] = b.bytes_on_wire
+                ch_by_members[m] = b.channels
+        # Memoized discovery: the persist's device kind. The level and
+        # world come from the registered plan when there is one.
+        topo = _topology.discover(_state.get_group(0))
+        if plan is not None:
+            level = "ib" if plan.num_slices > 1 else "nvlink"
+            world = plan.world_size
+        else:
+            level = "ib" if topo.multi_slice else "nvlink"
+            world = topo.group_size
+        rec = recalibrator()
+        fed = False
+        # The C per-channel spans of one bucket are one concurrent
+        # observation: their union's wall time against the bucket's wire
+        # bytes feeds the channel efficiency (each span alone would pair
+        # partial bytes with the α–β fit and corrupt β).
+        by_row: dict = {}
+        for row, activity, start, dur_us in spans:
+            if activity not in _SPAN_ACTIVITIES or dur_us <= 0:
+                continue
+            by_row.setdefault(row, []).append((start, dur_us))
+        for row, row_spans in by_row.items():
+            entry = by_name.get(row)
+            if entry is None:
+                continue
+            members = tuple(entry[6]) if len(entry) > 6 else ()
+            nbytes = wire_by_members.get(members)
+            if nbytes is None:
+                n = 1
+                for d in entry[3] or [1]:
+                    n *= int(d)
+                nbytes = n * _itemsize(entry[2])
+            ch = ch_by_members.get(members, 1)
+            if ch > 1:
+                if len(row_spans) < ch:
+                    continue  # a partial capture: skip the row
+                wall_us = (max(s + d for s, d in row_spans)
+                           - min(s for s, _ in row_spans))
+                rec.observe_channels(level, ch, nbytes, wall_us * 1e-6,
+                                     world)
+                fed = True
+                continue
+            for _start, dur_us in row_spans:
+                rec.observe(level, nbytes, dur_us * 1e-6, world)
+                fed = True
+        if fed:
+            rec.maybe_persist(topo)
+    except Exception:
+        pass  # feedback is best-effort by contract

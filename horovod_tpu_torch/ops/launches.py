@@ -5,7 +5,8 @@ dict through :func:`count`. A wrapper called while a CUDA graph is being
 captured launches nothing: the capture records the kernel, and the graph
 launches it at every replay. So :func:`recording` collects what a capture
 records, and :func:`replayed` counts it once a replay
-(``parallel/spmd.py`` does both).
+(``parallel/spmd.py`` does both). :data:`KERNELS` names the device
+functions behind each wrapper.
 """
 
 from __future__ import annotations
@@ -13,6 +14,16 @@ from __future__ import annotations
 import contextlib
 
 import torch
+
+# The device functions each wrapper launches, the one a launch counts
+# first: what a profiler session (``core/xprof.py::kernel_spans``) names.
+KERNELS = {
+    "channel_sums": ("channel_sums_ring_kernel",),
+    "channel_grad_sums": ("channel_grad_sums_kernel", "finalize_kernel"),
+    "flash_fwd": ("flash_fwd_kernel",),
+    "flash_bwd": ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"),
+    "adamw": ("adamw_kernel",),
+}
 
 _recorded: list | None = None
 

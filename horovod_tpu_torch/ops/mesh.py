@@ -39,12 +39,17 @@ SHARDING_MODES = ("off", "zero2", "zero3")
 
 
 def resolve_sharding(sharding: str | None) -> str:
-    """Resolve a ``sharding=`` argument: ``None`` reads
-    ``HOROVOD_SHARDING`` (default ``off``); explicit strings are
-    validated here so a typo'd literal raises at construction, not at
-    the first step."""
+    """Resolve a ``sharding=`` argument: ``None`` takes
+    ``HOROVOD_SHARDING`` when set, else an applied tuned config's value
+    (``tune/apply.py``), else ``off``; explicit strings are validated
+    here so a typo'd literal raises at construction, not at the first
+    step."""
     if sharding is None:
-        return _env.sharding_mode()
+        from horovod_tpu_torch.tune import apply as _tune_apply
+
+        sharding = _tune_apply.override("HOROVOD_SHARDING")
+        if sharding is None:
+            return _env.sharding_mode()
     value = str(sharding).strip().lower()
     if value not in SHARDING_MODES:
         raise HorovodError(
@@ -132,13 +137,18 @@ def layout(topo: _topology.Topology,
            fsdp_size: int | None = None) -> FsdpMesh:
     """Build the :class:`FsdpMesh` for one topology.
 
-    ``fsdp_size`` (default: ``HOROVOD_FSDP_AXIS_SIZE``, else auto)
-    overrides the fsdp-axis size. Auto prefers NVLink: one host on a
-    multi-host topology, the whole group on one host. An override must
-    divide the ranks of a host — an fsdp group straddling hosts would put
-    the hot gather path on the slow interconnect."""
+    ``fsdp_size`` (default: ``HOROVOD_FSDP_AXIS_SIZE``, else an applied
+    tuned config's, else auto) overrides the fsdp-axis size. Auto
+    prefers NVLink: one host on a multi-host topology, the whole group on
+    one host. An override must divide the ranks of a host — an fsdp group
+    straddling hosts would put the hot gather path on the slow
+    interconnect."""
     if fsdp_size is None:
-        fsdp_size = _env.fsdp_axis_size()
+        from horovod_tpu_torch.tune import apply as _tune_apply
+
+        tuned = _tune_apply.override("HOROVOD_FSDP_AXIS_SIZE")
+        fsdp_size = (_env.fsdp_axis_size() if tuned is None
+                     else int(tuned))
     if topo.multi_slice and topo.local_size is None:
         raise HorovodError(
             "FSDP sharding requires equal-sized slices (the fsdp axis "

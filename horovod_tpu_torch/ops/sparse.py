@@ -177,6 +177,19 @@ def _padded(slices: IndexedSlices, cap: int):
     return values, indices
 
 
+def _density_threshold() -> float | None:
+    """The density switch's threshold: explicit env > an applied tuned
+    config (``tune/apply.py``) > None, the cost model's own crossover."""
+    value = _env.sparse_density_threshold()
+    if value is None:
+        from horovod_tpu_torch.tune import apply as _tune_apply
+
+        tuned = _tune_apply.override("HOROVOD_SPARSE_DENSITY_THRESHOLD")
+        if tuned is not None:
+            value = float(tuned)
+    return value
+
+
 def plan_sparse_exchange(slices: IndexedSlices, group: int = 0, algo=None,
                          compression=None, index: int = 0,
                          pad_capacity=None, label: str = ""
@@ -215,7 +228,7 @@ def plan_sparse_exchange(slices: IndexedSlices, group: int = 0, algo=None,
         spec = model.choose_sparse(
             rows_per_rank=cap, row_bytes=row_wire + idx_itemsize,
             dense_nbytes=dense_wire, dense_rows=dense_rows, topo=topo,
-            density_threshold=_env.sparse_density_threshold(),
+            density_threshold=_density_threshold(),
             gather_phases=3 if applies else 2,
             dense_gather=applies and not comp.summable)
     wire_dtype = None

@@ -47,6 +47,7 @@ eagerly only: inside a captured step program it raises.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Mapping
 
 import torch
@@ -65,6 +66,8 @@ from horovod_tpu_torch.ops import sparse as _sparse
 from horovod_tpu_torch.ops import strategy as _strategy
 from horovod_tpu_torch.ops import topology as _topology
 from horovod_tpu_torch.parallel import sharded as _sharded
+from horovod_tpu_torch.tune import apply as _tune_apply
+from horovod_tpu_torch.utils import costs as _costs
 from horovod_tpu_torch.utils import env as _env
 
 
@@ -78,22 +81,32 @@ class FusedAllreduce:
     ``channels``; None = the environment default) are resolved when a
     signature is first planned; each bucket carries its wire dtype,
     algorithm and channel count (``Bucket.describe``). The planner's
-    knobs are explicit, since their environment defaults are the gradient
-    path's (:func:`allreduce_gradients`, :func:`DistributedOptimizer`):
-    ``schedule`` is ``"enum"`` (None) or ``"priority"``;
-    ``priority_fn(label, index)`` re-ranks a priority plan, where
-    ``label`` is the member label the exchange registers for tensor
-    ``index``: ``<name>.<index>``; ``max_channels`` caps the planner's
-    channel choice (None: 1, off). :attr:`plan` is the plan of the most
-    recent call."""
+    knobs are explicit: ``schedule`` is ``"enum"`` (None) or
+    ``"priority"``; ``priority_fn(label, index)`` re-ranks a priority
+    plan, where ``label`` is the member label the exchange registers for
+    tensor ``index``: ``<name>.<index>``; ``max_channels`` caps the
+    planner's channel choice (None: 1, off).
+
+    ``gradient=True`` makes it the gradient path's exchange
+    (:func:`allreduce_gradients`, :func:`DistributedOptimizer`): a None
+    knob then resolves as the reference's gradient path does, explicit
+    env > an applied tuned config (``tune/apply.py``) > default, for the
+    algorithm, compression, cross-host wire, fusion threshold, schedule
+    and channel cap; the fusion threshold comes from the tuning cache
+    under ``HOROVOD_AUTOTUNE=1``; and a restricted group (a family, or
+    another group than the program's) keeps the defaults. Without it (the
+    Trainer's buffer sync) the tuned values never apply. :attr:`plan` is
+    the plan of the most recent call."""
 
     def __init__(self, name: str, group: int = 0, average: bool = True,
                  fusion_threshold: int | None = None, compression=None,
                  algo=None, cross_compression=None, channels=None,
                  schedule=None, priority_fn=None,
-                 max_channels: int | None = None) -> None:
+                 max_channels: int | None = None,
+                 gradient: bool = False) -> None:
         if schedule is not None:
             _exchange.resolve_mode(schedule)
+        self.gradient = gradient
         self.name = name
         self.group = group
         self.average = average
@@ -115,31 +128,58 @@ class FusedAllreduce:
             return _state.get_group(self.group)
         return None
 
-    def _restricted(self, g: _state.Group | None) -> bool:
-        """A family, or a group other than the program's (eagerly: the
-        world's), takes the flat lowering only."""
-        ctx = _ctx.current()
-        return g is None or g.index != (0 if ctx is None
-                                        else ctx.group_index)
-
     def _resolve(self, tensors, g: _state.Group, restricted: bool):
         """The plan of a new signature (an ``ExchangeSchedule``), and the
         resolved compressor, cross format and topology."""
-        mode = ("enum" if self.schedule is None
-                else _exchange.resolve_mode(self.schedule))
-        threshold = (_state.fusion_threshold()
-                     if self.fusion_threshold is None
-                     else self.fusion_threshold)
-        comp = _compression.active(self.compression)
-        algo_spec = (_strategy.gradient_algo_default() if self.algo is None
-                     else _strategy.resolve_spec(self.algo))
-        cross_spec = (self.cross_compression
-                      if self.cross_compression is not None
-                      else _env.compression_cross_slice_default())
+        def tuned(name):
+            # The applied tuned value of an env knob: None unless a config
+            # is active and the env leaves the knob unset. Restricted
+            # groups keep their defaults, as in the reference.
+            if not self.gradient or restricted:
+                return None
+            return _tune_apply.override(name)
+
+        def knob(arg, name, default):
+            if arg is not None:
+                return arg
+            value = tuned(name)
+            return default() if value is None else value
+
+        if self.gradient:
+            mode = _exchange.resolve_mode(knob(
+                self.schedule, "HOROVOD_EXCHANGE_SCHEDULE", lambda: None))
+            cap = int(knob(self.max_channels, "HOROVOD_MAX_CHANNELS",
+                           _env.max_channels))
+        else:
+            mode = ("enum" if self.schedule is None
+                    else _exchange.resolve_mode(self.schedule))
+            cap = 1 if self.max_channels is None else self.max_channels
+        threshold = self.fusion_threshold
+        if threshold is None:
+            threshold = tuned("HOROVOD_FUSION_THRESHOLD")
+            if threshold is not None:
+                threshold = int(threshold)
+            elif (self.gradient and _env.autotune_enabled()
+                  and os.environ.get("HOROVOD_FUSION_THRESHOLD") is None):
+                ctx = _ctx.current()
+                threshold = _costs.tuned_fusion_threshold(
+                    _topology.discover(g if g is not None else
+                                       _state.get_group(
+                                           0 if ctx is None
+                                           else ctx.group_index)))
+            else:
+                threshold = _state.fusion_threshold()
+        comp = _compression.active(
+            knob(self.compression, "HOROVOD_COMPRESSION", lambda: None))
+        algo = knob(self.algo, "HOROVOD_ALLREDUCE_ALGO", lambda: None)
+        algo_spec = (_strategy.gradient_algo_default() if algo is None
+                     else _strategy.resolve_spec(algo))
+        cross_spec = knob(self.cross_compression,
+                          "HOROVOD_COMPRESSION_CROSS_SLICE",
+                          _env.compression_cross_slice_default)
         channels = (_strategy.resolve_channels(self.channels)
                     if self.channels is not None
                     else _env.exchange_channels_default())
-        cap = 1 if self.max_channels is None else self.max_channels
         if restricted:
             if channels is not None and channels > 1:
                 raise HorovodError(
@@ -172,7 +212,7 @@ class FusedAllreduce:
         return plan, comp, cross_spec, topo
 
     def _plan(self, tensors, g: _state.Group):
-        restricted = self._restricted(g)
+        restricted = _restricted_group(self.group)
         sig = (restricted,) + tuple((t.dtype, tuple(t.shape))
                                     for t in tensors)
         plan = self._plans.get(sig)
@@ -213,7 +253,7 @@ class FusedAllreduce:
     def plan_of(self, tensors) -> _exchange.ExchangeSchedule:
         """``tensors``' plan (planned, not negotiated nor cached)."""
         g = self._group()
-        return self._resolve(tensors, g, self._restricted(g))[0]
+        return self._resolve(tensors, g, _restricted_group(self.group))[0]
 
     def buckets(self, tensors) -> list:
         """The buckets of ``tensors``' plan, in issue order."""
@@ -301,6 +341,15 @@ class FusedAllreduce:
         return tensors
 
 
+def _restricted_group(group) -> bool:
+    """A family, or a group other than the program's (eagerly: the
+    world's): it takes the flat lowering only, and the gradient path's
+    tuned values never reach it."""
+    ctx = _ctx.current()
+    return (not _coll._is_group_index(group)
+            or int(group) != (0 if ctx is None else ctx.group_index))
+
+
 def _exchange_sparse(item: _sparse.IndexedSlices, i: int, group: int,
                      average: bool, sparse_algo, name: str, compression=None,
                      compression_key=None):
@@ -365,14 +414,14 @@ def allreduce_gradients(grads: list, group: int = 0, average: bool = True,
             "Group-family sparse allreduce is not supported: an "
             "IndexedSlices exchange targets a single group; issue one "
             "allreduce_indexed_slices per group.")
+    if compression is None and not _restricted_group(group):
+        compression = _tune_apply.override("HOROVOD_COMPRESSION")
     comp = _compression.active(compression)
     fused = FusedAllreduce(name, group, average, fusion_threshold,
                            compression=comp or "none", algo=algo,
                            cross_compression=cross_compression,
-                           channels=channels,
-                           schedule=_exchange.resolve_mode(schedule),
-                           priority_fn=priority_fn,
-                           max_channels=_env.max_channels())
+                           channels=channels, schedule=schedule,
+                           priority_fn=priority_fn, gradient=True)
     rows = []
     for i in sparse:
         grads[i], row = _exchange_sparse(grads[i], i, group, average,
@@ -421,14 +470,13 @@ class _DistributedOptimizer:
                  average: bool, fusion_threshold: int | None,
                  compression=None, algo=None, cross_compression=None,
                  channels=None, error_feedback: bool = False,
-                 sparse_algo=None, schedule: str = "enum",
-                 max_channels: int = 1) -> None:
+                 sparse_algo=None, schedule: str | None = None) -> None:
         self.optimizer = optimizer
         self._allreduce = FusedAllreduce(
             "DistributedOptimizer.grads", group, average, fusion_threshold,
             compression=compression, algo=algo,
             cross_compression=cross_compression, channels=channels,
-            schedule=schedule, max_channels=max_channels)
+            schedule=schedule, gradient=True)
         self.sparse_algo = sparse_algo
         self.error_feedback = error_feedback
         self.residual: dict[int, torch.Tensor] = {}
@@ -670,13 +718,14 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer, group: int = 0,
                                          compression=compression,
                                          params=params)
     _sparse.resolve_sparse_algo(sparse_algo)
+    _exchange.resolve_mode(schedule)  # typos raise here, not at a step
+    _env.max_channels()
     return _DistributedOptimizer(
         optimizer, group, average, fusion_threshold,
         compression=compression, algo=algo,
         cross_compression=cross_compression, channels=channels,
         error_feedback=bool(error_feedback), sparse_algo=sparse_algo,
-        schedule=_exchange.resolve_mode(schedule),
-        max_channels=_env.max_channels())
+        schedule=schedule)
 
 
 def _named_tensors(variables) -> list[tuple[str, torch.Tensor]]:

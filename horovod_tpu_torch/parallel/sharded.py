@@ -346,8 +346,13 @@ def _fsdp_multiple(comp, fmesh) -> int:
 
 def fsdp_resolve_comp(compression):
     """The gradient wire's compressor for the sharded modes (None:
-    ``HOROVOD_COMPRESSION``): summable formats only, since the exchange
-    keeps a reduce-scatter prefix and int4's gather scheme has none."""
+    ``HOROVOD_COMPRESSION``, or an applied tuned config's value when the
+    env leaves it unset): summable formats only, since the exchange keeps
+    a reduce-scatter prefix and int4's gather scheme has none."""
+    if compression is None:
+        from horovod_tpu_torch.tune import apply as _tune_apply
+
+        compression = _tune_apply.override("HOROVOD_COMPRESSION")
     comp = _compression.active(compression)
     if comp is not None and not comp.summable:
         raise HorovodError(

@@ -40,6 +40,19 @@ On the CPU there is no graph: the first call of a key runs ``fn`` under the
 program context with the per-call negotiation on, and its schedule is
 validated; later calls run it under the context without a store round.
 
+With the timeline's device mode (``HOROVOD_TIMELINE_DEVICE=1``, the
+reference's device-fidelity mode) a key's first call, and every N-th with
+``HOROVOD_TIMELINE_DEVICE_INTERVAL=N``, is sampled: it runs under
+``torch.profiler`` (the first call eagerly, a later one as a graph
+replay), its device events are mapped onto the schedule
+(``core/xprof.py``) and written with device timestamps anchored at the
+host clock of the session's start (each launch of the port's own kernels
+on the ``_kernels`` row too), and its collective spans feed the α–β
+recalibrator (``ops/exchange.py::observe_xla_spans``). A session with no
+device event (the CPU) leaves an instant ``NO_DEVICE_PLANE`` note.
+Unsampled calls write no span and wait for nothing; ``sampled`` counts the
+sampled calls.
+
 What ``fn`` may do is what a capture allows: no host synchronisation
 (``.item()``, ``float(tensor)``, a copy to the host), no copy from pageable
 host memory, the same kernels and addresses every call. Its tensor
@@ -67,6 +80,7 @@ from horovod_tpu_torch.core import multihost as _mh
 from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.core import timeline as _tl
 from horovod_tpu_torch.core.state import HorovodError
+from horovod_tpu_torch.utils import env as _env
 from horovod_tpu_torch.utils import graphs as _graphs
 
 
@@ -92,6 +106,7 @@ class _Program(_graphs.Graph):
     def __init__(self) -> None:
         super().__init__()
         self.calls = 0
+        self.executions = 0  # calls counted by the device timeline mode
         self.schedule: list | None = None
         self.static_in: list = []
 
@@ -101,8 +116,9 @@ class Spmd:
     programs recorded so far (one a key: a capture on the card, the
     validated first call on the CPU); ``runs`` the calls that ran ``fn``'s
     Python (on the card the first call and the capture of each key);
-    ``replays`` the graph replays; ``programs`` holds the programs by
-    key."""
+    ``replays`` the graph replays; ``sampled`` the calls the device
+    timeline mode ran under the profiler; ``programs`` holds the programs
+    by key."""
 
     def __init__(self, fn: Callable, group: int = 0) -> None:
         functools.update_wrapper(self, fn)
@@ -113,6 +129,7 @@ class Spmd:
         self.trace_count = 0
         self.runs = 0
         self.replays = 0
+        self.sampled = 0
 
     @property
     def recorded(self) -> bool:
@@ -162,11 +179,62 @@ class Spmd:
 
     def _spans(self, prog: _Program, phase: str) -> None:
         tl = _tl.session()
-        if not tl.active or not prog.schedule:
+        if not tl.active or tl.device_mode or not prog.schedule:
             return
         rows = prog.schedule if phase == "B" else reversed(prog.schedule)
         for nm, op, *_ in rows:
             tl.event(nm, f"GRAPH_{op}", phase)
+
+    # -- the device timeline mode -----------------------------------------
+
+    def _sampling(self, prog: _Program) -> bool:
+        """Whether this call of ``prog`` is sampled: in the device mode,
+        its first call and every N-th (``HOROVOD_TIMELINE_DEVICE_INTERVAL``);
+        a program whose schedule is recorded empty never is."""
+        tl = _tl.session()
+        if not (tl.active and tl.device_mode) or prog.schedule == []:
+            return False
+        n = prog.executions
+        prog.executions += 1
+        interval = _env.timeline_device_interval()
+        return n == 0 or (interval > 0 and n % interval == 0)
+
+    def _sampled(self, run_once, schedule: Callable[[], list]):
+        """``run_once()`` under ``torch.profiler``, its device events
+        mapped onto ``schedule()`` and written to the timeline."""
+        from horovod_tpu_torch.core import xprof as _xprof
+        from horovod_tpu_torch.ops import exchange as _exchange
+
+        out, events, anchor_us = _xprof.profiled_events(run_once)
+        self.sampled += 1
+        sched = schedule()
+        spans = _xprof.map_device_spans(sched, events)
+        tl = _tl.session()
+        if spans:
+            for row, activity, start_us, dur_us in (
+                    spans + _xprof.kernel_spans(events)):
+                tl.event_at(row, activity, anchor_us + start_us, dur_us)
+            _exchange.observe_xla_spans(spans, sched)
+        else:
+            tl.event("_device", "NO_DEVICE_PLANE", "X")
+        return out
+
+    def _first(self, prog: _Program, run_once):
+        """A key's first call, ``run_once()`` under a negotiating program
+        context (sampled in the device mode); returns its output and the
+        context, which holds the schedule it registered."""
+        holder = []
+
+        def once():
+            with _ctx.enter(self.group, negotiate=True) as ctx:
+                holder.append(ctx)
+                return run_once()
+
+        if self._sampling(prog):
+            out = self._sampled(once, lambda: holder[0].schedule())
+        else:
+            out = once()
+        return out, holder[0]
 
     # -- the CPU -----------------------------------------------------------
 
@@ -176,15 +244,20 @@ class Spmd:
             tl = _tl.session()
             row = f"_program/{tag}"
             tl.start_activity(row, "TRACE_AND_COMPILE")
-            with _ctx.enter(self.group, negotiate=True) as ctx:
-                out = self.fn(*args)
+            out, ctx = self._first(prog, lambda: self.fn(*args))
             tl.end_activity(row, "TRACE_AND_COMPILE")
             prog.schedule = self._recorded(tag, ctx)
             prog.calls = 2
             return out
+
+        def run():
+            with _ctx.enter(self.group):
+                return self.fn(*args)
+
+        if self._sampling(prog):
+            return self._sampled(run, lambda: prog.schedule)
         self._spans(prog, "B")
-        with _ctx.enter(self.group):
-            out = self.fn(*args)
+        out = run()
         self._spans(prog, "E")
         return out
 
@@ -200,8 +273,8 @@ class Spmd:
                     f"arguments to the rank's device first.")
         if prog.calls == 0:
             self.runs += 1
-            with _ctx.enter(self.group, negotiate=True):
-                out = prog.eager(dev, self.fn, *args)
+            out, _ = self._first(prog,
+                                 lambda: prog.eager(dev, self.fn, *args))
             prog.calls = 1
             return out
         if prog.calls == 1:
@@ -209,12 +282,16 @@ class Spmd:
         for static, t in zip(prog.static_in, leaves):
             if isinstance(t, torch.Tensor) and t is not static:
                 static.copy_(t)
-        self._spans(prog, "B")
-        out = prog.replay()
+        if self._sampling(prog):
+            out = self._sampled(prog.replay, lambda: prog.schedule)
+        else:
+            self._spans(prog, "B")
+            out = prog.replay()
+            tl = _tl.session()
+            if tl.active and not tl.device_mode:
+                torch.cuda.current_stream(dev).synchronize()
+            self._spans(prog, "E")
         self.replays += 1
-        if _tl.session().active:
-            torch.cuda.current_stream(dev).synchronize()
-        self._spans(prog, "E")
         return out
 
     def _capture(self, prog: _Program, tag: str, leaves, spec) -> None:

@@ -71,9 +71,9 @@ the reference's ``jax.random`` stream (ROADMAP §C). Greedy is ``argmax``.
 
 Not ported yet, raising ``NotImplementedError`` (ROADMAP §A item 14): the
 prefill/decode split across two subset groups (``prefill_group``/
-``decode_group``). The reference's tuned-config override of the speculate
-knob (``tune/apply.py``) is not read: the port reads
-``HOROVOD_SERVE_SPECULATE`` only.
+``decode_group``). ``speculate=None`` resolves as the reference's does:
+``HOROVOD_SERVE_SPECULATE`` when set, else an applied tuned config's value
+(``tune/apply.py``), else 0.
 """
 
 from __future__ import annotations
@@ -216,7 +216,13 @@ class Engine:
         # Speculative decoding: resolve k and the draft model before the
         # scheduler, whose admission headroom depends on k.
         if speculate is None:
-            speculate = _env.serve_speculate()
+            # env > tuned > default: override() is None unless a tuned
+            # config is active and the env leaves the knob unset.
+            from horovod_tpu_torch.tune import apply as _tune_apply
+
+            tuned = _tune_apply.override("HOROVOD_SERVE_SPECULATE")
+            speculate = (int(tuned) if tuned is not None
+                         else _env.serve_speculate())
         self.speculate_k = int(speculate)
         if self.speculate_k < 0:
             raise ValueError(

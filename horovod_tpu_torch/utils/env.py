@@ -21,9 +21,15 @@ and decomposition: ``HOROVOD_COMPRESSION``, ``HOROVOD_COMPRESSION_BLOCK``,
 ``HOROVOD_EXCHANGE_SCHEDULE`` and ``HOROVOD_MAX_CHANNELS``
 (``ops/exchange.py``),
 ``HOROVOD_TOPOLOGY_SLICES`` (``ops/topology.py``) and
-``HOROVOD_TUNING_CACHE`` (``utils/costs.py``), and ``HOROVOD_SHARDING`` and
+``HOROVOD_TUNING_CACHE`` (``utils/costs.py``), ``HOROVOD_SHARDING`` and
 ``HOROVOD_FSDP_AXIS_SIZE`` pick the ZeRO mode and its mesh
-(``ops/mesh.py``).
+(``ops/mesh.py``), and profile-guided tuning and the device timeline read
+``HOROVOD_PROFILE``, ``HOROVOD_TUNED_CONFIG``, ``HOROVOD_TUNE_BUDGET_S``
+(``horovod_tpu_torch/tune``), ``HOROVOD_AUTOTUNE`` (the gradient path's
+fusion threshold from the tuning cache), ``HOROVOD_RECALIBRATION``
+(``ops/exchange.py``), ``HOROVOD_TIMELINE_DEVICE`` and
+``HOROVOD_TIMELINE_DEVICE_INTERVAL`` (``core/timeline.py``,
+``parallel/spmd.py``).
 
 Every other knob of the reference is registered too, with the ROADMAP §A
 item that ports it (:data:`UNPORTED_RESULT_KNOBS`,
@@ -47,6 +53,7 @@ DEFAULT_STALL_WARNING_TIME = 60.0  # seconds
 # The knobs the port reads.
 PORTED_KNOBS = frozenset({
     "HOROVOD_ALLREDUCE_ALGO",
+    "HOROVOD_AUTOTUNE",
     "HOROVOD_COMPRESSION",
     "HOROVOD_COMPRESSION_BLOCK",
     "HOROVOD_COMPRESSION_CROSS_SLICE",
@@ -60,6 +67,8 @@ PORTED_KNOBS = frozenset({
     "HOROVOD_MAX_CHANNELS",
     "HOROVOD_NEGOTIATION_TIMEOUT",
     "HOROVOD_PREFETCH_DEPTH",
+    "HOROVOD_PROFILE",
+    "HOROVOD_RECALIBRATION",
     "HOROVOD_SCHEDULE_TIMEOUT",
     "HOROVOD_SERVE_BLOCK_SIZE",
     "HOROVOD_SERVE_DEADLINE_MS",
@@ -76,7 +85,11 @@ PORTED_KNOBS = frozenset({
     "HOROVOD_SPARSE_PAD_CAPACITY",
     "HOROVOD_STALL_CHECK_TIME",
     "HOROVOD_TIMELINE",
+    "HOROVOD_TIMELINE_DEVICE",
+    "HOROVOD_TIMELINE_DEVICE_INTERVAL",
     "HOROVOD_TOPOLOGY_SLICES",
+    "HOROVOD_TUNED_CONFIG",
+    "HOROVOD_TUNE_BUDGET_S",
     "HOROVOD_TUNING_CACHE",
 })
 
@@ -91,7 +104,6 @@ UNPORTED_RESULT_KNOBS: dict[str, tuple[int, str, frozenset]] = {
 # Knobs of the reference that only tune timing or reporting, not ported
 # yet: name -> ROADMAP §A item. Each draws a warning at hvd.init.
 UNPORTED_TUNING_KNOBS: dict[str, int] = {
-    "HOROVOD_AUTOTUNE": 16,
     "HOROVOD_EAGER_CACHE": 1,
     "HOROVOD_ELASTIC_JOIN_TIMEOUT": 15,
     "HOROVOD_ELASTIC_MIN_WORLD": 15,
@@ -101,12 +113,6 @@ UNPORTED_TUNING_KNOBS: dict[str, int] = {
     "HOROVOD_LIVENESS_TIMEOUT": 15,
     "HOROVOD_MODEL_FAULTS": 17,
     "HOROVOD_MODEL_MAX_STATES": 17,
-    "HOROVOD_PROFILE": 16,
-    "HOROVOD_RECALIBRATION": 16,
-    "HOROVOD_TIMELINE_DEVICE": 16,
-    "HOROVOD_TIMELINE_DEVICE_INTERVAL": 16,
-    "HOROVOD_TUNED_CONFIG": 16,
-    "HOROVOD_TUNE_BUDGET_S": 16,
 }
 
 # Knobs that only mean something under JAX: accepted, and nothing is said.
@@ -163,6 +169,27 @@ def timeline_path() -> str | None:
     """Path for the Chrome-tracing timeline, or None when disabled."""
     path = os.environ.get("HOROVOD_TIMELINE")
     return path if path else None
+
+
+def timeline_device_mode() -> bool:
+    """``HOROVOD_TIMELINE_DEVICE=1``: an ``spmd`` program's spans come from
+    sampled executions under ``torch.profiler``, with device timestamps
+    (``core/xprof.py``), instead of host stamps around a synchronised
+    replay."""
+    return os.environ.get("HOROVOD_TIMELINE_DEVICE", "") not in ("", "0")
+
+
+def timeline_device_interval() -> int:
+    """``HOROVOD_TIMELINE_DEVICE_INTERVAL=N``: in the device timeline mode,
+    sample every N-th call of each program as well as the first. 0/unset =
+    the first call only; an unparsable value is 0, as in the reference."""
+    raw = os.environ.get("HOROVOD_TIMELINE_DEVICE_INTERVAL")
+    if raw is None:
+        return 0
+    try:
+        return max(0, int(raw))
+    except ValueError:
+        return 0
 
 
 def stall_warning_seconds() -> float:
@@ -537,6 +564,100 @@ def tuning_cache_path() -> str:
         "HOROVOD_TUNING_CACHE",
         os.path.join(os.path.expanduser("~"), ".horovod_tpu_torch",
                      "allreduce_tuning.json"))
+
+
+def recalibration_enabled() -> bool:
+    """``HOROVOD_RECALIBRATION`` (default 1): feed measured collective
+    spans of the device timeline back into the α–β constants through the
+    tuning cache (``ops/exchange.py::Recalibrator``). ``0`` disables.
+    Values other than 0/1 raise."""
+    raw = os.environ.get("HOROVOD_RECALIBRATION")
+    if raw is None or raw.strip() in ("", "1"):
+        return True
+    if raw.strip() == "0":
+        return False
+    raise ValueError(
+        f"HOROVOD_RECALIBRATION must be 0 or 1, got {raw!r}")
+
+
+def autotune_enabled() -> bool:
+    """``HOROVOD_AUTOTUNE=1``: the gradient path's fusion threshold comes
+    from the tuning cache (``utils/costs.py::tuned_fusion_threshold``)
+    when neither ``fusion_threshold=`` nor ``HOROVOD_FUSION_THRESHOLD``
+    pins it. Off by default: rebucketing changes which tensors share a
+    compression scale. Values other than 0/1 raise."""
+    raw = os.environ.get("HOROVOD_AUTOTUNE")
+    if raw is None or raw.strip() in ("", "0"):
+        return False
+    if raw.strip() == "1":
+        return True
+    raise ValueError(
+        f"HOROVOD_AUTOTUNE must be 0 or 1, got {raw!r}")
+
+
+def profile_mode() -> str | None:
+    """``HOROVOD_PROFILE``: ``auto`` runs one bounded ``hvd.tune()`` pass
+    at the end of ``hvd.init`` (``horovod_tpu_torch/tune``) and applies
+    what it commits; ``off``/unset does nothing. Typos raise at
+    ``hvd.init``."""
+    raw = os.environ.get("HOROVOD_PROFILE")
+    if raw is None or not raw.strip():
+        return None
+    value = raw.strip().lower()
+    if value == "off":
+        return None
+    if value != "auto":
+        raise ValueError(
+            f"HOROVOD_PROFILE must be auto or off, got {raw!r}")
+    return value
+
+
+def tune_budget_seconds() -> float:
+    """``HOROVOD_TUNE_BUDGET_S`` (default 30): the wall-clock budget of
+    one calibration pass, seconds. The pass always completes its two-size
+    sweep and stops adding measurements once the budget is spent. Positive
+    and finite; typos, NaN and non-positive values raise at
+    ``hvd.init``."""
+    raw = os.environ.get("HOROVOD_TUNE_BUDGET_S")
+    if raw is None or not raw.strip():
+        return 30.0
+    try:
+        seconds = float(raw)
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_TUNE_BUDGET_S must be a positive number of "
+            f"seconds, got {raw!r}") from None
+    if seconds != seconds:  # NaN: every comparison below would be False
+        raise ValueError(
+            f"HOROVOD_TUNE_BUDGET_S must be a positive number of "
+            f"seconds, got {raw!r}")
+    if seconds <= 0 or seconds == float("inf"):
+        raise ValueError(
+            f"HOROVOD_TUNE_BUDGET_S must be > 0 and finite, got {raw!r}")
+    return seconds
+
+
+def tuned_config_path() -> str | None:
+    """``HOROVOD_TUNED_CONFIG``: a committed ``.tuned.json`` (its sibling
+    ``.exchange.json`` beside it) that ``hvd.init`` verifies and applies;
+    ``hvd.tune()`` also commits there when it is set. The path must end in
+    ``.tuned.json``; other suffixes raise at ``hvd.init``."""
+    raw = os.environ.get("HOROVOD_TUNED_CONFIG")
+    if raw is None or not raw.strip():
+        return None
+    path = raw.strip()
+    if not path.endswith(".tuned.json"):
+        raise ValueError(
+            f"HOROVOD_TUNED_CONFIG must name a .tuned.json artifact "
+            f"(the hvd-lint dispatch suffix), got {raw!r}")
+    return path
+
+
+def validate_tuning_knobs() -> None:
+    """Read the tuning knobs whose typos the reference refuses at
+    ``hvd.init``."""
+    for read in (profile_mode, tune_budget_seconds, tuned_config_path):
+        read()
 
 
 def validate_exchange_knobs() -> None:

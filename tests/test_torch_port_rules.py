@@ -1,7 +1,8 @@
 """The port's ground rules, checked on this CPU-only host.
 
 * No module of ``horovod_tpu_torch`` — nor ``chip_smoke.py``,
-  ``tools/profile_torch_step.py`` or ``tools/serve_bench_torch.py`` —
+  ``tools/profile_torch_step.py``, ``tools/serve_bench_torch.py`` or
+  ``tools/timeline_torch.py`` —
   imports JAX, flax, optax or the JAX package (AST walk, and a
   clean-interpreter import).
 * Entry points run on the GPU by default: ``hvd.init()``, the LM's
@@ -41,7 +42,8 @@ def _port_sources():
     files = sorted((REPO / "horovod_tpu_torch").rglob("*.py"))
     return files + [REPO / "chip_smoke.py",
                     REPO / "tools" / "profile_torch_step.py",
-                    REPO / "tools" / "serve_bench_torch.py"]
+                    REPO / "tools" / "serve_bench_torch.py",
+                    REPO / "tools" / "timeline_torch.py"]
 
 
 def _imported_roots(path):
@@ -219,8 +221,8 @@ TOP_LEVEL_DIVERGENCES = {
     "ErrorFeedbackState": "the residual lives in the optimizer wrapper's "
                           "state (DistributedOptimizer(error_feedback=))",
 }
-# Not ported yet, under their ROADMAP §A item.
-NOT_YET_PORTED = {"tune": 16, "tune_report": 16, "TunedConfig": 16}
+# Not ported yet, under their ROADMAP §A item: none is left.
+NOT_YET_PORTED: dict[str, int] = {}
 
 
 def test_every_name_of_the_references_all_is_ported_or_recorded():
@@ -622,15 +624,41 @@ def test_the_sharding_knobs_are_ported(clean_env, name, value):
         assert tenv.fsdp_axis_size() == int(value)
 
 
-def test_recalibration_still_warns_naming_item_16(clean_env):
-    """The α–β recalibration loop's only live feed is the device-span
-    profiler (``core/xprof.py``'s counterpart, ROADMAP §A item 16), so
-    ``HOROVOD_RECALIBRATION`` waits for it and warns."""
-    assert tenv.UNPORTED_TUNING_KNOBS["HOROVOD_RECALIBRATION"] == 16
-    assert "HOROVOD_RECALIBRATION" not in tenv.PORTED_KNOBS
-    clean_env.setenv("HOROVOD_RECALIBRATION", "1")
-    with pytest.warns(UserWarning, match=r"HOROVOD_RECALIBRATION .*item 16"):
+# The knobs of profile-guided tuning and the device timeline (ROADMAP §A
+# item 16), each with a value the reference accepts, and the reader that
+# takes it (HOROVOD_TUNED_CONFIG: a committed pair, made in the test).
+TUNING_VALUES = {
+    "HOROVOD_AUTOTUNE": ("1", "autotune_enabled", True),
+    "HOROVOD_PROFILE": ("off", "profile_mode", None),
+    "HOROVOD_RECALIBRATION": ("0", "recalibration_enabled", False),
+    "HOROVOD_TIMELINE_DEVICE": ("1", "timeline_device_mode", True),
+    "HOROVOD_TIMELINE_DEVICE_INTERVAL": ("3", "timeline_device_interval",
+                                         3),
+    "HOROVOD_TUNED_CONFIG": (None, "tuned_config_path", None),
+    "HOROVOD_TUNE_BUDGET_S": ("12.5", "tune_budget_seconds", 12.5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TUNING_VALUES))
+def test_the_tuning_knobs_are_ported(clean_env, tmp_path, name):
+    """Set, each draws neither a refusal nor a warning at hvd.init and is
+    read; HOROVOD_TUNED_CONFIG's pair is applied."""
+    assert name in tenv.PORTED_KNOBS
+    assert name not in tenv.UNPORTED_TUNING_KNOBS
+    value, reader, want = TUNING_VALUES[name]
+    if name == "HOROVOD_TUNED_CONFIG":
         hvd.init(device="cpu")
+        value = want = str(tmp_path / "one.tuned.json")
+        hvd.tune(path=value, measure=lambda n, c: 1e-5 + n / 1e9,
+                 apply=False)
+        hvd.shutdown()
+    clean_env.setenv(name, value)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        hvd.init(device="cpu")
+    assert hvd.is_initialized()
+    assert getattr(tenv, reader)() == want
+    assert hvd.tune_report()["active"] == (name == "HOROVOD_TUNED_CONFIG")
 
 
 @pytest.mark.parametrize("name", sorted(tenv.JAX_ONLY_KNOBS))
@@ -713,6 +741,19 @@ def test_stall_and_negotiation_timeout_parse_like_the_reference(
 
 NEW_MODULES = ("ops/compression.py", "ops/exchange.py", "ops/strategy.py",
                "ops/topology.py", "utils/costs.py", "utils/rng.py")
+
+
+ITEM_16_MODULES = ("tune/__init__.py", "tune/apply.py", "tune/artifact.py",
+                   "tune/calibrate.py", "tune/search.py", "core/xprof.py",
+                   "analysis/hlo.py", "analysis/report.py",
+                   "analysis/schedule.py")
+
+
+@pytest.mark.parametrize("module", ITEM_16_MODULES)
+def test_the_tuning_modules_are_held_to_the_no_jax_rule(module):
+    path = REPO / "horovod_tpu_torch" / module
+    assert path in _port_sources()
+    assert not sorted(set(_imported_roots(path)) & FORBIDDEN)
 
 
 @pytest.mark.parametrize("module", NEW_MODULES)
