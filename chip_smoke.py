@@ -318,15 +318,35 @@ Phases, one line of output each:
     (e) ``xprof.timed_steps(strict=True)`` on the LM's step: the device
     window beside the wall clock. Writes ``_chip_smoke_tune/``
     (gitignored) and removes it.
+22. resilience (``core/resilience.py``, ``core/elastic.py``): (a) phase
+    8's ResNet-50 (fused BN) fit, 3 steps, fault-free, then in a fresh
+    init cycle under ``kv_timeout`` at the first and the last store call
+    the fault-free fit made, with the timeline on: 2 retries, 2 ``RETRY``
+    events on its ``coordination`` row, losses and state bit-identical;
+    (b) phase 8's LM, 6 calls, without the liveness knobs and with them
+    and a heartbeat running beside the step (started by the phase: at
+    world 1 ``hvd.init`` starts none), a liveness check after each call:
+    no ``WorkerLost``, the heartbeat key advances, bit-identical, each
+    arm's median replay ms; (c) the reference's crash drill in child
+    processes (``python3 chip_smoke.py --resilience-child MODE DIR``):
+    ``crash@rank=0,step=2`` exits 43 (the LM's under
+    ``HOROVOD_ELASTIC=1``), ``fit(resume=)`` in a new process, and the
+    state's CRC equals an uninterrupted child's, for ResNet-50 and the LM;
+    (d) a ``WorkerLost`` under ``HOROVOD_ELASTIC=1`` at world 1 is refused
+    with the reference's min-world text, chained to the loss; (e)
+    ``tools/fault_drill_torch.py --device cuda`` passes (its elastic
+    scenario needs four GPUs). Writes ``_chip_smoke_resil/`` (gitignored)
+    and removes it.
 
 Each main path (5, 8 and 10, each example of 14, each run of 17, each
-arm of 18, of 19 (b) and of 20) runs with its kernels' launch counts set
+arm of 18, of 19 (b), of 20 and of 22 (a) and (b)) runs with its kernels' launch counts set
 to 0 just before it and read just after; the kernels line's
 ``launches`` are phases 5 and 8's counts (the eager step and the 9
 replays), ``launches_phase18``, ``launches_phase19`` and
 ``launches_phase20`` each arm's count in phases 18, 19 and 20, and
 ``launches_phase21`` the launches the device timeline of phase 21 (d)
-shows in its 3 sampled calls. Then a JSON line with each kernel's
+shows in its 3 sampled calls, and ``launches_phase22`` each arm's count in
+phase 22 (a) and (b). Then a JSON line with each kernel's
 record, and last the result line ``{"ok": true, "device": {...}}``. Any failed phase raises: the script then
 exits non-zero and prints no result. It also fails without CUDA, and when
 the ``horovod_tpu_torch`` package is not beside it.
@@ -353,6 +373,7 @@ import subprocess
 import sys
 import time
 import warnings
+import zlib
 
 import numpy as np
 import torch
@@ -360,7 +381,7 @@ import torch.nn.functional as F
 
 import horovod_tpu_torch as hvd
 from horovod_tpu_torch import serving
-from horovod_tpu_torch.core import resilience
+from horovod_tpu_torch.core import negotiate, resilience
 from horovod_tpu_torch.core import state as hstate
 from horovod_tpu_torch.models import mnist, resnet, transformer
 from horovod_tpu_torch.models.layers import FusedBatchNorm
@@ -5347,6 +5368,366 @@ def tuning_line(tn: dict, ident: str) -> str:
             f"{ident}")
 
 
+# -- resilience (phase 22) ------------------------------------------------------
+
+RESIL_DIR = "_chip_smoke_resil"
+RESIL_STEPS = 3  # (a): the eager call, the capture, one replay
+RESIL_LM_CALLS = 6  # (b): eager, captured, 4 replays (timed: the replays)
+LIVENESS_KNOBS = {"HOROVOD_LIVENESS_TIMEOUT": "30",
+                  "HOROVOD_LIVENESS_INTERVAL": "0.5"}
+# (c): CRASH_EPOCHS epochs of CRASH_SPE steps, a checkpoint an epoch; the
+# crash at step CRASH_AT (the first boundary of epoch 1) leaves epoch 0.
+CRASH_EPOCHS, CRASH_SPE, CRASH_AT = 2, 2, 2
+# Each child process of (c) runs these (workload, action) in turn: the
+# uninterrupted fits; ResNet-50's crash; its resume and the LM's crash (under
+# HOROVOD_ELASTIC=1: at world 1 the target is this process, which exits 43
+# as (d) asks); the LM's resume.
+RESIL_CHILDREN = (
+    ("full", (("resnet50", "full"), ("lm", "full"))),
+    ("crash_resnet50", (("resnet50", "crash"),)),
+    ("resume_resnet50", (("resnet50", "resume"), ("lm", "crash"))),
+    ("resume_lm", (("lm", "resume"),)),
+)
+
+
+@contextlib.contextmanager
+def env_set(**kw):
+    """Set environment variables (None unsets) and re-read the fault spec;
+    restore both after."""
+    saved = {k: os.environ.get(k) for k in kw}
+    try:
+        for k, v in kw.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        resilience.reset_injector()
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        resilience.reset_injector()
+
+
+def reinit() -> None:
+    """A fresh init cycle with fresh fault-injection and retry state."""
+    hvd.shutdown()
+    resilience._reset_for_tests()
+    hvd.init()
+
+
+def state_crc(model) -> int:
+    """CRC32 of every tensor of the model's state dict, in order."""
+    crc = 0
+    for t in model.state_dict().values():
+        crc = zlib.crc32(_bits(t).cpu().numpy().tobytes(), crc)
+    return crc & 0xFFFFFFFF
+
+
+def resil_kv_retry(device) -> dict:
+    """(a): phase 8's ResNet-50 (fused BN) fit, fault-free and then under
+    two ``kv_timeout`` faults at store calls the fault-free fit reached
+    (the first and the last); with the timeline on, in fresh init cycles."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    tl_path = os.path.join(HERE, RESIL_DIR, "timeline.json")
+    out = {"launches": {}}
+    try:
+        runs = {}
+        for arm in ("clean", "faults"):
+            spec = (None if arm == "clean" else ";".join(
+                f"kv_timeout@seq={q}" for q in out["seqs"]))
+            with env_set(HOROVOD_FAULT_INJECT=spec,
+                         HOROVOD_TIMELINE=None if spec is None else tl_path,
+                         HOROVOD_KV_BACKOFF_MS="5"):
+                reinit()
+                trainer, batch = ckpt_workload("resnet50", device, SEED)
+                log = LossLog()
+                reset_launch_counts()
+                trainer.fit([batch], 1, RESIL_STEPS, verbose=False,
+                            callbacks=[log])
+                torch.cuda.synchronize()
+                out["launches"][arm] = launch_counts()
+                runs[arm] = (log.losses, _cpu_tree(trainer.model.state_dict()),
+                             resilience.injector().kv_calls,
+                             resilience.retry_count())
+                del trainer
+                free_cuda()
+                hvd.shutdown()  # closes the timeline
+            if arm == "clean":
+                calls = runs["clean"][2]
+                if calls < 2:
+                    raise RuntimeError(f"phase 22 (a): the fit made {calls} "
+                                       f"store call(s); two faults need two")
+                out["seqs"] = (0, calls - 1)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    events = []
+    with open(tl_path) as f:
+        for line in f:
+            if line.startswith("{"):
+                events.append(json.loads(line.rstrip().rstrip(",")))
+    retry_events = sum(e.get("name") == "RETRY" for e in events)
+    (la, sa, calls, _), (lb, sb, calls_b, retries) = (runs["clean"],
+                                                      runs["faults"])
+    diff = _tree_diff(sa, sb)
+    if not same_bits(la, lb) or diff:
+        raise RuntimeError(f"phase 22 (a): the fit under store faults "
+                           f"differs: losses equal {same_bits(la, lb)}, "
+                           f"state {diff[:8]}")
+    if retries != 2 or retry_events != 2 or calls_b != calls + 2:
+        raise RuntimeError(f"phase 22 (a): {retries} retries, {retry_events} "
+                           f"RETRY events, {calls_b} store calls (wanted 2, "
+                           f"2, {calls + 2})")
+    out.update(calls=calls, retries=retries, retry_events=retry_events,
+               losses=[float(x) for x in la])
+    return out
+
+
+def resil_liveness(device) -> dict:
+    """(b): phase 8's LM, without the liveness knobs and with them and a
+    heartbeat running beside the step (at world 1 ``hvd.init`` starts
+    none: the phase starts it), a liveness check of the heartbeat after
+    each call."""
+    cfg = lm_config(torch.bfloat16)
+    tokens = transformer.synthetic_tokens(LM_BATCH, LM_T, cfg.vocab_size,
+                                          seed=SEED, device=device)
+    out = {"launches": {}}
+    runs = {}
+    for arm in ("plain", "liveness"):
+        with env_set(**(LIVENESS_KNOBS if arm == "liveness" else {})):
+            reinit()
+            if arm == "liveness":
+                resilience.start_heartbeat(force=True)
+                hb = resilience.heartbeat()
+                store = negotiate.negotiator().store
+                key = resilience._hb_key(hstate.kv_generation(), 0)
+                t_first = json.loads(store.get(key))["t"]
+                n_first = hb.published
+            trainer = lm_trainer(device)
+            reset_launch_counts()
+            losses, ms = [], []
+            for _ in range(RESIL_LM_CALLS):
+                l_, m_ = timed_calls(trainer, tokens, 1)
+                losses += l_
+                ms += m_
+                if arm == "liveness":
+                    resilience.liveness().check(store, [0],
+                                                "phase 22 (b)")
+            out["launches"][arm] = launch_counts()
+            runs[arm] = (losses, _cpu_tree(trainer.model.state_dict()), ms)
+            if arm == "liveness":
+                out["heartbeats"] = hb.published - n_first
+                out["hb_advanced_s"] = json.loads(store.get(key))["t"] - \
+                    t_first
+                resilience.stop_heartbeat()
+            del trainer
+            free_cuda()
+    (la, sa, ma), (lb, sb, mb) = runs["plain"], runs["liveness"]
+    diff = _tree_diff(sa, sb)
+    if not same_bits(la, lb) or diff:
+        raise RuntimeError(f"phase 22 (b): the fit beside the heartbeat "
+                           f"differs: losses equal {same_bits(la, lb)}, "
+                           f"state {diff[:8]}")
+    if out["heartbeats"] < 2 or out["hb_advanced_s"] <= 0:
+        raise RuntimeError(f"phase 22 (b): the heartbeat did not advance: "
+                           f"{out['heartbeats']} beats, "
+                           f"{out['hb_advanced_s']} s")
+    out["step_ms"] = {arm: statistics.median(r[2][2:])
+                      for arm, r in runs.items()}
+    out["losses"] = [float(x) for x in la]
+    return out
+
+
+def resilience_child(mode: str, directory: str) -> int:
+    """One child process of (c): the (workload, action) list of ``mode``
+    (``RESIL_CHILDREN``). Prints ``RESIL <workload> <action> crc=...``
+    lines; a crash action ends the process with exit 43."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    device = torch.device("cuda", 0)
+    hvd.init()
+    for name, action in dict(RESIL_CHILDREN)[mode]:
+        where = os.path.join(directory, name)
+        trainer, batch = ckpt_workload(name, device, SEED)
+        spec = (f"crash@rank=0,step={CRASH_AT}" if action == "crash"
+                else None)
+        elastic = "1" if (action, name) == ("crash", "lm") else None
+        with env_set(HOROVOD_FAULT_INJECT=spec, HOROVOD_ELASTIC=elastic):
+            saves = TimedCheckpoint(where)
+            t0 = time.perf_counter()
+            trainer.fit([batch], CRASH_EPOCHS, CRASH_SPE, verbose=False,
+                        callbacks=[] if action == "full" else [saves],
+                        resume=where if action == "resume" else None)
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        print(f"RESIL {name} {action} crc={state_crc(trainer.model)} "
+              f"epoch={trainer.epoch} seconds={secs:.3f}", flush=True)
+        del trainer
+        free_cuda()
+    hvd.shutdown()
+    return 0
+
+
+def resil_crash_resume(device) -> dict:
+    """(c): the reference's crash drill in child processes on the card,
+    for ResNet-50 (fused BN) and the LM; the resumed parameters' CRC must
+    equal the uninterrupted child's."""
+    directory = os.path.join(HERE, RESIL_DIR, "ckpt")
+    shutil.rmtree(directory, ignore_errors=True)
+    os.makedirs(directory)
+    lines, exits, wall = {}, {}, {}
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("HOROVOD_FAULT_INJECT", "HOROVOD_ELASTIC")}
+    for mode, _ in RESIL_CHILDREN:
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--resilience-child", mode, directory],
+                           env=env, capture_output=True, text=True,
+                           timeout=600, cwd=HERE)
+        wall[mode] = time.perf_counter() - t0
+        exits[mode] = r.returncode
+        for ln in r.stdout.splitlines():
+            if ln.startswith("RESIL "):
+                _, name, action, *kv = ln.split()
+                lines[(name, action)] = dict(x.split("=") for x in kv)
+        crashes = mode.startswith("crash") or mode == "resume_resnet50"
+        want = resilience.CRASH_EXIT_CODE if crashes else 0
+        if r.returncode != want or (crashes and "simulating hard crash"
+                                    not in r.stdout):
+            raise RuntimeError(f"phase 22 (c): child {mode} exited "
+                               f"{r.returncode} (wanted {want})\n"
+                               f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    shutil.rmtree(directory, ignore_errors=True)
+    out = {"exits": exits, "child_s": wall}
+    for name in ("resnet50", "lm"):
+        full, res = lines[(name, "full")], lines[(name, "resume")]
+        if full["crc"] != res["crc"] or int(res["epoch"]) != CRASH_EPOCHS:
+            raise RuntimeError(f"phase 22 (c) {name}: resumed crc "
+                               f"{res['crc']} epoch {res['epoch']}, "
+                               f"uninterrupted crc {full['crc']}")
+        out[name] = {"crc": int(full["crc"]),
+                     "resume_fit_s": float(res["seconds"])}
+    return out
+
+
+def resil_elastic_world1(device) -> dict:
+    """(d): a WorkerLost under HOROVOD_ELASTIC=1 at world 1, with the
+    default min world, is refused with the reference's text, chained to
+    the loss (the targeted crash's exit 43 is (c)'s LM crash child)."""
+
+    class Linear(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.ones(4, 2, device=device))
+
+    def lost(step, ranks, span=1, peers=()):
+        if step == 1:
+            raise resilience.WorkerLost("peer lost at step 1", ranks=(0,))
+
+    batch = (torch.ones(8, 4, device=device), torch.ones(8, 2,
+                                                        device=device))
+    with env_set(HOROVOD_ELASTIC="1"):
+        reinit()
+        model = Linear()
+        trainer = hvd.Trainer(
+            model, lambda m, b: torch.mean((b[0] @ m.w - b[1]) ** 2),
+            training.sgd(0.05))
+        real, resilience.maybe_crash = resilience.maybe_crash, lost
+        try:
+            trainer.fit([batch], 1, 2, verbose=False)
+            raise RuntimeError("phase 22 (d): the WorkerLost was not refused")
+        except hvd.HorovodError as e:
+            text, cause = str(e), e.__cause__
+        finally:
+            resilience.maybe_crash = real
+        del trainer
+    want = ("Elastic shrink refused: 0 survivor(s) would fall below "
+            "HOROVOD_ELASTIC_MIN_WORLD=1. Restart the failed host(s) and "
+            "resume from the last complete checkpoint "
+            "(Trainer.fit(resume=...)).")
+    if text != want or not isinstance(cause, resilience.WorkerLost):
+        raise RuntimeError(f"phase 22 (d): refused with {text!r} from "
+                           f"{cause!r}")
+    return {"refusal": text}
+
+
+def resil_drill(device) -> dict:
+    """(e): ``tools/fault_drill_torch.py --device cuda``: the scenarios one
+    card runs (the elastic one needs four)."""
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HOROVOD_")}
+    r = subprocess.run([sys.executable,
+                        os.path.join(HERE, "tools", "fault_drill_torch.py"),
+                        "--device", "cuda"], env=env, capture_output=True,
+                       text=True, timeout=900, cwd=HERE)
+    if r.returncode != 0 or not r.stdout.rstrip().endswith(
+            "FAULT DRILL PASSED"):
+        raise RuntimeError(f"phase 22 (e): the fault drill exited "
+                           f"{r.returncode}\n{r.stdout[-3000:]}\n"
+                           f"{r.stderr[-3000:]}")
+    summary = [ln.strip() for ln in r.stdout.splitlines()
+               if ln.startswith("  ")]
+    return {"seconds": time.perf_counter() - t0, "summary": summary}
+
+
+def phase_resilience(device) -> dict:
+    """Phase 22: (a) store retry, (b) liveness beside the step, (c) crash
+    and resume, (d) elastic at world 1, (e) the fault drill."""
+    os.makedirs(os.path.join(HERE, RESIL_DIR), exist_ok=True)
+    try:
+        out = {"kv": resil_kv_retry(device)}
+        out["liveness"] = resil_liveness(device)
+        free_cuda()
+        out["crash"] = resil_crash_resume(device)
+        out["elastic"] = resil_elastic_world1(device)
+        out["drill"] = resil_drill(device)
+    finally:
+        shutil.rmtree(os.path.join(HERE, RESIL_DIR), ignore_errors=True)
+    for arm, counts in {**out["kv"]["launches"],
+                        **out["liveness"]["launches"]}.items():
+        idle = sorted(k for k, v in counts.items()
+                      if v == 0 and (k in REPLAY_COUNTS["lm"]) == (
+                          arm in ("plain", "liveness")))
+        if idle:
+            raise RuntimeError(f"phase 22 ({arm}) never launched {idle}: "
+                               f"{counts}")
+    return out
+
+
+def resilience_line(rs: dict, ident: str) -> str:
+    kv, lv, cr = rs["kv"], rs["liveness"], rs["crash"]
+    return (
+        f"phase 22 resilience: ok; (a) ResNet-50 fused BN, {RESIL_STEPS} "
+        f"steps, {kv['calls']} store calls, kv_timeout at seq "
+        f"{kv['seqs'][0]} and {kv['seqs'][1]}: {kv['retries']} retries, "
+        f"{kv['retry_events']} RETRY events on the timeline's coordination "
+        f"row, losses and state bit-identical to the fault-free fit; (b) "
+        f"the LM ({LM_LAYERS} layers, B={LM_BATCH} T={LM_T}) beside a "
+        f"heartbeat (HOROVOD_LIVENESS_TIMEOUT="
+        f"{LIVENESS_KNOBS['HOROVOD_LIVENESS_TIMEOUT']}, _INTERVAL="
+        f"{LIVENESS_KNOBS['HOROVOD_LIVENESS_INTERVAL']}): no WorkerLost, "
+        f"{lv['heartbeats']} heartbeats, key advanced "
+        f"{lv['hb_advanced_s']:.2f} s, bit-identical to the fit without; "
+        f"median step {lv['step_ms']['plain']:.2f} ms without, "
+        f"{lv['step_ms']['liveness']:.2f} ms with; (c) crash@rank=0,step="
+        f"{CRASH_AT} exits 43, fit(resume=) in a new process: crc equal "
+        f"to the uninterrupted child's (ResNet-50 {cr['resnet50']['crc']}, "
+        f"LM {cr['lm']['crc']}); resumed fits "
+        f"{cr['resnet50']['resume_fit_s']:.2f} s and "
+        f"{cr['lm']['resume_fit_s']:.2f} s; children "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in cr["child_s"].items())
+        + f"; (d) world 1 under HOROVOD_ELASTIC=1 refuses with the "
+        f"min-world text; (e) fault_drill_torch.py --device cuda passed in "
+        f"{rs['drill']['seconds']:.1f} s: " + " | ".join(
+            rs["drill"]["summary"]) + f"; on {ident}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -5635,6 +6016,15 @@ def main() -> int:
             if k["name"] in r["counts"]:
                 k["launches_phase21"] = r["counts"][k["name"]]
 
+    rs = phase_resilience(device)
+    say(resilience_line(rs, ident) + f"; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+    for k in kernels:
+        k["launches_phase22"] = {
+            arm: counts[k["name"]] for arm, counts in {
+                **rs["kv"]["launches"],
+                **rs["liveness"]["launches"]}.items()}
+
     say(json.dumps({"kernels": kernels}))
     hvd.shutdown()
     say(json.dumps({"ok": True, "device": {
@@ -5644,4 +6034,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--resilience-child":
+        sys.exit(resilience_child(sys.argv[2], sys.argv[3]))
     sys.exit(main())

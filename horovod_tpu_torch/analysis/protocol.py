@@ -2,10 +2,11 @@
 ``horovod_tpu/analysis/protocol.py`` that the port's runtime calls: request
 validation and the store key namespace of the negotiation layer, the
 comparison of two programs' collective schedules, the
-fault-injection grammar (``HOROVOD_FAULT_INJECT``) with its torn-write
-matcher, the checkpoint-resume agreement, and the serving judgements
-(deadlines, the journal's committed-token fold, stall verdicts, the
-speculation auto-off).
+fault-injection grammar (``HOROVOD_FAULT_INJECT``) with its matchers,
+store error classification and the bounded-retry decision, the liveness
+judgement, the checkpoint-resume agreement, the elastic shrink and
+regrow plans, and the serving judgements (deadlines, the journal's
+committed-token fold, stall verdicts, the speculation auto-off).
 
 Stdlib-only and side-effect free: every function is a pure transition
 (inputs in, verdict out). The port keeps its own copy rather than
@@ -17,6 +18,7 @@ compares them with the JAX package's ``validate_py``).
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Any, Iterable, Mapping, Optional, Sequence
 
 OP_ALLREDUCE = 0
@@ -218,10 +220,7 @@ def parse_fault_spec(raw: Optional[str]) -> tuple[Fault, ...]:
     Grammar: ``entry (';' entry)*`` where ``entry := kind '@' name=int
     (',' name=int)*``. Unknown kinds/attrs and non-integer values raise
     ``ValueError`` — a typo'd injection spec must not silently run a
-    fault-free drill that then "passes". The port injects the serving
-    kinds and ``torn_write`` (``core/resilience.py``); the others parse as
-    the reference parses them, and ``hvd.init`` refuses them
-    (``utils/env.py::check_unported``).
+    fault-free drill that then "passes".
     """
     faults: list[Fault] = []
     for entry in (raw or "").split(";"):
@@ -259,6 +258,48 @@ def parse_fault_spec(raw: Optional[str]) -> tuple[Fault, ...]:
                 f"{sorted(missing)} (got {entry!r})")
         faults.append(Fault(kind, attrs))
     return tuple(faults)
+
+
+def kv_fault_covering(faults: Sequence[Fault], seq: int) -> Optional[str]:
+    """The matching ``kv_timeout`` fault's description for KV-call counter
+    ``seq``, or None. The fault covers ``seq <= s < seq + times`` (times
+    default 1), so ``times`` > the retry budget exhausts it and surfaces
+    the failure — the exact matcher the live ``FaultInjector`` uses."""
+    for f in faults:
+        if f.kind != "kv_timeout":
+            continue
+        start = f.attrs["seq"]
+        times = f.attrs.get("times", 1)
+        if start <= seq < start + times:
+            return f.describe()
+    return None
+
+
+def crash_fault_matching(faults: Sequence[Fault], step: int,
+                         ranks: Iterable[int],
+                         span: int = 1) -> Optional[Fault]:
+    """The matching ``crash`` fault for the steps ``step <= s < step +
+    span`` and one of ``ranks``, or None (omitted rank = any process)."""
+    rankset = set(ranks)
+    for f in faults:
+        if f.kind != "crash" or not step <= f.attrs["step"] < step + span:
+            continue
+        r = f.attrs.get("rank")
+        if r is None or r in rankset:
+            return f
+    return None
+
+
+def regrow_fault_matching(faults: Sequence[Fault], step: int,
+                          span: int = 1) -> Optional[Fault]:
+    """The matching ``regrow`` join event for the steps ``step <= s <
+    step + span``, or None. The window mirrors ``crash_fault_matching``:
+    a join step that is not call-aligned still fires at the covering
+    call's boundary instead of silently never admitting the rank."""
+    for f in faults:
+        if f.kind == "regrow" and step <= f.attrs["step"] < step + span:
+            return f
+    return None
 
 
 def serve_fault_matching(faults: Sequence[Fault], kind: str, step: int,
@@ -315,6 +356,116 @@ def sched_key(generation: int, tag: str, epoch: int) -> str:
     """Base key for one compiled program's schedule validation round;
     call sites append ``/p<pid>`` and ``/verdict``."""
     return f"{KEY_PREFIX}/sched/g{generation}/{tag}/{epoch}"
+
+
+def hb_key(generation: int, pid: int) -> str:
+    """One process's heartbeat key (core/resilience.py)."""
+    return f"{KEY_PREFIX}/hb/g{generation}/p{pid}"
+
+
+def join_key(jid: int, pid: int) -> str:
+    """A (re)joining process's announcement for join round ``jid``.
+
+    Deliberately NOT generation-scoped: the joiner does not know the
+    running world's generation — learning it is the point of the
+    admission handshake (it reads the admit key's payload). ``jid``
+    separates join rounds so a stale announcement from an earlier round
+    can never be admitted twice."""
+    return f"{KEY_PREFIX}/join/j{jid}/p{pid}"
+
+
+def admit_key(jid: int, pid: int) -> str:
+    """The coordinator's admission verdict for one joiner: carries the
+    regrow plan (members, coordinator, generation) the joiner adopts.
+    Generation-free like :func:`join_key` — the payload IS the
+    generation handshake."""
+    return f"{KEY_PREFIX}/admit/j{jid}/p{pid}"
+
+
+def regrow_key(generation: int, jid: int) -> str:
+    """The coordinator's published regrow plan for the OLD generation's
+    members (survivors read it at the step boundary, then all bump to
+    the plan's new generation together)."""
+    return f"{KEY_PREFIX}/regrow/g{generation}/j{jid}"
+
+
+_KEY_GEN = re.compile(r"(?:^|/)g(\d+)(?:/|$)")
+
+
+def key_generation(key: str) -> Optional[int]:
+    """The generation a store key is namespaced under, or None. Every
+    generation-scoped key family carries a ``g<generation>`` path segment:
+    post-bump processes can never consume pre-bump keys, because they
+    never compute a pre-bump name."""
+    m = _KEY_GEN.search(key)
+    return int(m.group(1)) if m else None
+
+
+# ---------------------------------------------------------------------------
+# Store error classification + bounded-retry decision
+# ---------------------------------------------------------------------------
+
+# The reference's tables, for the JAX coordination service's messages.
+# Order matters: a transient marker wins over the generic TIMEOUT substring
+# (e.g. "UNAVAILABLE: ... connection timed out" must be retried, not treated
+# as a pending poll), and fatal markers win over everything that remains.
+# Each table then takes torch's store messages (TCPStore, FileStore):
+# "Broken pipe" and "failed to recv" from a store whose server went away
+# (transient), a FileStore whose file is gone (fatal), and the TCPStore's
+# "Socket Timeout" / "wait timeout" of a key not set yet (pending; TIMEOUT
+# already covers both, listed for the record).
+TRANSIENT_MARKERS: tuple[str, ...] = (
+    "UNAVAILABLE", "CONNECTION REFUSED", "CONNECTION RESET",
+    "FAILED TO CONNECT", "SOCKET CLOSED",
+    "INJECTED COORDINATION-SERVICE FAULT",
+    "BROKEN PIPE", "FAILED TO RECV",
+)
+FATAL_MARKERS: tuple[str, ...] = (
+    "CANCELLED", "SHUT DOWN", "SHUTDOWN", "HAS STOPPED",
+    "FAILED_PRECONDITION", "PERMISSION_DENIED", "INVALID_ARGUMENT",
+    "ALREADY_EXISTS",
+    "NO SUCH FILE OR DIRECTORY",
+)
+PENDING_MARKERS: tuple[str, ...] = ("DEADLINE", "TIMED OUT", "TIMEOUT",
+                                    "NOT FOUND", "NOT_FOUND",
+                                    "SOCKET TIMEOUT", "WAIT TIMEOUT")
+
+
+def classify_kv_message(message: str) -> str:
+    """``"pending"`` (key not set yet — the caller's poll loop handles it),
+    ``"transient"`` (service fault worth a bounded retry), or ``"fatal"``
+    (service dead/shutting down, or unrecognized — never retried, so a
+    dead service can never be retried forever)."""
+    msg = message.upper()
+    for m in TRANSIENT_MARKERS:
+        if m in msg:
+            return "transient"
+    for m in FATAL_MARKERS:
+        if m in msg:
+            return "fatal"
+    for m in PENDING_MARKERS:
+        if m in msg:
+            return "pending"
+    return "fatal"
+
+
+def retry_decision(kind: str, opname: str, attempt: int, retries: int,
+                   message: str) -> str:
+    """The pure branch of ``resilience._kv_call`` after one failed KV
+    attempt: ``"duplicate_ok"`` (a RETRIED set whose earlier attempt
+    actually landed — the value is there, that IS success), ``"raise"``
+    (pending/fatal pass through to the caller), ``"retry"`` (transient,
+    budget remains — back off and go again), or ``"exhausted"``
+    (transient, budget spent — surface a bounded-retry error).
+    ``attempt`` counts PREVIOUS failed attempts (0 on the first)."""
+    if (kind == "fatal" and opname == "set" and attempt > 0
+            and "ALREADY_EXISTS" in message.upper()):
+        return "duplicate_ok"
+    if kind != "transient":
+        return "raise"
+    if attempt + 1 > retries:
+        return "exhausted"
+    return "retry"
 
 
 # ---------------------------------------------------------------------------
@@ -458,6 +609,21 @@ def journal_committed(records: Sequence[Mapping[str, Any]],
     return {rid: tuple(run) for rid, run in committed.items()}, used_torn
 
 
+def liveness_probe_order(cached: Mapping[int, Optional[float]], now: float,
+                         timeout: float, cap: int) -> list[int]:
+    """Which heartbeat keys to freshly read this check, stalest cached
+    sightings FIRST and never-seen peers last (a never-seen peer has
+    startup grace and cannot be judged this call, so it must not starve
+    the refresh of a judgeable peer whose stale cache would otherwise
+    falsely age it into a dead verdict); a peer whose cached sighting is
+    younger than half the timeout needs no refresh yet. At most ``cap``
+    keys — the caller's stall is bounded, never the set of peers judged."""
+    probe = [p for p, t in cached.items()
+             if t is None or now - t > timeout / 2]
+    probe.sort(key=lambda p: (cached[p] is None, cached[p] or 0.0))
+    return probe[:cap]
+
+
 def judge_dead(cached: Mapping[int, Optional[float]], now: float,
                timeout: float) -> list[tuple[int, float]]:
     """``(pid, age)`` for every peer whose last cached heartbeat is older
@@ -473,3 +639,73 @@ def judge_dead(cached: Mapping[int, Optional[float]], now: float,
         if age > timeout:
             dead.append((p, age))
     return dead
+
+
+# ---------------------------------------------------------------------------
+# Elastic transitions: shrink -> continue -> regrow
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShrinkPlan:
+    """The survivors' agreed continuation after a liveness fatal: who
+    remains, who coordinates, and the fresh KV generation. Every survivor
+    computes this from the same inputs (the member list and the liveness
+    verdict's dead set), so agreement needs no extra negotiation round."""
+
+    survivors: tuple[int, ...]
+    coordinator: int
+    generation: int
+
+
+def plan_shrink(members: Sequence[int], dead: Iterable[int],
+                generation: int) -> ShrinkPlan:
+    """Deterministic shrink transition: drop the dead processes, elect the
+    lowest surviving pid as coordinator, bump the generation (fresh KV /
+    heartbeat namespace — pre-crash keys become unreachable by
+    construction). Raises ``ValueError`` when no process survives (there
+    is no world to continue)."""
+    deadset = set(dead)
+    survivors = tuple(p for p in members if p not in deadset)
+    if not survivors:
+        raise ValueError(
+            "Shrink has no survivors: every member of the world is dead.")
+    return ShrinkPlan(survivors=survivors, coordinator=min(survivors),
+                      generation=generation + 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class RegrowPlan:
+    """The mirror of :class:`ShrinkPlan`: the agreed continuation after
+    admitting joiner(s) at a step boundary. Deterministic from (current
+    members, announced joiners, generation), so every member computes
+    the identical plan; the joiner receives it through the admission
+    handshake."""
+
+    members: tuple[int, ...]
+    joined: tuple[int, ...]
+    coordinator: int
+    generation: int
+
+
+def plan_regrow(members: Sequence[int], joiners: Iterable[int],
+                generation: int) -> RegrowPlan:
+    """Deterministic regrow transition: admit ``joiners`` into
+    ``members``, re-elect the lowest member as coordinator, and bump the
+    generation (the joiners must never see — and by key construction
+    cannot see — the pre-admission KV namespace). Raises ``ValueError`` on
+    an empty join set or a joiner that is already a member (admitting a
+    live rank twice would double its contribution to every subsequent
+    collective)."""
+    joinset = tuple(sorted(set(joiners)))
+    if not joinset:
+        raise ValueError("Regrow has no joiners: nothing to admit.")
+    overlap = sorted(set(members) & set(joinset))
+    if overlap:
+        raise ValueError(
+            f"Regrow joiners {overlap} are already members of the world; "
+            f"a rank cannot be admitted twice.")
+    new_members = tuple(sorted(set(members) | set(joinset)))
+    return RegrowPlan(members=new_members, joined=joinset,
+                      coordinator=min(new_members),
+                      generation=generation + 1)

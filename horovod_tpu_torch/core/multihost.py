@@ -19,7 +19,10 @@ negotiates on its own:
   warning every ``HOROVOD_STALL_CHECK_TIME`` seconds; with
   ``HOROVOD_SCHEDULE_TIMEOUT`` set it gives up after that many seconds;
 * every other member waits at most ``HOROVOD_NEGOTIATION_TIMEOUT`` for the
-  verdict.
+  verdict;
+* both waits consult the liveness registry (``core/resilience.py``), and a
+  coordinator that judges a member dead publishes that loss as the
+  verdict before it raises, as the negotiation does.
 
 A divergence raises :class:`HorovodError` with the reference's text on every
 member. The reference's verdict replay (``HOROVOD_EAGER_CACHE``) is not
@@ -33,6 +36,7 @@ import time
 
 from horovod_tpu_torch.analysis import protocol as _proto
 from horovod_tpu_torch.core import negotiate as _neg
+from horovod_tpu_torch.core import resilience as _res
 from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.core.state import HorovodError
 from horovod_tpu_torch.utils import env as _env
@@ -64,6 +68,10 @@ def _coordinate(neg: _neg.Negotiator, g: _state.Group, key: str, tag: str,
 
         def stall_or_give_up():
             nonlocal last_warn
+            _res.liveness().maybe_check(
+                neg.store, (g.ranks[p],),
+                f"waiting for process {p}'s collective schedule for "
+                f"program {tag}")
             now = time.monotonic()
             if cap_ms and (now - t0) * 1000 > cap_ms:
                 raise HorovodError(
@@ -112,19 +120,38 @@ def validate_schedule(tag: str, schedule: list, group: int = 0) -> None:
     me = g.group_rank_of(_state.global_rank())
     try:
         if me == 0:
-            error = _coordinate(neg, g, key, tag, schedule)
+            try:
+                error = _coordinate(neg, g, key, tag, schedule)
+            except _res.WorkerLost as lost:
+                neg.set(f"{key}/verdict", json.dumps(
+                    {"error": str(lost), "lost": [list(lost.ranks),
+                                                  list(lost.pids)]}))
+                raise
             neg.set(f"{key}/verdict", json.dumps({"error": error}))
         else:
             neg.set(f"{key}/p{me}", json.dumps(schedule))
             deadline = time.monotonic() + _env.negotiation_timeout_ms() / 1e3
-            if not _wait(neg, f"{key}/verdict", deadline):
+
+            def coordinator_alive():
+                _res.liveness().maybe_check(
+                    neg.store, (g.ranks[0],),
+                    f"waiting for the coordinator's schedule verdict for "
+                    f"program {tag}")
+
+            if not _wait(neg, f"{key}/verdict", deadline,
+                         coordinator_alive):
                 raise HorovodError(
                     f"Timed out waiting for the coordinator's schedule "
                     f"verdict for program {tag} "
                     f"(HOROVOD_NEGOTIATION_TIMEOUT). The coordinator may "
                     f"still be waiting on a slower process's trace, or "
                     f"this process's schedule diverged.")
-            error = json.loads(neg.get(f"{key}/verdict")).get("error")
+            verdict = json.loads(neg.get(f"{key}/verdict"))
+            if verdict.get("lost"):
+                ranks, pids = verdict["lost"]
+                raise _res.WorkerLost(verdict["error"], ranks=ranks,
+                                      pids=pids)
+            error = verdict.get("error")
     except HorovodError:
         raise
     except RuntimeError as e:  # the store itself failed

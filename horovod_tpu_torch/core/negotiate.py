@@ -18,7 +18,14 @@ the coordination service:
   validates each name with ``protocol.validate_requests`` and publishes the
   verdict under ``protocol.verdict_key``, deleting the spent keys;
 * every other member waits for the verdict at most
-  ``HOROVOD_NEGOTIATION_TIMEOUT`` seconds (default 600), then raises.
+  ``HOROVOD_NEGOTIATION_TIMEOUT`` seconds (default 600), then raises;
+* every store call goes through ``core/resilience.py``'s bounded retry
+  (and takes a ``kv_timeout@seq=N`` sequence number), and both waits
+  consult the liveness registry (``HOROVOD_LIVENESS_TIMEOUT``): the
+  coordinator judges the members it waits on, a member the coordinator.
+  A coordinator that judges a member dead publishes that verdict before
+  it raises :class:`~horovod_tpu_torch.core.resilience.WorkerLost`, so
+  every member raises the same loss instead of waiting out its timeout.
 
 A mismatch in dtype, op, shape or root raises :class:`HorovodError` with the
 reference's message on every member, before any data moves. A batch of
@@ -37,6 +44,7 @@ import time
 from typing import Sequence
 
 from horovod_tpu_torch.analysis import protocol as _proto
+from horovod_tpu_torch.core import resilience as _res
 from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.core import timeline as _tl
 from horovod_tpu_torch.core.state import HorovodError
@@ -133,8 +141,12 @@ class Negotiator:
     def bump_generation(self, group: int) -> int:
         """Move the group's keys to a fresh namespace; every member calls
         this at the same point of its sequence."""
+        return self.set_generation(group, self.generation(group) + 1)
+
+    def set_generation(self, group: int, gen: int) -> int:
+        """Move the group's keys to generation ``gen`` (an elastic joiner
+        adopts the members' new generation)."""
         with self._lock:
-            gen = self._generation.get(group, 0) + 1
             self._generation[group] = gen
             self._seq[group] = 0
             for k in [k for k in self._sched if k[0] == group]:
@@ -147,23 +159,23 @@ class Negotiator:
         with self._lock:
             return self._stalls.pop(group, [])
 
-    # -- store calls, counted -----------------------------------------------
+    # -- store calls, counted, each through the bounded retry ----------------
 
-    def _call(self, fn, *args):
+    def _call(self, opname: str, key: str, fn, *args):
         self.store_calls += 1
-        return fn(*args)
+        return _res.kv_call(opname, key, lambda: fn(*args))
 
     def set(self, key: str, value: str) -> None:
-        self._call(self.store.set, key, value)
+        self._call("set", key, self.store.set, key, value)
 
     def get(self, key: str) -> bytes:
-        return self._call(self.store.get, key)
+        return self._call("get", key, self.store.get, key)
 
     def has(self, key: str) -> bool:
-        return self._call(self.store.check, [key])
+        return self._call("check", key, self.store.check, [key])
 
     def delete(self, key: str) -> None:
-        self._call(self.store.delete_key, key)
+        self._call("delete", key, self.store.delete_key, key)
 
     # -- the two roles ------------------------------------------------------
 
@@ -184,6 +196,9 @@ class Negotiator:
                     missing.remove(r)
             if not missing:
                 break
+            _res.liveness().maybe_check(
+                self.store, [g.ranks[r] for r in missing],
+                f"negotiating tensor {_batch_name(names)} (index {seq})")
             now = time.monotonic()
             if self.stall_seconds > 0 and now - last_warn > self.stall_seconds:
                 last_warn = now
@@ -192,7 +207,7 @@ class Negotiator:
             pause = min(2 * pause, _POLL_MAX_S)
         for r in range(1, g.size):
             self.delete(_proto.neg_key(gen, g.index, seq, r))
-        if seq > 0 and g.size > 1:
+        if seq > 0:
             self.delete(_proto.verdict_key(gen, g.index, seq - 1))
         return batches
 
@@ -223,6 +238,10 @@ class Negotiator:
         deadline = time.monotonic() + _env.negotiation_timeout_ms() / 1e3
         pause = _POLL_MIN_S
         while not self.has(key):
+            _res.liveness().maybe_check(
+                self.store, (g.ranks[0],),
+                f"waiting for the coordinator's verdict on tensor {name} "
+                f"(negotiation index {seq})")
             if time.monotonic() > deadline:
                 # The reference's text (multihost.py::negotiate), with its
                 # hint adapted: the port has no HOROVOD_EAGER_CACHE.
@@ -307,7 +326,13 @@ def negotiate(requests: Sequence[Request],
     me = g.group_rank_of(_state.global_rank())
     try:
         if me == 0:
-            gathered = neg.collect(g, gen, seq, mine, names)
+            try:
+                gathered = neg.collect(g, gen, seq, mine, names)
+            except _res.WorkerLost as lost:
+                neg.set(_proto.verdict_key(gen, g.index, seq), json.dumps(
+                    {"error": str(lost), "lost": [list(lost.ranks),
+                                                  list(lost.pids)]}))
+                raise
             try:
                 out = _validate(gathered, g)
             except HorovodError as e:
@@ -317,9 +342,8 @@ def negotiate(requests: Sequence[Request],
                 verdict = {"responses": [
                     [o.name, o.op.value, o.dtype, list(o.tensor_sizes),
                      o.root_rank] for o in out]}
-            if g.size > 1:
-                neg.set(_proto.verdict_key(gen, g.index, seq),
-                        json.dumps(verdict))
+            neg.set(_proto.verdict_key(gen, g.index, seq),
+                    json.dumps(verdict))
         else:
             neg.set(_proto.neg_key(gen, g.index, seq, me), json.dumps(mine))
             verdict = neg.await_verdict(g, gen, seq, _batch_name(names))
@@ -330,6 +354,9 @@ def negotiate(requests: Sequence[Request],
         raise HorovodError(
             f"Coordination service failed while negotiating tensor "
             f"{_batch_name(names)}: {e}") from e
+    if verdict.get("lost"):
+        ranks, pids = verdict["lost"]
+        raise _res.WorkerLost(verdict["error"], ranks=ranks, pids=pids)
     if verdict.get("error"):
         raise HorovodError(verdict["error"])
     if out is None:

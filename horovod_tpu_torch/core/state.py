@@ -13,7 +13,14 @@ process group:
   (``core/negotiate.py``), never through the device; its per-group key
   namespace carries a generation that :func:`bump_generation` advances;
 * a rank outside a group gets the reference's return conventions from the
-  collectives (``ops/collectives.py``).
+  collectives (``ops/collectives.py``);
+* :func:`reconfigure` (``core/elastic.py``'s shrink and regrow) rebuilds
+  group 0 over the survivors, or over the members after a regrow, under a
+  bumped generation, and :func:`join` makes a new process a member of such
+  a group. That group's process group is built straight from the
+  rendezvous store under a generation prefix (``_elastic_pg``): the
+  default process group still counts the dead rank, and a joiner was
+  never in it.
 
 Entry points run on the GPU: ``init()`` with no ``device`` uses
 ``cuda:<LOCAL_RANK>`` and the NCCL backend, and raises where CUDA is absent.
@@ -23,6 +30,7 @@ Entry points run on the GPU: ``init()`` with no ``device`` uses
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import threading
 from typing import Any, Sequence
@@ -80,9 +88,36 @@ class _State:
         self.owns_default_pg = False
         self.negotiator = None  # core/negotiate.py's, made by init
         self.inits = 0  # init cycles so far: part of every program's key
+        self.reconfigures = 0  # elastic group-0 rebuilds so far
+        # A shrink left the default process group with a dead member: it is
+        # never destroyed (NCCL's teardown would wait on the dead peer).
+        self.default_pg_lost = False
+        self.store = None  # the store negotiation and the heartbeat use
 
 
 _state = _State()
+
+# The launcher's rendezvous store (``run.run`` sets it), which a joiner
+# opens too; None = the default process group's store.
+_rendezvous_store = None
+
+
+def set_rendezvous_store(store) -> None:
+    """Record the store the world met on (``run.run``): negotiation, the
+    heartbeat and an elastic regrow's joiner all use it."""
+    global _rendezvous_store
+    _rendezvous_store = store
+
+
+def pg_timeout() -> datetime.timedelta | None:
+    """The wait bound of the process groups the port creates:
+    ``HOROVOD_LIVENESS_TIMEOUT`` plus a minute for connection set-up when
+    it is set (a collective whose peer died then fails instead of hanging
+    at the backend's 10- or 30-minute default), else the default."""
+    timeout = _env.liveness_timeout_seconds()
+    if timeout <= 0:
+        return None
+    return datetime.timedelta(seconds=timeout + 60.0)
 
 
 def _resolve_device(device, local_rank: int) -> torch.device:
@@ -142,6 +177,7 @@ def init(group_ranks: Sequence[Sequence[int]] | None = None, *,
         if _state.initialized:
             return
         _env.warn_unknown_env()
+        _env.validate_resilience_knobs()
         _env.validate_sharding_knobs()
         _env.check_unported()
         _env.validate_serving_knobs()
@@ -161,12 +197,13 @@ def init(group_ranks: Sequence[Sequence[int]] | None = None, *,
         else:
             world = int(os.environ.get("WORLD_SIZE", "1"))
             rank = int(os.environ.get("RANK", "0"))
+            kw = {} if pg_timeout() is None else {"timeout": pg_timeout()}
             if world == 1:
                 dist.init_process_group(backend, store=dist.HashStore(),
-                                        rank=0, world_size=1)
+                                        rank=0, world_size=1, **kw)
             else:
                 dist.init_process_group(backend, init_method="env://",
-                                        rank=rank, world_size=world)
+                                        rank=rank, world_size=world, **kw)
             owns = True
         rank = dist.get_rank()
         world = dist.get_world_size()
@@ -180,9 +217,10 @@ def init(group_ranks: Sequence[Sequence[int]] | None = None, *,
                                 pg=pg if rank in ranks else None))
         from horovod_tpu_torch.core import negotiate as _neg  # imports us
 
+        _state.store = (_rendezvous_store if _rendezvous_store is not None
+                        else dist.distributed_c10d._get_default_store())
         _state.negotiator = _neg.Negotiator(
-            dist.PrefixStore("horovod_tpu_torch",
-                             dist.distributed_c10d._get_default_store()),
+            dist.PrefixStore("horovod_tpu_torch", _state.store),
             _env.stall_warning_seconds())
         _state.groups = groups
         _state.device = dev
@@ -192,10 +230,12 @@ def init(group_ranks: Sequence[Sequence[int]] | None = None, *,
         _state.local_size = int(os.environ.get("LOCAL_WORLD_SIZE", world))
         _state.fusion_threshold = _env.fusion_threshold_bytes()
         _state.owns_default_pg = owns
+        _state.default_pg_lost = False
         _state.inits += 1
         _state.initialized = True
         if rank == 0:  # coordinator-only timeline, as in the reference
             _timeline.maybe_start()
+    _start_heartbeat()
     # Profile-guided configuration (``horovod_tpu_torch/tune``), outside
     # the lock: applying an artifact reads hvd.size(), and
     # HOROVOD_PROFILE=auto runs live collectives. With both knobs set,
@@ -215,9 +255,11 @@ def init(group_ranks: Sequence[Sequence[int]] | None = None, *,
 def shutdown() -> None:
     """Tear the runtime down: the timeline, the groups init created, and the
     default process group when init created it."""
+    from horovod_tpu_torch.core import resilience as _res  # imports us
     from horovod_tpu_torch.ops import collectives as _coll  # imports us
     from horovod_tpu_torch.tune import apply as _tune_apply
 
+    _res.stop_heartbeat()
     _timeline.stop()
     # A re-init at another world must not inherit the applied knobs.
     _tune_apply.deactivate()
@@ -227,13 +269,16 @@ def shutdown() -> None:
         from horovod_tpu_torch.ops import topology as _topology  # imports us
 
         _topology.forget_groups()
-        if _state.owns_default_pg:
+        if _state.reconfigures:
+            _drop_pg(_state.groups[0].pg)
+        if _state.owns_default_pg and not _state.default_pg_lost:
             dist.destroy_process_group()
-        else:
-            for g in _state.groups:
+        elif not _state.owns_default_pg:
+            for g in _state.groups[1 if _state.reconfigures else 0:]:
                 if g.pg is not None and g.pg is not dist.group.WORLD:
                     dist.destroy_process_group(g.pg)
         _state.groups = []
+        _state.reconfigures = 0
         _state.negotiator = None
         _state.initialized = False
     _coll.reset_auto_names()
@@ -252,7 +297,209 @@ def bump_generation(group: int = 0) -> int:
     point. (The reference keeps one generation for the world; here each
     group negotiates on its own sequence, so each has its own.)"""
     get_group(group)
-    return _state.negotiator.bump_generation(group)
+    gen = _state.negotiator.bump_generation(group)
+    if group == 0:
+        _beat()
+    return gen
+
+
+def default_pg_lost() -> bool:
+    """Whether a shrink left the default process group with a dead member
+    (``run.run`` then leaves it to the process's end)."""
+    return _state.default_pg_lost
+
+
+def reconfigures() -> int:
+    """Elastic rebuilds of group 0 since init: a plan cached per group
+    (``parallel/optimizer.py``) keys on it."""
+    return _state.reconfigures
+
+
+def kv_generation() -> int:
+    """The generation of the world-level keys (the heartbeat, the elastic
+    step agreement, the regrow plan) and of an elastic plan: 1 after
+    ``hvd.init`` and one more at each resume or transition of group 0, as
+    the reference's ``state.generation()`` counts (group 0's negotiation
+    generation plus one)."""
+    return _require_init().negotiator.generation(0) + 1
+
+
+def _start_heartbeat() -> None:
+    from horovod_tpu_torch.core import resilience as _res  # imports us
+
+    _res.start_heartbeat()
+
+
+def _beat() -> None:
+    """Publish a heartbeat under a new generation at once: a member that
+    dies before its next tick is then judged, not taken for one that has
+    not started yet."""
+    from horovod_tpu_torch.core import resilience as _res  # imports us
+
+    hb = _res.heartbeat()
+    if hb is not None:
+        hb.beat()
+
+
+def _elastic_pg(ranks: tuple[int, ...], gen: int):
+    """Group 0's process group over ``ranks`` at generation ``gen``, built
+    from the rendezvous store under a ``g<gen>`` prefix, so that survivors
+    and a joiner can build it and a dead rank is not waited for. It is
+    entered in c10d's rank table (``dist.broadcast``'s ``src`` and a P2P
+    peer are global ranks), not in its group registry."""
+    me = ranks.index(_state.rank)
+    store = dist.PrefixStore(f"horovod_tpu_torch/pg/g{gen}", _state.store)
+    timeout = pg_timeout() or datetime.timedelta(minutes=30)
+    pg = dist.ProcessGroup(store, me, len(ranks))
+    if _state.device.type == "cuda":
+        opts = dist.ProcessGroupNCCL.Options()
+        opts._timeout = timeout
+        backend = dist.ProcessGroupNCCL(store, me, len(ranks), opts)
+        kind = dist.ProcessGroup.BackendType.NCCL
+    else:
+        backend = dist.ProcessGroupGloo(store, me, len(ranks), timeout)
+        kind = dist.ProcessGroup.BackendType.GLOO
+    name = f"horovod_tpu_torch_g{gen}"
+    pg._set_default_backend(kind)
+    pg._register_backend(_state.device, kind, backend)
+    pg._set_group_name(name)
+    # c10d's tables of its groups, which dist.* read: the backend, the
+    # name, and the global ranks (a broadcast's ``src``, a P2P peer).
+    world = dist.distributed_c10d._world
+    backend_name = "nccl" if _state.device.type == "cuda" else "gloo"
+    world.pg_map[pg] = (backend_name, store)
+    world.pg_names[pg] = name
+    world.pg_group_ranks[pg] = {r: i for i, r in enumerate(ranks)}
+    world.pg_backend_config[pg] = backend_name
+    return pg
+
+
+def _drop_pg(pg, abort: bool = False) -> None:
+    """Forget an elastic process group. ``abort``: a peer of it died; a
+    gloo group is aborted first, which releases a survivor still blocked
+    in one of its collectives (NCCL's abort waits on the dead peer: a
+    blocked NCCL collective ends at the group's timeout instead)."""
+    if pg is None:
+        return
+    if abort and _state.device.type != "cuda":
+        abort_pg(pg)
+    if pg is not dist.group.WORLD:
+        world = dist.distributed_c10d._world
+        for table in (world.pg_map, world.pg_names, world.pg_group_ranks,
+                      world.pg_backend_config):
+            table.pop(pg, None)
+
+
+def abort_pg(pg) -> None:
+    """Abort a process group, best effort: a member blocked in one of its
+    collectives is released."""
+    try:
+        pg.abort()
+    except Exception:  # best effort: the backend may not abort
+        pass
+
+
+def _validate_members(rs: tuple[int, ...]) -> None:
+    # The reference's refusals (core/state.py::reconfigure).
+    if not rs:
+        raise HorovodError(
+            "Elastic reconfigure needs at least one surviving rank.")
+    if len(set(rs)) != len(rs):
+        raise HorovodError(f"Group {list(rs)} contains duplicate ranks.")
+    for r in rs:
+        if not 0 <= r < _state.world:
+            raise HorovodError(
+                f"Rank {r} out of range for world size {_state.world}.")
+
+
+def _after_reconfigure() -> None:
+    from horovod_tpu_torch.ops import collectives as _coll  # imports us
+    from horovod_tpu_torch.ops import topology as _topology  # imports us
+
+    # Auto-named collectives count anew (a joiner starts at 0), and the
+    # memoized topologies and their groups were of the old membership.
+    _coll.reset_auto_names()
+    _topology.forget_groups()
+
+
+def reconfigure(ranks: Sequence[int]) -> Group:
+    """Elastic world change (``core/elastic.py``): rebuild the group layout
+    as a single group 0 over ``ranks`` — a subset of the membership after
+    a shrink, a superset after a regrow — without tearing the runtime
+    down. Global ranks are kept (``hvd.global_rank()`` stays the
+    process's own); ``hvd.rank(0)`` and ``hvd.size(0)`` become the new
+    group's. The generation of group 0 bumps, so the store keys roll to a
+    fresh namespace and every ``spmd`` program is recorded anew. User
+    subset groups are not carried across: a subset naming a dropped rank
+    has no meaning in the new world. Every member of the new group calls
+    this (a joiner calls :func:`join`)."""
+    with _state.lock:
+        st = _require_init()
+        rs = tuple(int(r) for r in ranks)
+        _validate_members(rs)
+        old = st.groups[0]
+        shrink = not set(old.ranks) <= set(rs)
+        gen = st.negotiator.bump_generation(0) + 1  # kv_generation()
+        if st.reconfigures or shrink:
+            _drop_pg(old.pg, abort=shrink)
+        st.default_pg_lost |= shrink
+        pg = _elastic_pg(rs, gen) if st.rank in rs else None
+        for g in st.groups[1:]:
+            if g.pg is not None and g.pg is not dist.group.WORLD:
+                if shrink:
+                    _drop_pg(g.pg, abort=True)
+                else:
+                    dist.destroy_process_group(g.pg)
+        st.groups = [Group(index=0, ranks=rs, pg=pg)]
+        st.reconfigures += 1
+    _after_reconfigure()
+    _beat()
+    return st.groups[0]
+
+
+def join(ranks: Sequence[int], gen: int, store, *,
+         device: str | torch.device | None = None) -> Group:
+    """A joiner's ``hvd.init`` (``core/elastic.py::rejoin``): this process
+    (global rank ``RANK``) becomes a member of group 0 over ``ranks`` at
+    generation ``gen``, which the members reach by :func:`reconfigure` at
+    the same boundary. ``store`` is the world's rendezvous store. The
+    process has no default process group."""
+    with _state.lock:
+        if _state.initialized:
+            raise HorovodError(
+                "hvd.join: this process is already initialized; a joiner "
+                "is a new process.")
+        _env.validate_resilience_knobs()
+        _env.validate_sharding_knobs()
+        local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+        _state.device = _resolve_device(device, local_rank)
+        _state.rank = int(os.environ["RANK"])
+        _state.world = int(os.environ.get("WORLD_SIZE", "1"))
+        rs = tuple(int(r) for r in ranks)
+        _validate_members(rs)
+        if _state.rank not in rs:
+            raise HorovodError(
+                f"hvd.join: rank {_state.rank} is not among the admitted "
+                f"members {list(rs)}.")
+        from horovod_tpu_torch.core import negotiate as _neg  # imports us
+
+        _state.store = store
+        _state.negotiator = _neg.Negotiator(
+            dist.PrefixStore("horovod_tpu_torch", store),
+            _env.stall_warning_seconds())
+        _state.negotiator.set_generation(0, gen - 1)  # kv_generation: gen
+        _state.groups = [Group(index=0, ranks=rs, pg=_elastic_pg(rs, gen))]
+        _state.local_rank = local_rank
+        _state.local_size = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                               _state.world))
+        _state.fusion_threshold = _env.fusion_threshold_bytes()
+        _state.owns_default_pg = False
+        _state.reconfigures = 1
+        _state.inits += 1
+        _state.initialized = True
+    _after_reconfigure()
+    _start_heartbeat()
+    return _state.groups[0]
 
 
 def generation(group: int = 0) -> tuple[int, int]:

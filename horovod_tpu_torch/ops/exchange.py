@@ -92,8 +92,8 @@ def _dtype(name: str) -> torch.dtype:
 class ElasticMeta:
     """Provenance of an elastically re-planned schedule: the surviving
     global ranks, the ranks the transition dropped and the runtime
-    generation. Serialized only when present (ROADMAP §A item 15 makes
-    it)."""
+    generation. Serialized only when present: ``core/elastic.py`` stamps
+    the plans of a shrink and a regrow (``with_elastic``)."""
 
     survivors: tuple[int, ...]
     dropped: tuple[int, ...]

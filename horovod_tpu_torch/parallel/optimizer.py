@@ -213,8 +213,9 @@ class FusedAllreduce:
 
     def _plan(self, tensors, g: _state.Group):
         restricted = _restricted_group(self.group)
-        sig = (restricted,) + tuple((t.dtype, tuple(t.shape))
-                                    for t in tensors)
+        # An elastic rebuild of group 0 changes the world the plan was for.
+        sig = (restricted, _state.reconfigures()) + tuple(
+            (t.dtype, tuple(t.shape)) for t in tensors)
         plan = self._plans.get(sig)
         if plan is None:
             sched, comp, cross_spec, topo = self._resolve(tensors, g,

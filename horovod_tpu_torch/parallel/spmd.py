@@ -77,6 +77,7 @@ import torch.utils._pytree as pytree
 
 from horovod_tpu_torch.core import context as _ctx
 from horovod_tpu_torch.core import multihost as _mh
+from horovod_tpu_torch.core import resilience as _res
 from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.core import timeline as _tl
 from horovod_tpu_torch.core.state import HorovodError
@@ -157,10 +158,16 @@ class Spmd:
             if _state.device().type == "cuda":
                 return self._on_card(prog, tag, args, leaves, spec)
             return self._on_cpu(prog, tag, args)
-        except BaseException:
+        except BaseException as err:
             if prog.schedule is None or prog.calls < 2:
                 # Half-built: the next call starts this key over.
                 self.programs.pop(key, None)
+            # A collective that lost its peer: the liveness registry names
+            # the dead (WorkerLost) or the error stands.
+            g = _state.get_group(self.group)
+            _res.judge_peer_loss(
+                err, [r for r in g.ranks if r != _state.global_rank()],
+                f"running program {tag}", g.pg)
             raise
 
     # -- recording ---------------------------------------------------------

@@ -31,18 +31,30 @@ them and gathers the new parameters. zero3 changes it: the module's
 parameters live as shards, and each step gathers them, runs forward and
 backward on the gathered tensors, and updates shard to shard. Sharded
 state persists through ``checkpoint.save_sharded``/``load_sharded``:
-``restore`` and ``sync_state`` refuse it, as the reference's do. Elastic
-training is not ported yet.
+``restore`` and ``sync_state`` refuse it, as the reference's do.
+
+Under ``HOROVOD_ELASTIC=1`` ``fit`` survives the loss of a rank
+(``core/elastic.py``): at each call boundary it admits joiners due at a
+``regrow@step=S`` boundary, checks for an injected crash, and on
+:class:`~horovod_tpu_torch.core.resilience.WorkerLost` shrinks the world to
+the survivors, re-broadcasts the state from the elected root and retries
+the same boundary at the new size. A process feeds its own batch, so a
+dropped rank simply feeds nothing. A joiner (``elastic.rejoin``) enters
+``fit`` at the step the members agree on, with their state.
 """
 
 from __future__ import annotations
 
+import json
+import time
 import weakref
 from typing import Callable, Iterable
 
 import torch
 import torch.utils._pytree as pytree
 
+from horovod_tpu_torch.core import elastic as _elastic
+from horovod_tpu_torch.core import resilience as _res
 from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.core.state import HorovodError
 from horovod_tpu_torch.ops import mesh as _mesh
@@ -307,7 +319,7 @@ class Trainer(LRControlMixin):
         self.model = model
         self.loss_fn = loss_fn
         self.sharding = _mesh.resolve_sharding(sharding)
-        if self.sharding != "off" and _env.elastic_requested():
+        if self.sharding != "off" and _env.elastic_enabled():
             raise HorovodError(
                 f"HOROVOD_ELASTIC=1 is incompatible with Trainer("
                 f"sharding={self.sharding!r}): the elastic shrink/regrow "
@@ -579,27 +591,61 @@ class Trainer(LRControlMixin):
                 f"steps_per_call ({spc}).")
 
         start = self.epoch if initial_epoch is None else initial_epoch
+        first_call = 0
+        self._elastic = (_elastic.ElasticController(self.group)
+                         if _env.elastic_enabled() else None)
+        self._elastic_snapshot_due = None
+        admitted = (_elastic.take_admission()
+                    if self._elastic is not None else None)
+        if admitted is not None:
+            step = self._join_world(admitted)
+            start = step // steps_per_epoch
+            first_call = (step % steps_per_epoch) // spc
         for epoch in range(start, epochs):
             self.epoch = epoch
             for cb in callbacks:
                 cb.on_epoch_begin(epoch)
             losses = []
-            for call_idx in range(steps_per_epoch // spc):
+            call_idx = first_call if epoch == start else 0
+            while call_idx < steps_per_epoch // spc:
                 # Callbacks see the true step index: schedules compute
                 # fractional epochs as step/steps_per_epoch.
                 batch_idx = call_idx * spc
-                for cb in callbacks:
-                    cb.on_batch_begin(batch_idx)
-                if spc > 1:
-                    batch = pytree.tree_map(
-                        lambda *leaves: torch.stack(leaves),
-                        *[next_batch() for _ in range(spc)])
-                else:
-                    batch = next_batch()
-                loss, _ = self.train_step(batch)
+                global_step = epoch * steps_per_epoch + batch_idx
+                if self._elastic is not None:
+                    self._maybe_regrow(global_step, spc)
+                g = _state.get_group(self.group)
+                me = g.group_rank_of(_state.global_rank())
+                try:
+                    # The crash-injection rank space is group-local.
+                    _res.maybe_crash(
+                        global_step, [me], span=spc,
+                        peers=[r for r in range(g.size) if r != me])
+                    for cb in callbacks:
+                        cb.on_batch_begin(batch_idx)
+                    if spc > 1:
+                        batch = pytree.tree_map(
+                            lambda *leaves: torch.stack(leaves),
+                            *[next_batch() for _ in range(spc)])
+                    else:
+                        batch = next_batch()
+                    loss, _ = self.train_step(batch)
+                except _res.WorkerLost as err:
+                    if self._elastic is None:
+                        raise
+                    self._elastic_shrink(err)
+                    continue  # retry this call boundary at the new size
+                if self._elastic_snapshot_due is not None:
+                    # The re-planned exchange exists once a step has run at
+                    # the new world size: stamp it now.
+                    self._elastic.snapshot_live_plan(
+                        self._elastic_snapshot_due,
+                        dropped=self._elastic.dropped)
+                    self._elastic_snapshot_due = None
                 losses.append(loss)
                 for cb in callbacks:
                     cb.on_batch_end(batch_idx, {"loss": loss})
+                call_idx += 1
             logs = {"loss": float(torch.stack(losses).float().mean())}
             for cb in callbacks:
                 cb.on_epoch_end(epoch, logs)
@@ -612,3 +658,101 @@ class Trainer(LRControlMixin):
         for cb in callbacks:
             cb.on_train_end()
         return history
+
+    # -- elastic transitions (core/elastic.py) -------------------------------
+
+    def _elastic_shrink(self, err: _res.WorkerLost) -> None:
+        """Execute the shrink contract: plan (or refuse, chaining the
+        loss), snapshot the live exchange plan, reconfigure group 0 to the
+        survivors, and re-broadcast the state from the elected root —
+        group-local rank 0 of the new group — which records the step anew
+        so the exchange re-plans at the new world size."""
+        ctl = self._elastic
+        t0 = time.perf_counter()
+        dead = ctl.resolve_dead(err)
+        try:
+            plan = ctl.plan_shrink(dead)
+        except HorovodError as refusal:
+            raise refusal from err
+        ctl.snapshot_live_plan("pre_shrink")
+        ctl.commit_shrink(plan)
+        self.sync_state(root_rank=0, group=self.group)
+        self._elastic_snapshot_due = "post_shrink"
+        ctl.finish_shrink(t0)
+        print(f"horovod_tpu_torch elastic: shrunk to world "
+              f"{list(plan.survivors)} (generation {plan.generation}); "
+              f"training continues.", flush=True)
+
+    def _maybe_regrow(self, step: int, span: int) -> None:
+        """Admit announced joiners at this step boundary, if any: the
+        mirror of the shrink — reconfigure over the union, hand the joiner
+        the optimizer state's layout, re-broadcast the state from a current
+        member (the joiner has none) and agree on the step."""
+        ctl = self._elastic
+        src = min(ctl.members())  # a current member, never a joiner
+        plan = ctl.poll_regrow(step, span)
+        if plan is None:
+            return
+        t0 = time.perf_counter()
+        ctl.commit_regrow(plan)
+        root = plan.members.index(src)
+        store = _elastic.kv_store()
+        if _state.global_rank() == src:
+            _res.kv_set(store, _estate_key(plan.generation),
+                        json.dumps(_optimizer_layout(self.optimizer)))
+        self.sync_state(root_rank=root, group=self.group)
+        _elastic.agree_step(store, plan.generation, _state.global_rank(),
+                            plan.members, step)
+        self._elastic_snapshot_due = "post_regrow"
+        ctl.finish_regrow(t0)
+        print(f"horovod_tpu_torch elastic: regrew to world "
+              f"{list(plan.members)} (admitted {list(plan.joined)}, "
+              f"generation {plan.generation}); training continues.",
+              flush=True)
+
+    def _join_world(self, plan) -> int:
+        """A joiner's side of :meth:`_maybe_regrow`: adopt the optimizer
+        state's layout, receive the state, and return the step the members
+        resume at."""
+        src = min(set(plan.members) - set(plan.joined))
+        store = _elastic.kv_store()
+        layout = _res.wait_kv(
+            store, _estate_key(plan.generation),
+            _env.negotiation_timeout_ms(), pids=(src,),
+            context="waiting for the optimizer state's layout")
+        _adopt_layout(self.optimizer, json.loads(layout))
+        self.sync_state(root_rank=plan.members.index(src), group=self.group)
+        return _elastic.agree_step(store, plan.generation,
+                                   _state.global_rank(), plan.members,
+                                   _elastic.JOINER_STEP)
+
+
+def _estate_key(generation: int) -> str:
+    return f"hvd/estate/g{generation}"
+
+
+def _optimizer_layout(optimizer) -> list:
+    """``[position, key, dtype, shape, on_cpu]`` of each state tensor of
+    ``optimizer`` and ``[position, key, None, value, None]`` of each other
+    state entry: what a joiner allocates before the state broadcast, which
+    needs the same tensors on every rank."""
+    params = [p for pg in optimizer.param_groups for p in pg["params"]]
+    out = []
+    for i, p in enumerate(params):
+        for k, v in sorted(optimizer.state.get(p, {}).items()):
+            if isinstance(v, torch.Tensor):
+                out.append([i, k, str(v.dtype).removeprefix("torch."),
+                            list(v.shape), v.device.type == "cpu"])
+            else:
+                out.append([i, k, None, v, None])
+    return out
+
+
+def _adopt_layout(optimizer, layout: list) -> None:
+    params = [p for pg in optimizer.param_groups for p in pg["params"]]
+    for i, k, dtype, shape, on_cpu in layout:
+        p = params[i]
+        optimizer.state.setdefault(p, {})[k] = (
+            shape if dtype is None else torch.zeros(
+                shape, dtype=getattr(torch, dtype),
+                device="cpu" if on_cpu else p.device))

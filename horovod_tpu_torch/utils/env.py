@@ -8,7 +8,13 @@ negotiation's stall report and its wait for the coordinator
 (``core/negotiate.py``), ``HOROVOD_SCHEDULE_TIMEOUT`` caps the coordinator's
 wait for a program's schedules (``core/multihost.py``), the ``HOROVOD_SERVE_*`` knobs configure the
 serving engine (``horovod_tpu_torch.serving``), ``HOROVOD_FAULT_INJECT``
-arms the serving faults and ``torn_write`` (``core/resilience.py``), and
+arms the training, checkpoint and serving faults, ``HOROVOD_KV_RETRIES``
+and ``HOROVOD_KV_BACKOFF_MS`` bound the store's retries and
+``HOROVOD_LIVENESS_INTERVAL`` and ``HOROVOD_LIVENESS_TIMEOUT`` its
+heartbeat and liveness judgement (``core/resilience.py``),
+``HOROVOD_ELASTIC``, ``HOROVOD_ELASTIC_MIN_WORLD`` and
+``HOROVOD_ELASTIC_JOIN_TIMEOUT`` turn on and bound the elastic shrink and
+regrow (``core/elastic.py``), and
 ``HOROVOD_DATA_DIR`` and ``HOROVOD_PREFETCH_DEPTH`` place the datasets and
 set how far the input pipeline prefetches (``training/data.py``),
 ``HOROVOD_SPARSE_PAD_CAPACITY`` pads the sparse gather wire and
@@ -58,12 +64,19 @@ PORTED_KNOBS = frozenset({
     "HOROVOD_COMPRESSION_BLOCK",
     "HOROVOD_COMPRESSION_CROSS_SLICE",
     "HOROVOD_DATA_DIR",
+    "HOROVOD_ELASTIC",
+    "HOROVOD_ELASTIC_JOIN_TIMEOUT",
+    "HOROVOD_ELASTIC_MIN_WORLD",
     "HOROVOD_ERROR_FEEDBACK",
     "HOROVOD_EXCHANGE_CHANNELS",
     "HOROVOD_EXCHANGE_SCHEDULE",
     "HOROVOD_FAULT_INJECT",
     "HOROVOD_FSDP_AXIS_SIZE",
     "HOROVOD_FUSION_THRESHOLD",
+    "HOROVOD_KV_BACKOFF_MS",
+    "HOROVOD_KV_RETRIES",
+    "HOROVOD_LIVENESS_INTERVAL",
+    "HOROVOD_LIVENESS_TIMEOUT",
     "HOROVOD_MAX_CHANNELS",
     "HOROVOD_NEGOTIATION_TIMEOUT",
     "HOROVOD_PREFETCH_DEPTH",
@@ -95,22 +108,13 @@ PORTED_KNOBS = frozenset({
 
 # Knobs of the reference that change what a run computes, not ported yet:
 # name -> (ROADMAP §A item, what it does, the values that leave it off).
-# Set to anything else, each raises at hvd.init.
-UNPORTED_RESULT_KNOBS: dict[str, tuple[int, str, frozenset]] = {
-    "HOROVOD_ELASTIC": (15, "elastic shrink and regrow",
-                        frozenset({"", "0"})),
-}
+# Set to anything else, each raises at hvd.init. Every one is ported.
+UNPORTED_RESULT_KNOBS: dict[str, tuple[int, str, frozenset]] = {}
 
 # Knobs of the reference that only tune timing or reporting, not ported
 # yet: name -> ROADMAP §A item. Each draws a warning at hvd.init.
 UNPORTED_TUNING_KNOBS: dict[str, int] = {
     "HOROVOD_EAGER_CACHE": 1,
-    "HOROVOD_ELASTIC_JOIN_TIMEOUT": 15,
-    "HOROVOD_ELASTIC_MIN_WORLD": 15,
-    "HOROVOD_KV_BACKOFF_MS": 15,
-    "HOROVOD_KV_RETRIES": 15,
-    "HOROVOD_LIVENESS_INTERVAL": 15,
-    "HOROVOD_LIVENESS_TIMEOUT": 15,
     "HOROVOD_MODEL_FAULTS": 17,
     "HOROVOD_MODEL_MAX_STATES": 17,
 }
@@ -118,9 +122,9 @@ UNPORTED_TUNING_KNOBS: dict[str, int] = {
 # Knobs that only mean something under JAX: accepted, and nothing is said.
 JAX_ONLY_KNOBS = frozenset({"HOROVOD_CPU_DEVICES", "HOROVOD_XLA_OPTIONS"})
 
-# Training faults of HOROVOD_FAULT_INJECT that the port does not inject
-# yet (ROADMAP §A item 15; it injects torn_write and the serving faults).
-UNPORTED_FAULTS = frozenset({"crash", "kv_timeout", "regrow"})
+# Faults of HOROVOD_FAULT_INJECT that the port does not inject yet: none
+# (core/resilience.py injects every kind the grammar parses).
+UNPORTED_FAULTS: frozenset = frozenset()
 
 KNOWN_ENV_VARS = (PORTED_KNOBS | frozenset(UNPORTED_RESULT_KNOBS)
                   | frozenset(UNPORTED_TUNING_KNOBS) | JAX_ONLY_KNOBS)
@@ -253,10 +257,14 @@ def check_unported(environ=None) -> None:
     """Refuse what the port cannot honour (called by ``hvd.init``).
 
     A knob of :data:`UNPORTED_RESULT_KNOBS` set to anything but an off
-    value, or a ``HOROVOD_FAULT_INJECT`` spec with a training fault the
-    port does not inject, raises ``NotImplementedError`` naming the
-    ROADMAP §A item that ports it. A knob of :data:`UNPORTED_TUNING_KNOBS`
-    draws a warning naming its item and the run goes on without it."""
+    value, or a ``HOROVOD_FAULT_INJECT`` spec with a fault of
+    :data:`UNPORTED_FAULTS` (both empty now), raises
+    ``NotImplementedError`` naming the ROADMAP §A item that ports it; a
+    typo'd spec raises ``ValueError`` with the reference's text. A knob of
+    :data:`UNPORTED_TUNING_KNOBS` draws a warning naming its item and the
+    run goes on without it. The elastic and resilience knobs are parsed
+    here, so a typo'd value raises at ``hvd.init`` as in the
+    reference."""
     env = os.environ if environ is None else environ
     for name, (item, what, off) in sorted(UNPORTED_RESULT_KNOBS.items()):
         raw = env.get(name)
@@ -271,9 +279,9 @@ def check_unported(environ=None) -> None:
         if fault.kind in UNPORTED_FAULTS:
             raise NotImplementedError(
                 f"HOROVOD_FAULT_INJECT: the {fault.kind!r} fault "
-                f"({fault.describe()}) is not injected by the port: "
-                f"ROADMAP §A item 15. A drill that "
-                f"injects nothing would pass fault-free; drop the entry.")
+                f"({fault.describe()}) is not injected by the port. A "
+                f"drill that injects nothing would pass fault-free; drop "
+                f"the entry.")
     for name, item in sorted(UNPORTED_TUNING_KNOBS.items()):
         if name in env:
             warnings.warn(
@@ -322,23 +330,174 @@ def fsdp_axis_size() -> int | None:
     return n
 
 
-def elastic_requested() -> bool:
-    """``HOROVOD_ELASTIC=1``: the elastic runtime is asked for (which the
-    port refuses at ``hvd.init``: ROADMAP §A item 15)."""
-    return os.environ.get("HOROVOD_ELASTIC", "").strip() == "1"
+def elastic_enabled() -> bool:
+    """``HOROVOD_ELASTIC`` (default 0): turn a liveness-fatal during
+    negotiation or a collective wait into an elastic shrink — survivors
+    execute the ``plan_shrink`` contract (drop the dead ranks, re-elect the
+    lowest survivor as coordinator, bump the KV generation, re-plan the
+    exchange schedule) and ``Trainer.fit`` continues at the smaller world
+    size instead of dying (``core/elastic.py``). Off by default: without
+    this knob a dead peer stays a loud, diagnosable fatal. Values other
+    than 0/1 raise at ``hvd.init``."""
+    raw = os.environ.get("HOROVOD_ELASTIC")
+    if raw is None or raw.strip() in ("", "0"):
+        return False
+    if raw.strip() == "1":
+        return True
+    raise ValueError(
+        f"HOROVOD_ELASTIC must be 0 or 1, got {raw!r}")
+
+
+def elastic_min_world() -> int:
+    """``HOROVOD_ELASTIC_MIN_WORLD`` (default 1): the smallest world size
+    an elastic shrink may continue at. A shrink that would leave fewer
+    surviving ranks than this refuses to continue and re-raises the
+    liveness fatal. Must be a positive integer; typos raise at
+    ``hvd.init``."""
+    raw = os.environ.get("HOROVOD_ELASTIC_MIN_WORLD")
+    if raw is None or not raw.strip():
+        return 1
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_ELASTIC_MIN_WORLD must be a positive integer world "
+            f"size, got {raw!r}") from None
+    if n < 1:
+        raise ValueError(
+            f"HOROVOD_ELASTIC_MIN_WORLD must be >= 1, got {raw!r}")
+    return n
+
+
+def elastic_join_timeout_seconds() -> float:
+    """``HOROVOD_ELASTIC_JOIN_TIMEOUT`` (seconds; default 0 = no window):
+    how long the coordinator holds a regrow step boundary open for
+    announced joiners before admitting whoever has arrived
+    (``core/elastic.py``). The default of 0 admits only joiners already
+    announced at the boundary. Unparsable, negative or infinite values
+    raise at ``hvd.init``."""
+    raw = os.environ.get("HOROVOD_ELASTIC_JOIN_TIMEOUT")
+    if raw is None or not raw.strip():
+        return 0.0
+    try:
+        seconds = float(raw)
+    except ValueError:
+        seconds = float("nan")
+    if seconds != seconds:
+        raise ValueError(
+            f"HOROVOD_ELASTIC_JOIN_TIMEOUT must be a number of seconds, "
+            f"got {raw!r}")
+    if seconds < 0:
+        raise ValueError(
+            f"HOROVOD_ELASTIC_JOIN_TIMEOUT must be >= 0 (0 admits only "
+            f"already-announced joiners), got {raw!r}")
+    if seconds == float("inf"):
+        raise ValueError(
+            f"HOROVOD_ELASTIC_JOIN_TIMEOUT must be finite (an unbounded "
+            f"join window would hold every step boundary forever), "
+            f"got {raw!r}")
+    return seconds
+
+
+def kv_retries() -> int:
+    """``HOROVOD_KV_RETRIES`` (default 3): the bounded retry budget for a
+    TRANSIENT store fault on any store call (``core/resilience.py``).
+    Pending poll timeouts are not retried here (the caller's poll loop
+    owns them) and fatal errors never are. Unparsable values raise."""
+    raw = os.environ.get("HOROVOD_KV_RETRIES")
+    if raw is None:
+        return 3
+    try:
+        return max(0, int(raw))
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_KV_RETRIES must be an integer retry count, "
+            f"got {raw!r}") from None
+
+
+def kv_backoff_ms() -> float:
+    """``HOROVOD_KV_BACKOFF_MS`` (default 50): the base backoff between
+    store retries. The schedule is decorrelated jitter — ``sleep =
+    uniform(base, prev*3)`` capped at ``base*64``. Unparsable values
+    raise."""
+    raw = os.environ.get("HOROVOD_KV_BACKOFF_MS")
+    if raw is None:
+        return 50.0
+    try:
+        ms = float(raw)
+    except ValueError:
+        ms = float("nan")
+    if ms != ms:
+        raise ValueError(
+            f"HOROVOD_KV_BACKOFF_MS must be a number of milliseconds, "
+            f"got {raw!r}")
+    return max(1.0, ms)
+
+
+def liveness_interval_seconds() -> float:
+    """``HOROVOD_LIVENESS_INTERVAL`` (seconds, default 10; 0 disables): how
+    often each process of a multi-process world publishes its heartbeat
+    key ``hvd/hb/g<generation>/p<rank>`` (``core/resilience.py``).
+    Unparsable values raise."""
+    raw = os.environ.get("HOROVOD_LIVENESS_INTERVAL")
+    if raw is None:
+        return 10.0
+    try:
+        seconds = float(raw)
+    except ValueError:
+        seconds = float("nan")
+    if seconds != seconds:
+        raise ValueError(
+            f"HOROVOD_LIVENESS_INTERVAL must be a number of seconds, "
+            f"got {raw!r}")
+    return max(0.0, seconds)
+
+
+def liveness_timeout_seconds() -> float:
+    """``HOROVOD_LIVENESS_TIMEOUT`` (seconds; default 0 = disabled): a peer
+    whose last heartbeat is older than this is declared dead, turning
+    every blocking negotiation / schedule-validation wait, and a
+    collective that lost its peer, into a fatal error naming the dead
+    rank(s) instead of an indefinite hang. It also bounds the process
+    groups' own waits (``core/state.py``). Unparsable values raise."""
+    raw = os.environ.get("HOROVOD_LIVENESS_TIMEOUT")
+    if raw is None:
+        return 0.0
+    try:
+        seconds = float(raw)
+    except ValueError:
+        seconds = float("nan")
+    if seconds != seconds:
+        raise ValueError(
+            f"HOROVOD_LIVENESS_TIMEOUT must be a number of seconds, "
+            f"got {raw!r}")
+    if seconds <= 0 or seconds == float("inf"):
+        return 0.0
+    return seconds
+
+
+def validate_resilience_knobs() -> None:
+    """Parse the elastic and resilience knobs once at ``hvd.init``, so a
+    typo'd value raises there, as the reference's ``init`` does."""
+    elastic_enabled()
+    elastic_min_world()
+    elastic_join_timeout_seconds()
+    kv_retries()
+    kv_backoff_ms()
+    liveness_interval_seconds()
+    liveness_timeout_seconds()
 
 
 def validate_sharding_knobs() -> None:
     """The reference's ``hvd.init`` checks of the sharding knobs: both
     parsed (a typo raises), then sharding with ``HOROVOD_ELASTIC=1``
-    refused with its text. Called before :func:`check_unported`, so that
-    combination names the conflict rather than the unported elastic
-    runtime."""
+    refused with its text: the elastic shrink and regrow re-replicate the
+    training state."""
     from horovod_tpu_torch.core.state import HorovodError
 
     mode = sharding_mode()
     fsdp_axis_size()
-    if elastic_requested() and mode != "off":
+    if elastic_enabled() and mode != "off":
         raise HorovodError(
             f"HOROVOD_ELASTIC=1 is incompatible with "
             f"HOROVOD_SHARDING={mode}: the elastic "

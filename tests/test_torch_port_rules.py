@@ -43,7 +43,8 @@ def _port_sources():
     return files + [REPO / "chip_smoke.py",
                     REPO / "tools" / "profile_torch_step.py",
                     REPO / "tools" / "serve_bench_torch.py",
-                    REPO / "tools" / "timeline_torch.py"]
+                    REPO / "tools" / "timeline_torch.py",
+                    REPO / "tools" / "fault_drill_torch.py"]
 
 
 def _imported_roots(path):
@@ -483,9 +484,13 @@ import warnings  # noqa: E402
 from horovod_tpu_torch.core import resilience as tres  # noqa: E402
 from horovod_tpu_torch.utils import env as tenv  # noqa: E402
 
-# A value the reference accepts that turns each result knob on.
+# A value the reference accepts that turns on each knob that was a result
+# knob the port refused (UNPORTED_RESULT_KNOBS, empty now), and its reader.
 RESULT_VALUES = {
     "HOROVOD_ELASTIC": "1",
+}
+RESULT_READERS = {
+    "HOROVOD_ELASTIC": ("elastic_enabled", True),
 }
 OFF_VALUES = {
     "HOROVOD_ALLREDUCE_ALGO": "flat",
@@ -515,18 +520,24 @@ def test_every_reference_knob_is_registered_once():
     classes = (tenv.PORTED_KNOBS, set(tenv.UNPORTED_RESULT_KNOBS),
                set(tenv.UNPORTED_TUNING_KNOBS), tenv.JAX_ONLY_KNOBS)
     assert sum(len(c) for c in classes) == len(jenv.KNOWN_ENV_VARS)
-    assert set(RESULT_VALUES) == set(tenv.UNPORTED_RESULT_KNOBS)
+    # Every result knob and every fault kind is ported.
+    assert not tenv.UNPORTED_RESULT_KNOBS and not tenv.UNPORTED_FAULTS
+    assert set(RESULT_VALUES) <= tenv.PORTED_KNOBS
 
 
 @pytest.mark.parametrize("name", sorted(RESULT_VALUES))
 def test_a_result_knob_raises_at_init_naming_its_item(clean_env, name):
-    item = tenv.UNPORTED_RESULT_KNOBS[name][0]
+    """The knobs this test refused until they were ported (ROADMAP §A item
+    15, HOROVOD_ELASTIC) are accepted now: set, each draws neither a
+    refusal nor a warning at hvd.init and is read as the reference reads
+    it."""
     clean_env.setenv(name, RESULT_VALUES[name])
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP §A item {item}\\b") as info:
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         hvd.init(device="cpu")
-    assert name in str(info.value)
-    assert not hvd.is_initialized()
+    assert hvd.is_initialized()
+    reader, want = RESULT_READERS[name]
+    assert getattr(tenv, reader)() == want
 
 
 @pytest.mark.parametrize("name", sorted(OFF_VALUES))
@@ -674,9 +685,17 @@ def test_a_jax_only_knob_draws_nothing(clean_env, name):
                                   "regrow@step=4",
                                   "torn_write@epoch=1;crash@rank=0,step=1"])
 def test_training_faults_the_port_does_not_inject_raise(clean_env, spec):
+    """The training faults this test refused until they were ported
+    (``crash``, ``kv_timeout``, ``regrow``: ROADMAP §A item 15) are
+    accepted at hvd.init now, and the injector holds them as parsed."""
     clean_env.setenv("HOROVOD_FAULT_INJECT", spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP §A item 15"):
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         hvd.init(device="cpu")
+    assert hvd.is_initialized()
+    tres.reset_injector()
+    assert [f.describe() for f in tres.injector()._faults] == \
+        [f.strip() for f in spec.split(";")]
 
 
 @pytest.mark.parametrize("spec", ["torn_write@epoch=2",

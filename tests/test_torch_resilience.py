@@ -1,0 +1,609 @@
+"""Resilience of the port (``core/resilience.py``, the negotiation's and the
+schedule validation's waits, the knobs) against the JAX package's, on the
+CPU.
+
+The pure functions (``analysis/protocol.py``: the store key functions, the
+error classifier, the retry decision, the fault matchers, the liveness
+probe order) equal the JAX package's on the reference tests' cases; the
+retry layer, the heartbeat and the liveness judgement run against a dict
+store beside the JAX package's against its fake client, and their texts
+and backoff schedules (the same seeded jitter) are compared. One
+module-scoped world of 4 gloo ranks then shows them live: a fit under
+``kv_timeout`` faults equals the fault-free fit bit for bit, the heartbeat
+key advances, rank 3 dies with ``os._exit`` and the survivors' next
+negotiation raises ``WorkerLost`` naming it within the liveness timeout,
+and under ``HOROVOD_ELASTIC=1`` rank 2 dies mid-step — a gloo collective
+loses its peer — and the survivors shrink and finish the fit.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pathlib
+import re
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.analysis import protocol as tproto
+from horovod_tpu_torch.core import elastic as tel
+from horovod_tpu_torch.core import resilience as tres
+from horovod_tpu_torch.core import state as tstate
+from horovod_tpu_torch.run import run
+from horovod_tpu_torch.training import callbacks as tcb
+from horovod_tpu_torch.training import loop as tloop
+from horovod_tpu_torch.utils import env as tenv
+
+KNOBS = ("HOROVOD_KV_RETRIES", "HOROVOD_KV_BACKOFF_MS",
+         "HOROVOD_LIVENESS_INTERVAL", "HOROVOD_LIVENESS_TIMEOUT",
+         "HOROVOD_ELASTIC", "HOROVOD_ELASTIC_MIN_WORLD",
+         "HOROVOD_ELASTIC_JOIN_TIMEOUT", "HOROVOD_FAULT_INJECT")
+# Seconds: a live peer's heartbeat thread keeps well inside it on a loaded
+# host (the tests run beside other workers).
+LIVENESS_TIMEOUT = 3.0
+WORLD = 4
+
+# The reference tests' strings (the JAX coordination service's), then
+# torch's store messages with the class each is recorded in (ROADMAP §C).
+REFERENCE_MESSAGES = (
+    "DEADLINE_EXCEEDED: GetKeyValue() timed out with key: hvd/neg/g1/s0/p1 "
+    "and duration: 200ms",
+    "NOT_FOUND: /hvd/resp/g1/s3",
+    "UNAVAILABLE: failed to connect to all addresses; last error: UNKNOWN: "
+    "ipv4:127.0.0.1:9999: Failed to connect to remote host: Connection "
+    "refused",
+    "UNAVAILABLE: connection attempt timed out before receiving SETTINGS "
+    "frame",
+    "FAILED_PRECONDITION: Agent must be in CONNECTED state. It is currently "
+    "in state: SHUTDOWN",
+    "INTERNAL: Coordination service has stopped. GetKeyValue() from task "
+    "/job:jax_worker/task:1 failed.",
+    "CANCELLED: Cancelled by shutdown", "ALREADY_EXISTS: key k",
+    "UNAVAILABLE: socket closed", "something novel",
+    "UNAVAILABLE: injected coordination-service fault (kv_timeout@seq=3 at "
+    "kv seq 3)")
+TORCH_MESSAGES = {
+    "wait timeout after 100ms, keys: /hvd/resp/g0/s1": "pending",
+    "Socket Timeout": "pending",
+    "Connection reset by peer": "transient",
+    "Broken pipe": "transient",
+    "failed to recv, got 0 bytes": "transient",
+    "The server socket has failed to listen on any local network address. "
+    "Connection refused": "transient",
+    "open: No such file or directory": "fatal",
+}
+
+
+@pytest.fixture
+def clean(monkeypatch):
+    for k in KNOBS:
+        monkeypatch.delenv(k, raising=False)
+    from horovod_tpu.core import resilience as jres
+
+    tres._reset_for_tests()
+    jres._reset_for_tests()
+    hvd.shutdown()
+    yield monkeypatch
+    hvd.shutdown()
+    tres._reset_for_tests()
+    jres._reset_for_tests()
+
+
+class DictStore:
+    """A dict behind the torch store calls; ``fail_next`` transient
+    faults first, like the reference tests' fake client."""
+
+    def __init__(self):
+        self.d = {}
+        self.fail_next = 0
+        self.gets = 0
+
+    def _flake(self):
+        if self.fail_next:
+            self.fail_next -= 1
+            raise RuntimeError("Connection reset by peer")
+
+    def set(self, key, value):
+        self._flake()
+        self.d[key] = value.encode() if isinstance(value, str) else value
+
+    def get(self, key):
+        self.gets += 1
+        self._flake()
+        return self.d[key]
+
+    def check(self, keys):
+        return all(k in self.d for k in keys)
+
+    def delete_key(self, key):
+        return self.d.pop(key, None) is not None
+
+
+class FakeKV:
+    """The reference tests' fake JAX client."""
+
+    def __init__(self):
+        self.d = {}
+        self.fail_next = 0
+
+    def key_value_set(self, key, value, allow_overwrite=False):
+        if not allow_overwrite and key in self.d:
+            raise RuntimeError(f"ALREADY_EXISTS: key {key}")
+        self.d[key] = value
+
+    def blocking_key_value_get(self, key, timeout_ms):
+        if self.fail_next:
+            self.fail_next -= 1
+            raise RuntimeError("UNAVAILABLE: failed to connect")
+        if key in self.d:
+            return self.d[key]
+        raise RuntimeError(f"DEADLINE_EXCEEDED: GetKeyValue() timed out "
+                           f"with key: {key} and duration: {timeout_ms}ms")
+
+
+# -- the pure functions ------------------------------------------------------
+
+
+@pytest.mark.parametrize("message", REFERENCE_MESSAGES)
+def test_classifier_equals_jax_on_reference_strings(message):
+    from horovod_tpu.analysis import protocol as jproto
+
+    assert tproto.classify_kv_message(message) == \
+        jproto.classify_kv_message(message)
+
+
+@pytest.mark.parametrize("message", sorted(TORCH_MESSAGES))
+def test_torch_store_messages_fall_into_their_classes(message):
+    assert tproto.classify_kv_message(message) == TORCH_MESSAGES[message]
+
+
+def test_a_real_store_timeout_is_pending():
+    """A TCPStore ``get`` of a key nobody set raises torch's timeout, which
+    the classifier reads as a pending poll."""
+    import datetime
+
+    import torch.distributed as dist
+
+    store = dist.TCPStore("127.0.0.1", 0, 1, True,
+                          timeout=datetime.timedelta(milliseconds=100))
+    with pytest.raises(Exception) as info:
+        store.get("never")
+    assert tres.classify_kv_error(info.value) == "pending"
+    assert tres.is_kv_timeout(tres.KVTimeout("k"))
+
+
+@pytest.mark.parametrize("kind", ["pending", "transient", "fatal"])
+@pytest.mark.parametrize("opname", ["get", "set"])
+@pytest.mark.parametrize("attempt,retries", [(0, 3), (2, 3), (3, 3), (1, 0)])
+@pytest.mark.parametrize("message", ["ALREADY_EXISTS: k", "boom"])
+def test_retry_decision_equals_jax(kind, opname, attempt, retries, message):
+    from horovod_tpu.analysis import protocol as jproto
+
+    assert tproto.retry_decision(kind, opname, attempt, retries, message) \
+        == jproto.retry_decision(kind, opname, attempt, retries, message)
+
+
+@pytest.mark.parametrize("fn,args", [
+    ("hb_key", (3, 1)), ("join_key", (0, 2)), ("admit_key", (1, 5)),
+    ("regrow_key", (4, 0)), ("key_generation", ("hvd/hb/g12/p3",)),
+    ("key_generation", ("hvd/join/j0/p2",)),
+    ("key_generation", ("hvd/regrow/g7/j0",))])
+def test_key_functions_equal_jax(fn, args):
+    from horovod_tpu.analysis import protocol as jproto
+
+    assert getattr(tproto, fn)(*args) == getattr(jproto, fn)(*args)
+
+
+@pytest.mark.parametrize("spec,seq", [
+    ("kv_timeout@seq=3", 3), ("kv_timeout@seq=3", 4),
+    ("kv_timeout@seq=1,times=2", 2), ("kv_timeout@seq=1,times=2", 3),
+    ("crash@step=1;kv_timeout@seq=0", 0)])
+def test_kv_fault_covering_equals_jax(spec, seq):
+    from horovod_tpu.analysis import protocol as jproto
+
+    assert tproto.kv_fault_covering(tproto.parse_fault_spec(spec), seq) == \
+        jproto.kv_fault_covering(jproto.parse_fault_spec(spec), seq)
+
+
+@pytest.mark.parametrize("spec,step,ranks,span", [
+    ("crash@rank=1,step=5", 5, [1], 1), ("crash@rank=1,step=5", 5, [0], 1),
+    ("crash@step=5", 4, [0], 2), ("crash@rank=2,step=6", 4, [2, 3], 2),
+    ("crash@rank=2,step=6", 4, [2], 1)])
+def test_crash_matcher_equals_jax(spec, step, ranks, span):
+    from horovod_tpu.analysis import protocol as jproto
+
+    t = tproto.crash_fault_matching(tproto.parse_fault_spec(spec), step,
+                                    ranks, span)
+    j = jproto.crash_fault_matching(jproto.parse_fault_spec(spec), step,
+                                    ranks, span)
+    assert (None if t is None else t.describe()) == \
+        (None if j is None else j.describe())
+
+
+@pytest.mark.parametrize("cached,cap", [
+    ({0: 100.0, 1: 90.0, 2: None, 3: 99.9}, 32),
+    ({0: 100.0, 1: 90.0, 2: None, 3: 80.0}, 2),
+    ({p: 50.0 + p for p in range(40)}, 32), ({}, 4)])
+def test_liveness_probe_order_and_verdict_equal_jax(cached, cap):
+    from horovod_tpu.analysis import protocol as jproto
+
+    assert tproto.liveness_probe_order(cached, 100.0, 5.0, cap) == \
+        jproto.liveness_probe_order(cached, 100.0, 5.0, cap)
+    assert tproto.judge_dead(cached, 100.0, 5.0) == \
+        jproto.judge_dead(cached, 100.0, 5.0)
+
+
+# -- the retry layer, heartbeat and liveness against a dict store -----------
+
+
+def _sleeps(monkeypatch, module):
+    out = []
+    monkeypatch.setattr(module.time, "sleep", lambda s: out.append(s))
+    return out
+
+
+def test_retry_then_success_and_its_schedule_equal_jax(clean):
+    """Six transient faults: both packages retry six times with the same
+    decorrelated-jitter sleeps (the same seeded generator)."""
+    from horovod_tpu.core import resilience as jres
+
+    clean.setenv("HOROVOD_KV_BACKOFF_MS", "10")
+    clean.setenv("HOROVOD_KV_RETRIES", "6")
+    store, kv = DictStore(), FakeKV()
+    store.d["k"], kv.d["k"] = b"v", "v"
+    store.fail_next = kv.fail_next = 6
+    tsleeps = _sleeps(clean, tres)
+    assert tres.kv_get(store, "k", 100) == "v"
+    clean.undo()
+    clean.setenv("HOROVOD_KV_BACKOFF_MS", "10")
+    clean.setenv("HOROVOD_KV_RETRIES", "6")
+    jsleeps = _sleeps(clean, jres)
+    assert jres.kv_get(kv, "k", 100) == "v"
+    assert tsleeps == jsleeps and len(tsleeps) == 6
+    assert tres.retry_count() == jres.retry_count() == 6
+
+
+def test_exhausted_retries_raise_the_reference_text(clean):
+    from horovod_tpu.core import resilience as jres
+
+    clean.setenv("HOROVOD_KV_BACKOFF_MS", "1")
+    clean.setenv("HOROVOD_KV_RETRIES", "2")
+    clean.setenv("HOROVOD_FAULT_INJECT", "kv_timeout@seq=0,times=99")
+    tres.reset_injector()
+    jres.reset_injector()
+    with pytest.raises(hvd.HorovodError) as t:
+        tres.kv_get(DictStore(), "hvd/neg/g1/s4/p0", 100)
+    import horovod_tpu as jhvd
+
+    with pytest.raises(jhvd.HorovodError) as j:
+        jres.kv_get(FakeKV(), "hvd/neg/g1/s4/p0", 100)
+    assert str(t.value) == str(j.value)
+    assert "HOROVOD_KV_RETRIES=2" in str(t.value)
+
+
+def test_fatal_and_pending_pass_through(clean):
+    clean.setenv("HOROVOD_KV_BACKOFF_MS", "1")
+
+    class Dead(DictStore):
+        def check(self, keys):
+            raise RuntimeError("open: No such file or directory")
+
+    with pytest.raises(RuntimeError, match="No such file"):
+        tres.kv_get(Dead(), "k", 100)
+    with pytest.raises(tres.KVTimeout):
+        tres.kv_get(DictStore(), "unset", 10)
+    assert tres.retry_count() == 0
+
+
+def test_injected_fault_is_retried_once(clean):
+    clean.setenv("HOROVOD_KV_BACKOFF_MS", "1")
+    clean.setenv("HOROVOD_FAULT_INJECT", "kv_timeout@seq=0,times=1")
+    tres.reset_injector()
+    store = DictStore()
+    tres.kv_set(store, "k", "v")
+    assert store.d["k"] == b"v" and tres.retry_count() == 1
+    assert tres.injector().kv_calls == 2
+
+
+def test_liveness_text_equals_jax(clean):
+    """A peer whose heartbeat stopped 30 s ago: both packages raise the
+    same text (the JAX package's one process hosts every device, so its
+    process 1 names no ranks; the port's process 1 is rank 1)."""
+    import horovod_tpu as jhvd
+    from horovod_tpu.core import resilience as jres
+    from horovod_tpu.core import state as jstate
+
+    clean.setenv("HOROVOD_LIVENESS_TIMEOUT", "1")
+    hvd.init(device="cpu")
+    store, kv = DictStore(), FakeKV()
+    stale = json.dumps({"t": time.time() - 30.0})
+    store.set(tres._hb_key(tstate.kv_generation(), 1), stale)
+    kv.key_value_set(jres._hb_key(jstate.generation(), 1), stale)
+    ctx = "negotiating tensor grad_0 (index 7)"
+    with pytest.raises(tres.WorkerLost) as t:
+        tres.Liveness().check(store, [1], context=ctx)
+    with pytest.raises(jhvd.HorovodError) as j:
+        jres.Liveness().check(kv, [1], context=ctx)
+
+    def norm(s):
+        return re.sub(r"\d+\.\ds ago", "N s ago", s)
+
+    assert norm(str(t.value)) == norm(str(j.value)).replace(
+        "global ranks []", "global ranks [1]")
+    assert t.value.pids == (1,) and t.value.ranks == ()
+
+
+def test_liveness_grace_and_disabled(clean):
+    hvd.init(device="cpu")
+    store = DictStore()
+    gen = tstate.kv_generation()
+    store.set(tres._hb_key(gen, 1), json.dumps({"t": time.time()}))
+    clean.setenv("HOROVOD_LIVENESS_TIMEOUT", "5")
+    lv = tres.Liveness()
+    lv.check(store, [1])  # fresh heartbeat: alive
+    lv.check(store, [2])  # never seen: startup grace
+    clean.setenv("HOROVOD_LIVENESS_TIMEOUT", "0")
+    store.set(tres._hb_key(gen, 3), json.dumps({"t": time.time() - 1e6}))
+    tres.Liveness().check(store, [3])  # disabled
+    clean.setenv("HOROVOD_LIVENESS_TIMEOUT", "1")
+    t0 = time.monotonic()
+    with pytest.raises(tres.WorkerLost, match="process 3"):
+        tres.wait_kv(store, "never", 60_000, pids=(3,), context="drill")
+    assert time.monotonic() - t0 < 10
+
+
+def test_heartbeat_publishes_at_world_one_only_when_forced(clean):
+    clean.setenv("HOROVOD_LIVENESS_INTERVAL", "0.02")
+    hvd.init(device="cpu")
+    assert tres.heartbeat() is None  # a world of one process
+    tres.start_heartbeat(force=True)
+    try:
+        hb = tres.heartbeat()
+        time.sleep(0.1)
+        assert hb.published >= 2
+        store = tel.kv_store()
+        raw = store.get(tres._hb_key(tstate.kv_generation(), 0))
+        assert abs(time.time() - json.loads(raw)["t"]) < 5.0
+    finally:
+        tres.stop_heartbeat()
+    assert tres.heartbeat() is None
+
+
+def test_world_one_negotiation_reaches_the_store(clean):
+    """At world 1 the coordinator still publishes its verdicts, so a fit
+    reaches ``kv_timeout@seq=N`` and retries it, bit-identical."""
+    clean.setenv("HOROVOD_KV_BACKOFF_MS", "1")
+    hvd.init(device="cpu")
+    sync = [tcb.BroadcastGlobalVariablesCallback()]
+    clean_w = _fit_linear(sync)
+    calls = tres.injector().kv_calls
+    assert calls >= 3
+    hvd.shutdown()
+    clean.setenv("HOROVOD_FAULT_INJECT",
+                 f"kv_timeout@seq=0;kv_timeout@seq={calls - 1}")
+    tres._reset_for_tests()
+    hvd.init(device="cpu")
+    assert _fit_linear(sync) == clean_w
+    assert tres.retry_count() == 2
+    assert tres.injector().kv_calls == calls + 2
+
+
+@pytest.mark.parametrize("elastic", [False, True])
+def test_maybe_crash_survivors_observe_the_target_once(clean, elastic):
+    """A peer's targeted crash: with HOROVOD_ELASTIC=1 the survivors raise
+    WorkerLost naming it, once; without, nothing happens here."""
+    clean.setenv("HOROVOD_FAULT_INJECT", "crash@rank=2,step=5")
+    if elastic:
+        clean.setenv("HOROVOD_ELASTIC", "1")
+    tres.reset_injector()
+    tres.maybe_crash(4, [0], peers=[1, 2, 3])
+    if elastic:
+        with pytest.raises(tres.WorkerLost) as info:
+            tres.maybe_crash(5, [0], peers=[1, 2, 3])
+        assert info.value.ranks == (2,)
+        assert str(info.value) == ("Worker hosting group rank 2 lost at "
+                                   "step 5 (crash@rank=2,step=5).")
+        # Consumed: the process that is group rank 2 after the shrink stays.
+        tres.maybe_crash(5, [2], peers=[0, 1])
+    tres.maybe_crash(5, [0], peers=[1, 2, 3])
+
+
+def test_a_targeted_crash_exits_43(tmp_path):
+    import subprocess
+    import sys
+
+    code = ("from horovod_tpu_torch.core import resilience as r\n"
+            "r.maybe_crash(3, [1], span=2)\n")
+    env = dict(os.environ, HOROVOD_FAULT_INJECT="crash@rank=1,step=4",
+               PYTHONPATH=str(pathlib.Path(__file__).resolve().parents[1]))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == tres.CRASH_EXIT_CODE == 43
+    assert "simulating hard crash at step 3 (crash@rank=1,step=4)" in \
+        proc.stdout
+
+
+@pytest.mark.parametrize("name,value", [
+    ("HOROVOD_KV_RETRIES", "three"), ("HOROVOD_KV_BACKOFF_MS", "fast"),
+    ("HOROVOD_LIVENESS_INTERVAL", "O"), ("HOROVOD_LIVENESS_TIMEOUT", "x"),
+    ("HOROVOD_ELASTIC", "yes"), ("HOROVOD_ELASTIC_MIN_WORLD", "0"),
+    ("HOROVOD_ELASTIC_MIN_WORLD", "two"),
+    ("HOROVOD_ELASTIC_JOIN_TIMEOUT", "-1"),
+    ("HOROVOD_ELASTIC_JOIN_TIMEOUT", "inf"),
+    ("HOROVOD_ELASTIC_JOIN_TIMEOUT", "soon")])
+def test_a_typod_knob_raises_the_reference_text_at_init(clean, name, value):
+    from horovod_tpu.utils import env as jenv
+
+    reader = {"HOROVOD_KV_RETRIES": "kv_retries",
+              "HOROVOD_KV_BACKOFF_MS": "kv_backoff_ms",
+              "HOROVOD_LIVENESS_INTERVAL": "liveness_interval_seconds",
+              "HOROVOD_LIVENESS_TIMEOUT": "liveness_timeout_seconds",
+              "HOROVOD_ELASTIC": "elastic_enabled",
+              "HOROVOD_ELASTIC_MIN_WORLD": "elastic_min_world",
+              "HOROVOD_ELASTIC_JOIN_TIMEOUT":
+                  "elastic_join_timeout_seconds"}[name]
+    clean.setenv(name, value)
+    with pytest.raises(ValueError) as j:
+        getattr(jenv, reader)()
+    with pytest.raises(ValueError) as t:
+        hvd.init(device="cpu")
+    assert str(t.value) == str(j.value)
+    assert not hvd.is_initialized()
+
+
+@pytest.mark.parametrize("name,value", [
+    ("HOROVOD_KV_RETRIES", "5"), ("HOROVOD_KV_BACKOFF_MS", "0.5"),
+    ("HOROVOD_LIVENESS_INTERVAL", "0"), ("HOROVOD_LIVENESS_TIMEOUT", "inf"),
+    ("HOROVOD_ELASTIC", " 1 "), ("HOROVOD_ELASTIC_MIN_WORLD", "3"),
+    ("HOROVOD_ELASTIC_JOIN_TIMEOUT", "2.5")])
+def test_a_knob_reads_as_the_reference_reads_it(clean, name, value):
+    from horovod_tpu.utils import env as jenv
+
+    clean.setenv(name, value)
+    for reader in ("kv_retries", "kv_backoff_ms", "liveness_interval_seconds",
+                   "liveness_timeout_seconds", "elastic_enabled",
+                   "elastic_min_world", "elastic_join_timeout_seconds"):
+        assert getattr(tenv, reader)() == getattr(jenv, reader)()
+
+
+# -- the live world -----------------------------------------------------------
+
+
+class _Linear(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        w = np.random.RandomState(0).randn(4, 2).astype(np.float32)
+        self.w = torch.nn.Parameter(torch.tensor(w))
+
+
+def _fit_linear(callbacks=(), epochs=1, steps=3):
+    model = _Linear()
+    rng = np.random.RandomState(1 + hvd.global_rank())
+    batch = (torch.tensor(rng.randn(8, 4).astype(np.float32)),
+             torch.tensor(rng.randn(8, 2).astype(np.float32)))
+    tr = tloop.Trainer(model, lambda m, b: torch.mean((b[0] @ m.w - b[1])
+                                                      ** 2),
+                       tloop.sgd(0.05))
+    tr.fit([batch], epochs=epochs, steps_per_epoch=steps,
+           callbacks=list(callbacks), verbose=False)
+    return model.w.tolist()
+
+
+class _DieAt(tcb.Callback):
+    def __init__(self, rank, step):
+        self.rank, self.step = rank, step
+
+    def on_batch_begin(self, batch, logs=None):
+        if hvd.global_rank() == self.rank and batch == self.step:
+            os._exit(tres.CRASH_EXIT_CODE)
+
+
+def _world(out):
+    hvd.init(device="cpu")
+    r = hvd.global_rank()
+    rec = {}
+
+    def save():
+        (pathlib.Path(out) / f"rank{r}.json").write_text(json.dumps(rec))
+
+    # Retry: the same fit under two injected store faults.
+    clean_w = _fit_linear()
+    os.environ["HOROVOD_FAULT_INJECT"] = "kv_timeout@seq=3;kv_timeout@seq=9"
+    tres._reset_for_tests()
+    faulted_w = _fit_linear()
+    rec["retry"] = [faulted_w == clean_w, tres.retry_count(),
+                    tres.injector().kv_calls]
+    del os.environ["HOROVOD_FAULT_INJECT"]
+    tres._reset_for_tests()
+    # The heartbeat key advances.
+    store = tel.kv_store()
+    key = tres._hb_key(tstate.kv_generation(), r)
+    t1 = json.loads(store.get(key))["t"]
+    time.sleep(0.5)
+    rec["heartbeat"] = json.loads(store.get(key))["t"] > t1
+    save()
+    # Rank 3 dies; without HOROVOD_ELASTIC the survivors' next negotiation
+    # raises WorkerLost naming it.
+    hvd.allreduce(torch.ones(1), name="before")
+    if r == 3:
+        os._exit(tres.CRASH_EXIT_CODE)
+    t0 = time.monotonic()
+    try:
+        hvd.allreduce(torch.ones(1), name="after")
+        rec["lost"] = None
+    except tres.WorkerLost as e:
+        rec["lost"] = [str(e), list(e.ranks), list(e.pids),
+                       time.monotonic() - t0]
+    save()
+    # The survivors rebuild group 0, then rank 2 dies mid-step under
+    # HOROVOD_ELASTIC=1: the collective loses its peer, liveness names it
+    # and the survivors shrink and finish.
+    tstate.reconfigure([0, 1, 2])
+    os.environ["HOROVOD_ELASTIC"] = "1"
+    t0 = time.monotonic()
+    w = _fit_linear([_DieAt(2, 2)], epochs=2, steps=3)
+    rec["elastic"] = [hvd.size(), hvd.rank(), w, time.monotonic() - t0,
+                      tel.last_metrics()["elastic_shrink_recovery_ms"]]
+    save()
+    return True
+
+
+@pytest.fixture(scope="module")
+def world(tmp_path_factory):
+    out = tmp_path_factory.mktemp("resilience")
+    saved = {k: os.environ.pop(k) for k in KNOBS if k in os.environ}
+    os.environ.update(HOROVOD_LIVENESS_INTERVAL="0.2",
+                      HOROVOD_LIVENESS_TIMEOUT=str(LIVENESS_TIMEOUT),
+                      HOROVOD_KV_BACKOFF_MS="1")
+    try:
+        results = run(_world, WORLD, device="cpu", args=(str(out),),
+                      timeout=240, crashes=(2, 3))
+    finally:
+        for k in KNOBS:
+            os.environ.pop(k, None)
+        os.environ.update(saved)
+    assert results == [True, True, None, None]
+    return {int(p.stem[4:]): json.loads(p.read_text())
+            for p in out.glob("rank*.json")}
+
+
+def test_a_fit_under_store_faults_equals_the_fault_free_fit(world):
+    for r in range(WORLD):
+        same, retries, calls = world[r]["retry"]
+        assert same
+        assert calls > 9 and retries == 2
+
+
+def test_the_heartbeat_key_advances(world):
+    assert all(world[r]["heartbeat"] for r in range(WORLD))
+
+
+def test_survivors_name_the_dead_peer_within_the_timeout(world):
+    texts = set()
+    for r in range(3):
+        text, ranks, pids, took = world[r]["lost"]
+        assert pids == [3] and ranks == [3]
+        assert took < LIVENESS_TIMEOUT + 5
+        texts.add(re.sub(r"\d+\.\ds ago", "N s ago", text))
+    # The coordinator judged; the others raised its published verdict. The
+    # negotiation index counts the world's earlier rounds.
+    assert texts == {
+        "Liveness check failed while negotiating tensor after (index 3): "
+        "process 3 (global ranks [3], last heartbeat N s ago). The "
+        f"heartbeat registry (HOROVOD_LIVENESS_TIMEOUT="
+        f"{LIVENESS_TIMEOUT:g}s) says these peer(s) are dead; a synchronous "
+        "job cannot make progress without them. Restart the failed host(s) "
+        "and resume from the last complete checkpoint "
+        "(Trainer.fit(resume=...))."}
+
+
+def test_survivors_of_a_peer_loss_mid_step_shrink(world):
+    got = [world[r]["elastic"] for r in (0, 1)]
+    assert [g[:2] for g in got] == [[2, 0], [2, 1]]
+    assert got[0][2] == got[1][2]
+    assert np.isfinite(np.asarray(got[0][2])).all()
+    assert all(g[4] is not None for g in got)
