@@ -337,16 +337,38 @@ Phases, one line of output each:
     ``tools/fault_drill_torch.py --device cuda`` passes (its elastic
     scenario needs four GPUs). Writes ``_chip_smoke_resil/`` (gitignored)
     and removes it.
+23. the control plane (``core/native``, ``core/negotiate.py``'s verdict
+    replay, ``utils/distributed.py``, the two exchange tools): (a) after
+    ``hvd.init`` the native core is loaded; phase 8's ResNet-50 (fused
+    BN) fits ``CTL_STEPS`` steps under ``HOROVOD_TIMELINE``, written by
+    the native writer: every round it negotiated went through the native
+    request table, each request validated again by a fresh native table
+    equals ``validate_py``'s verdict, the native fusion plans of the
+    ResNet-50 and LM parameter lists equal ``plan_buckets_py``'s at the
+    default threshold and at 0 and 1 MiB, and the trace parses and holds
+    the fit's ``NEGOTIATE_*`` rows with their ready ticks; (b)
+    ``CTL_EAGER_CALLS`` named eager allreduces of a 4-MiB bf16 tensor with
+    the cache on (no store call after the first) and with
+    ``HOROVOD_EAGER_CACHE=0``, bit-identical, each arm's ms a call; phase
+    8's LM ``CTL_STEPS`` steps with and without the cache, losses
+    bit-identical; (c) ``tools/allreduce_bench_torch.py --device cuda
+    --smoke`` and ``tools/cost_model_torch.py predict/choose/threshold``
+    at world 1 in child processes, each exiting 0 with its JSON rows (a
+    world-1 row's busbw is 0 by its formula and says so); (d)
+    ``init_distributed("127.0.0.1:<free port>", 1, 0)`` in a child
+    process, one allreduce on the card. Writes ``_chip_smoke_ctl/``
+    (gitignored) and removes it.
 
 Each main path (5, 8 and 10, each example of 14, each run of 17, each
-arm of 18, of 19 (b), of 20 and of 22 (a) and (b)) runs with its kernels' launch counts set
+arm of 18, of 19 (b), of 20, of 22 (a) and (b) and of 23 (a) and (b)) runs with its kernels' launch counts set
 to 0 just before it and read just after; the kernels line's
 ``launches`` are phases 5 and 8's counts (the eager step and the 9
 replays), ``launches_phase18``, ``launches_phase19`` and
 ``launches_phase20`` each arm's count in phases 18, 19 and 20, and
 ``launches_phase21`` the launches the device timeline of phase 21 (d)
-shows in its 3 sampled calls, and ``launches_phase22`` each arm's count in
-phase 22 (a) and (b). Then a JSON line with each kernel's
+shows in its 3 sampled calls, ``launches_phase22`` each arm's count in
+phase 22 (a) and (b), and ``launches_phase23`` each fit's count in phase
+23 (a) and (b). Then a JSON line with each kernel's
 record, and last the result line ``{"ok": true, "device": {...}}``. Any failed phase raises: the script then
 exits non-zero and prints no result. It also fails without CUDA, and when
 the ``horovod_tpu_torch`` package is not beside it.
@@ -5728,6 +5750,365 @@ def resilience_line(rs: dict, ident: str) -> str:
             rs["drill"]["summary"]) + f"; on {ident}")
 
 
+# -- the control plane (phase 23) -------------------------------------------------
+
+CTL_DIR = "_chip_smoke_ctl"   # gitignored; removed after the phase
+CTL_STEPS = 3                 # (a), (b): the eager call, the capture, a replay
+CTL_EAGER_CALLS = 200         # (b): named eager allreduces an arm
+CTL_EAGER_ELEMS = 2 << 20     # (b): 4 MiB of bf16
+CTL_THRESHOLDS = (0, 1 << 20)  # (a): fusion thresholds beside the default
+CTL_HOST_REPS = 50            # (a): repetitions of each host-side timing
+
+
+def host_us(fn) -> float:
+    """Mean host µs of ``fn()`` over CTL_HOST_REPS calls."""
+    t0 = time.perf_counter()
+    for _ in range(CTL_HOST_REPS):
+        fn()
+    return 1e6 * (time.perf_counter() - t0) / CTL_HOST_REPS
+
+
+def native_plans_equal(core, tensors) -> dict:
+    """The native fusion plan of ``tensors`` against ``plan_buckets_py``'s
+    at the default threshold and ``CTL_THRESHOLDS`` (buckets a threshold),
+    and each planner's host µs at the default threshold."""
+    leaves = [torch.empty(t.shape, dtype=t.dtype, device="meta")
+              for t in tensors]
+    out = {"buckets": {}}
+    for thr in (hstate.fusion_threshold(),) + CTL_THRESHOLDS:
+        a = fusion.plan_buckets_native(core, leaves, thr)
+        b = fusion.plan_buckets_py(leaves, thr)
+        if a != b:
+            raise RuntimeError(f"phase 23: the native fusion plan at "
+                               f"threshold {thr} differs from the Python "
+                               f"plan")
+        out["buckets"][thr] = len(a)
+    thr = hstate.fusion_threshold()
+    out["tensors"] = len(leaves)
+    out["native_us"] = host_us(
+        lambda: fusion.plan_buckets_native(core, leaves, thr))
+    out["python_us"] = host_us(lambda: fusion.plan_buckets_py(leaves, thr))
+    return out
+
+
+@contextlib.contextmanager
+def recorded_rounds():
+    """Every negotiation round the coordinator validates inside the block:
+    each member's batch and the group's size, and whether the round went
+    through the native table."""
+    real_validate, real_round = negotiate._validate, negotiate._native_round
+    rounds, tables = [], []
+
+    def validate(gathered, g, seq, table=None):
+        rounds.append((copy.deepcopy(gathered), g.index, g.size))
+        return real_validate(gathered, g, seq, table)
+
+    def native_round(names, g):
+        table = real_round(names, g)
+        tables.append(table is not None)
+        return table
+
+    negotiate._validate, negotiate._native_round = validate, native_round
+    try:
+        yield rounds, tables
+    finally:
+        negotiate._validate, negotiate._native_round = (real_validate,
+                                                        real_round)
+
+
+def verdicts_agree(rounds) -> dict:
+    """Every request of ``rounds`` validated again by a fresh native table
+    and by ``validate_py``: the verdicts must be equal. Returns the count
+    and each path's host µs a round (mean over the rounds)."""
+    from horovod_tpu_torch.core import native
+
+    n, us = 0, {"native": 0.0, "python": 0.0}
+    for gathered, gi, size in rounds:
+        core = native.NativeCore([size] * (gi + 1))
+        try:
+            reqs = [[negotiate.Request(
+                rank=r, name=b[i][0], op=negotiate.CollectiveOp(b[i][1]),
+                dtype=b[i][2], shape=tuple(b[i][3]), root_rank=b[i][4],
+                group=gi) for r, b in enumerate(gathered)]
+                for i in range(len(gathered[0]))]
+            for one in reqs:
+                if (negotiate._validate_native(core, one, size)
+                        != negotiate.validate_py(one, size)):
+                    raise RuntimeError(f"phase 23 (a): the native verdict on "
+                                       f"{one[0].name} differs from "
+                                       f"validate_py's")
+                n += 1
+            us["native"] += host_us(lambda: [
+                negotiate._validate_native(core, one, size) for one in reqs])
+            us["python"] += host_us(lambda: [
+                negotiate.validate_py(one, size) for one in reqs])
+        finally:
+            core.close()
+    return {"verdicts": n, **{k: v / max(1, len(rounds))
+                              for k, v in us.items()}}
+
+
+def ctl_native_fit(device) -> dict:
+    """(a): ResNet-50 (fused BN) for CTL_STEPS steps under HOROVOD_TIMELINE
+    on the native writer, its rounds recorded and validated again, its
+    gradient plans held against the Python planner."""
+    path = os.path.join(HERE, CTL_DIR, "timeline.json")
+    with world_with(HOROVOD_TIMELINE=path):
+        core = hstate.native_core()
+        if core is None or negotiate._tl.session().native_core is not core:
+            raise RuntimeError("phase 23 (a): the native core is not loaded "
+                               "or does not write the timeline")
+        trainer = resnet_trainer(device)
+        batch = resnet.synthetic_imagenet(BATCH, IMAGE, seed=SEED,
+                                          num_classes=CLASSES, device=device)
+        log = LossLog()
+        reset_launch_counts()
+        with recorded_rounds() as (rounds, tables):
+            trainer.fit([batch], 1, CTL_STEPS, verbose=False,
+                        callbacks=[log])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        plans = native_plans_equal(core, list(trainer.model.parameters()))
+        del trainer
+        free_cuda()
+    if not rounds or not all(tables) or len(tables) != len(rounds):
+        raise RuntimeError(f"phase 23 (a): {len(rounds)} rounds, native "
+                           f"tables {tables}")
+    events = read_timeline(path)
+    neg_rows = sorted({e["row"] for e in events
+                       if e["name"].startswith("NEGOTIATE_")})
+    ticks = sum(e["ph"] == "X" and e["name"] == "0" for e in events)
+    if not any(r.startswith("DistributedOptimizer.grads") for r in neg_rows) \
+            or ticks < len(neg_rows):
+        raise RuntimeError(f"phase 23 (a): the trace's NEGOTIATE rows "
+                           f"{neg_rows}, {ticks} ready ticks")
+    if not all(torch.isfinite(x).all() for x in log.losses):
+        raise RuntimeError("phase 23 (a): a loss is not finite")
+    return {"rounds": len(rounds), "validation": verdicts_agree(rounds),
+            "plans": plans, "neg_rows": len(neg_rows), "ticks": ticks,
+            "events": len(events), "launches": launches,
+            "losses": [float(x) for x in log.losses]}
+
+
+def ctl_eager_arm(device, cache: str) -> dict:
+    """(b): CTL_EAGER_CALLS named eager allreduces of a 4-MiB bf16 tensor
+    with HOROVOD_EAGER_CACHE=``cache``: the last result, the store calls
+    after the first call, and the mean ms a call (each call synced)."""
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.randn(CTL_EAGER_ELEMS, generator=g).to(device, torch.bfloat16)
+    neg = negotiate.negotiator()
+    with env_knobs(HOROVOD_EAGER_CACHE=cache):
+        out = hvd.allreduce(x, name="ctl_eager", average=False)
+        torch.cuda.synchronize()
+        calls0 = neg.store_calls
+        t0 = time.perf_counter()
+        for _ in range(CTL_EAGER_CALLS - 1):
+            out = hvd.allreduce(x, name="ctl_eager", average=False)
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / (CTL_EAGER_CALLS - 1)
+    return {"out": out, "store_calls": neg.store_calls - calls0, "ms": ms}
+
+
+def ctl_lm_arm(device, cache: str) -> dict:
+    """(b): phase 8's LM for CTL_STEPS steps in a fresh init cycle with
+    HOROVOD_EAGER_CACHE=``cache``; its gradient plans against the Python
+    planner."""
+    cfg = lm_config(torch.bfloat16)
+    tokens = transformer.synthetic_tokens(LM_BATCH, LM_T, cfg.vocab_size,
+                                          seed=SEED, device=device)
+    with world_with(HOROVOD_EAGER_CACHE=cache):
+        trainer = lm_trainer(device)
+        log = LossLog()
+        reset_launch_counts()
+        trainer.fit([tokens], 1, CTL_STEPS, verbose=False, callbacks=[log])
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        plans = native_plans_equal(hstate.native_core(),
+                                   list(trainer.model.parameters()))
+        calls = negotiate.negotiator().store_calls
+        del trainer
+        free_cuda()
+    return {"losses": log.losses, "launches": launches, "plans": plans,
+            "store_calls": calls}
+
+
+def ctl_tools(device) -> dict:
+    """(c): the two tools at world 1 in child processes."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith(
+        "HOROVOD_")}
+    env["HOROVOD_TUNING_CACHE"] = os.path.join(HERE, CTL_DIR, "tuning.json")
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    kind = torch.cuda.get_device_name(device)
+    runs = {
+        "bench": ["allreduce_bench_torch.py", "--device", "cuda", "--smoke"],
+        "predict": ["cost_model_torch.py", "predict", "16777216", "--world",
+                    "8", "--device-kind", kind],
+        "choose": ["cost_model_torch.py", "choose", "16777216", "--world",
+                   "8", "--device-kind", kind],
+        "threshold": ["cost_model_torch.py", "threshold", "--world", "8",
+                      "--device-kind", kind],
+    }
+    out = {}
+    for name, argv in runs.items():
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, os.path.join(HERE, "tools",
+                                                         argv[0]),
+                            *argv[1:]], env=env, cwd=HERE,
+                           capture_output=True, text=True, timeout=600)
+        rows = [json.loads(ln) for ln in r.stdout.splitlines()
+                if ln.startswith("{")]
+        if r.returncode != 0 or not rows:
+            raise RuntimeError(f"phase 23 (c): {' '.join(argv)} exited "
+                               f"{r.returncode}\n{r.stdout[-3000:]}\n"
+                               f"{r.stderr[-3000:]}")
+        out[name] = {"rows": rows, "seconds": time.perf_counter() - t0}
+    busbw = [r for r in out["bench"]["rows"]
+             if r["metric"] == "allreduce_busbw"]
+    if not busbw or any(r["world"] != 1 or r["value"] != 0.0
+                        or "note" not in r for r in busbw):
+        raise RuntimeError(f"phase 23 (c): world-1 rows {busbw}")
+    return out
+
+
+INIT_DISTRIBUTED_CHILD = """
+import json, sys, torch
+import torch.distributed as dist
+import horovod_tpu_torch as hvd
+from horovod_tpu_torch.utils import distributed
+distributed.init_distributed(sys.argv[1], 1, 0)
+x = hvd.allreduce(torch.arange(4.0, device="cuda"), name="init_distributed",
+                  average=False)
+print(json.dumps({"sum": x.tolist(), "device": str(x.device),
+                  "backend": dist.get_backend(), "size": hvd.size()}))
+distributed.shutdown_distributed()
+"""
+
+
+def ctl_init_distributed() -> dict:
+    """(d): ``init_distributed("127.0.0.1:<free port>", 1, 0)`` in a child
+    process, one allreduce on the card."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if not k.startswith(
+        "HOROVOD_") and k not in ("MASTER_ADDR", "MASTER_PORT", "RANK",
+                                  "WORLD_SIZE")}
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-c", INIT_DISTRIBUTED_CHILD,
+                        f"127.0.0.1:{port}"], env=env, cwd=HERE,
+                       capture_output=True, text=True, timeout=300)
+    rows = [json.loads(ln) for ln in r.stdout.splitlines()
+            if ln.startswith("{")]
+    if r.returncode != 0 or not rows or rows[0]["sum"] != [0.0, 1.0, 2.0,
+                                                          3.0]:
+        raise RuntimeError(f"phase 23 (d): the child exited {r.returncode}"
+                           f"\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    return dict(rows[0], seconds=time.perf_counter() - t0)
+
+
+def phase_control_plane(device) -> dict:
+    """Phase 23: (a) the native core on the main path, (b) the verdict
+    replay, (c) the tools at world 1, (d) init_distributed in a child."""
+    t0 = time.perf_counter()
+    os.makedirs(os.path.join(HERE, CTL_DIR), exist_ok=True)
+    try:
+        reinit()
+        if hstate.native_core() is None:
+            raise RuntimeError("phase 23: hvd.init loaded no native core")
+        out = {"native": ctl_native_fit(device)}
+        on = ctl_eager_arm(device, "1")
+        off = ctl_eager_arm(device, "0")
+        if not torch.equal(_bits(on["out"]), _bits(off["out"])):
+            raise RuntimeError("phase 23 (b): the replayed and the "
+                               "renegotiated allreduces differ")
+        if on["store_calls"] != 0 or off["store_calls"] == 0:
+            raise RuntimeError(f"phase 23 (b): store calls {on['store_calls']}"
+                               f" replayed, {off['store_calls']} "
+                               f"renegotiated")
+        out["eager"] = {arm: {k: r[k] for k in ("store_calls", "ms")}
+                        for arm, r in (("cached", on), ("renegotiated",
+                                                        off))}
+        lm = {arm: ctl_lm_arm(device, cache)
+              for arm, cache in (("cached", "1"), ("renegotiated", "0"))}
+        if not same_bits(lm["cached"]["losses"],
+                         lm["renegotiated"]["losses"]):
+            raise RuntimeError("phase 23 (b): the LM's losses differ with "
+                               "and without the cache")
+        out["lm"] = {arm: {"losses": [float(x) for x in r["losses"]],
+                           "launches": r["launches"], "plans": r["plans"],
+                           "store_calls": r["store_calls"]}
+                     for arm, r in lm.items()}
+        out["tools"] = ctl_tools(device)
+        out["init_distributed"] = ctl_init_distributed()
+    finally:
+        shutil.rmtree(os.path.join(HERE, CTL_DIR), ignore_errors=True)
+    counts = {"resnet50": out["native"]["launches"],
+              **{f"lm_{arm}": r["launches"] for arm, r in out["lm"].items()}}
+    for arm, c in counts.items():
+        idle = sorted(k for k, v in c.items()
+                      if v == 0 and (k in REPLAY_COUNTS["lm"])
+                      == arm.startswith("lm"))
+        if idle:
+            raise RuntimeError(f"phase 23 ({arm}) never launched {idle}: {c}")
+    out["launches"] = counts
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def control_plane_line(cp: dict, ident: str) -> str:
+    nv, ea, lm, tl = cp["native"], cp["eager"], cp["lm"], cp["tools"]
+    bench = [r for r in tl["bench"]["rows"]
+             if r["metric"] == "allreduce_busbw"]
+    pred = tl["predict"]["rows"][0]
+    return (
+        f"phase 23 control plane: ok; (a) native core loaded, ResNet-50 "
+        f"fused BN {CTL_STEPS} steps under HOROVOD_TIMELINE on the native "
+        f"writer: {nv['rounds']} rounds through the native table, "
+        f"{nv['validation']['verdicts']} verdicts equal to validate_py's "
+        f"(host µs a round: native {nv['validation']['native']:.1f}, "
+        f"Python {nv['validation']['python']:.1f}), fusion plans equal to "
+        f"plan_buckets_py's (ResNet-50's {nv['plans']['tensors']} tensors, "
+        f"buckets by threshold {nv['plans']['buckets']}, host µs native "
+        f"{nv['plans']['native_us']:.1f}, Python "
+        f"{nv['plans']['python_us']:.1f}; the LM's "
+        f"{lm['cached']['plans']['tensors']} tensors "
+        f"{lm['cached']['plans']['buckets']}, native "
+        f"{lm['cached']['plans']['native_us']:.1f}, Python "
+        f"{lm['cached']['plans']['python_us']:.1f}), trace of "
+        f"{nv['events']} events with {nv['neg_rows']} NEGOTIATE rows and "
+        f"{nv['ticks']} ready ticks, launches {nv['launches']}; (b) "
+        f"{CTL_EAGER_CALLS} named eager allreduces of 4 MiB bf16: replayed "
+        f"{ea['cached']['ms']:.4f} ms a call with {ea['cached']['store_calls']}"
+        f" store calls after the first, renegotiated "
+        f"{ea['renegotiated']['ms']:.4f} ms with "
+        f"{ea['renegotiated']['store_calls']}, bit-identical; the LM "
+        f"({LM_LAYERS} layers, B={LM_BATCH} T={LM_T}) {CTL_STEPS} steps with "
+        f"and without the cache: losses bit-identical "
+        + ", ".join(f"{x:.4f}" for x in lm["cached"]["losses"])
+        + f", store calls {lm['cached']['store_calls']} and "
+        f"{lm['renegotiated']['store_calls']}, launches "
+        f"{lm['cached']['launches']}; (c) allreduce_bench_torch.py --smoke "
+        f"at world 1 (busbw 0 by its formula: no byte crosses a link): "
+        + ", ".join(f"{r['bytes']} B {r.get('algo', 'flat')}"
+                    f"{'/' + str(r['channels']) + 'ch' if 'channels' in r else ''}"
+                    f" {r['time_us']} µs algbw {r['algbw_gbps']} GB/s"
+                    for r in bench)
+        + f" ({tl['bench']['seconds']:.1f} s); cost_model_torch.py on the "
+        f"card's seeds, 16 MiB over 8: flat {pred['predicted_us_flat']} µs,"
+        f" rs_ag {pred['predicted_us_rs_ag']} µs, chosen "
+        f"{tl['choose']['rows'][0]['chosen_algo']}/"
+        f"{tl['choose']['rows'][0]['chosen_channels']}ch, threshold "
+        f"{tl['threshold']['rows'][0]['fusion_threshold_bytes']} B; (d) "
+        f"init_distributed in a child: {cp['init_distributed']['backend']} "
+        f"world {cp['init_distributed']['size']}, allreduce on "
+        f"{cp['init_distributed']['device']} "
+        f"({cp['init_distributed']['seconds']:.1f} s); phase "
+        f"{cp['seconds']:.1f} s, on {ident}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -6024,6 +6405,13 @@ def main() -> int:
             arm: counts[k["name"]] for arm, counts in {
                 **rs["kv"]["launches"],
                 **rs["liveness"]["launches"]}.items()}
+
+    cp = phase_control_plane(device)
+    say(control_plane_line(cp, ident) + f"; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+    for k in kernels:
+        k["launches_phase23"] = {arm: counts[k["name"]]
+                                 for arm, counts in cp["launches"].items()}
 
     say(json.dumps({"kernels": kernels}))
     hvd.shutdown()

@@ -37,6 +37,19 @@ OP_NAMES: dict[int, str] = {
     OP_REDUCESCATTER: "reducescatter",
 }
 
+# Ops whose negotiated verdict is fully determined by the validated
+# metadata: replaying a cached verdict for an identical resubmission is
+# sound. ALLGATHER/GATHER are excluded — their verdict carries per-rank
+# first-dim sizes, which OTHER processes may legitimately change while
+# this process's own metadata stays identical (core/negotiate.py).
+CACHEABLE_OPS = frozenset({OP_ALLREDUCE, OP_BROADCAST,
+                           OP_REDUCESCATTER, OP_ALLTOALL})
+
+# Auto-generated collective names ("Horovod<Op>_<counter>") are fresh
+# every call — a fingerprint built on one can never be hit again
+# (core/negotiate.py documents the stable-name replay contract).
+AUTO_NAME = re.compile(r"^Horovod[A-Za-z]+_\d+$")
+
 
 @dataclasses.dataclass(frozen=True)
 class Req:
@@ -163,6 +176,79 @@ def validate_requests(requests: Sequence[Req], group_size: int) -> Verdict:
 
     return Verdict(name=name, op=op, dtype=first.dtype,
                    tensor_sizes=tensor_sizes, root_rank=root_rank)
+
+
+# ---------------------------------------------------------------------------
+# Coordinator: per-seq submission merge + verdict
+# ---------------------------------------------------------------------------
+
+
+def _req_from_wire(d: Mapping[str, Any]) -> Req:
+    return Req(rank=int(d["rank"]), name=str(d["name"]), op=int(d["op"]),
+               dtype=str(d["dtype"]),
+               shape=tuple(int(s) for s in d["shape"]),
+               root_rank=int(d["root_rank"]), group=int(d.get("group", 0)))
+
+
+def coordinate(per_proc: Mapping[int, Mapping[str, Any]], name: str,
+               seq: int, group_size: int) -> dict[str, Any]:
+    """The coordinator's decision at one negotiation index, given every
+    process's parsed submission ``{"name": str, "requests": [wire dicts]}``:
+    cross-check that every process's i-th collective IS the same collective
+    (the crisp desync error), then merge the per-rank requests and
+    validate. Returns the verdict as a JSON-ready dict (``error`` set on
+    failure). In the port a process is a group member and ``p`` its
+    group-local rank; the group-local rank 0 coordinates."""
+    for p in sorted(per_proc):
+        other = str(per_proc[p]["name"])
+        if other != name:
+            ops = {str(per_proc[q]["name"]):
+                   (per_proc[q]["requests"][0]["op"]
+                    if per_proc[q]["requests"] else "?")
+                   for q in (0, p)}
+            return {"error": (
+                f"Mismatched collective sequence across processes: at "
+                f"negotiation index {seq}, process 0 submitted tensor "
+                f"{name} ({ops.get(name, '?')}) while process {p} "
+                f"submitted tensor {other} ({ops.get(other, '?')}). "
+                f"All processes must issue the same collectives in the "
+                f"same order; if auto-generated names have drifted "
+                f"(e.g. one process issued an extra unnamed "
+                f"collective), pass explicit name= arguments.")}
+    merged: list[Req] = []
+    for p in sorted(per_proc):
+        for r in per_proc[p]["requests"]:
+            merged.append(_req_from_wire(r))
+    v = validate_requests(merged, group_size)
+    if v.error is not None:
+        return {"error": v.error}
+    return {"name": v.name, "op": v.op, "dtype": v.dtype,
+            "tensor_sizes": list(v.tensor_sizes),
+            "root_rank": v.root_rank, "error": None}
+
+
+# ---------------------------------------------------------------------------
+# Eager verdict-cache replay: the seq-lockstep fingerprint
+# ---------------------------------------------------------------------------
+
+
+def replay_fingerprint(name: str, op: Optional[int], group_size: int,
+                       request_ops: Sequence[int],
+                       cache_enabled: bool) -> Optional[tuple[str, int, int]]:
+    """The fingerprint under which a validated verdict may be replayed
+    without a store round, or None when this submission must negotiate.
+
+    Every member must decide alike, or their negotiation sequence
+    counters drift apart; anything metadata-dependent here would let one
+    member hit while another misses. Hence ``(name, op, group_size)``
+    only."""
+    if not cache_enabled or op is None or op not in CACHEABLE_OPS:
+        return None
+    if AUTO_NAME.match(name):
+        return None
+    if any(o != op for o in request_ops):
+        return None
+    return (name, op, group_size)
 
 
 # ---------------------------------------------------------------------------

@@ -25,8 +25,8 @@ negotiates on its own:
   verdict before it raises, as the negotiation does.
 
 A divergence raises :class:`HorovodError` with the reference's text on every
-member. The reference's verdict replay (``HOROVOD_EAGER_CACHE``) is not
-ported.
+member. The reference's eager verdict replay (``HOROVOD_EAGER_CACHE``) lives
+with the per-tensor negotiation, in ``core/negotiate.py``.
 """
 
 from __future__ import annotations

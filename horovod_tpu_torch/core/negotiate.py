@@ -17,6 +17,11 @@ the coordination service:
   naming the ready and the missing ranks; then it cross-checks the batches,
   validates each name with ``protocol.validate_requests`` and publishes the
   verdict under ``protocol.verdict_key``, deleting the spent keys;
+* when the native control plane is loaded (``core/native``), the
+  coordinator submits each member's requests to its request table as the
+  member's batch arrives, so the table's stall report names the missing
+  ranks, and the table validates; otherwise ``validate_requests`` does,
+  with byte-identical texts;
 * every other member waits for the verdict at most
   ``HOROVOD_NEGOTIATION_TIMEOUT`` seconds (default 600), then raises;
 * every store call goes through ``core/resilience.py``'s bounded retry
@@ -28,10 +33,27 @@ the coordination service:
   every member raises the same loss instead of waiting out its timeout.
 
 A mismatch in dtype, op, shape or root raises :class:`HorovodError` with the
-reference's message on every member, before any data moves. A batch of
-requests (one per fusion bucket, one per broadcast variable) is one round,
-which is what lets the optimizer negotiate its whole gradient plan once per
-gradient signature: a step whose plan is cached makes no store call.
+reference's message on every member, before any data moves; members that
+submit different names at one index raise ``protocol.coordinate``'s desync
+text with that index. A batch of requests (one per fusion bucket, one per
+broadcast variable) is one round, which is what lets the optimizer
+negotiate its whole gradient plan once per gradient signature: a step
+whose plan is cached makes no store call.
+
+**The eager verdict replay** (the reference's ``core/multihost.py``,
+``HOROVOD_EAGER_CACHE``, default on). A batch whose every request has a
+``protocol.replay_fingerprint`` — an explicitly named allreduce,
+broadcast, alltoall or reducescatter — and whose fingerprints validated
+before in the group's current generation replays the cached verdict with
+no store call, and the group's negotiation index does not advance. The
+fingerprint is ``(name, op, group size)``, so every member decides alike.
+The trade is the reference's: a member that issues a new collective while
+its peers replay cached ones waits at an index the peers never reach, and
+times out with a text naming ``HOROVOD_EAGER_CACHE=0``, which restores
+per-call validation; a named collective reissued with other metadata
+replays its old verdict. Auto-named collectives and the allgather family
+always negotiate. A generation move (``bump_generation``, an elastic
+reconfigure or join) drops the group's cache.
 """
 
 from __future__ import annotations
@@ -116,6 +138,8 @@ class Negotiator:
         self._seq: dict[int, int] = {}
         self._sched: dict[tuple[int, str], int] = {}
         self._stalls: dict[int, list[str]] = {}
+        # group -> {tuple of the batch's fingerprints: its responses}
+        self._verdicts: dict[int, dict[tuple, list[Response]]] = {}
         self._lock = threading.Lock()
 
     def next_index(self, group: int) -> tuple[int, int]:
@@ -149,9 +173,23 @@ class Negotiator:
         with self._lock:
             self._generation[group] = gen
             self._seq[group] = 0
+            self._verdicts.pop(group, None)
             for k in [k for k in self._sched if k[0] == group]:
                 del self._sched[k]
             return gen
+
+    def replayed(self, group: int, fps: tuple) -> list[Response] | None:
+        """The responses validated before for the batch of fingerprints
+        ``fps`` in the group's current generation, or None."""
+        with self._lock:
+            hit = self._verdicts.get(group, {}).get(fps)
+            return None if hit is None else list(hit)
+
+    def remember(self, group: int, fps: tuple,
+                 responses: list[Response]) -> None:
+        """Cache a validated batch's responses under its fingerprints."""
+        with self._lock:
+            self._verdicts.setdefault(group, {})[fps] = list(responses)
 
     def stalled(self, group: int) -> list[str]:
         """The stall reports recorded for ``group`` since the last call,
@@ -180,12 +218,16 @@ class Negotiator:
     # -- the two roles ------------------------------------------------------
 
     def collect(self, g: _state.Group, gen: int, seq: int, mine: list,
-                names: list[str]) -> list[list]:
+                names: list[str], table: "_NativeRound | None" = None
+                ) -> list[list]:
         """Coordinator: every member's batch at this index (its own is
-        ``mine``), stall-warning while some are missing; then frees the
-        members' keys and the previous index's verdict."""
+        ``mine``), stall-warning while some are missing; each batch goes
+        into the native ``table`` as it arrives. Then frees the members'
+        keys and the previous index's verdict."""
         batches: list = [mine] + [None] * (g.size - 1)
         missing = list(range(1, g.size))
+        if table is not None:
+            table.arrived(0, mine)
         last_warn = time.monotonic()
         pause = _POLL_MIN_S
         while missing:
@@ -194,6 +236,8 @@ class Negotiator:
                 if self.has(key):
                     batches[r] = json.loads(self.get(key))
                     missing.remove(r)
+                    if table is not None:
+                        table.arrived(r, batches[r])
             if not missing:
                 break
             _res.liveness().maybe_check(
@@ -243,17 +287,16 @@ class Negotiator:
                 f"waiting for the coordinator's verdict on tensor {name} "
                 f"(negotiation index {seq})")
             if time.monotonic() > deadline:
-                # The reference's text (multihost.py::negotiate), with its
-                # hint adapted: the port has no HOROVOD_EAGER_CACHE.
+                # The reference's text (multihost.py::negotiate).
                 raise HorovodError(
                     f"Timed out waiting for the coordinator's verdict on "
                     f"tensor {name} (negotiation index {seq}). With the "
-                    f"negotiation plan cache this usually means this "
+                    f"eager verdict cache enabled this usually means this "
                     f"process issued a collective its peers did not (they "
-                    f"replayed cached plans and never reached index "
-                    f"{seq}) — a schedule divergence. Compare the ranks' "
-                    f"collective sequences; pass explicit name= arguments "
-                    f"to collectives issued from conditional code.")
+                    f"replayed cached verdicts and never reached index "
+                    f"{seq}) — a schedule divergence. Re-run with "
+                    f"HOROVOD_EAGER_CACHE=0 to get per-call validation "
+                    f"naming the diverging tensors.")
             time.sleep(pause)
             pause = min(2 * pause, _POLL_MAX_S)
         return json.loads(self.get(key))
@@ -272,10 +315,128 @@ def _batch_name(names: list[str]) -> str:
     return f"{names[0]} (+{len(names) - 1} more)"
 
 
-def _validate(gathered: list[list], g: _state.Group) -> list[Response]:
+def _validate_native(native, requests: Sequence[Request],
+                     group_size: int) -> Response:
+    """Validate one name's requests (one a rank) through the native request
+    table, as the reference's ``negotiate._validate_native`` does: one
+    submit a rank, the response ready when the last rank lands."""
+    first = requests[0]
+    if len(requests) != group_size:
+        raise HorovodError(
+            f"Tensor {first.name} has {len(requests)} request(s) but the "
+            f"group has {group_size} rank(s); every rank must submit the "
+            f"collective.")
+    status, err = 0, ""
+    for r in requests:
+        status, err = native.submit(
+            first.group, r.name, r.op.value, r.dtype, r.shape, r.root_rank,
+            r.rank)
+        if status < 0:
+            break
+    return _native_response(native, first.group, first, status, err)
+
+
+def _native_response(native, group: int, first: Request, status: int,
+                     err: str) -> Response:
+    """The table's response to ``first``'s name after its last submit
+    (``status``, ``err``), released from the table; raises its error."""
+    if status < 0:
+        raise HorovodError(err)
+    if status != 1:
+        raise HorovodError(
+            f"Tensor {first.name} did not complete negotiation "
+            f"(internal error).")
+    sizes = native.response_sizes(group, first.name) or []
+    root = native.response_root(group, first.name)
+    native.response_done(group, first.name)
+    return Response(name=first.name, op=first.op, dtype=first.dtype,
+                    tensor_sizes=tuple(sizes), root_rank=root)
+
+
+class _NativeRound:
+    """The coordinator's native request table over one round: each member's
+    requests go in as its batch arrives (so ``NativeCore.stalled`` names
+    the ranks still missing), the table validates each name when its last
+    rank lands, and :meth:`drain` releases whatever a failed round left in
+    the table, which stays usable for the next round."""
+
+    def __init__(self, core, g: _state.Group, names: list[str]) -> None:
+        self.core = core
+        self.g = g
+        self.names = names
+        self.status: list = [None] * len(names)  # last submit's (status, err)
+        self.consumed = [False] * len(names)
+
+    def arrived(self, r: int, batch: list) -> None:
+        # A request whose name is not the coordinator's at its position
+        # stays out: the round fails on coordinate's desync text.
+        for i, (name, op, dtype, shape, root) in enumerate(
+                batch[:len(self.names)]):
+            if name == self.names[i]:
+                self.status[i] = self.core.submit(
+                    self.g.index, name, op, dtype, tuple(shape), root, r)
+
+    def verdict(self, i: int, first: Request) -> Response:
+        self.consumed[i] = True
+        return _native_response(self.core, self.g.index, first,
+                                *self.status[i])
+
+    def drain(self) -> None:
+        for i, name in enumerate(self.names):
+            st = self.status[i]
+            if st is None or self.consumed[i]:
+                continue
+            if st[0] == 0:
+                # Still waiting on a rank: a second submission by the
+                # coordinator erases the entry (the table's "submitted
+                # twice" path).
+                self.core.submit(self.g.index, name, 0, "", (), -1, 0)
+            elif st[0] == 1:
+                self.core.response_done(self.g.index, name)
+
+
+def _native_round(names: list[str], g: _state.Group) -> _NativeRound | None:
+    """A native table for this round, or None (Python validation): no
+    native core, or a batch that names a tensor twice (the table keys on
+    the name)."""
+    core = _state.native_core()
+    if (core is None or not names or len(set(names)) != len(names)
+            or g.index >= len(core.group_sizes)
+            or core.group_sizes[g.index] != g.size):
+        return None
+    return _NativeRound(core, g, names)
+
+
+def _wire(r: int, req: list, group: int) -> dict:
+    name, op, dtype, shape, root = req
+    return {"rank": r, "name": name, "op": op, "dtype": dtype,
+            "shape": list(shape), "root_rank": root, "group": group}
+
+
+def _desync_text(gathered: list[list], i: int, seq: int,
+                 g: _state.Group) -> str:
+    """``protocol.coordinate``'s text for members whose ``i``-th requests
+    name different tensors at negotiation index ``seq``; in a batch of
+    more than one, the index is followed by the request's position."""
+    per_proc = {r: {"name": theirs[i][0],
+                    "requests": [_wire(r, theirs[i], g.index)]}
+                for r, theirs in enumerate(gathered)}
+    text = _proto.coordinate(per_proc, gathered[0][i][0], seq,
+                             g.size)["error"]
+    n = len(gathered[0])
+    if n > 1:
+        text = text.replace(
+            f"at negotiation index {seq},",
+            f"at negotiation index {seq} (request {i} of a batch of {n}),",
+            1)
+    return text
+
+
+def _validate(gathered: list[list], g: _state.Group, seq: int,
+              table: _NativeRound | None = None) -> list[Response]:
     """The coordinator's verdict over every member's batch: the same length
-    and names in the same order, then each name validated; raises the
-    reference's messages."""
+    and names in the same order, then each name validated (by the native
+    ``table`` when there is one); raises the reference's messages."""
     for r, theirs in enumerate(gathered):
         if len(theirs) != len(gathered[0]):
             raise HorovodError(
@@ -284,32 +445,47 @@ def _validate(gathered: list[list], g: _state.Group) -> list[Response]:
                 f"submitted {len(gathered[0])}. All ranks must issue the "
                 f"same collectives in the same order.")
     tl = _tl.session()
+    # The native table writes its own NEGOTIATE span and rank ticks, as
+    # each batch arrived, into the writer of the core that owns it.
+    py_events = tl.active and (table is None
+                               or table.core is not tl.native_core)
     out = []
     for i, first in enumerate(gathered[0]):
         name = first[0]
-        for r, theirs in enumerate(gathered):
-            if theirs[i][0] != name:
-                raise HorovodError(
-                    f"Mismatched collective sequence across ranks: at "
-                    f"negotiation index {i}, rank 0 submitted tensor {name} "
-                    f"while rank {r} submitted tensor {theirs[i][0]}. All "
-                    f"ranks must issue the same collectives in the same "
-                    f"order; pass explicit name= arguments to collectives "
-                    f"issued from conditional code.")
+        if any(theirs[i][0] != name for theirs in gathered):
+            raise HorovodError(_desync_text(gathered, i, seq, g))
         reqs = [Request(rank=r, name=theirs[i][0],
                         op=CollectiveOp(theirs[i][1]), dtype=theirs[i][2],
                         shape=tuple(theirs[i][3]), root_rank=theirs[i][4],
                         group=g.index)
                 for r, theirs in enumerate(gathered)]
         tag = f"NEGOTIATE_{reqs[0].op.name}"
-        tl.start_activity(name, tag)
-        for req in reqs:
-            tl.rank_ready(name, req.rank)
+        if py_events:
+            tl.start_activity(name, tag)
+            for req in reqs:
+                tl.rank_ready(name, req.rank)
         try:
-            out.append(validate_py(reqs, g.size))
+            out.append(table.verdict(i, reqs[0]) if table is not None
+                       else validate_py(reqs, g.size))
         finally:
-            tl.end_activity(name, tag)
+            if py_events:
+                tl.end_activity(name, tag)
     return out
+
+
+def _fingerprints(requests: Sequence[Request], group_size: int
+                  ) -> tuple | None:
+    """The batch's replay key: every request's ``replay_fingerprint``, or
+    None when one has none (or the cache is off)."""
+    enabled = _env.eager_cache_enabled()
+    fps = []
+    for r in requests:
+        fp = _proto.replay_fingerprint(r.name, r.op.value, group_size,
+                                       (r.op.value,), enabled)
+        if fp is None:
+            return None
+        fps.append(fp)
+    return tuple(fps) or None
 
 
 def negotiate(requests: Sequence[Request],
@@ -317,8 +493,14 @@ def negotiate(requests: Sequence[Request],
     """Exchange this rank's batch of requests with every member of ``g`` and
     validate each name across ranks. Collective over the group: every
     member must call it with a batch of the same length and names in the
-    same order. Returns one :class:`Response` per request."""
+    same order. Returns one :class:`Response` per request; a batch validated
+    before replays its verdict (module docstring)."""
     neg = negotiator()
+    fps = _fingerprints(requests, g.size)
+    if fps is not None:
+        hit = neg.replayed(g.index, fps)
+        if hit is not None:
+            return hit
     mine = [[r.name, r.op.value, r.dtype, list(r.shape), r.root_rank]
             for r in requests]
     names = [r.name for r in requests]
@@ -326,22 +508,27 @@ def negotiate(requests: Sequence[Request],
     me = g.group_rank_of(_state.global_rank())
     try:
         if me == 0:
+            table = _native_round(names, g)
             try:
-                gathered = neg.collect(g, gen, seq, mine, names)
-            except _res.WorkerLost as lost:
-                neg.set(_proto.verdict_key(gen, g.index, seq), json.dumps(
-                    {"error": str(lost), "lost": [list(lost.ranks),
-                                                  list(lost.pids)]}))
-                raise
-            try:
-                out = _validate(gathered, g)
-            except HorovodError as e:
-                verdict = {"error": str(e)}
-                out = None
-            else:
-                verdict = {"responses": [
-                    [o.name, o.op.value, o.dtype, list(o.tensor_sizes),
-                     o.root_rank] for o in out]}
+                try:
+                    gathered = neg.collect(g, gen, seq, mine, names, table)
+                except _res.WorkerLost as lost:
+                    neg.set(_proto.verdict_key(gen, g.index, seq),
+                            json.dumps({"error": str(lost), "lost": [
+                                list(lost.ranks), list(lost.pids)]}))
+                    raise
+                try:
+                    out = _validate(gathered, g, seq, table)
+                except HorovodError as e:
+                    verdict = {"error": str(e)}
+                    out = None
+                else:
+                    verdict = {"responses": [
+                        [o.name, o.op.value, o.dtype, list(o.tensor_sizes),
+                         o.root_rank] for o in out]}
+            finally:
+                if table is not None:
+                    table.drain()
             neg.set(_proto.verdict_key(gen, g.index, seq),
                     json.dumps(verdict))
         else:
@@ -363,4 +550,6 @@ def negotiate(requests: Sequence[Request],
         out = [Response(name=n, op=CollectiveOp(op), dtype=dt,
                         tensor_sizes=tuple(sizes), root_rank=root)
                for n, op, dt, sizes, root in verdict["responses"]]
+    if fps is not None:
+        neg.remember(g.index, fps, out)
     return out

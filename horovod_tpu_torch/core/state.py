@@ -14,6 +14,10 @@ process group:
   namespace carries a generation that :func:`bump_generation` advances;
 * a rank outside a group gets the reference's return conventions from the
   collectives (``ops/collectives.py``);
+* the native control plane (``core/native``: the request table, the
+  fusion planner, stall detection and the timeline writer) is built at
+  init over the groups' sizes when it loads (:func:`native_core`), and
+  rebuilt by :func:`reconfigure`; without it the Python paths run;
 * :func:`reconfigure` (``core/elastic.py``'s shrink and regrow) rebuilds
   group 0 over the survivors, or over the members after a regrow, under a
   bumped generation, and :func:`join` makes a new process a member of such
@@ -93,6 +97,10 @@ class _State:
         # never destroyed (NCCL's teardown would wait on the dead peer).
         self.default_pg_lost = False
         self.store = None  # the store negotiation and the heartbeat use
+        self.native = None  # NativeCore when the native control plane loads
+        # Cores replaced by a reconfigure whose writer the timeline still
+        # writes to: closed at shutdown, after the timeline.
+        self.retired_natives: list = []
 
 
 _state = _State()
@@ -137,6 +145,31 @@ def _resolve_device(device, local_rank: int) -> torch.device:
             f"hvd.init: unsupported device {str(dev)!r}; use 'cuda' or "
             f"'cpu'.")
     return dev
+
+
+def _make_native(group_sizes: list[int]):
+    """A native control-plane core over ``group_sizes``, or None when the
+    library does not load (the loader has warned) — the reference's
+    ``InitializeHorovodOnce`` building the C++ runtime."""
+    from horovod_tpu_torch.core import native as _native
+
+    try:
+        return _native.NativeCore(group_sizes, _env.stall_warning_seconds())
+    except RuntimeError:
+        return None
+
+
+def _replace_native(group_sizes: list[int]) -> None:
+    """Rebuild the native core at new group sizes; a core whose writer the
+    timeline holds stays open until shutdown."""
+    old = _state.native
+    if old is None:
+        return
+    if _timeline.session().native_core is old:
+        _state.retired_natives.append(old)
+    else:
+        old.close()
+    _state.native = _make_native(group_sizes)
 
 
 def _group_specs(group_ranks, world: int) -> list[tuple[int, ...]]:
@@ -232,9 +265,10 @@ def init(group_ranks: Sequence[Sequence[int]] | None = None, *,
         _state.owns_default_pg = owns
         _state.default_pg_lost = False
         _state.inits += 1
+        _state.native = _make_native([g.size for g in groups])
         _state.initialized = True
         if rank == 0:  # coordinator-only timeline, as in the reference
-            _timeline.maybe_start()
+            _timeline.maybe_start(_state.native)
     _start_heartbeat()
     # Profile-guided configuration (``horovod_tpu_torch/tune``), outside
     # the lock: applying an artifact reads hvd.size(), and
@@ -280,12 +314,23 @@ def shutdown() -> None:
         _state.groups = []
         _state.reconfigures = 0
         _state.negotiator = None
+        for core in [_state.native, *_state.retired_natives]:
+            if core is not None:
+                core.close()
+        _state.native = None
+        _state.retired_natives = []
         _state.initialized = False
     _coll.reset_auto_names()
 
 
 def is_initialized() -> bool:
     return _state.initialized
+
+
+def native_core():
+    """The loaded native control-plane core (``core/native``'s
+    ``NativeCore``), or None: the Python control plane runs."""
+    return _state.native if _state.initialized else None
 
 
 def bump_generation(group: int = 0) -> int:
@@ -452,6 +497,7 @@ def reconfigure(ranks: Sequence[int]) -> Group:
                     dist.destroy_process_group(g.pg)
         st.groups = [Group(index=0, ranks=rs, pg=pg)]
         st.reconfigures += 1
+        _replace_native([len(rs)])
     _after_reconfigure()
     _beat()
     return st.groups[0]
@@ -496,6 +542,7 @@ def join(ranks: Sequence[int], gen: int, store, *,
         _state.owns_default_pg = False
         _state.reconfigures = 1
         _state.inits += 1
+        _state.native = _make_native([len(rs)])
         _state.initialized = True
     _after_reconfigure()
     _start_heartbeat()

@@ -1,12 +1,22 @@
 """Horovod Timeline — a Chrome-tracing record of collective activity.
 
-Counterpart of ``horovod_tpu/core/timeline.py``'s Python writer, enabled by
+Counterpart of ``horovod_tpu/core/timeline.py``, enabled by
 ``HOROVOD_TIMELINE=<file>`` and written by rank 0 only. Every tensor is a
 trace "process" row; phases are B/E events with µs timestamps on the host
-clock, and the file flushes at most once a second. Activity names:
+clock, and the file flushes at most once a second. In host mode the
+native control plane's writer (``core/native``, ``hvd_core.cc``) writes
+the file when the native core is loaded, as in the reference; the Python
+writer below serves the device mode (its spans carry explicit
+timestamps) and a host without the native core. Both write the same
+events, one a line. Activity names:
 
-    NEGOTIATE_<OP>           requests exchanged → all ranks matched
-    <rank>                   per-rank ready tick inside NEGOTIATE_<OP>
+    NEGOTIATE_<OP>           requests exchanged → all ranks matched (the
+                             native request table names it
+                             NEGOTIATE_<op>, lower case, as the
+                             reference's does)
+    <rank>                   per-rank ready tick inside NEGOTIATE_<OP>, as
+                             each rank's requests reach the coordinator
+                             when the native table validates
     MEMCPY_IN_FUSION_BUFFER  pack a fusion bucket into its flat buffer
     ALLREDUCE / ALLGATHER / BROADCAST / GATHER
                              the collective itself
@@ -116,21 +126,35 @@ class _PyTimeline:
 
 
 class Timeline:
-    """The session timeline; inactive until :meth:`start`."""
+    """The session timeline; inactive until :meth:`start`. Prefers the
+    native writer in host mode, the Python writer otherwise."""
 
     def __init__(self) -> None:
         self._py: _PyTimeline | None = None
+        self._native = None  # the NativeCore owning the writer
         self._device_mode = False
 
     @property
     def active(self) -> bool:
-        return self._py is not None
+        return self._py is not None or self._native is not None
 
-    def start(self, path: str) -> None:
-        if self._py is None:
-            # Latched here: flipping HOROVOD_TIMELINE_DEVICE later cannot
-            # switch a running timeline's mode.
-            self._device_mode = _env.timeline_device_mode()
+    @property
+    def native_core(self):
+        """The native core whose writer writes the file, or None."""
+        return self._native
+
+    def start(self, path: str, native_core=None) -> None:
+        if self.active:
+            return
+        # Latched here: flipping HOROVOD_TIMELINE_DEVICE later cannot
+        # switch a running timeline's mode. Device spans carry explicit
+        # timestamps, which only the Python writer takes.
+        self._device_mode = _env.timeline_device_mode()
+        if (native_core is not None and not self._device_mode
+                and native_core.timeline_start(path)):
+            self._native = native_core
+            atexit.register(self.stop)
+        else:
             self._py = _PyTimeline(path)
 
     @property
@@ -138,12 +162,14 @@ class Timeline:
         """Whether ``HOROVOD_TIMELINE_DEVICE=1`` was set when the timeline
         started (before it starts: the live variable): programs' spans then
         come from sampled profiler sessions with device timestamps."""
-        if self._py is not None:
+        if self.active:
             return self._device_mode
         return _env.timeline_device_mode()
 
     def event(self, tensor: str, activity: str, phase: str) -> None:
-        if self._py is not None:
+        if self._native is not None:
+            self._native.timeline_event(tensor, activity, phase)
+        elif self._py is not None:
             self._py.event(tensor, activity, phase)
 
     def rank_ready(self, tensor: str, rank: int) -> None:
@@ -161,11 +187,19 @@ class Timeline:
         """A complete event at an explicit host-monotonic timestamp (a
         device span). Only the device mode writes them: in host mode the
         span is dropped with a warning."""
+        if not self.active:
+            return
+        import warnings
+
         if self._py is None:
+            # The reference's text.
+            warnings.warn(
+                "Timeline.event_at called while only the native writer is "
+                "active (HOROVOD_TIMELINE_DEVICE was not set when the "
+                "timeline started) — device-true span dropped. Set the "
+                "variable before horovod_tpu.init().", stacklevel=2)
             return
         if not self._device_mode:
-            import warnings
-
             warnings.warn(
                 "Timeline.event_at called while the timeline is in host "
                 "mode (HOROVOD_TIMELINE_DEVICE was not set when the "
@@ -175,6 +209,10 @@ class Timeline:
         self._py.event_at(tensor, activity, ts_us, dur_us)
 
     def stop(self) -> None:
+        if self._native is not None:
+            self._native.timeline_stop()
+            self._native = None
+            atexit.unregister(self.stop)
         if self._py is not None:
             self._py.close()
             self._py = None
@@ -187,11 +225,12 @@ def session() -> Timeline:
     return _session
 
 
-def maybe_start() -> None:
-    """Start the timeline if ``HOROVOD_TIMELINE`` is set."""
+def maybe_start(native_core=None) -> None:
+    """Start the timeline if ``HOROVOD_TIMELINE`` is set, on
+    ``native_core``'s writer when one is given (host mode)."""
     path = _env.timeline_path()
     if path:
-        _session.start(path)
+        _session.start(path, native_core)
 
 
 def stop() -> None:

@@ -177,8 +177,16 @@ def plan_buckets(leaves: Sequence[torch.Tensor], threshold_bytes: int,
     is the in-wire sum width of the block budget); ``algo`` (a name or a
     ``bucket -> name`` selector, which sees the wire-annotated bucket)
     its decomposition; ``cross_compression`` the per-phase wire of
-    hierarchical buckets. Priorities are plan positions."""
-    buckets = plan_buckets_py(leaves, threshold_bytes)
+    hierarchical buckets. Priorities are plan positions. The buckets come
+    from the native planner (``hvd_core_plan_fusion``) when the native
+    core is loaded, else from :func:`plan_buckets_py`: the same plan."""
+    from horovod_tpu_torch.core import state as _state
+
+    native = _state.native_core()
+    if native is not None and leaves:
+        buckets = plan_buckets_native(native, leaves, threshold_bytes)
+    else:
+        buckets = plan_buckets_py(leaves, threshold_bytes)
     buckets = _annotate_algo(_annotate_wire(buckets, compression,
                                             group_size), algo)
     buckets = _annotate_phase_wire(buckets, compression, cross_compression)
@@ -280,6 +288,28 @@ def leaf_bytes(leaf) -> int:
     numel = getattr(leaf, "numel", None)
     n = numel() if callable(numel) else leaf.size
     return int(n) * leaf.dtype.itemsize
+
+
+def plan_buckets_native(native, leaves: Sequence[torch.Tensor],
+                        threshold_bytes: int) -> list[Bucket]:
+    """The reference's fusion plan by the native planner of ``native`` (a
+    ``core/native`` ``NativeCore``): dtypes coded by first appearance, as
+    the reference codes them."""
+    dtype_codes: dict = {}
+    codes = []
+    nbytes = []
+    for leaf in leaves:
+        codes.append(dtype_codes.setdefault(str(leaf.dtype),
+                                            len(dtype_codes)))
+        nbytes.append(leaf_bytes(leaf))
+    members: list[list[int]] = []
+    for i, bid in enumerate(native.plan_fusion(threshold_bytes, nbytes,
+                                               codes)):
+        if bid == len(members):
+            members.append([])
+        members[bid].append(i)
+    return [Bucket(tuple(ix), leaves[ix[0]].dtype,
+                   sum(nbytes[i] for i in ix)) for ix in members]
 
 
 def plan_buckets_py(leaves: Sequence[torch.Tensor],

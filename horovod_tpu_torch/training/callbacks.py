@@ -164,11 +164,15 @@ class LearningRateWarmupCallback(LearningRateScheduleCallback):
 
 
 class StallWarningCallback(Callback):
-    """Print the stall reports the negotiation has recorded since the last
-    batch — the analog of the coordinator's CheckForStalledTensors sweep
-    (mpi_ops.cc:1369-1412). The coordinator of a group (its group-local
-    rank 0) records a report each time it warns while waiting on missing
-    ranks (``core/negotiate.py``), so the reports print on that rank."""
+    """Print the stall reports since the last batch — the analog of the
+    coordinator's CheckForStalledTensors sweep (mpi_ops.cc:1369-1412): the
+    native request table's reports of tensors pending past
+    ``HOROVOD_STALL_CHECK_TIME`` when the native core is loaded, as the
+    reference prints them, then the reports the negotiation recorded. The
+    coordinator of a group (its group-local rank 0) holds both: its table
+    takes the members' requests, and it records a report each time it
+    warns while waiting on missing ranks (``core/negotiate.py``), so the
+    reports print on that rank."""
 
     def __init__(self, group: int = 0) -> None:
         self.group = group
@@ -176,7 +180,9 @@ class StallWarningCallback(Callback):
     def on_batch_end(self, batch: int, logs: dict | None = None) -> None:
         from horovod_tpu_torch.core import negotiate as _neg
 
-        for report in _neg.negotiator().stalled(self.group):
+        core = _state.native_core()
+        reports = [] if core is None else core.stalled(self.group)
+        for report in reports + _neg.negotiator().stalled(self.group):
             print(f"WARNING: One or more tensors were submitted to be "
                   f"reduced, gathered or broadcasted by subset of ranks and "
                   f"are waiting for remainder of ranks: {report}")

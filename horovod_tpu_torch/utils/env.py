@@ -64,6 +64,7 @@ PORTED_KNOBS = frozenset({
     "HOROVOD_COMPRESSION_BLOCK",
     "HOROVOD_COMPRESSION_CROSS_SLICE",
     "HOROVOD_DATA_DIR",
+    "HOROVOD_EAGER_CACHE",
     "HOROVOD_ELASTIC",
     "HOROVOD_ELASTIC_JOIN_TIMEOUT",
     "HOROVOD_ELASTIC_MIN_WORLD",
@@ -114,7 +115,6 @@ UNPORTED_RESULT_KNOBS: dict[str, tuple[int, str, frozenset]] = {}
 # Knobs of the reference that only tune timing or reporting, not ported
 # yet: name -> ROADMAP §A item. Each draws a warning at hvd.init.
 UNPORTED_TUNING_KNOBS: dict[str, int] = {
-    "HOROVOD_EAGER_CACHE": 1,
     "HOROVOD_MODEL_FAULTS": 17,
     "HOROVOD_MODEL_MAX_STATES": 17,
 }
@@ -208,6 +208,13 @@ def stall_warning_seconds() -> float:
         return max(0.0, float(raw))
     except ValueError:
         return DEFAULT_STALL_WARNING_TIME
+
+
+def eager_cache_enabled() -> bool:
+    """``HOROVOD_EAGER_CACHE=0`` turns off the eager verdict replay
+    (``core/negotiate.py``): every call then pays the full store round,
+    which restores per-call desync detection. Default: on."""
+    return os.environ.get("HOROVOD_EAGER_CACHE", "1") not in ("0",)
 
 
 def negotiation_timeout_ms() -> int:

@@ -1,8 +1,9 @@
 """The port's ground rules, checked on this CPU-only host.
 
 * No module of ``horovod_tpu_torch`` — nor ``chip_smoke.py``,
-  ``tools/profile_torch_step.py``, ``tools/serve_bench_torch.py`` or
-  ``tools/timeline_torch.py`` —
+  ``tools/profile_torch_step.py``, ``tools/serve_bench_torch.py``,
+  ``tools/timeline_torch.py``, ``tools/fault_drill_torch.py``,
+  ``tools/allreduce_bench_torch.py`` or ``tools/cost_model_torch.py`` —
   imports JAX, flax, optax or the JAX package (AST walk, and a
   clean-interpreter import).
 * Entry points run on the GPU by default: ``hvd.init()``, the LM's
@@ -44,7 +45,9 @@ def _port_sources():
                     REPO / "tools" / "profile_torch_step.py",
                     REPO / "tools" / "serve_bench_torch.py",
                     REPO / "tools" / "timeline_torch.py",
-                    REPO / "tools" / "fault_drill_torch.py"]
+                    REPO / "tools" / "fault_drill_torch.py",
+                    REPO / "tools" / "allreduce_bench_torch.py",
+                    REPO / "tools" / "cost_model_torch.py"]
 
 
 def _imported_roots(path):
@@ -547,6 +550,24 @@ def test_a_result_knob_left_off_is_accepted(clean_env, name):
         warnings.simplefilter("error")
         hvd.init(device="cpu")
     assert hvd.is_initialized()
+
+
+@pytest.mark.parametrize("value,enabled", [("0", False), ("1", True)])
+def test_the_eager_cache_knob_is_ported(clean_env, value, enabled):
+    """HOROVOD_EAGER_CACHE (ROADMAP §A item 1, the eager verdict replay)
+    is read by ``core/negotiate.py`` as the reference reads it: set, it
+    draws no warning at hvd.init, and "0" alone turns the replay off."""
+    from horovod_tpu.utils import env as jenv
+
+    assert "HOROVOD_EAGER_CACHE" in tenv.PORTED_KNOBS
+    assert "HOROVOD_EAGER_CACHE" not in tenv.UNPORTED_TUNING_KNOBS
+    clean_env.setenv("HOROVOD_EAGER_CACHE", value)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        hvd.init(device="cpu")
+    assert hvd.is_initialized()
+    assert tenv.eager_cache_enabled() == jenv.eager_cache_enabled() \
+        == enabled
 
 
 @pytest.mark.parametrize("name", sorted(tenv.UNPORTED_TUNING_KNOBS))

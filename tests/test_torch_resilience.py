@@ -41,7 +41,8 @@ from horovod_tpu_torch.utils import env as tenv
 KNOBS = ("HOROVOD_KV_RETRIES", "HOROVOD_KV_BACKOFF_MS",
          "HOROVOD_LIVENESS_INTERVAL", "HOROVOD_LIVENESS_TIMEOUT",
          "HOROVOD_ELASTIC", "HOROVOD_ELASTIC_MIN_WORLD",
-         "HOROVOD_ELASTIC_JOIN_TIMEOUT", "HOROVOD_FAULT_INJECT")
+         "HOROVOD_ELASTIC_JOIN_TIMEOUT", "HOROVOD_FAULT_INJECT",
+         "HOROVOD_EAGER_CACHE")
 # Seconds: a live peer's heartbeat thread keeps well inside it on a loaded
 # host (the tests run beside other workers).
 LIVENESS_TIMEOUT = 3.0
@@ -556,9 +557,12 @@ def _world(out):
 def world(tmp_path_factory):
     out = tmp_path_factory.mktemp("resilience")
     saved = {k: os.environ.pop(k) for k in KNOBS if k in os.environ}
+    # The world counts store calls and negotiation indices across fits
+    # that reissue the same named collectives: every call renegotiates
+    # (no eager verdict replay), as its counts assume.
     os.environ.update(HOROVOD_LIVENESS_INTERVAL="0.2",
                       HOROVOD_LIVENESS_TIMEOUT=str(LIVENESS_TIMEOUT),
-                      HOROVOD_KV_BACKOFF_MS="1")
+                      HOROVOD_KV_BACKOFF_MS="1", HOROVOD_EAGER_CACHE="0")
     try:
         results = run(_world, WORLD, device="cpu", args=(str(out),),
                       timeout=240, crashes=(2, 3))

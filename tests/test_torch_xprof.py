@@ -496,6 +496,17 @@ def test_the_interval_samples_the_first_and_every_nth_call(timeline,
     assert torch.equal(losses, plain_losses) and torch.equal(w, plain_w)
 
 
+NATIVE_HOST_WARNING = (
+    "Timeline.event_at called while only the native writer is active "
+    "(HOROVOD_TIMELINE_DEVICE was not set when the timeline started) — "
+    "device-true span dropped. Set the variable before horovod_tpu.init().")
+PY_HOST_WARNING = (
+    "Timeline.event_at called while the timeline is in host mode "
+    "(HOROVOD_TIMELINE_DEVICE was not set when the timeline started) — "
+    "device-true span dropped. Set the variable before "
+    "horovod_tpu_torch.init().")
+
+
 def test_host_mode_keeps_its_spans_and_refuses_device_spans(timeline):
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.core import timeline as tl
@@ -506,15 +517,50 @@ def test_host_mode_keeps_its_spans_and_refuses_device_spans(timeline):
     prog, _, _ = _calls(3)
     with pytest.warns(UserWarning) as rec:
         tl.session().event_at("_device", "DEVICE_STEP", 0.0, 1.0)
-    assert ("(HOROVOD_TIMELINE_DEVICE was not set when the timeline "
-            "started) — device-true span dropped. Set the variable before "
-            "horovod_tpu_torch.init().") in str(rec[0].message)
+    # The warning of the writer that is active: the native writer's is the
+    # reference's text, the Python writer's in host mode the port's.
+    assert str(rec[0].message) == (
+        NATIVE_HOST_WARNING if tl.session().native_core is not None
+        else PY_HOST_WARNING)
     hvd.shutdown()
     events = _events(path)
     assert prog.sampled == 0
     assert not [e for e in events if e["name"] in ("DEVICE_STEP",
                                                    "NO_DEVICE_PLANE")]
     assert [e for e in events if e["name"] == "GRAPH_ALLREDUCE"]
+
+
+def test_the_native_writers_warning_is_the_references(tmp_path):
+    """With the native writer active, ``event_at`` warns with the JAX
+    package's own text for its native writer."""
+    from horovod_tpu.core import native as jnative
+    from horovod_tpu.core import timeline as jtl
+    from horovod_tpu_torch.core import native as tnative
+    from horovod_tpu_torch.core import timeline as ttl
+
+    texts = []
+    for mod, native in ((jtl, jnative), (ttl, tnative)):
+        core = native.NativeCore([1])
+        t = mod.Timeline()
+        t.start(str(tmp_path / f"{mod.__name__}.json"), core)
+        with pytest.warns(UserWarning) as rec:
+            t.event_at("_device", "DEVICE_STEP", 0.0, 1.0)
+        t.stop()
+        core.close()
+        texts.append(str(rec[0].message))
+    assert texts[0] == texts[1] == NATIVE_HOST_WARNING
+
+
+def test_the_python_writer_in_host_mode_refuses_device_spans(tmp_path):
+    from horovod_tpu_torch.core import timeline as ttl
+
+    t = ttl.Timeline()
+    t.start(str(tmp_path / "py.json"))
+    assert t.native_core is None and not t.device_mode
+    with pytest.warns(UserWarning) as rec:
+        t.event_at("_device", "DEVICE_STEP", 0.0, 1.0)
+    t.stop()
+    assert str(rec[0].message) == PY_HOST_WARNING
 
 
 def test_the_device_mode_is_latched_at_start(timeline):
