@@ -358,17 +358,41 @@ Phases, one line of output each:
     ``init_distributed("127.0.0.1:<free port>", 1, 0)`` in a child
     process, one allreduce on the card. Writes ``_chip_smoke_ctl/``
     (gitignored) and removes it.
+24. the analysis layer (``horovod_tpu_torch/analysis``, the two tools):
+    (a) phase 8's LM as the Trainer's captured ``hvd.spmd`` program at
+    world 1 under the arms flat, rs_ag, channels=2, schedule="priority"
+    and zero3, each built once for ``ANA_CALLS`` calls (the capture
+    records every ``torch.distributed`` call into ``Spmd.wire``): each
+    arm's losses bit-identical to the flat arm's, B3/B4/A1 launched as in
+    phase 8, each recorded listing verified with 0 findings (with its
+    exchange plan where it has one), its ``schedule_summary`` rows and
+    replay wall ms printed. At world 1 the verifier checks types and
+    per-rank identity only (one rank has no phase shape), and rs_ag and
+    zero3 move nothing and record no rows: they are launch-count arms;
+    (b)
+    the lints over the package, ``tools/*_torch.py`` and this script: 0
+    findings; (c) the protocol sweep at 2 and 3 processes with and
+    without the default faults is clean, and the three corpus
+    ``.world.json`` files exit exactly 1 from ``tools/hvd_model_torch.py``
+    with their rules; (d) ``tools/fault_drill_torch.py``'s preflights
+    (the drill's training step recorded on the card in a child process at
+    world 1; the model sweep of its faults); (e) planted faults: the tiny
+    LM's rs_ag listings of ``ANA_RANKS`` gloo ranks (child processes)
+    verify clean, then give HVD103 with one rank's instruction dropped
+    and HVD105 with the all-gather phase removed; a rank-conditional
+    ``hvd.allreduce`` in a source gives HVD001.
 
 Each main path (5, 8 and 10, each example of 14, each run of 17, each
-arm of 18, of 19 (b), of 20, of 22 (a) and (b) and of 23 (a) and (b)) runs with its kernels' launch counts set
+arm of 18, of 19 (b), of 20, of 22 (a) and (b), of 23 (a) and (b) and of 24 (a)) runs with its kernels' launch counts set
 to 0 just before it and read just after; the kernels line's
 ``launches`` are phases 5 and 8's counts (the eager step and the 9
 replays), ``launches_phase18``, ``launches_phase19`` and
 ``launches_phase20`` each arm's count in phases 18, 19 and 20, and
 ``launches_phase21`` the launches the device timeline of phase 21 (d)
 shows in its 3 sampled calls, ``launches_phase22`` each arm's count in
-phase 22 (a) and (b), and ``launches_phase23`` each fit's count in phase
-23 (a) and (b). Then a JSON line with each kernel's
+phase 22 (a) and (b), ``launches_phase23`` each fit's count in phase
+23 (a) and (b), and ``launches_phase24`` each arm's count in phase 24 (a).
+Then a JSON line with each kernel's
 record, and last the result line ``{"ok": true, "device": {...}}``. Any failed phase raises: the script then
 exits non-zero and prints no result. It also fails without CUDA, and when
 the ``horovod_tpu_torch`` package is not beside it.
@@ -6109,6 +6133,263 @@ def control_plane_line(cp: dict, ident: str) -> str:
         f"{cp['seconds']:.1f} s, on {ident}")
 
 
+# -- phase 24: the analysis layer -------------------------------------------------
+
+ANA_CALLS = 5   # (a): the eager call, the capture (and its replay), 3 replays
+ANA_ARMS = {    # (a): arm -> the exchange settings of its trainer
+    "flat": {"algo": "flat"},
+    "rs_ag": {"algo": "rs_ag"},
+    "channels2": {"channels": 2},
+    "priority": {"schedule": "priority"},
+    "zero3": {"sharding": "zero3"},
+}
+ANA_RANKS = 4   # (e): the gloo world whose rs_ag listings take the faults
+ANA_HVD001 = """import horovod_tpu_torch as hvd
+
+
+def metric_sync(metric):
+    if hvd.rank() == 0:
+        metric = hvd.allreduce(metric, name="metric")
+    return metric
+"""
+
+
+def _rows(summary) -> str:
+    return "[" + ", ".join(
+        f"{op} {et} {n} {g}x{size}" for op, et, n, g, size, _ in summary) + "]"
+
+
+def ana_lm_arm(model, init, tokens, arm: str) -> dict:
+    """(a): phase 8's LM under ``arm`` from the weights ``init``: ANA_CALLS
+    calls of the trainer's captured step, whose capture records its wire;
+    B3, B4 and A1 counted, the replays timed."""
+    kw = ANA_ARMS[arm]
+    for p, t in zip(model.parameters(), init):
+        p.data = t.clone()
+        p.grad = None
+    cfg = lm_config(torch.bfloat16)
+    loss_fn = transformer.make_loss_fn(cfg, fused_head=True)
+    inner = AdamW(model.parameters(), 3e-4, weight_decay=0.1)
+    if "sharding" in kw:
+        trainer = hvd.Trainer(model, loss_fn, inner, sharding=kw["sharding"])
+    else:
+        trainer = hvd.Trainer(model, loss_fn,
+                              hvd.DistributedOptimizer(inner, **kw))
+    reset_launch_counts()
+    losses, ms = _timed_steps(lambda b: trainer.train_step(b)[0], tokens,
+                              ANA_CALLS)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in launch_counts().items()
+                if k in REPLAY_COUNTS["lm"]}
+    step = trainer._step
+    if (step.runs, step.replays) != (2, ANA_CALLS - 1):
+        raise RuntimeError(f"phase 24 (a) {arm}: runs {step.runs}, replays "
+                           f"{step.replays}")
+    for k, n in REPLAY_COUNTS["lm"].items():
+        if launches[k] != n * ANA_CALLS:
+            raise RuntimeError(f"phase 24 (a) {arm}: {k} launched "
+                               f"{launches[k]} times in {ANA_CALLS} calls, "
+                               f"expected {n} a call")
+    out = {"losses": losses, "replay_ms": ms[2:], "launches": launches,
+           "wire": step.wire, "plan": exchange.last_plan()}
+    del trainer, step
+    free_cuda()
+    return out
+
+
+def ana_recorded(device) -> dict:
+    """(a): each arm built once; its recorded listing verified, its losses
+    bit-identical to the flat arm's."""
+    from horovod_tpu_torch.analysis import schedule
+
+    cfg = lm_config(torch.bfloat16)
+    model = transformer.init_params(cfg, seed=SEED, device=device)
+    init = [p.detach().clone() for p in model.parameters()]
+    tokens = transformer.synthetic_tokens(LM_BATCH, LM_T, cfg.vocab_size,
+                                          seed=SEED, device=device)
+    out = {}
+    plain = None
+    for arm, kw in ANA_ARMS.items():
+        on = ana_lm_arm(model, init, tokens, arm)
+        if on["wire"] is None:
+            raise RuntimeError(f"phase 24 (a) {arm}: no wire recorded")
+        plain = plain or on["losses"]
+        if not same_bits(on["losses"], plain):
+            raise RuntimeError(f"phase 24 (a) {arm}: losses differ from the "
+                               f"flat arm's")
+        sharding = kw.get("sharding")
+        summary: list = []
+        findings = schedule.verify_listings(
+            [on["wire"]], algo=None if sharding else kw.get("algo", "flat"),
+            path=f"<phase 24 {arm}>", sharding=sharding,
+            fsdp_size=1 if sharding else None, summary=summary)
+        if "algo" not in kw:
+            plan = on["plan"]
+            if plan is None:
+                raise RuntimeError(f"phase 24 (a) {arm}: no exchange plan")
+            findings += schedule.verify_exchange_artifact(
+                plan.to_json(), f"<phase 24 {arm} plan>")
+        if findings:
+            raise RuntimeError(f"phase 24 (a) {arm}: "
+                               + "; ".join(str(f) for f in findings))
+        out[arm] = {"summary": summary,
+                    "losses": [float(x) for x in on["losses"]],
+                    "replay_ms": statistics.mean(on["replay_ms"]),
+                    "launches": on["launches"]}
+    del model, init
+    free_cuda()
+    return out
+
+
+def ana_lints() -> dict:
+    """(b): the lints over the port's sources, the tools and this script."""
+    from horovod_tpu_torch.analysis import lints
+    from horovod_tpu_torch.utils import env as henv
+
+    t0 = time.perf_counter()
+    files = sorted(
+        [os.path.join(r, f) for r, _, fs in os.walk(os.path.join(
+            HERE, "horovod_tpu_torch")) for f in fs if f.endswith(".py")]
+        + [os.path.join(HERE, "tools", f)
+           for f in os.listdir(os.path.join(HERE, "tools"))
+           if f.endswith("_torch.py")]
+        + [os.path.join(HERE, "chip_smoke.py")])
+    findings = [f for path in files
+                for f in lints.lint_file(path, known_env=henv.KNOWN_ENV_VARS)]
+    if findings:
+        raise RuntimeError("phase 24 (b): " + "; ".join(map(str, findings)))
+    return {"files": len(files), "seconds": time.perf_counter() - t0}
+
+
+def ana_model() -> dict:
+    """(c): the protocol sweep at 2 and 3 processes, with and without the
+    default faults, and the corpus worlds through the tool."""
+    from horovod_tpu_torch.analysis import model, protocol
+
+    t0 = time.perf_counter()
+    worlds = states = 0
+    for n in (2, 3):
+        for spec in [None] + model.default_fault_specs(n):
+            for world in model.standard_worlds(
+                    n, protocol.parse_fault_spec(spec)):
+                res = model.check_world(world)
+                if res.findings:
+                    raise RuntimeError(f"phase 24 (c) {world.label}: "
+                                       + "; ".join(map(str, res.findings)))
+                worlds += 1
+                states += res.states
+    sweep_s = time.perf_counter() - t0
+    corpus = {}
+    for name, rule in (("bad_protocol_deadlock", "HVD202"),
+                       ("bad_split_brain", "HVD201"),
+                       ("bad_stale_generation", "HVD205")):
+        path = os.path.join(HERE, "tests", "lint_corpus",
+                            f"{name}.world.json")
+        r = subprocess.run([sys.executable, os.path.join(
+            HERE, "tools", "hvd_model_torch.py"), path], cwd=HERE,
+            capture_output=True, text=True, timeout=300)
+        if r.returncode != 1 or f": {rule} " not in r.stdout:
+            raise RuntimeError(f"phase 24 (c) {name}: exit {r.returncode}"
+                               f"\n{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+        corpus[name] = rule
+    return {"worlds": worlds, "states": states, "sweep_s": sweep_s,
+            "corpus": corpus}
+
+
+def ana_rank_listing() -> list:
+    """(e), one rank of the gloo world: the tiny LM step's rs_ag wire."""
+    from horovod_tpu_torch.analysis import hlo, schedule
+
+    hvd.init(device="cpu")
+    fn, args = schedule.lm_step(algo="rs_ag", device="cpu")
+    out = hlo.step_wire(fn, args)
+    hvd.shutdown()
+    return out
+
+
+def ana_planted() -> dict:
+    """(e): an rs_ag listing of ANA_RANKS gloo ranks verifies clean, and
+    fails with one rank's instruction dropped (HVD103) and with its
+    all-gather phase removed (HVD105); a rank-conditional allreduce in a
+    source fails the lint (HVD001)."""
+    from horovod_tpu_torch.analysis import lints, schedule
+
+    listings = hvd.run(ana_rank_listing, ANA_RANKS, device="cpu")
+    rules = {}
+    clean = schedule.verify_listings(listings, algo="rs_ag")
+    dropped = [list(x) for x in listings]
+    del dropped[-1][0]
+    no_ag = [[i for i in x if i.opcode != "all-gather"] for x in listings]
+    for name, ls, want in (("dropped", dropped, "HVD103"),
+                           ("no_all_gather", no_ag, "HVD105")):
+        rules[name] = sorted({f.rule for f in schedule.verify_listings(
+            ls, algo="rs_ag")})
+        if want not in rules[name]:
+            raise RuntimeError(f"phase 24 (e) {name}: {rules[name]}")
+    rules["rank_conditional"] = sorted(
+        {f.rule for f in lints.lint_source(ANA_HVD001, "<planted>")})
+    if clean or "HVD001" not in rules["rank_conditional"]:
+        raise RuntimeError(f"phase 24 (e): clean {clean}, {rules}")
+    return {"rows": len(listings[0]), "rules": rules}
+
+
+def phase_analysis(device) -> dict:
+    """Phase 24: (a) the recorded schedules of the full-width LM step, (b)
+    the lints, (c) the protocol sweep, (d) the fault drill's preflights,
+    (e) planted faults."""
+    import fault_drill_torch
+
+    t0 = time.perf_counter()
+    reinit()
+    out = {"recorded": ana_recorded(device)}
+    out["a_s"] = time.perf_counter() - t0
+    out["lints"] = ana_lints()
+    out["model"] = ana_model()
+    t1 = time.perf_counter()
+    try:
+        fault_drill_torch.preflight_lint("cuda")
+        out["drill_worlds"] = fault_drill_torch.preflight_model()
+    except SystemExit as e:
+        raise RuntimeError(f"phase 24 (d): {e}") from None
+    out["drill_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["planted"] = ana_planted()
+    out["planted_s"] = time.perf_counter() - t1
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def analysis_line(an: dict, ident: str) -> str:
+    rec, li, mo, pl = (an["recorded"], an["lints"], an["model"],
+                       an["planted"])
+    return (
+        f"phase 24 analysis: ok; (a) phase 8's LM ({LM_LAYERS} layers, "
+        f"B={LM_BATCH} T={LM_T}, AdamW on A1) as a captured hvd.spmd "
+        f"program at world 1, {ANA_CALLS} calls an arm, each arm built once: "
+        f"losses bit-identical to the flat arm's, launches a call as phase "
+        f"8; recorded listings verify with 0 findings (at world 1 types and "
+        f"per-rank identity only; rs_ag and zero3 record no rows: launch-"
+        f"count arms): " + "; ".join(
+            f"{arm} {len(r['summary'])} rows {_rows(r['summary'])}, replay "
+            f"wall ms {r['replay_ms']:.2f}, launches {r['launches']}"
+            for arm, r in rec.items())
+        + f" ({an['a_s']:.1f} s); (b) lints over {li['files']} files: 0 "
+        f"findings ({li['seconds']:.2f} s); (c) protocol sweep at 2 and 3 "
+        f"processes with and without the default faults: {mo['worlds']} "
+        f"worlds, {mo['states']} states, clean ({mo['sweep_s']:.2f} s); "
+        f"corpus worlds exit 1 with " + ", ".join(
+            f"{k} {v}" for k, v in mo["corpus"].items())
+        + f"; (d) the fault drill's preflights clean (the training step "
+        f"recorded on the card at world 1, {an['drill_worlds']} model "
+        f"worlds; {an['drill_s']:.1f} s); (e) the tiny LM's rs_ag listing "
+        f"of {ANA_RANKS} gloo ranks ({pl['rows']} rows a rank) verifies "
+        f"clean; planted: one instruction dropped "
+        f"{pl['rules']['dropped']}, all-gather phase removed "
+        f"{pl['rules']['no_all_gather']}, rank-conditional allreduce "
+        f"{pl['rules']['rank_conditional']} ({an['planted_s']:.1f} s); "
+        f"phase {an['seconds']:.1f} s, on {ident}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -6412,6 +6693,15 @@ def main() -> int:
     for k in kernels:
         k["launches_phase23"] = {arm: counts[k["name"]]
                                  for arm, counts in cp["launches"].items()}
+
+    an = phase_analysis(device)
+    say(analysis_line(an, ident) + f"; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+    for k in kernels:
+        if k["name"] in REPLAY_COUNTS["lm"]:
+            k["launches_phase24"] = {
+                arm: r["launches"][k["name"]]
+                for arm, r in an["recorded"].items()}
 
     say(json.dumps({"kernels": kernels}))
     hvd.shutdown()

@@ -1,16 +1,20 @@
-"""Collective schedules from HLO text — the parser half of
-``horovod_tpu/analysis/hlo.py``, copied.
+"""Collective schedules: the counterpart of ``horovod_tpu/analysis/hlo.py``.
 
 :class:`CollectiveInstr` is one collective of a schedule (opcode, element
 type, shape, ``replica_groups`` partition, named scope, line), and
 :func:`extract_schedule` parses HLO text into them with plain stdlib
 regexes; :func:`parse_expectations` reads the ``hvd-lint-expect:`` header
-of an ingested schedule file. The port's verifiers
-(``analysis/schedule.py``) check committed exchange artifacts through
-these records: a plan's buckets are synthesized into the collectives they
-lower to, in the reference's HLO vocabulary, so the findings equal the JAX
-package's. The reference's lowering drivers, which turn a JAX step into
-HLO, are not here (ROADMAP §A item 17).
+of an ingested schedule file. Both are copied.
+
+Where the reference lowers a JAX step to HLO and parses its collectives
+(``step_hlo``), the port records them: :func:`step_wire` runs one rank's
+step under a dry wire recorder (``ops/wire.py``), which sees every
+``torch.distributed`` call of the data path and moves nothing, and returns
+the rank's listing in the same vocabulary; :func:`merge_listings` makes one
+program of every member's listing, so ``analysis/schedule.py``'s checks
+(per-rank identity among them) run over the real per-rank listings. The
+parser and the merge are stdlib-only; torch loads inside
+:func:`step_wire` alone.
 """
 
 from __future__ import annotations
@@ -206,4 +210,68 @@ def parse_expectations(text: str) -> dict[str, str]:
             if "=" in item:
                 k, v = item.split("=", 1)
                 out[k.strip()] = v.strip()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Recorded schedules (torch is imported inside step_wire only).
+# ---------------------------------------------------------------------------
+
+
+def step_wire(fn, args, group: int = 0) -> list[CollectiveInstr]:
+    """This rank's collective listing of ``fn(*args)`` run as one step of
+    a program over ``group`` (``core/context.py``: the collectives
+    register and skip the per-call negotiation, as in the reference's
+    trace). The recording is dry: nothing moves on the wire, so a step
+    whose ranks diverge is recorded instead of hanging. The listing's
+    ``replica_groups`` are positions in ``group``, the reference's mesh
+    coordinates. The live auto-name counters are left where they were."""
+    from horovod_tpu_torch.core import context as _ctx
+    from horovod_tpu_torch.core import state as _state
+    from horovod_tpu_torch.ops import collectives as _coll
+    from horovod_tpu_torch.ops import wire as _wire
+
+    g = _state.get_group(group)
+    with _coll.preserve_auto_names(), _wire.recording(dry=True) as rec, \
+            _ctx.enter(group):
+        fn(*args)
+    pos = {r: i for i, r in enumerate(g.ranks)}
+    return [dataclasses.replace(ins, replica_groups=tuple(
+                tuple(pos.get(r, r) for r in grp)
+                for grp in ins.replica_groups))
+            if ins.replica_groups is not None else ins
+            for ins in rec.instrs]
+
+
+def merge_listings(listings) -> list[CollectiveInstr]:
+    """One program from every member's listing (``listings[r]``: group-
+    local rank r's): position i of the program holds what the members
+    issued i-th. Where every member issued the same collective on the same
+    partition, that is one instruction; where they differ, each distinct
+    (collective, partition) is an instruction of its own whose groups are
+    cut to the members that issued it, so projecting the program onto a
+    rank gives back that rank's own listing and a divergence surfaces as
+    the reference's per-rank identity finding (HVD103)."""
+    out: list[CollectiveInstr] = []
+    depth = max((len(lst) for lst in listings), default=0)
+    for i in range(depth):
+        classes: dict[tuple, list] = {}
+        for r, lst in enumerate(listings):
+            if i >= len(lst):
+                continue
+            ins = lst[i]
+            k = (ins.opcode, ins.element_type, ins.shape, ins.scope,
+                 ins.replica_groups)
+            classes.setdefault(k, [ins, []])[1].append(r)
+        whole = len(classes) == 1 and all(len(lst) > i for lst in listings)
+        for ins, ranks in classes.values():
+            groups = ins.replica_groups
+            if not whole:
+                have = set(ranks)
+                groups = tuple(cut for cut in (
+                    tuple(x for x in grp if x in have)
+                    for grp in (groups or (tuple(range(len(listings))),)))
+                    if cut)
+            out.append(dataclasses.replace(ins, replica_groups=groups,
+                                           line=i + 1))
     return out

@@ -1,5 +1,6 @@
 """Pure protocol judgements — a copy of the subset of
-``horovod_tpu/analysis/protocol.py`` that the port's runtime calls: request
+``horovod_tpu/analysis/protocol.py`` that the port's runtime calls and its
+protocol checker (``analysis/model.py``) drives: request
 validation and the store key namespace of the negotiation layer, the
 comparison of two programs' collective schedules, the
 fault-injection grammar (``HOROVOD_FAULT_INJECT``) with its matchers,
@@ -36,6 +37,7 @@ OP_NAMES: dict[int, str] = {
     OP_ALLTOALL: "alltoall",
     OP_REDUCESCATTER: "reducescatter",
 }
+OP_BY_NAME: dict[str, int] = {v: k for k, v in OP_NAMES.items()}
 
 # Ops whose negotiated verdict is fully determined by the validated
 # metadata: replaying a cached verdict for an identical resubmission is
@@ -74,6 +76,14 @@ class Verdict:
     tensor_sizes: tuple[int, ...] = ()
     root_rank: int = -1
     error: Optional[str] = None
+
+    def canonical(self) -> str:
+        """Stable string form for cross-process agreement comparison."""
+        if self.error is not None:
+            return f"error:{self.error}"
+        return (f"{self.name}|{self.op}|{self.dtype}|"
+                f"{','.join(str(s) for s in self.tensor_sizes)}|"
+                f"{self.root_rank}")
 
 
 def _dims_str(shape: Sequence[int]) -> str:

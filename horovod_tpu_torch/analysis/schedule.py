@@ -31,9 +31,16 @@ This is the verifier layer of ``horovod_tpu/analysis/schedule.py``, copied
 artifacts' verifiers (:func:`verify_exchange_artifact`,
 :func:`verify_journal_artifact`, :func:`verify_tuned_config`) and the
 ingested-text entry points. The tuned-config verifier reads the port's
-own artifact schema and knob registry (``tune/artifact.py``). The
-reference's end-to-end drivers, which lower JAX steps, are not here
-(ROADMAP §A item 17).
+own artifact schema and knob registry (``tune/artifact.py``).
+
+The end-to-end drivers at the end (:func:`lm_step`, :func:`gradient_step`,
+:func:`fsdp_step`, :func:`sparse_step`, :func:`verify_step`,
+:func:`verify_lm_step`) keep the reference's names and parameters. Where
+the reference lowers a JAX step on one controller, each rank here records
+the wire calls its step makes (``analysis/hlo.py::step_wire``); the
+members' listings are gathered and merged into one program, so every
+member returns the same findings. They run on the card unless the caller
+passes ``device="cpu"``.
 """
 
 
@@ -1575,4 +1582,370 @@ def _check_tuned_plan_consistency(data: dict, ex: dict, knobs: dict,
             f"committed plan was bucketed at threshold_bytes="
             f"{ex['threshold_bytes']} — the verified plan is not the "
             f"one the knob reproduces."))
+    return findings
+
+
+# ---------------------------------------------------------------------------
+# End-to-end drivers (need torch and an initialized world).
+# ---------------------------------------------------------------------------
+
+
+def _with_slices(n: int):
+    """Context manager pinning HOROVOD_TOPOLOGY_SLICES for one recording."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def scope():
+        prev = os.environ.get("HOROVOD_TOPOLOGY_SLICES")
+        try:
+            if n and n > 1:
+                os.environ["HOROVOD_TOPOLOGY_SLICES"] = str(n)
+            else:
+                os.environ.pop("HOROVOD_TOPOLOGY_SLICES", None)
+            yield
+        finally:
+            if prev is None:
+                os.environ.pop("HOROVOD_TOPOLOGY_SLICES", None)
+            else:
+                os.environ["HOROVOD_TOPOLOGY_SLICES"] = prev
+    return scope()
+
+
+def _device(device):
+    """The drivers' device: ``device``, else the card (this rank's, once
+    ``hvd.init`` has picked it); raises without CUDA."""
+    import torch
+
+    from horovod_tpu_torch.core import state as _state
+    from horovod_tpu_torch.core.state import HorovodError
+
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise HorovodError(
+            "the schedule drivers run on the GPU, and CUDA is not "
+            "available; pass device='cpu' to record on the CPU.")
+    if _state.is_initialized() and _state.device().type == "cuda":
+        return _state.device()
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def lm_step(algo: str | None = None, compression=None,
+            exchange: str | None = None, channels: int | None = None,
+            sharding: str | None = None, device=None):
+    """A tiny-but-real LM training step (transformer loss -> grads ->
+    fused allreduce -> SGD update), the workload the acceptance gate pins:
+    returns ``(fn, args)`` for :func:`~horovod_tpu_torch.analysis.hlo.
+    step_wire`. ``sharding`` (zero2/zero3) runs the step through the
+    sharded ``DistributedOptimizer`` instead of ``allreduce_gradients``:
+    zero3 gathers the parameter shards on use, zero2 applies the update
+    shard-side and re-gathers the new parameters."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import transformer
+    from horovod_tpu_torch.training import loop
+
+    dev = _device(device)
+    cfg = transformer.TransformerConfig(
+        vocab_size=97, num_layers=1, num_heads=2, embed_dim=16,
+        mlp_dim=32, max_seq_len=16, dtype=torch.float32)
+    model = transformer.init_params(cfg, device=dev)
+    loss_fn = transformer.make_loss_fn(cfg)
+    tokens = transformer.synthetic_tokens(2, 16, cfg.vocab_size,
+                                          device=dev)
+    params = list(model.parameters())
+
+    if sharding == "zero3":
+        dopt = hvd.DistributedOptimizer(loop.SGD(params, 0.1),
+                                        compression=compression,
+                                        sharding="zero3")
+        dopt.bind(model)
+        shards = dopt.init_shards()
+        dopt.init(shards)
+
+        def fn3(tokens):
+            full = dopt.gather_params(shards)
+            with dopt.swapped(model, full):
+                loss = loss_fn(model, tokens)
+                loss.backward()
+            new = dopt.apply_gradients([t.grad for t in full], shards)
+            return loss.detach() + sum(s.sum() for s in new)
+
+        return fn3, [tokens]
+    if sharding == "zero2":
+        dopt = hvd.DistributedOptimizer(loop.SGD(params, 0.1),
+                                        compression=compression,
+                                        sharding="zero2")
+
+        def fn2(tokens):
+            dopt.zero_grad()
+            loss = loss_fn(model, tokens)
+            loss.backward()
+            dopt.step()
+            return loss.detach() + sum(p.detach().sum() for p in params)
+
+        return fn2, [tokens]
+
+    opt = loop.SGD(params, 0.1)
+
+    def fn(tokens):
+        opt.zero_grad()
+        loss = loss_fn(model, tokens)
+        loss.backward()
+        grads = hvd.allreduce_gradients([p.grad for p in params],
+                                        algo=algo, compression=compression,
+                                        schedule=exchange,
+                                        channels=channels)
+        for p, gr in zip(params, grads):
+            p.grad = gr
+        opt.step()
+        return loss.detach() + sum(p.detach().sum() for p in params)
+
+    return fn, [tokens]
+
+
+def gradient_step(algo: str | None = None, compression=None,
+                  nleaves: int = 3, elems: int = 64,
+                  exchange: str | None = None, fusion_threshold: int = 0,
+                  varied: bool = False, channels: int | None = None,
+                  device=None):
+    """An unfused ``nleaves``-bucket gradient exchange
+    (``fusion_threshold=0``: one collective per leaf): ``(fn, args)`` for
+    :func:`~horovod_tpu_torch.analysis.hlo.step_wire`. The cheap workload
+    behind the golden-schedule snapshots."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    dev = _device(device)
+
+    def fn(x):
+        # ``varied``: leaf i holds i+1 copies of x (distinct sizes), so a
+        # schedule summary makes issue-order changes visible.
+        grads = [(x.repeat(i + 1) if varied else x) * (i + 1)
+                 for i in range(nleaves)]
+        out = hvd.allreduce_gradients(grads,
+                                      fusion_threshold=fusion_threshold,
+                                      algo=algo, compression=compression,
+                                      schedule=exchange,
+                                      channels=channels)
+        return sum(t.sum() for t in out)
+
+    x = torch.arange(elems, dtype=torch.float32, device=dev) / elems
+    return fn, [x]
+
+
+def fsdp_step(sharding: str = "zero3", compression=None,
+              nleaves: int = 3, elems: int = 64, device=None):
+    """An unfused ``nleaves``-leaf sharded gradient exchange through the
+    ZeRO-2/3 ``DistributedOptimizer`` (gather-on-use + gradient
+    reduce-scatter, per leaf): ``(fn, args)`` for :func:`~horovod_tpu_
+    torch.analysis.hlo.step_wire`, the workload behind the ``zero3``
+    golden-schedule section. Leaves have distinct sizes
+    (``elems * (i+1)``) so shard padding and gather order stay visible."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.training import loop
+
+    dev = _device(device)
+    params = [torch.nn.Parameter(torch.linspace(
+        0.0, 1.0, elems * (i + 1), dtype=torch.float32, device=dev))
+        for i in range(nleaves)]
+    x = torch.arange(elems, dtype=torch.float32, device=dev) / elems
+
+    def fake_grads(x):
+        return [x.repeat(i + 1) * (i + 1) for i in range(nleaves)]
+
+    if sharding == "zero3":
+        dopt = hvd.DistributedOptimizer(loop.SGD(params, 0.1),
+                                        compression=compression,
+                                        sharding="zero3")
+        dopt.bind(params)
+        shards = dopt.init_shards()
+        dopt.init(shards)
+
+        def fn3(x):
+            full = dopt.gather_params(shards)
+            new = dopt.apply_gradients(fake_grads(x), shards)
+            return (sum(t.sum() for t in full)
+                    + sum(t.sum() for t in new))
+
+        return fn3, [x]
+
+    dopt = hvd.DistributedOptimizer(loop.SGD(params, 0.1),
+                                    compression=compression,
+                                    sharding="zero2")
+
+    def fn2(x):
+        for p, gr in zip(params, fake_grads(x)):
+            p.grad = gr
+        dopt.step()
+        return sum(p.detach().sum() for p in params)
+
+    return fn2, [x]
+
+
+def sparse_step(algo: str | None = None, compression=None,
+                rows: int = 8, dense_rows: int = 32, dim: int = 4,
+                device=None):
+    """A mixed sparse+dense gradient exchange (one IndexedSlices leaf
+    next to a dense leaf through ``hvd.allreduce_gradients``), the
+    workload behind the sparse golden-schedule snapshots and the
+    ``--schedule`` gate's sparse arm: ``(fn, args)`` for
+    :func:`~horovod_tpu_torch.analysis.hlo.step_wire`."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    dev = _device(device)
+
+    def fn(x):  # x: (rows, dim) f32, the sparse leaf's value block
+        idx = (torch.arange(rows, dtype=torch.int32, device=x.device)
+               * 3) % dense_rows
+        grads = [hvd.IndexedSlices(x, idx, (dense_rows, dim)),
+                 x.sum(0)]  # a dense leaf rides along
+        emb, w = hvd.allreduce_gradients(grads, fusion_threshold=0,
+                                         sparse_algo=algo,
+                                         compression=compression)
+        return (emb.values.sum() + emb.indices.float().sum() + w.sum())
+
+    x = (torch.arange(rows * dim, dtype=torch.float32, device=dev)
+         .reshape(rows, dim) / (rows * dim))
+    return fn, [x]
+
+
+def schedule_summary(instrs) -> list[list]:
+    """JSON-able canonical schedule: one ``[opcode, element_type, numel,
+    n_groups, group_size, scope]`` row per collective, in program order —
+    the golden-snapshot form (tests/golden_schedules.json)."""
+    rows = []
+    for ins in instrs:
+        if ins.replica_groups is None:
+            ngroups, gsize = None, None
+        else:
+            ngroups = len(ins.replica_groups)
+            gsize = len(ins.replica_groups[0]) if ins.replica_groups else 0
+        rows.append([ins.opcode, ins.element_type, ins.numel,
+                     ngroups, gsize, ins.scope])
+    return rows
+
+
+def gather_listings(mine, group: int = 0) -> list:
+    """Every member's listing of ``group``, in group-rank order (a
+    collective over the group: every member calls it)."""
+    import torch.distributed as dist
+
+    from horovod_tpu_torch.core import state as _state
+
+    g = _state.get_group(group)
+    if g.size <= 1:
+        return [list(mine)]
+    out: list = [None] * g.size
+    dist.all_gather_object(out, list(mine), group=g.pg)
+    return out
+
+
+def verify_listings(listings, *, slices: int = 1, algo: str | None = None,
+                    compression: str | None = None, path: str = "<step>",
+                    sharding: str | None = None,
+                    fsdp_size: int | None = None,
+                    summary: list | None = None) -> list[Finding]:
+    """Every program-level check over the members' listings, merged into
+    one program (``analysis/hlo.py::merge_listings``); a one-rank world
+    is held to well-formedness, identity and wire types only. ``summary``:
+    a list that receives the merged program's :func:`schedule_summary`
+    rows."""
+    from horovod_tpu_torch.analysis import hlo as _hlo
+
+    world = len(listings)
+    if world == 1:
+        # At one rank every decomposition is the identity and the port
+        # moves nothing for it (ROADMAP §C): no phase shape to hold.
+        algo, sharding, fsdp_size = None, None, None
+    merged = _hlo.merge_listings(listings)
+    if summary is not None:
+        summary.extend(schedule_summary(merged))
+    return verify_schedule(
+        merged, world, path, algo=algo,
+        compression=compression or "none",
+        partitions=expected_partitions(world, slices, fsdp_size=fsdp_size),
+        sharding=sharding, fsdp_size=fsdp_size)
+
+
+def verify_step(fn, args, *, group: int = 0, slices: int = 1,
+                algo: str | None = None, compression: str | None = None,
+                path: str | None = None, sharding: str | None = None,
+                fsdp_size: int | None = None, device=None,
+                summary: list | None = None) -> list[Finding]:
+    """Record one step on every member of ``group`` under a simulated
+    ``slices``-host topology, gather the members' listings and run every
+    program-level check on them. Collective: every member calls it, and
+    every member returns the same findings. The building block behind
+    :func:`verify_lm_step` and ``tools/fault_drill_torch.py --lint``.
+    ``summary``: see :func:`verify_listings`."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis import hlo as _hlo
+
+    if not hvd.is_initialized():
+        hvd.init(device=device)
+    label = path or (f"<step algo={algo or 'default'} "
+                     f"compression={compression or 'none'} "
+                     f"slices={slices}>")
+    with _with_slices(slices):
+        mine = _hlo.step_wire(fn, args, group=group)
+    return verify_listings(gather_listings(mine, group), slices=slices,
+                           algo=algo, compression=compression, path=label,
+                           sharding=sharding, fsdp_size=fsdp_size,
+                           summary=summary)
+
+
+def verify_lm_step(algo: str = "flat", compression: str | None = None,
+                   slices: int = 1, group: int = 0,
+                   exchange: str | None = None,
+                   channels: int | None = None,
+                   sharding: str | None = None,
+                   device=None, summary: list | None = None
+                   ) -> list[Finding]:
+    """The acceptance-gate driver: schedule-verify the LM training step for
+    one (algo, compression, topology, exchange-schedule) combination.
+    Raises :class:`~horovod_tpu_torch.core.state.HorovodError` for
+    infeasible combinations (hierarchical on a single host), as training
+    would. With an exchange schedule, channels or sharding, the step's
+    registered plan (``ops/exchange.py::last_plan``) is verified too
+    (:func:`verify_exchange_artifact`). ``sharding`` (zero2/zero3) runs
+    the step through the sharded optimizer instead of ``algo``, held to
+    the FSDP phase shape. ``summary``: see :func:`verify_listings`."""
+    import horovod_tpu_torch as hvd
+
+    if not hvd.is_initialized():
+        hvd.init(device=device)
+    fsdp_size = None
+    if sharding not in (None, "off"):
+        # The default ops/mesh.py layout: the fsdp axis spans the host at
+        # more than one host, the whole group at one.
+        world = hvd.get_group(group).size
+        fsdp_size = world // slices if slices > 1 else world
+    with _with_slices(slices):
+        fn, args = lm_step(algo=algo, compression=compression,
+                           exchange=exchange, channels=channels,
+                           sharding=sharding, device=device)
+        findings = verify_step(fn, args, group=group, slices=slices,
+                               algo=None if fsdp_size else algo,
+                               compression=compression, sharding=sharding,
+                               fsdp_size=fsdp_size, summary=summary)
+    if exchange is not None or channels is not None or fsdp_size:
+        from horovod_tpu_torch.ops import exchange as _exchange
+
+        plan = _exchange.last_plan()
+        if plan is None:
+            findings.append(Finding(
+                "HVD103", f"<lm-step exchange={exchange}>", 1,
+                "the recorded step registered no ExchangeSchedule — the "
+                "gradient path bypassed the whole-step scheduler."))
+        else:
+            findings += verify_exchange_artifact(
+                plan.to_json(),
+                f"<lm-step exchange={exchange} plan={plan.plan_hash()}>")
     return findings

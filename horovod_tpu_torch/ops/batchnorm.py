@@ -35,10 +35,10 @@ import ctypes
 from typing import NamedTuple
 
 import torch
-import torch.distributed as dist
 
 from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.ops import launches as _launches
+from horovod_tpu_torch.ops import wire as _wire
 
 # Kernel launches per wrapper since the last reset_launch_counts(); only the
 # CUDA branch counts, where the kernel is actually launched (a captured launch
@@ -310,7 +310,7 @@ def _group_sum(s1, s2, n: float, group):
 
     g = _state.get_group(group)
     both = torch.stack([s1, s2])
-    dist.all_reduce(both, group=g.pg)
+    _wire.all_reduce(both, g.pg)
     return both[0], both[1], n * g.size
 
 

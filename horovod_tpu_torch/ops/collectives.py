@@ -56,6 +56,7 @@ reaches the same lowering, :func:`compressed_sum`, per fusion bucket.
 
 from __future__ import annotations
 
+import contextlib
 import numbers
 import threading
 import zlib
@@ -70,6 +71,7 @@ from horovod_tpu_torch.core import timeline as _tl
 from horovod_tpu_torch.core.state import HorovodError
 from horovod_tpu_torch.ops import compression as _compression
 from horovod_tpu_torch.ops import strategy as _strategy
+from horovod_tpu_torch.ops import wire as _wire
 
 _name_counters: dict[str, int] = {}
 _name_lock = threading.Lock()
@@ -91,6 +93,26 @@ def reset_auto_names() -> None:
     """Restart every auto-name counter at 0 (``shutdown`` calls this)."""
     with _name_lock:
         _name_counters.clear()
+
+
+@contextlib.contextmanager
+def preserve_auto_names():
+    """Run a block without advancing the auto-name counters for good.
+
+    The schedule drivers (``analysis/schedule.py``) run real step
+    functions to record their wire calls; those runs draw auto names from
+    the same per-process counters live collectives use, so a recording on
+    one process of a job would shift that process's later names — the
+    drift lint HVD003 exists to catch. The counters are saved on entry
+    and restored on exit."""
+    with _name_lock:
+        snap = dict(_name_counters)
+    try:
+        yield
+    finally:
+        with _name_lock:
+            _name_counters.clear()
+            _name_counters.update(snap)
 
 
 def dtype_name(dtype: torch.dtype) -> str:
@@ -244,9 +266,9 @@ def sum_into(buf: torch.Tensor, g: _state.Group) -> torch.Tensor:
     int32 and cast back, as the reference does."""
     if buf.dtype == torch.bool:
         wide = buf.to(torch.int32)
-        dist.all_reduce(wide, group=g.pg)
+        _wire.all_reduce(wide, g.pg)
         return wide.to(torch.bool)
-    dist.all_reduce(buf, group=g.pg)
+    _wire.all_reduce(buf, g.pg)
     return buf
 
 
@@ -440,7 +462,7 @@ def _allgather_padded(x: torch.Tensor, g: _state.Group,
     if buf.dtype == torch.bool:
         buf = buf.to(torch.uint8)
     parts = [torch.empty_like(buf) for _ in range(g.size)]
-    dist.all_gather(parts, buf, group=g.pg)
+    _wire.all_gather(parts, buf, g.pg)
     out = torch.cat([p[:s] for p, s in zip(parts, sizes)], dim=0)
     return out.to(x.dtype)
 
@@ -466,10 +488,10 @@ def broadcast_(x: torch.Tensor, root_rank: int, g: _state.Group) -> None:
     through a dense staging copy."""
     if x.dtype == torch.bool or not x.is_contiguous():
         wide = x.to(torch.uint8) if x.dtype == torch.bool else x.contiguous()
-        dist.broadcast(wide, src=g.ranks[root_rank], group=g.pg)
+        _wire.broadcast(wide, g.ranks[root_rank], g.pg)
         x.copy_(wide)
     else:
-        dist.broadcast(x, src=g.ranks[root_rank], group=g.pg)
+        _wire.broadcast(x, g.ranks[root_rank], g.pg)
 
 
 def broadcast(x: torch.Tensor, root_rank: int, group: int = 0,
@@ -524,7 +546,7 @@ def reducescatter(x: torch.Tensor, group=0,
     blocks = buf.view((g.size, x.shape[0] // g.size) + tuple(x.shape[1:]))
     out = torch.empty_like(blocks[0])
     with _tl.activity(name, "REDUCESCATTER"):
-        dist.reduce_scatter(out, list(blocks.unbind(0)), group=g.pg)
+        _wire.reduce_scatter(out, list(blocks.unbind(0)), g.pg)
     return out.to(x.dtype)
 
 
@@ -543,7 +565,7 @@ def alltoall(x: torch.Tensor, group=0,
     buf = (x.to(torch.uint8) if x.dtype == torch.bool else x).contiguous()
     out = torch.empty_like(buf)
     with _tl.activity(name, "ALLTOALL"):
-        dist.all_to_all_single(out, buf, group=g.pg)
+        _wire.all_to_all_single(out, buf, g.pg)
     return out.to(x.dtype)
 
 
@@ -567,5 +589,5 @@ class AllToAll(torch.autograd.Function):
             return g, None, None, None
         g = g.contiguous()
         out = torch.empty_like(g)
-        dist.all_to_all_single(out, g, group=ctx.ring.pg)
+        _wire.all_to_all_single(out, g, ctx.ring.pg)
         return out, None, None, None

@@ -48,6 +48,7 @@ from horovod_tpu_torch.core import timeline as _tl
 from horovod_tpu_torch.core.state import HorovodError
 from horovod_tpu_torch.ops import compression as _compression
 from horovod_tpu_torch.ops import topology as _topology
+from horovod_tpu_torch.ops import wire as _wire
 from horovod_tpu_torch.utils import costs as _costs
 from horovod_tpu_torch.utils import env as _env
 from horovod_tpu_torch.utils import rng as _rng
@@ -156,7 +157,7 @@ def all_sum(t: torch.Tensor, pg, op=dist.ReduceOp.SUM) -> torch.Tensor:
     buf = _wide(t)
     if buf is t or buf.data_ptr() == t.data_ptr():
         buf = buf.clone()
-    dist.all_reduce(buf, op=op, group=pg)
+    _wire.all_reduce(buf, pg, op)
     return buf.to(t.dtype)
 
 
@@ -165,7 +166,7 @@ def _reduce_scatter(flat: torch.Tensor, pg, n: int) -> torch.Tensor:
     the sum of every member's j-th of ``n`` equal chunks."""
     buf = _wide(flat)
     out = torch.empty(buf.shape[0] // n, dtype=buf.dtype, device=buf.device)
-    dist.reduce_scatter(out, list(buf.chunk(n)), group=pg)
+    _wire.reduce_scatter(out, list(buf.chunk(n)), pg)
     return out.to(flat.dtype)
 
 
@@ -175,7 +176,7 @@ def _gather_stack(t: torch.Tensor, pg, n: int) -> torch.Tensor:
         return t[None].clone()
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t, group=pg)
+    _wire.all_gather(parts, t, pg)
     return torch.stack(parts)
 
 
@@ -188,14 +189,18 @@ def _all_to_all(t: torch.Tensor, pg) -> torch.Tensor:
     """Tiled all-to-all along dim 0."""
     t = t.contiguous()
     out = torch.empty_like(t)
-    dist.all_to_all_single(out, t, group=pg)
+    _wire.all_to_all_single(out, t, pg)
     return out
 
 
 @contextlib.contextmanager
 def _phase(name: str, activity: str):
     with _tl.activity(name, activity):
-        yield
+        if _wire._active is None:
+            yield
+        else:
+            with _wire.scope(activity):
+                yield
 
 
 def _ch(name: str, c: int):

@@ -27,6 +27,7 @@ import torch.distributed as dist
 
 from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.core.state import HorovodError
+from horovod_tpu_torch.ops import wire as _wire
 from horovod_tpu_torch.utils import env as _env
 
 
@@ -165,6 +166,7 @@ def level_groups(group: "_state.Group", topo: Topology):
     for level, ranks_lists in enumerate((hosts, crosses)):
         for ranks in ranks_lists:
             pg = dist.new_group(ranks)
+            _wire.register_partition(pg, ranks_lists)
             if me in ranks:
                 mine[level] = pg
     _level_memo[key] = tuple(mine)
@@ -210,9 +212,11 @@ def fsdp_groups(group: "_state.Group", fmesh, topo: Topology):
     me = _state.global_rank()
     mine = [None, None]
     for axis, parts in enumerate((fparts, dparts)):
-        for members in parts or ():
-            ranks = sorted(group.ranks[r] for r in members)
+        level = [[group.ranks[r] for r in members] for members in parts or ()]
+        for ranks in level:
+            ranks = sorted(ranks)
             pg = dist.new_group(ranks)
+            _wire.register_partition(pg, level)
             if me in ranks:
                 mine[axis] = pg
     _fsdp_memo[key] = tuple(mine)
@@ -228,4 +232,5 @@ def forget_groups() -> None:
                 dist.destroy_process_group(pg)
     _level_memo.clear()
     _fsdp_memo.clear()
+    _wire.forget_partitions()
     _discover_memo.clear()

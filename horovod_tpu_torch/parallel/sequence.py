@@ -42,7 +42,6 @@ import functools
 import math
 
 import torch
-import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from horovod_tpu_torch.core import context as _ctx
@@ -50,6 +49,7 @@ from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.core.state import HorovodError
 from horovod_tpu_torch.ops import collectives as _coll
 from horovod_tpu_torch.ops import flash_attention as _fa
+from horovod_tpu_torch.ops import wire as _wire
 
 _NEG_INF = -1e30  # large-negative mask (not -inf: keeps exp/max NaN-free)
 
@@ -107,13 +107,8 @@ def _shift(x: torch.Tensor, ring: _state.Group, shift: int) -> torch.Tensor:
     me = ring.group_rank_of(_state.global_rank())
     x = x.contiguous()
     out = torch.empty_like(x)
-    reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, x, ring.ranks[(me + shift) % n],
-                   group=ring.pg),
-        dist.P2POp(dist.irecv, out, ring.ranks[(me - shift) % n],
-                   group=ring.pg)])
-    for r in reqs:
-        r.wait()
+    _wire.permute(out, x, ring.ranks[(me + shift) % n],
+                  ring.ranks[(me - shift) % n], ring.pg)
     return out
 
 

@@ -59,6 +59,16 @@ host memory, the same kernels and addresses every call. Its tensor
 arguments must live on the rank's device, and it must not keep references
 to them past the call (they are the static buffers).
 
+A program also records its wire: the pass that defines a key's program
+(on the card the capture, on the CPU the first call) runs under a live
+wire recorder (``ops/wire.py``; under the one already active, if any, so
+a dry pass stays dry), which keeps every ``torch.distributed`` call of the
+step as a collective of the reference's HLO vocabulary, so
+``analysis/schedule.py`` can verify it. ``_Program.wire`` holds a
+program's listing and ``Spmd.wire`` that of the program recorded last.
+The eager first call on the card and the replays record nothing: the
+recorder only appends to a list while the Python runs.
+
 Divergences from the reference (ROADMAP §C): a process is a rank, so
 arguments carry no rank axis and ``donate_argnums``/``replicated_argnums``
 are not taken; results are fresh tensors; the timeline names a replay's
@@ -68,6 +78,7 @@ call is eager.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable
 
@@ -81,6 +92,7 @@ from horovod_tpu_torch.core import resilience as _res
 from horovod_tpu_torch.core import state as _state
 from horovod_tpu_torch.core import timeline as _tl
 from horovod_tpu_torch.core.state import HorovodError
+from horovod_tpu_torch.ops import wire as _wire
 from horovod_tpu_torch.utils import env as _env
 from horovod_tpu_torch.utils import graphs as _graphs
 
@@ -109,6 +121,7 @@ class _Program(_graphs.Graph):
         self.calls = 0
         self.executions = 0  # calls counted by the device timeline mode
         self.schedule: list | None = None
+        self.wire: list | None = None
         self.static_in: list = []
 
 
@@ -119,12 +132,14 @@ class Spmd:
     Python (on the card the first call and the capture of each key);
     ``replays`` the graph replays; ``sampled`` the calls the device
     timeline mode ran under the profiler; ``programs`` holds the programs
-    by key."""
+    by key; ``wire`` holds the wire listing of the program recorded last
+    (module docstring)."""
 
     def __init__(self, fn: Callable, group: int = 0) -> None:
         functools.update_wrapper(self, fn)
         self.fn = fn
         self.group = group
+        self.wire: list | None = None
         self.tag = getattr(fn, "__qualname__", "fn")
         self.programs: dict = {}
         self.trace_count = 0
@@ -171,6 +186,17 @@ class Spmd:
             raise
 
     # -- recording ---------------------------------------------------------
+
+    @contextlib.contextmanager
+    def _wire_pass(self, prog: _Program):
+        """The defining pass of ``prog``, under a live wire recorder or
+        the one already active."""
+        outer = _wire._active
+        start = len(outer.instrs) if outer is not None else 0
+        with (contextlib.nullcontext(outer) if outer is not None
+              else _wire.recording()) as rec:
+            yield
+        prog.wire = self.wire = rec.instrs[start:]
 
     def _recorded(self, tag: str, ctx: _ctx.ProgramContext) -> list:
         """The schedule of a program just recorded under ``ctx``, validated
@@ -251,7 +277,8 @@ class Spmd:
             tl = _tl.session()
             row = f"_program/{tag}"
             tl.start_activity(row, "TRACE_AND_COMPILE")
-            out, ctx = self._first(prog, lambda: self.fn(*args))
+            with self._wire_pass(prog):
+                out, ctx = self._first(prog, lambda: self.fn(*args))
             tl.end_activity(row, "TRACE_AND_COMPILE")
             prog.schedule = self._recorded(tag, ctx)
             prog.calls = 2
@@ -315,14 +342,15 @@ class Spmd:
         tl = _tl.session()
         row = f"_program/{tag}"
         tl.start_activity(row, "TRACE_AND_COMPILE")
-        ctx = prog.capture(
-            self.fn, *args, pool=pool, within=_ctx.enter(self.group),
-            what=f"spmd: program {tag}",
-            rules="A captured step must not synchronise with the host "
-                  "(.item(), float(tensor), a copy to the host) or copy "
-                  "from pageable host memory, and its optimizer must be "
-                  "capturable (torch.optim's with capturable=True, which "
-                  "the Trainer sets).")
+        with self._wire_pass(prog):
+            ctx = prog.capture(
+                self.fn, *args, pool=pool, within=_ctx.enter(self.group),
+                what=f"spmd: program {tag}",
+                rules="A captured step must not synchronise with the host "
+                      "(.item(), float(tensor), a copy to the host) or "
+                      "copy from pageable host memory, and its optimizer "
+                      "must be capturable (torch.optim's with "
+                      "capturable=True, which the Trainer sets).")
         tl.end_activity(row, "TRACE_AND_COMPILE")
         prog.schedule = self._recorded(tag, ctx)
         prog.calls = 2

@@ -134,12 +134,13 @@ def agreed_seconds(seconds: float, group: int = 0) -> float:
     import torch.distributed as dist
 
     from horovod_tpu_torch.core import state as _state
+    from horovod_tpu_torch.ops import wire as _wire
 
     g = _state.get_group(group)
     if g.size <= 1 or g.pg is None:
         return seconds
     t = torch.tensor([seconds], dtype=torch.float64, device=_state.device())
-    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=g.pg)
+    _wire.all_reduce(t, g.pg, dist.ReduceOp.MAX)
     return float(t.item())
 
 

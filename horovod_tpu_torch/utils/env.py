@@ -35,7 +35,9 @@ and decomposition: ``HOROVOD_COMPRESSION``, ``HOROVOD_COMPRESSION_BLOCK``,
 fusion threshold from the tuning cache), ``HOROVOD_RECALIBRATION``
 (``ops/exchange.py``), ``HOROVOD_TIMELINE_DEVICE`` and
 ``HOROVOD_TIMELINE_DEVICE_INTERVAL`` (``core/timeline.py``,
-``parallel/spmd.py``).
+``parallel/spmd.py``), and the protocol checker reads
+``HOROVOD_MODEL_MAX_STATES`` and ``HOROVOD_MODEL_FAULTS``
+(``analysis/model.py``, ``tools/hvd_model_torch.py``).
 
 Every other knob of the reference is registered too, with the ROADMAP §A
 item that ports it (:data:`UNPORTED_RESULT_KNOBS`,
@@ -79,6 +81,8 @@ PORTED_KNOBS = frozenset({
     "HOROVOD_LIVENESS_INTERVAL",
     "HOROVOD_LIVENESS_TIMEOUT",
     "HOROVOD_MAX_CHANNELS",
+    "HOROVOD_MODEL_FAULTS",
+    "HOROVOD_MODEL_MAX_STATES",
     "HOROVOD_NEGOTIATION_TIMEOUT",
     "HOROVOD_PREFETCH_DEPTH",
     "HOROVOD_PROFILE",
@@ -113,11 +117,9 @@ PORTED_KNOBS = frozenset({
 UNPORTED_RESULT_KNOBS: dict[str, tuple[int, str, frozenset]] = {}
 
 # Knobs of the reference that only tune timing or reporting, not ported
-# yet: name -> ROADMAP §A item. Each draws a warning at hvd.init.
-UNPORTED_TUNING_KNOBS: dict[str, int] = {
-    "HOROVOD_MODEL_FAULTS": 17,
-    "HOROVOD_MODEL_MAX_STATES": 17,
-}
+# yet: name -> ROADMAP §A item. Each would draw a warning at hvd.init.
+# Every one is ported.
+UNPORTED_TUNING_KNOBS: dict[str, int] = {}
 
 # Knobs that only mean something under JAX: accepted, and nothing is said.
 JAX_ONLY_KNOBS = frozenset({"HOROVOD_CPU_DEVICES", "HOROVOD_XLA_OPTIONS"})
@@ -820,10 +822,52 @@ def tuned_config_path() -> str | None:
 
 
 def validate_tuning_knobs() -> None:
-    """Read the tuning knobs whose typos the reference refuses at
-    ``hvd.init``."""
-    for read in (profile_mode, tune_budget_seconds, tuned_config_path):
+    """Read the tuning and analysis knobs whose typos the reference
+    refuses at ``hvd.init``."""
+    for read in (profile_mode, tune_budget_seconds, tuned_config_path,
+                 model_max_states, model_faults):
         read()
+
+
+def model_max_states() -> int:
+    """``HOROVOD_MODEL_MAX_STATES`` (default 200000): cap on the state
+    count the ``hvd-model`` protocol checker explores per world
+    (analysis/model.py; tools/hvd_model_torch.py). Exceeding the cap is an
+    ERROR (exit 2), never a silent truncation — a sweep that did not
+    finish must not pass as "protocol clean". Must be a positive integer;
+    typos raise at ``hvd.init`` (the newer-knob convention)."""
+    raw = os.environ.get("HOROVOD_MODEL_MAX_STATES")
+    if raw is None or not raw.strip():
+        from horovod_tpu_torch.analysis import model as _model
+
+        return _model.DEFAULT_MAX_STATES
+    try:
+        n = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"HOROVOD_MODEL_MAX_STATES must be a positive integer state "
+            f"cap, got {raw!r}") from None
+    if n < 1:
+        raise ValueError(
+            f"HOROVOD_MODEL_MAX_STATES must be >= 1, got {raw!r}")
+    return n
+
+
+def model_faults() -> str | None:
+    """``HOROVOD_MODEL_FAULTS``: extra fault spec added to the
+    ``hvd-model`` sweep matrix (tools/hvd_model_torch.py; the fault-drill
+    preflight passes the drill's own injection spec the same way). Uses
+    the ``HOROVOD_FAULT_INJECT`` grammar — parsed through the same
+    ``analysis.protocol.parse_fault_spec`` the live injector uses, so a
+    typo'd spec raises at ``hvd.init`` instead of silently sweeping a
+    fault-free matrix that then "passes"."""
+    raw = os.environ.get("HOROVOD_MODEL_FAULTS")
+    if raw is None or not raw.strip():
+        return None
+    from horovod_tpu_torch.analysis import protocol as _proto
+
+    _proto.parse_fault_spec(raw)  # typos raise here, at init
+    return raw
 
 
 def validate_exchange_knobs() -> None:

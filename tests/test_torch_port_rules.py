@@ -3,6 +3,7 @@
 * No module of ``horovod_tpu_torch`` — nor ``chip_smoke.py``,
   ``tools/profile_torch_step.py``, ``tools/serve_bench_torch.py``,
   ``tools/timeline_torch.py``, ``tools/fault_drill_torch.py``,
+  ``tools/hvd_lint_torch.py``, ``tools/hvd_model_torch.py``,
   ``tools/allreduce_bench_torch.py`` or ``tools/cost_model_torch.py`` —
   imports JAX, flax, optax or the JAX package (AST walk, and a
   clean-interpreter import).
@@ -47,7 +48,9 @@ def _port_sources():
                     REPO / "tools" / "timeline_torch.py",
                     REPO / "tools" / "fault_drill_torch.py",
                     REPO / "tools" / "allreduce_bench_torch.py",
-                    REPO / "tools" / "cost_model_torch.py"]
+                    REPO / "tools" / "cost_model_torch.py",
+                    REPO / "tools" / "hvd_lint_torch.py",
+                    REPO / "tools" / "hvd_model_torch.py"]
 
 
 def _imported_roots(path):
@@ -523,8 +526,9 @@ def test_every_reference_knob_is_registered_once():
     classes = (tenv.PORTED_KNOBS, set(tenv.UNPORTED_RESULT_KNOBS),
                set(tenv.UNPORTED_TUNING_KNOBS), tenv.JAX_ONLY_KNOBS)
     assert sum(len(c) for c in classes) == len(jenv.KNOWN_ENV_VARS)
-    # Every result knob and every fault kind is ported.
+    # Every result knob, every tuning knob and every fault kind is ported.
     assert not tenv.UNPORTED_RESULT_KNOBS and not tenv.UNPORTED_FAULTS
+    assert not tenv.UNPORTED_TUNING_KNOBS
     assert set(RESULT_VALUES) <= tenv.PORTED_KNOBS
 
 
@@ -570,15 +574,37 @@ def test_the_eager_cache_knob_is_ported(clean_env, value, enabled):
         == enabled
 
 
-@pytest.mark.parametrize("name", sorted(tenv.UNPORTED_TUNING_KNOBS))
+MODEL_KNOBS = {"HOROVOD_MODEL_FAULTS": ("crash@rank=0,step=1",
+                                         "crash@rnk=0,step=1"),
+               "HOROVOD_MODEL_MAX_STATES": ("5000", "many")}
+
+
+@pytest.mark.parametrize("name", sorted(MODEL_KNOBS))
 def test_a_tuning_knob_warns_not_ported(clean_env, name):
-    item = tenv.UNPORTED_TUNING_KNOBS[name]
-    clean_env.setenv(name, "1")
-    with pytest.warns(UserWarning,
-                      match=f"{name} is set but not ported: ROADMAP §A "
-                            f"item {item}\\."):
+    """The two tuning knobs this test warned for until they were ported
+    (ROADMAP §A item 17, the protocol checker's) are read now: set to a
+    valid value each draws no warning at hvd.init, and a typo raises the
+    reference's text there."""
+    from horovod_tpu.utils import env as jenv
+
+    good, typo = MODEL_KNOBS[name]
+    assert name in tenv.PORTED_KNOBS
+    assert name not in tenv.UNPORTED_TUNING_KNOBS
+    clean_env.setenv(name, good)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
         hvd.init(device="cpu")
     assert hvd.is_initialized()
+    hvd.shutdown()
+    clean_env.setenv(name, typo)
+    reader = getattr(jenv, "model_faults" if name.endswith("FAULTS")
+                     else "model_max_states")
+    with pytest.raises(ValueError) as want:
+        reader()
+    with pytest.raises(ValueError) as got:
+        hvd.init(device="cpu")
+    assert str(got.value) == str(want.value)
+    assert not hvd.is_initialized()
 
 
 @pytest.mark.parametrize("name,value", [("HOROVOD_DATA_DIR", "/data"),
@@ -901,3 +927,60 @@ def test_sharded_optimizers_wrap_an_optimizer_or_a_builder(clean_env, fn,
     assert type(opt).__name__ == kind
     assert sum(p.numel() for g in opt.param_groups
                for p in g["params"]) == 5
+
+
+def _tool(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_the_schedule_gate_defaults_to_the_gpu(monkeypatch, capsys):
+    """``tools/hvd_lint_torch.py --schedule`` runs its world on the GPU, a
+    card a rank, unless ``--device cpu``: without the cards it raises (and
+    the CLI exits 2) instead of drifting to gloo."""
+    lint = _tool("hvd_lint_torch")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        lint.schedule_gate()
+    assert lint.main(["--schedule", "--no-env-check"]) == 2
+    assert "--device cpu" in capsys.readouterr().err
+
+
+def test_the_analysis_package_exports_the_references_names():
+    import horovod_tpu_torch.analysis as tana
+    from horovod_tpu import analysis as jana
+
+    assert tana.__all__ == jana.__all__
+    for name in jana.__all__:
+        assert hasattr(tana, name), name
+    assert tana.RULES == jana.RULES
+    assert tana.render([tana.Finding("HVD001", "f.py", 3, "m")]) \
+        == jana.render([jana.Finding("HVD001", "f.py", 3, "m")])
+
+
+WIRE_CALLS = {"all_reduce", "all_gather", "reduce_scatter",
+              "all_to_all_single", "all_to_all", "broadcast",
+              "batch_isend_irecv", "isend", "irecv", "send", "recv",
+              "all_gather_into_tensor", "reduce_scatter_tensor"}
+
+
+@pytest.mark.parametrize("path", sorted(
+    (REPO / "horovod_tpu_torch").rglob("*.py")),
+    ids=lambda p: str(p.relative_to(REPO)))
+def test_every_wire_call_goes_through_ops_wire(path):
+    """The data path's ``torch.distributed`` collectives are called in
+    ``ops/wire.py`` alone, so its recorder sees every one."""
+    if path == REPO / "horovod_tpu_torch" / "ops" / "wire.py":
+        return
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = sorted(
+        node.lineno for node in ast.walk(tree)
+        if isinstance(node, ast.Attribute) and node.attr in WIRE_CALLS
+        and isinstance(node.value, ast.Name) and node.value.id == "dist")
+    assert not bad, f"{path.relative_to(REPO)} calls dist at lines {bad}"

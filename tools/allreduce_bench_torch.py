@@ -237,9 +237,11 @@ def bench_size(nbytes: int, world: int, compression: str = "none",
     result = {
         "metric": "allreduce_busbw",
         "bytes": nbytes,
-        "value": round(busbw / 1e9, 2),
+        # Four significant digits: a slow link (gloo under load) reads a
+        # rate below 0.005 GB/s, which two decimals would print as 0.
+        "value": float(f"{busbw / 1e9:.4g}"),
         "unit": "GB/s",
-        "algbw_gbps": round(nbytes / best / 1e9, 2),
+        "algbw_gbps": float(f"{nbytes / best / 1e9:.4g}"),
         "time_us": round(best * 1e6, 1),
         "world": world,
         "backend": _backend(),

@@ -25,9 +25,20 @@ Scenarios (``--scenario all`` runs each in turn):
   (``analysis/schedule.py::verify_exchange_artifact``). It needs four
   ranks: four GPUs with ``--device cuda`` (NCCL), else it is skipped there.
 
+``--lint`` runs two preflights before any scenario, as the reference's
+drill does: ``preflight_lint`` records the drill's own training step (the
+Trainer's step over the 4x2 linear map) on every rank of a world — two
+gloo ranks on the CPU, one rank a card (up to four) on the GPU — and
+verifies the members' wire listings together
+(``analysis/schedule.py::verify_step``: replica groups, per-rank identity,
+wait graph); ``preflight_model`` sweeps the drill's fault specs through
+the protocol checker at two processes (``analysis/model.py``, HVD201-
+HVD206). A finding stops the drill before any fault is injected, so a
+scenario failure is never a protocol bug in disguise.
+
 Usage::
 
-    python tools/fault_drill_torch.py [--device cpu|cuda]
+    python tools/fault_drill_torch.py [--device cpu|cuda] [--lint]
         [--scenario all|kv_timeout|liveness|torn_write|crash|elastic]
 
 ``--device cuda`` (the default) runs every training step on the GPU and
@@ -357,6 +368,109 @@ def scenario_elastic(device: str, workdir: str) -> None:
           f"the three exchange artifacts verify clean")
 
 
+# -- the preflights -------------------------------------------------------------
+
+
+def _lint_rank(device: str, plant: bool) -> list:
+    """One rank of the lint preflight: the drill's training step recorded
+    and verified with every member's (``plant``: rank 1 issues one extra
+    collective, the fault the preflight must catch)."""
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.analysis import schedule
+
+    _init(device)
+    _model, tr, batch = _linear_trainer(device)
+    step = tr.step_fn
+
+    def planted(b):
+        # The fault the preflight exists to catch, planted on purpose.
+        if hvd.rank() == 1:
+            hvd.allreduce(b[0], name="planted_extra")  # hvd-lint: disable=HVD001
+        return step(b)
+
+    findings = schedule.verify_step(planted if plant else step, [batch],
+                                    path="<fault-drill training step>")
+    out = [(f.rule, f.path, f.line, f.message) for f in findings]
+    hvd.shutdown()
+    return out
+
+
+def preflight_lint(device: str, plant: bool = False) -> None:
+    """Schedule-verify the drill's training step before injecting faults
+    (module docstring); raises ``SystemExit`` with the findings."""
+    import torch
+
+    from horovod_tpu_torch.analysis import render
+    from horovod_tpu_torch.analysis.report import Finding
+    from horovod_tpu_torch.run import run
+
+    ranks = (2 if device == "cpu"
+             else max(1, min(torch.cuda.device_count(), ELASTIC_RANKS)))
+    res = run(_lint_rank, ranks, device=device, args=(device, plant))
+    findings = [Finding(*f) for f in res[0]]
+    if any(r != res[0] for r in res[1:]):
+        findings.append(Finding(
+            "HVD103", "<fault-drill training step>", 1,
+            "the ranks' verifiers returned different findings."))
+    if findings:
+        print(render(findings))
+        raise SystemExit(
+            f"[drill] LINT PREFLIGHT FAILED: {len(findings)} schedule "
+            f"finding(s) — the training step's collective schedule is "
+            f"broken BEFORE any fault injection; fix the protocol bug "
+            f"first.")
+    print(f"  lint: training-step collective schedule verified (replica "
+          f"groups, per-rank identity, wait graph) on {ranks} rank(s)",
+          flush=True)
+
+
+# The model-level preflight sweeps the drill's own fault specs (the
+# scenarios inject exactly these shapes) plus anything the caller set in
+# HOROVOD_FAULT_INJECT / HOROVOD_MODEL_FAULTS.
+_MODEL_PREFLIGHT_SPECS = [
+    None,  # the fault-free baseline
+    "kv_timeout@seq=1,times=2",  # scenario_kv_timeout's bounded burst
+    "torn_write@epoch=2",  # scenario_torn_write
+    "crash@rank=0,step=1",  # scenario_crash, scaled to the model script
+]
+
+
+def preflight_model() -> int:
+    """Bounded hvd-model sweep of the drill's world (two simulated
+    processes, with and without the drill's fault injections):
+    HVD201-HVD206 must hold before any scenario runs. Returns the number
+    of worlds swept; raises ``SystemExit`` with the findings."""
+    from horovod_tpu_torch.analysis import model as _model
+    from horovod_tpu_torch.analysis import protocol as _proto
+    from horovod_tpu_torch.analysis import render
+    from horovod_tpu_torch.utils import env as _env
+
+    specs = list(_MODEL_PREFLIGHT_SPECS)
+    for extra in (os.environ.get("HOROVOD_FAULT_INJECT"),
+                  _env.model_faults()):
+        if extra and extra not in specs:
+            specs.append(extra)
+    max_states = _env.model_max_states()
+    findings = []
+    worlds = 0
+    for spec in specs:
+        faults = _proto.parse_fault_spec(spec)
+        for world in _model.standard_worlds(2, faults):
+            findings.extend(
+                _model.check_world(world, max_states=max_states).findings)
+            worlds += 1
+    if findings:
+        print(render(findings))
+        raise SystemExit(
+            f"[drill] MODEL PREFLIGHT FAILED: {len(findings)} protocol "
+            f"finding(s) — the negotiation protocol is broken BEFORE any "
+            f"fault injection; fix the protocol bug first.")
+    print(f"  model: negotiation/checkpoint protocol swept clean "
+          f"({worlds} worlds, {len(specs)} fault spec(s), HVD201-HVD206)",
+          flush=True)
+    return worlds
+
+
 SCENARIOS = ("kv_timeout", "liveness", "torn_write", "crash", "elastic")
 
 
@@ -365,6 +479,12 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
     ap.add_argument("--scenario", default="all",
                     choices=("all",) + SCENARIOS)
+    ap.add_argument("--lint", action="store_true",
+                    help="preflight: verify the drill's training-step "
+                         "schedule and sweep the protocol checker before "
+                         "injecting any fault")
+    ap.add_argument("--plant-lint-fault", action="store_true",
+                    help=argparse.SUPPRESS)  # the preflight's own check
     ap.add_argument("--crash-worker", metavar="CKDIR")
     ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
@@ -377,6 +497,10 @@ def main(argv=None) -> int:
     if args.crash_worker:
         _crash_worker(args.crash_worker, args.resume, args.device)
         return 0
+    if args.lint:
+        print("[drill] lint preflight", flush=True)
+        preflight_lint(args.device, plant=args.plant_lint_fault)
+        preflight_model()
     todo = SCENARIOS if args.scenario == "all" else (args.scenario,)
     with tempfile.TemporaryDirectory(prefix="hvd_drill_") as workdir:
         for name in todo:
