@@ -334,9 +334,10 @@ Phases, one line of output each:
     state's CRC equals an uninterrupted child's, for ResNet-50 and the LM;
     (d) a ``WorkerLost`` under ``HOROVOD_ELASTIC=1`` at world 1 is refused
     with the reference's min-world text, chained to the loss; (e)
-    ``tools/fault_drill_torch.py --device cuda`` passes (its elastic
-    scenario needs four GPUs). Writes ``_chip_smoke_resil/`` (gitignored)
-    and removes it.
+    ``tools/fault_drill_torch.py --device cuda`` passes its training
+    scenarios (its elastic scenario needs four GPUs; its serve scenario
+    runs in phase 25). Writes ``_chip_smoke_resil/`` (gitignored) and
+    removes it.
 23. the control plane (``core/native``, ``core/negotiate.py``'s verdict
     replay, ``utils/distributed.py``, the two exchange tools): (a) after
     ``hvd.init`` the native core is loaded; phase 8's ResNet-50 (fused
@@ -382,8 +383,30 @@ Phases, one line of output each:
     and HVD105 with the all-gather phase removed; a rank-conditional
     ``hvd.allreduce`` in a source gives HVD001.
 
+25. serving's fault tools and the prefill/decode split (no kernel of the
+    port lies on them, and none may launch): (a)
+    ``tools/fault_drill_torch.py``'s serve scenario at ``--device cuda``,
+    three child processes serving phase 9's LM at full width cut to
+    ``fault_drill_torch.SERVE_LAYERS`` layers: a journaled engine hard-killed mid-batch
+    by ``engine_crash@step=4`` (exit 43), a new process replaying its
+    journal, every output's CRC equal to an uninterrupted child's; (b)
+    ``serve_bench_torch.bench_recovery`` at phase 9's LM (8 layers, bf16
+    pages): ``bit_identical``, and ``serve_recovery_ms``; (c) the split's
+    two halves in this process on the one card (NCCL refuses two ranks on
+    one card): a prefill-side and a decode-side engine joined by
+    ``serving.engine.loopback_split``, which hands the prefill engine the
+    exact tensors the two-rank split sends through the same pack and unpack
+    code and leaves out only the ``torch.distributed`` call, serve
+    ``SPLIT_REQUESTS`` requests sharing a two-block prefix in two rounds
+    (between them the prefill engine's pool is zeroed and the decode engine
+    told so, so it ships the shared pages) with the prefix cache: every
+    token equal to the unsplit engine's, one capture of each graph on each
+    side (prefill: ``prefill``, ``first``; decode: ``decode``), the bytes
+    per admission printed.
+
 Each main path (5, 8 and 10, each example of 14, each run of 17, each
-arm of 18, of 19 (b), of 20, of 22 (a) and (b), of 23 (a) and (b) and of 24 (a)) runs with its kernels' launch counts set
+arm of 18, of 19 (b), of 20, of 22 (a) and (b), of 23 (a) and (b), of 24
+(a) and phase 25) runs with its kernels' launch counts set
 to 0 just before it and read just after; the kernels line's
 ``launches`` are phases 5 and 8's counts (the eager step and the 9
 replays), ``launches_phase18``, ``launches_phase19`` and
@@ -5702,15 +5725,20 @@ def resil_elastic_world1(device) -> dict:
     return {"refusal": text}
 
 
+# Phase 22 (e)'s drill scenarios: the serve scenario runs in phase 25 (a).
+RESIL_DRILL = "kv_timeout,liveness,torn_write,crash,elastic"
+
+
 def resil_drill(device) -> dict:
-    """(e): ``tools/fault_drill_torch.py --device cuda``: the scenarios one
-    card runs (the elastic one needs four)."""
+    """(e): ``tools/fault_drill_torch.py --device cuda``: the training
+    scenarios one card runs (the elastic one needs four)."""
     t0 = time.perf_counter()
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("HOROVOD_")}
     r = subprocess.run([sys.executable,
                         os.path.join(HERE, "tools", "fault_drill_torch.py"),
-                        "--device", "cuda"], env=env, capture_output=True,
+                        "--device", "cuda", "--scenario", RESIL_DRILL],
+                       env=env, capture_output=True,
                        text=True, timeout=900, cwd=HERE)
     if r.returncode != 0 or not r.stdout.rstrip().endswith(
             "FAULT DRILL PASSED"):
@@ -5769,7 +5797,8 @@ def resilience_line(rs: dict, ident: str) -> str:
         f"{cr['lm']['resume_fit_s']:.2f} s; children "
         + ", ".join(f"{k} {v:.1f} s" for k, v in cr["child_s"].items())
         + f"; (d) world 1 under HOROVOD_ELASTIC=1 refuses with the "
-        f"min-world text; (e) fault_drill_torch.py --device cuda passed in "
+        f"min-world text; (e) fault_drill_torch.py --device cuda "
+        f"--scenario {RESIL_DRILL} passed in "
         f"{rs['drill']['seconds']:.1f} s: " + " | ".join(
             rs["drill"]["summary"]) + f"; on {ident}")
 
@@ -6390,6 +6419,157 @@ def analysis_line(an: dict, ident: str) -> str:
         f"phase {an['seconds']:.1f} s, on {ident}")
 
 
+# -- phase 25: serving's fault tools and the prefill/decode split -------------
+
+RECOVERY_PROMPT = 32          # (b): bench_recovery's prompts and new tokens
+RECOVERY_NEW = 16
+SPLIT_REQUESTS = 4            # (c): requests, two rounds of two
+SPLIT_PRIVATE = (16, 40, 24, 48)  # (c): private prompt tokens a request
+SPLIT_NEW = 16
+SPLIT_GRAPHS = {"prefill": {"prefill": 1, "first": 1},
+                "decode": {"decode": 1},
+                "unsplit": {"decode": 1, "prefill": 1, "first": 1}}
+
+
+def split_prompts(vocab: int) -> list:
+    """(c)'s prompts: a two-block shared prefix, then private tokens."""
+    g = torch.Generator().manual_seed(SEED + 25)
+    shared = torch.randint(0, vocab, (2 * SERVE_BLOCK,), generator=g)
+    return [torch.cat([shared, torch.randint(0, vocab, (n,), generator=g)])
+            .numpy().astype("int32") for n in SPLIT_PRIVATE]
+
+
+def serve_rounds(decode, prompts, wipe=None) -> dict:
+    """Serve ``prompts`` in two rounds; ``wipe`` (the prefill engine) is
+    zeroed between them and the decode engine told so. Returns each
+    request's output by id."""
+    outputs, half = {}, len(prompts) // 2
+    for r, batch in enumerate((prompts[:half], prompts[half:])):
+        if r and wipe is not None:
+            for pool in wipe._pools:
+                pool.zero_()
+            decode._remote_valid.clear()
+        for p in batch:
+            decode.submit(p, SPLIT_NEW)
+        for done in decode.run_until_idle():
+            outputs[done.request_id] = list(done.output)
+    return outputs
+
+
+def split_halves(cfg, model, device) -> dict:
+    """(c): the split's two halves on one card against the unsplit
+    engine."""
+    from horovod_tpu_torch.serving import engine as serving_engine
+
+    prompts = split_prompts(cfg.vocab_size)
+    kw = dict(block_size=SERVE_BLOCK, max_batch=2, prefix_cache=True,
+              max_prompt_len=max(map(len, prompts)) + SPLIT_NEW,
+              device=device)
+    unsplit = serving.Engine(cfg, model, **kw)
+    want = serve_rounds(unsplit, prompts)
+    prefill = serving.Engine(cfg, model, **kw)
+    decode = serving.Engine(cfg, model, **kw)
+    serving_engine.loopback_split(prefill, decode)
+    t0 = time.perf_counter()
+    got = serve_rounds(decode, prompts, wipe=prefill)
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    if got != want:
+        differ = sorted(k for k in want if got.get(k) != want[k])
+        raise RuntimeError(f"phase 25 (c): the split's halves differ from "
+                           f"the unsplit engine at requests {differ}")
+    captures = {"prefill": dict(prefill._captures),
+                "decode": dict(decode._captures),
+                "unsplit": dict(unsplit._captures)}
+    if captures != SPLIT_GRAPHS:
+        raise RuntimeError(f"phase 25 (c): captures {captures}, wanted "
+                           f"{SPLIT_GRAPHS}")
+    st, pst = decode.split_stats, prefill.split_stats
+    swapped = dict(pst, bytes_sent=pst["bytes_received"],
+                   bytes_received=pst["bytes_sent"])
+    if st["pages_shipped"] == 0 or swapped != st:
+        raise RuntimeError(f"phase 25 (c): split stats {st} (decode) and "
+                           f"{pst} (prefill)")
+    return {"requests": len(got), "tokens": sum(map(len, got.values())),
+            "stats": dict(st), "seconds": seconds,
+            "bytes_per_admission": (st["bytes_sent"] + st["bytes_received"])
+            / st["admissions"],
+            "prefix_hits": decode.stats["prefix_hit_tokens"],
+            "replays": {k: dict(e._replays) for k, e in (
+                ("prefill", prefill), ("decode", decode))}}
+
+
+def phase_serve_split(device) -> dict:
+    """Phase 25: (a) the drill's serve scenario on the card, (b)
+    ``bench_recovery`` at phase 9's LM, (c) the split's two halves."""
+    import tempfile
+
+    import fault_drill_torch
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as td:
+        try:
+            out["drill"] = fault_drill_torch.scenario_serve("cuda", td)
+        except AssertionError as e:
+            raise RuntimeError(f"phase 25 (a): {e}") from None
+        out["drill_s"] = time.perf_counter() - t0
+        cfg = serve_config()
+        model = transformer.init_params(cfg, seed=SEED, device=device)
+        t1 = time.perf_counter()
+        rec = serve_bench_torch.bench_recovery(
+            cfg, model, os.path.join(td, "recovery.journal.json"),
+            prompt_len=RECOVERY_PROMPT, max_new=RECOVERY_NEW,
+            block_size=SERVE_BLOCK, seed=SEED, device=device)
+        if not rec["bit_identical"] or rec["recovered"] < 1:
+            raise RuntimeError(f"phase 25 (b): bench_recovery {rec}")
+        out["recovery"] = rec
+        out["recovery_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["split"] = split_halves(cfg, model, device)
+    out["split_s"] = time.perf_counter() - t1
+    del model
+    free_cuda()
+    launched = {k: v for k, v in launch_counts().items() if v}
+    if launched:
+        raise RuntimeError(f"phase 25: kernels of the port launched on a "
+                           f"path none lies on: {launched}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def serve_split_line(ss: dict, ident: str) -> str:
+    import fault_drill_torch
+
+    dr, rec, sp = ss["drill"], ss["recovery"], ss["split"]
+    st = sp["stats"]
+    return (
+        f"phase 25 serving faults and split: ok; (a) fault_drill_torch.py "
+        f"--scenario serve --device cuda at the full-width LM cut to "
+        f"{fault_drill_torch.SERVE_LAYERS} layers: engine_crash@step=4 exit 43, the "
+        f"restart recovered {dr['recovered']} request(s) (recover() "
+        f"{dr['recover_s'] * 1e3:.2f} ms) and all {len(dr['crcs'])} outputs "
+        f"are CRC-identical to the uninterrupted child's; children "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in dr["children_s"].items())
+        + f" ({ss['drill_s']:.1f} s); (b) bench_recovery at phase 9's LM "
+        f"({LM_LAYERS} layers, bf16 pages, {rec['requests']} requests of "
+        f"{RECOVERY_PROMPT}+{RECOVERY_NEW} tokens, abandoned after "
+        f"{rec['interrupt_steps']} steps): recovered {rec['recovered']}, "
+        f"bit_identical {rec['bit_identical']}, serve_recovery_ms "
+        f"{rec['serve_recovery_ms']} ({ss['recovery_s']:.1f} s); (c) the "
+        f"split's halves in one process ({sp['requests']} requests, "
+        f"{sp['tokens']} tokens, {sp['prefix_hits']} prompt tokens from the "
+        f"prefix cache, the prefill engine's pool zeroed between the rounds): "
+        f"tokens equal the unsplit engine's; captures as {SPLIT_GRAPHS}; "
+        f"{st['admissions']} admissions, {st['pages_written']} pages written "
+        f"back, {st['pages_shipped']} shipped, {st['bytes_sent']} bytes sent "
+        f"and {st['bytes_received']} received "
+        f"({sp['bytes_per_admission']:.0f} a admission; replays "
+        f"{sp['replays']}; {ss['split_s']:.1f} s); no kernel of the port "
+        f"launched; phase {ss['seconds']:.1f} s, on {ident}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -6702,6 +6882,10 @@ def main() -> int:
             k["launches_phase24"] = {
                 arm: r["launches"][k["name"]]
                 for arm, r in an["recorded"].items()}
+
+    ss = phase_serve_split(device)
+    say(serve_split_line(ss, ident) + f"; total "
+        f"{time.perf_counter() - t_start:.0f} s")
 
     say(json.dumps({"kernels": kernels}))
     hvd.shutdown()

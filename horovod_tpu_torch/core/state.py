@@ -194,18 +194,28 @@ def _group_specs(group_ranks, world: int) -> list[tuple[int, ...]]:
 
 
 def init(group_ranks: Sequence[Sequence[int]] | None = None, *,
-         device: str | torch.device | None = None) -> None:
+         device: str | torch.device | None = None, devices=None) -> None:
     """Initialize the runtime (idempotent until :func:`shutdown`).
 
     ``group_ranks`` is the reference's 2-D group list; group 0 is the world
     and user groups follow (a first user group equal to the world becomes
     group 0). ``device``: ``None``/``"cuda"`` (NCCL) or ``"cpu"`` (gloo).
+    The reference's ``devices=`` (the device list one controller drives)
+    raises a ``TypeError`` naming ``device=``: a process is one rank with
+    one device.
 
     The default process group is reused when a launcher already created it
     (:func:`horovod_tpu_torch.run.run` does); otherwise it is created here
     from ``env://`` when ``WORLD_SIZE`` > 1, or as a one-process world over
     an in-memory store.
     """
+    if devices is not None:
+        raise TypeError(
+            "hvd.init(devices=...) is the reference's form, where one "
+            "controller drives a list of devices. Here a process is one "
+            "rank with one device: pass device= ('cuda', 'cuda:N' or "
+            "'cpu'), and start one process per device "
+            "(horovod_tpu_torch.run.run or torchrun).")
     with _state.lock:
         if _state.initialized:
             return

@@ -223,14 +223,35 @@ def fsdp_groups(group: "_state.Group", fmesh, topo: Topology):
     return _fsdp_memo[key]
 
 
+# (low rank, high rank) -> the pair's process group on its two members,
+# None elsewhere.
+_pair_memo: dict[tuple[int, int], object] = {}
+
+
+def pair_group(a: int, b: int):
+    """The process group of global ranks ``a`` and ``b`` (the serving
+    split's prefill and decode ranks), None on any other rank. Every rank
+    of the world creates it, eagerly and in one order (``dist.new_group``
+    is a call of the whole world), and it is kept until :func:`
+    forget_groups`."""
+    key = (min(a, b), max(a, b))
+    if key in _pair_memo:
+        return _pair_memo[key]
+    pg = dist.new_group(list(key))
+    _pair_memo[key] = pg if _state.global_rank() in key else None
+    return _pair_memo[key]
+
+
 def forget_groups() -> None:
-    """Destroy the two-level and fsdp process groups and drop the memoized
-    topologies (``shutdown``)."""
-    for pgs in (*_level_memo.values(), *_fsdp_memo.values()):
+    """Destroy the two-level, fsdp and pair process groups and drop the
+    memoized topologies (``shutdown``)."""
+    for pgs in (*_level_memo.values(), *_fsdp_memo.values(),
+                _pair_memo.values()):
         for pg in pgs:
             if pg is not None:
                 dist.destroy_process_group(pg)
     _level_memo.clear()
     _fsdp_memo.clear()
+    _pair_memo.clear()
     _wire.forget_partitions()
     _discover_memo.clear()

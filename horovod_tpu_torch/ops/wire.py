@@ -4,8 +4,9 @@ The data path's ``torch.distributed`` calls go through the functions here:
 the gradient exchange's lowerings (``ops/strategy.py``), the collectives
 and their families (``ops/collectives.py``), synced batch norm's
 statistics (``ops/batchnorm.py``), the ring hop of sequence parallelism
-(``parallel/sequence.py``) and the calibration probe
-(``tune/calibrate.py``). So a :class:`Recorder` sees each call, and no
+(``parallel/sequence.py``), the calibration probe (``tune/calibrate.py``)
+and the serving engine's prefill/decode transfers
+(``serving/engine.py``). So a :class:`Recorder` sees each call, and no
 call can pass it by.
 
 A recorded call is a :class:`~horovod_tpu_torch.analysis.hlo.
@@ -13,7 +14,8 @@ CollectiveInstr` in the reference's HLO vocabulary, the counterpart of
 one collective instruction of the reference's lowered step:
 
 * ``opcode``: ``all-reduce``, ``reduce-scatter``, ``all-gather``,
-  ``all-to-all`` or ``collective-permute`` (the ring hop). A broadcast is
+  ``all-to-all`` or ``collective-permute`` (the ring hop, and each tensor
+  the serving split moves between its two ranks). A broadcast is
   recorded as ``all-reduce``, the reference's lowering of it (a masked
   psum);
 * ``element_type``: the HLO name of what travels (``f32``, ``bf16``,
@@ -225,4 +227,26 @@ def permute(out: torch.Tensor, x: torch.Tensor, to: int, frm: int,
         dist.P2POp(dist.isend, x, to, group=pg),
         dist.P2POp(dist.irecv, out, frm, group=pg)])
     for r in reqs:
+        r.wait()
+
+
+def pair_transfer(tensors, peer: int, pg, *, send: bool) -> None:
+    """Send ``tensors`` to global rank ``peer`` on ``pg`` (``send``), or
+    receive them from it, all posted together (``dist.batch_isend_irecv``),
+    and wait: the serving split's transfers between its prefill and decode
+    ranks. One direction a call, which the peer matches with the opposite
+    call at the same step: NCCL opens a direction's connections when both
+    peers first use it, so a receive posted beside sends would wait on a
+    direction the peer has not opened. Each tensor is recorded as one
+    ``collective-permute`` row, so the two ends record the same rows; a
+    dry pass moves nothing (the receive buffers keep what they held)."""
+    rec = _active
+    if rec is not None:
+        for t in tensors:
+            _note(rec, "collective-permute", t.dtype, t.shape, pg)
+        if rec.dry:
+            return
+    op = dist.isend if send else dist.irecv
+    for r in dist.batch_isend_irecv([dist.P2POp(op, t, peer, group=pg)
+                                     for t in tensors]):
         r.wait()

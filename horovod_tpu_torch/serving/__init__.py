@@ -1,8 +1,9 @@
 """horovod_tpu_torch.serving — continuous-batching LM inference on the GPU.
 
-Counterpart of ``horovod_tpu.serving`` (the prefill/decode group split is
-not ported yet — ROADMAP §A item 14; on the GPU the engine's forwards are
-captured CUDA graphs):
+Counterpart of ``horovod_tpu.serving`` (on the GPU the engine's forwards
+are captured CUDA graphs; the prefill/decode split over two subset groups
+spans two ranks, each building the engine: the decode rank serves, the
+prefill rank answers in ``Engine.serve_prefill()`` — engine.py):
 
     from horovod_tpu_torch import serving
     from horovod_tpu_torch.models import transformer

@@ -69,11 +69,53 @@ Sampling at ``temperature > 0`` is Gumbel-max over a counter hash keyed by
 independent of the batch composition and stable under recompute, but not
 the reference's ``jax.random`` stream (ROADMAP §C). Greedy is ``argmax``.
 
-Not ported yet, raising ``NotImplementedError`` (ROADMAP §A item 14): the
-prefill/decode split across two subset groups (``prefill_group``/
-``decode_group``). ``speculate=None`` resolves as the reference's does:
+``speculate=None`` resolves as the reference's does:
 ``HOROVOD_SERVE_SPECULATE`` when set, else an applied tuned config's value
 (``tune/apply.py``), else 0.
+
+**The prefill/decode split** (``prefill_group=p, decode_group=d``). The
+reference's one process places prefill on the lead device of group ``p``
+and decode on the lead device of group ``d``, moving the whole pools
+between them. Here a process is a rank with one device, so the split
+spans two processes, and every rank of the world builds the engine with
+the same arguments (the pair's process group is made by the whole
+world, ``ops/topology.py::pair_group``):
+
+* the group-local rank 0 of ``d`` is the **decode rank**. It owns the
+  scheduler, the allocator and its block ids, the prefix index, the
+  journal and the draft; ``submit``, ``step``, ``generate_batch``,
+  ``recover`` and finally :meth:`Engine.close` run there, and it captures
+  ``decode`` (with speculation ``verify``, ``draft`` and
+  ``draft_prefill``: the draft's prefill stays on the decode rank, as the
+  reference's does);
+* the group-local rank 0 of ``p`` is the **prefill rank**. It holds a copy
+  of the model and of the target's pools, and :meth:`Engine.serve_prefill`
+  answers the decode rank's admissions until :meth:`Engine.close` ends the
+  session (a decode rank that dies without closing leaves it blocked
+  until the process group's timeout); it captures ``prefill`` and
+  ``first``;
+* any other rank is **idle**: it builds no pools, staging buffer or
+  scheduler, and every serving call raises there. Where one
+  rank leads both groups it serves unsplit (role ``serve``) and moves
+  nothing, as the reference's ``device_put`` to the same device moves
+  nothing.
+
+Each admission, the decode rank sends a header (the window ``[t0, t1)``
+and two page counts), the staging buffer's prefill segments (``tables``,
+``seeds``, ``plens``, ``skips``, ``admit``, ``prompts``) with the block
+ids of the pages it ships and of the pages the prefill will write, and
+the pages an admitted row's attention reads (``[0, skip)``) that the
+prefill rank's copy does not hold — every plane, payload and scale
+planes, byte for byte (``kv_cache.pack_pages``). The prefill rank replays
+its ``prefill`` graph over the window and its ``first`` graph, and sends
+back the first tokens and the pages it wrote. The decode rank tracks
+which pages the prefill rank's copy holds as its own: a page the prefill
+wrote or was sent is held; a page the decode rank writes (decode, verify)
+is held no more. A page shared through the prefix index was written by a
+prefill, so it is held; the rule ships what is stale, never more. Each
+step of an admission is one ``ops/wire.py::pair_transfer``, one direction
+a call (the request's tensors posted together, then the reply), matched
+by the peer at the same step, between graph replays.
 """
 
 from __future__ import annotations
@@ -90,6 +132,7 @@ from horovod_tpu_torch.core import resilience as _res
 from horovod_tpu_torch.core import timeline as _timeline
 from horovod_tpu_torch.core.state import HorovodError
 from horovod_tpu_torch.models import transformer
+from horovod_tpu_torch.ops import wire as _wire
 from horovod_tpu_torch.serving import kv_cache as _kv
 from horovod_tpu_torch.serving import resilience as _serve_res
 from horovod_tpu_torch.serving.resilience import (RequestJournal, Watchdog,
@@ -100,7 +143,13 @@ from horovod_tpu_torch.serving.scheduler import (AdmissionError, PrefixIndex,
 from horovod_tpu_torch.utils import env as _env
 from horovod_tpu_torch.utils import graphs as _graphs
 
-_NOT_PORTED = "is not ported to horovod_tpu_torch yet: ROADMAP §A item 14"
+# The split's header: (command, t0, t1, pages shipped, pages written,
+# unused...). Commands:
+_HEADER = 8
+_PREFILL, _CLOSE = 1, 2
+# The staging buffer's segments the prefill rank reads, in their order on
+# the wire (``t`` travels in the header).
+_SPLIT_SEGMENTS = ("tables", "seeds", "plens", "skips", "admit", "prompts")
 
 _CAPTURE_RULES = (
     "A captured forward must not synchronise with the host (.item(), a "
@@ -138,6 +187,12 @@ class Engine:
     ``HOROVOD_SERVE_DRAFT_KV_DTYPE``, unset = ``int4``). The emitted
     tokens are the non-speculative engine's at every temperature.
 
+    ``prefill_group``/``decode_group`` (set together or not at all) split
+    the two phases over the lead ranks of two subset groups (the module's
+    docstring): :attr:`role` is ``"decode"``, ``"prefill"``, ``"idle"``,
+    or ``"serve"`` for an engine that serves unsplit; :attr:`prefill_rank`
+    and :attr:`decode_rank` are the two lead ranks (None unsplit).
+
     Resilience (``serving/resilience.py``): ``deadline_ms`` is the default
     per-request budget (``HOROVOD_SERVE_DEADLINE_MS``); ``journal`` names a
     crash-safe request journal (``HOROVOD_SERVE_JOURNAL``) that
@@ -145,8 +200,7 @@ class Engine:
     ``HOROVOD_SERVE_WATCHDOG_TIMEOUT``, 0 = off) arms the stall watchdog;
     ``min_accept`` (``HOROVOD_SERVE_MIN_ACCEPT``, 0 = off) turns
     speculation off when the windowed accept rate falls below it (the
-    tokens do not change). ``prefill_group``/``decode_group`` raise
-    ``NotImplementedError``.
+    tokens do not change).
     """
 
     def __init__(self, config, params, *,
@@ -173,15 +227,15 @@ class Engine:
                  min_accept: float | None = None,
                  device: str | torch.device = "cuda"):
         self.device = transformer._require_device(device, "Engine", "serve")
-        if prefill_group is not None or decode_group is not None:
-            raise NotImplementedError(
-                f"prefill_group=/decode_group= (prefill and decode placed "
-                f"on two subset groups) {_NOT_PORTED}. Serve on one "
-                f"device.")
+        self.role, self.prefill_rank, self.decode_rank = \
+            self._resolve_groups(prefill_group, decode_group)
         transformer.check_model(config, params)
         self._check_device(params, "model")
         self.model = params
         self.config = config
+        if self.role == "idle":
+            # No part in serving: no pools, staging buffer or scheduler.
+            return
         if kv_dtype is None:
             kv_dtype = _env.serve_kv_dtype()
         self.kv_dtype = _kv.resolve_kv_dtype(kv_dtype, config.dtype)
@@ -295,7 +349,7 @@ class Engine:
                                         self.block_size, self.kv_dtype,
                                         device=self.device)
         self._draft_pools = None
-        if self.speculate_k:
+        if self.speculate_k and self.role != "prefill":
             self._draft_pools = _kv.make_kv_pools(
                 self._draft_cfg, num_blocks, self.block_size,
                 self.draft_kv_dtype, device=self.device)
@@ -325,7 +379,7 @@ class Engine:
         self._bodies = {"decode": self._decode_body,
                         "prefill": self._prefill_body,
                         "first": self._first_body}
-        if self.speculate_k:
+        if self.speculate_k and self.role != "prefill":
             self._bodies.update(verify=self._verify_body,
                                 draft=self._draft_body,
                                 draft_prefill=self._draft_prefill_body)
@@ -379,8 +433,67 @@ class Engine:
         self._now_ms = _now_ms_clock()  # step-boundary deadline clock
         journal_path = (journal if journal is not None
                         else _env.serve_journal_path())
+        # The decode rank owns the journal; the prefill rank never opens it.
         self.journal = (RequestJournal(journal_path, self.fingerprint())
-                        if journal_path else None)
+                        if journal_path and self.role in ("serve", "decode")
+                        else None)
+
+        # -- the split (the module's docstring) --------------------------
+        self._link = None
+        self._closed = False
+        self._page_bytes = _kv.page_bytes(self._pools)
+        # Block ids whose page the prefill rank's copy holds as this
+        # rank's pool does: nothing is assumed of a fresh peer.
+        self._remote_valid: set[int] = set()
+        self.split_stats = {"admissions": 0, "pages_shipped": 0,
+                            "pages_written": 0, "bytes_sent": 0,
+                            "bytes_received": 0}
+        if self.role in ("prefill", "decode"):
+            self._link = _WireLink(self)
+
+    def _resolve_groups(self, prefill_group, decode_group):
+        """``(role, prefill rank, decode rank)``: the lead (group-local
+        rank 0) of each group, and what this rank does."""
+        if prefill_group is None and decode_group is None:
+            return "serve", None, None
+        if prefill_group is None or decode_group is None:
+            raise ValueError(
+                "prefill_group and decode_group must be set together "
+                "(the split maps the two phases onto two subset groups).")
+        from horovod_tpu_torch.core import state as _state
+
+        prank = _state.get_group(prefill_group).ranks[0]
+        drank = _state.get_group(decode_group).ranks[0]
+        me = _state.global_rank()
+        if prank == drank:
+            return ("serve" if me == prank else "idle"), prank, drank
+        # Made by every rank of the world, in one order: new_group is a
+        # call of the whole world.
+        from horovod_tpu_torch.ops import topology as _topology
+
+        _topology.pair_group(prank, drank)
+        role = ("prefill" if me == prank
+                else "decode" if me == drank else "idle")
+        return role, prank, drank
+
+    def _require_role(self, what: str, *roles: str) -> None:
+        if self.role in roles:
+            return
+        if self.role == "prefill":
+            raise HorovodError(
+                f"serving: {what} runs on the decode rank "
+                f"({self.decode_rank}); this is the split's prefill rank "
+                f"({self.prefill_rank}), which answers the decode rank's "
+                f"admissions in Engine.serve_prefill()")
+        if self.role == "decode":
+            raise HorovodError(
+                f"serving: {what} runs on the split's prefill rank "
+                f"({self.prefill_rank}); this is its decode rank "
+                f"({self.decode_rank})")
+        raise HorovodError(
+            f"serving: {what}: this rank leads neither the prefill group "
+            f"(rank {self.prefill_rank}) nor the decode group (rank "
+            f"{self.decode_rank}), so it takes no part in serving")
 
     def _check_device(self, model, what: str) -> None:
         have = next(model.parameters()).device
@@ -648,7 +761,22 @@ class Engine:
     def _call_decode(self, mask: np.ndarray) -> np.ndarray:
         self._mask[:] = mask
         self._stage("horizon")
+        self._note_decode_writes(np.flatnonzero(mask), 0)
         return self._run("decode").cpu().numpy()
+
+    def _note_decode_writes(self, rows, horizon) -> None:
+        """Pages this rank writes at positions ``lengths .. lengths +
+        horizon`` of ``rows`` (a step's decode or verify) are no longer
+        held by the prefill rank's copy."""
+        if not self._remote_valid:
+            return
+        bs, horizon = self.block_size, np.broadcast_to(horizon,
+                                                       (self.max_batch,))
+        for r in rows:
+            first = int(self._lengths[r])
+            last = min(first + int(horizon[r]), self.view_len - 1)
+            for col in range(first // bs, last // bs + 1):
+                self._remote_valid.discard(int(self._tables[r, col]))
 
     @torch.no_grad()
     def _call_prefill(self, admit_mask: np.ndarray):
@@ -668,13 +796,124 @@ class Engine:
         self._t[...] = t0
         self._draft_t[...] = t0
         self._stage("prompts")
-        for _ in range(t1 - t0):
-            self._run("prefill")
-        first = self._run("first").clone()
+        if self._link is not None:
+            first = self._remote_prefill(rows, t0, t1)
+        else:
+            for _ in range(t1 - t0):
+                self._run("prefill")
+            first = self._run("first").clone()
         if self.speculate_k and not self._spec_disabled:
             for _ in range(t1 - t0):
                 self._run("draft_prefill")
         return first.cpu().numpy(), t1 - t0
+
+    # ------------------------------------------------------------------
+    # the split: the decode rank's request, the prefill rank's answer
+    # ------------------------------------------------------------------
+
+    def _meta_len(self, shipped: int, written: int) -> int:
+        return (sum(getattr(self, f"_{n}").size for n in _SPLIT_SEGMENTS)
+                + shipped + written)
+
+    def _count_admission(self, shipped: int, written: int, sent: int,
+                         received: int) -> None:
+        st = self.split_stats
+        st["admissions"] += 1
+        st["pages_shipped"] += shipped
+        st["pages_written"] += written
+        st["bytes_sent"] += sent
+        st["bytes_received"] += received
+
+    def _remote_prefill(self, rows, t0: int, t1: int) -> torch.Tensor:
+        """The decode rank's side of one admission: send the window, the
+        prefill segments and the pages the prefill rank lacks; receive the
+        first tokens (returned) and the pages it wrote into this rank's
+        pools."""
+        bs, mb = self.block_size, self.max_batch
+        reads, writes = set(), set()
+        for r in rows:
+            table = self._tables[r]
+            skip, plen = int(self._skips[r]), int(self._plens[r])
+            reads.update(int(b) for b in table[:-(-skip // bs)])
+            if plen > skip:
+                writes.update(int(b) for b in table[skip // bs:-(-plen // bs)])
+        reads.discard(_kv.NULL_BLOCK)
+        writes.discard(_kv.NULL_BLOCK)
+        shipped = sorted(reads - self._remote_valid)
+        written = sorted(writes)
+        header = torch.tensor([_PREFILL, t0, t1, len(shipped), len(written),
+                               0, 0, 0], dtype=torch.long, device=self.device)
+        meta = torch.from_numpy(np.concatenate(
+            [getattr(self, f"_{n}").reshape(-1) for n in _SPLIT_SEGMENTS]
+            + [np.asarray(shipped + written, np.int64)])).to(self.device)
+        ids = meta[meta.numel() - len(shipped) - len(written):]
+        pages = (_kv.pack_pages(self._pools, ids[:len(shipped)])
+                 if shipped else None)
+        reply = torch.empty((mb * 8 + len(written) * self._page_bytes,),
+                            dtype=torch.uint8, device=self.device)
+        self._link.request(header, meta, pages, reply)
+        if written:
+            _kv.unpack_pages(self._pools, ids[len(shipped):], reply[mb * 8:])
+        self._remote_valid.update(shipped)
+        self._remote_valid.update(written)
+        self._count_admission(
+            len(shipped), len(written),
+            (header.numel() + meta.numel()) * 8 + (
+                0 if pages is None else pages.numel()), reply.numel())
+        return reply[:mb * 8].view(torch.long)
+
+    @torch.no_grad()
+    def _answer(self, header: torch.Tensor, meta: torch.Tensor,
+                pages: torch.Tensor | None) -> torch.Tensor:
+        """The prefill rank's side of one admission: take the segments and
+        the shipped pages, replay ``prefill`` over the window and
+        ``first``; returns the reply (the first tokens' bytes, then the
+        written pages)."""
+        _cmd, t0, t1, shipped, written = (int(v)
+                                          for v in header.tolist()[:5])
+        host = meta.cpu().numpy()
+        off = 0
+        for name in _SPLIT_SEGMENTS:
+            view = getattr(self, f"_{name}")
+            view[...] = host[off:off + view.size].reshape(view.shape)
+            off += view.size
+        if shipped:
+            _kv.unpack_pages(self._pools, meta[off:off + shipped], pages)
+        self._t[...] = t0
+        self._stage("prompts")
+        for _ in range(t1 - t0):
+            self._run("prefill")
+        first = self._run("first").reshape(-1).to(torch.long)
+        self.stats["prefill_calls"] += 1
+        self.stats["prefill_steps"] += t1 - t0
+        reply = torch.cat([first.view(torch.uint8), _kv.pack_pages(
+            self._pools, meta[off + shipped:off + shipped + written])])
+        self._count_admission(
+            shipped, written, reply.numel(),
+            (header.numel() + meta.numel()) * 8 + (
+                0 if pages is None else pages.numel()))
+        return reply
+
+    def serve_prefill(self) -> int:
+        """The prefill rank's loop: answer the decode rank's admissions
+        until it calls :meth:`close`. Returns the admissions answered."""
+        self._require_role("serve_prefill", "prefill")
+        return self._link.serve()
+
+    def close(self) -> None:
+        """End the split's session: on the decode rank, tell the prefill
+        rank to leave :meth:`serve_prefill` (once). Elsewhere a no-op.
+        ``with Engine(...) as eng:`` closes it on the way out, an
+        exception's way too."""
+        if self.role == "decode" and not self._closed:
+            self._closed = True
+            self._link.close()
+
+    def __enter__(self) -> "Engine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
     # ------------------------------------------------------------------
@@ -707,6 +946,7 @@ class Engine:
         in milliseconds (default: the engine's; 0 or negative opts out):
         past it the request is evicted at the next step boundary with
         whatever it produced."""
+        self._require_role("submit", "serve", "decode")
         if self._shedding:
             self.stats["shed_rejected"] += 1
             self.stats["rejected"] += 1
@@ -981,6 +1221,7 @@ class Engine:
         decode one token for every running one. Returns the requests that
         finished during this step — deadline-evicted ones included (check
         ``Request.deadline_missed``)."""
+        self._require_role("step", "serve", "decode")
         tl = _timeline.session()
         step_idx = self.stats["steps"]
         self._maybe_serve_faults(step_idx, tl)
@@ -1092,6 +1333,7 @@ class Engine:
             self._horizon[req.slot] = min(hz, remaining - 1)
         horizon = self._horizon.copy()
         self._stage("horizon")
+        self._note_decode_writes([r.slot for r in stepped], horizon)
 
         with torch.no_grad():
             if self._spec_disabled:
@@ -1181,6 +1423,7 @@ class Engine:
     # ------------------------------------------------------------------
 
     def has_work(self) -> bool:
+        self._require_role("has_work", "serve", "decode")
         return bool(self._active_slots()) or self.scheduler.has_pending()
 
     def run_until_idle(self, max_steps: int = 100_000) -> list[Request]:
@@ -1221,6 +1464,7 @@ class Engine:
         tail is dropped, never replayed; a journal whose engine
         fingerprint differs from this engine's is refused. Returns the
         resumed requests in admission order (``RECOVER`` tick each)."""
+        self._require_role("recover", "serve", "decode")
         path = journal if journal is not None else (
             self.journal.path if self.journal is not None else None)
         if path is None:
@@ -1355,3 +1599,99 @@ class Engine:
         if not proposed:
             return None
         return self.stats["spec_accepted"] / proposed
+
+
+class _WireLink:
+    """One end of the split's link over the pair's process group
+    (``ops/topology.py::pair_group``): every transfer is one
+    ``ops/wire.py::pair_transfer``."""
+
+    def __init__(self, engine: Engine) -> None:
+        from horovod_tpu_torch.ops import topology as _topology
+
+        self.engine = engine
+        self.pg = _topology.pair_group(engine.prefill_rank,
+                                       engine.decode_rank)
+        self.peer = (engine.prefill_rank if engine.role == "decode"
+                     else engine.decode_rank)
+
+    def request(self, header, meta, pages, reply) -> None:
+        """The decode rank: send one admission, then receive its reply."""
+        sends = [header, meta] + ([] if pages is None else [pages])
+        _wire.pair_transfer(sends, self.peer, self.pg, send=True)
+        _wire.pair_transfer([reply], self.peer, self.pg, send=False)
+
+    def close(self) -> None:
+        header = torch.zeros((_HEADER,), dtype=torch.long,
+                             device=self.engine.device)
+        header[0] = _CLOSE
+        _wire.pair_transfer([header], self.peer, self.pg, send=True)
+
+    def serve(self) -> int:
+        """The prefill rank: answer admissions until the close."""
+        eng, served = self.engine, 0
+        while True:
+            header = torch.zeros((_HEADER,), dtype=torch.long,
+                                 device=eng.device)
+            _wire.pair_transfer([header], self.peer, self.pg, send=False)
+            cmd, _t0, _t1, shipped, written = header.tolist()[:5]
+            if cmd == _CLOSE:
+                return served
+            if cmd != _PREFILL:
+                raise HorovodError(
+                    f"serving: the prefill rank received command {cmd} "
+                    f"from the decode rank; the split knows {_PREFILL} "
+                    f"(prefill) and {_CLOSE} (close)")
+            meta = torch.empty((eng._meta_len(shipped, written),),
+                               dtype=torch.long, device=eng.device)
+            pages = (torch.empty((shipped * eng._page_bytes,),
+                                 dtype=torch.uint8, device=eng.device)
+                     if shipped else None)
+            _wire.pair_transfer([meta] + ([] if pages is None else [pages]),
+                                self.peer, self.pg, send=False)
+            reply = eng._answer(header, meta, pages)
+            _wire.pair_transfer([reply], self.peer, self.pg, send=True)
+            served += 1
+
+
+class _LocalLink:
+    """Both halves of the split in one process (one card holds one NCCL
+    rank): the decode engine's request goes to the prefill engine's
+    :meth:`Engine._answer` as the tensors the wire would carry, and only
+    the ``torch.distributed`` call is left out."""
+
+    def __init__(self, prefill: Engine) -> None:
+        self.prefill = prefill
+
+    def request(self, header, meta, pages, reply) -> None:
+        reply.copy_(self.prefill._answer(header, meta, pages))
+
+    def close(self) -> None:
+        pass
+
+
+def loopback_split(prefill: Engine, decode: Engine) -> None:
+    """Make two unsplit engines of one process the split's two halves:
+    ``decode`` keeps the scheduler, the journal and the draft and sends
+    each admission to ``prefill``, through the same pack and unpack code
+    as the two-rank split (:class:`_LocalLink`). The engines must have
+    the same shapes (block size, slots, prompt bound, pool, kv_dtype)."""
+    for eng in (prefill, decode):
+        if eng.role != "serve":
+            raise HorovodError(
+                f"loopback_split pairs two unsplit engines; one has role "
+                f"{eng.role!r}")
+    for attr in ("block_size", "max_batch", "max_prompt_len", "kv_dtype",
+                 "blocks_per_seq", "device"):
+        if getattr(prefill, attr) != getattr(decode, attr):
+            raise ValueError(
+                f"loopback_split: the engines differ in {attr} "
+                f"({getattr(prefill, attr)!r} against "
+                f"{getattr(decode, attr)!r})")
+    if prefill.pool.num_blocks != decode.pool.num_blocks:
+        raise ValueError(
+            f"loopback_split: the engines' pools differ "
+            f"({prefill.pool.num_blocks} against {decode.pool.num_blocks} "
+            f"blocks)")
+    prefill.role, decode.role = "prefill", "decode"
+    decode._link = _LocalLink(prefill)

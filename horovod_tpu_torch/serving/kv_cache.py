@@ -472,3 +472,41 @@ def dequantize_kv(wire: torch.Tensor, unit: torch.Tensor,
     their scale plane ``unit (...,)``."""
     q = int4_unpack(wire) if kv_dtype == "int4" else wire.float()
     return q * unit.float()[..., None]
+
+
+# ---------------------------------------------------------------------------
+# pages on the wire: the prefill/decode split's transfers
+# ---------------------------------------------------------------------------
+
+
+def page_bytes(pools) -> int:
+    """Bytes one block id's page takes across every plane of ``pools``
+    (all layers; payloads and scale planes)."""
+    return sum(p[:, 0].numel() * p.element_size() for p in pools)
+
+
+def pack_pages(pools, ids: torch.Tensor) -> torch.Tensor:
+    """The pages behind block ids ``ids`` (int64, on the pools' device) of
+    every plane of ``pools`` — raw ``(k, v)`` or quantized ``(k, v,
+    k_scale, v_scale)`` — as one flat uint8 tensor: each plane's
+    ``(layers, len(ids), ...)`` gather in turn, byte for byte."""
+    return torch.cat([p[:, ids].contiguous().view(torch.uint8).reshape(-1)
+                      for p in pools])
+
+
+def unpack_pages(pools, ids: torch.Tensor, buf: torch.Tensor) -> None:
+    """Write what :func:`pack_pages` packed for ``ids`` back into ``pools``
+    in place, bit for bit."""
+    off = 0
+    for p in pools:
+        shape = (p.shape[0], ids.shape[0]) + tuple(p.shape[2:])
+        n = int(np.prod(shape, dtype=np.int64)) * p.element_size()
+        chunk = buf[off:off + n]
+        if off % p.element_size():
+            chunk = chunk.clone()  # a dtype view needs an aligned start
+        p[:, ids] = chunk.view(p.dtype).view(shape)
+        off += n
+    if off != buf.numel():
+        raise HorovodError(
+            f"unpack_pages: {buf.numel()} bytes for {ids.shape[0]} pages "
+            f"of {page_bytes(pools)} bytes each")

@@ -376,6 +376,20 @@ class Trainer(LRControlMixin):
                                         root_rank, g)
         self._step.reset()
 
+    def init_state(self, *reference_args, **reference_kwargs):
+        """The reference's ``init_state(params)`` returns rank-stacked
+        parameters and optimizer state from one set of parameters. Here a
+        process is a rank: ``Trainer(model, ...)`` holds fresh parameters
+        and optimizer state already, and :meth:`sync_state` replicates
+        them across the group. The call raises a ``TypeError`` naming
+        that form."""
+        raise TypeError(
+            "Trainer.init_state(params) is the reference's form: here a "
+            "process is a rank, so there are no rank-stacked trees to "
+            "build. Trainer(model, loss_fn, optimizer) already holds fresh "
+            "parameters and optimizer state; call trainer.sync_state() to "
+            "replicate them across the group.")
+
     def train_state(self) -> dict:
         """What a checkpoint holds: the model's and the optimizer's state
         dicts and the epoch; under zero3 also this rank's parameter shards

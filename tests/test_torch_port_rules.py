@@ -12,9 +12,9 @@
   ``generate``, ``serving.Engine`` and every example's ``main``, without
   ``device="cpu"`` (``--device cpu``), raise where CUDA is absent instead
   of drifting to the CPU. Importing an example runs nothing.
-* What the serving slice leaves out raises ``NotImplementedError`` naming
-  its ROADMAP item: speculative decoding and the prefill/decode group
-  split.
+* The reference's forms a process-per-rank port cannot take raise a
+  ``TypeError`` naming the port's form: ``hvd.init(devices=...)`` and
+  ``Trainer.init_state(params)``.
 * Kernel wrappers dispatch on the tensor's device alone: a CPU tensor takes
   the plain version; any other tensor launches the kernel or raises — there
   is no fallback, and no launch is counted that did not happen.
@@ -315,21 +315,29 @@ def test_sequence_parallel_lm_defaults_to_the_gpu(monkeypatch, kw):
         tt.init_params(cfg)
 
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(prefill_group=0, decode_group=1), "prefill_group"),
-    (dict(prefill_group=0), "prefill_group"),
-])
-def test_serving_parts_not_ported_raise(kw, what):
-    from horovod_tpu_torch.models import transformer as tt
+def test_init_refuses_the_references_devices_keyword():
+    """The reference's ``hvd.init(group_ranks, devices=)`` drives a device
+    list from one controller; here a process is a rank with one device."""
+    hvd.shutdown()
+    with pytest.raises(TypeError) as err:
+        hvd.init(None, devices=["cpu"])
+    assert "device=" in str(err.value)
+    assert "one rank with one device" in str(err.value)
+    assert not tstate.is_initialized()
 
-    cfg = tt.TransformerConfig(vocab_size=17, num_layers=1, num_heads=2,
-                               embed_dim=8, mlp_dim=16, max_seq_len=8,
-                               dtype=torch.float32)
-    model = tt.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError) as err:
-        hvd.serving.Engine(cfg, model, device="cpu", **kw)
-    assert what in str(err.value)
-    assert "ROADMAP §A item 14" in str(err.value)
+
+def test_trainer_init_state_raises_naming_the_ports_form():
+    """``examples/keras_mnist.py:46``'s call, ``trainer.init_state(params)``,
+    names ``Trainer(model, ...)`` and ``sync_state()``."""
+    from horovod_tpu_torch.training import loop
+
+    model = torch.nn.Linear(4, 2)
+    trainer = loop.Trainer(model, lambda m, b: m(b).sum(), loop.sgd(0.1))
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    with pytest.raises(TypeError) as err:
+        trainer.init_state(params)
+    assert "sync_state()" in str(err.value)
+    assert "Trainer(model, loss_fn, optimizer)" in str(err.value)
 
 
 @pytest.mark.parametrize("kw,want", [

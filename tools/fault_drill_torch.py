@@ -24,6 +24,14 @@ Scenarios (``--scenario all`` runs each in turn):
   and post-regrow exchange plans pass the verifier
   (``analysis/schedule.py::verify_exchange_artifact``). It needs four
   ranks: four GPUs with ``--device cuda`` (NCCL), else it is skipped there.
+* ``serve`` — a journaled serving engine is hard-killed mid-batch
+  (``engine_crash@step=4``, exit 43) in a child process; a new child
+  replays the journal (``Engine.recover``) and finishes the batch, and
+  every request's output CRC equals an uninterrupted child's, with the
+  pool's invariants clean. Three children: the tiny LM of
+  ``tools/serve_bench_torch.py --smoke`` on the CPU, the full-width
+  serving LM (``serve_bench_torch.lm_config``) at ``SERVE_LAYERS``
+  layers on the GPU.
 
 ``--lint`` runs two preflights before any scenario, as the reference's
 drill does: ``preflight_lint`` records the drill's own training step (the
@@ -39,7 +47,9 @@ scenario failure is never a protocol bug in disguise.
 Usage::
 
     python tools/fault_drill_torch.py [--device cpu|cuda] [--lint]
-        [--scenario all|kv_timeout|liveness|torn_write|crash|elastic]
+        [--scenario all|NAME[,NAME...]]
+
+where NAME is kv_timeout, liveness, torn_write, crash, elastic or serve.
 
 ``--device cuda`` (the default) runs every training step on the GPU and
 raises where CUDA is absent. Exit 0 and a last ``FAULT DRILL PASSED`` line
@@ -71,6 +81,11 @@ ELASTIC_REGROW_STEP = 9  # epoch 2, batch 1
 ELASTIC_RANKS = 4
 TAGS = ("pre_shrink", "post_shrink", "post_regrow")
 HANG_DUMP_S = 150
+SERVE_CRASH_STEP = 4  # mid-batch: admissions journaled, decode under way
+SERVE_REQUESTS = 4
+SERVE_PROMPT_LEN = 6
+SERVE_MAX_NEW = 10
+SERVE_LAYERS = 2  # the GPU's serving LM: full width, this depth by default
 
 
 def _set_env(**kv):
@@ -368,6 +383,120 @@ def scenario_elastic(device: str, workdir: str) -> None:
           f"the three exchange artifacts verify clean")
 
 
+# -- serving ----------------------------------------------------------------------
+
+
+def _serve_worker(jdir: str, resume: bool, device: str) -> None:
+    """The serve scenario's child: a journaled engine decoding a seeded
+    batch. The first run is launched with ``engine_crash@step=N`` armed and
+    is hard-killed mid-batch (exit 43), leaving the journal; the restart
+    replays it (``Engine.recover``) and finishes; the reference run (no
+    fault, a fresh journal) gives the CRCs the recovered outputs must
+    equal bit for bit."""
+    import numpy as np
+
+    from horovod_tpu_torch.models import transformer
+    from horovod_tpu_torch.serving import Engine
+    from tools.serve_bench_torch import lm_config, tiny_config
+
+    dev = "cpu" if device == "cpu" else "cuda"
+    cfg = tiny_config() if dev == "cpu" else lm_config(SERVE_LAYERS)
+    model = transformer.init_params(cfg, seed=0, device=dev)
+    engine = Engine(
+        cfg, model, block_size=16, max_batch=SERVE_REQUESTS,
+        max_prompt_len=SERVE_PROMPT_LEN + SERVE_MAX_NEW,
+        journal=os.path.join(jdir, "serve.journal.json"), device=dev)
+    outputs: dict[int, list[int]] = {}
+    t0 = time.perf_counter()
+    if resume:
+        recovered = engine.recover()
+        print(f"DRILL_SERVE_RESUMED recovered={len(recovered)} "
+              f"seconds={time.perf_counter() - t0:.4f}", flush=True)
+    else:
+        rng = np.random.default_rng(7)
+        for _ in range(SERVE_REQUESTS):
+            engine.submit(
+                rng.integers(0, cfg.vocab_size,
+                             size=SERVE_PROMPT_LEN).astype(np.int32),
+                SERVE_MAX_NEW)
+    while engine.has_work():
+        for done in engine.step():
+            outputs[done.request_id] = list(done.output)
+    engine.pool.check_invariants()
+    for rid in sorted(outputs):
+        crc = zlib.crc32(
+            ",".join(str(t) for t in outputs[rid]).encode()) & 0xFFFFFFFF
+        print(f"DRILL_SERVE_CRC rid={rid} crc={crc}", flush=True)
+    print(f"DRILL_SERVE_DONE finished={len(outputs)} "
+          f"steps={engine.stats['steps']} captures="
+          f"{sum(engine._captures.values())}", flush=True)
+
+
+def scenario_serve(device: str, workdir: str) -> dict:
+    """The serve scenario (module docstring). Returns the children's
+    seconds and the recovered count."""
+    from horovod_tpu_torch.core import resilience as res
+
+    timings = {}
+
+    def _run(tag, jdir, resume=False, fault=None, want_rc=0):
+        os.makedirs(jdir, exist_ok=True)
+        env = dict(os.environ)
+        env.pop("HOROVOD_FAULT_INJECT", None)
+        if fault:
+            env["HOROVOD_FAULT_INJECT"] = fault
+        cmd = [sys.executable, os.path.abspath(__file__), "--serve-worker",
+               jdir, "--device", device]
+        if resume:
+            cmd.append("--resume")
+        t0 = time.perf_counter()
+        r = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                           timeout=240)
+        timings[tag] = time.perf_counter() - t0
+        assert r.returncode == want_rc, (
+            f"serve worker exited {r.returncode}, wanted {want_rc}\n"
+            f"{r.stdout[-2000:]}\n{r.stderr[-2000:]}")
+        return r.stdout
+
+    def _crcs(out):
+        return {ln.split()[1]: ln.split()[2]
+                for ln in out.splitlines()
+                if ln.startswith("DRILL_SERVE_CRC")}
+
+    # The uninterrupted reference: a fresh journal, no fault.
+    ref = _run("reference", os.path.join(workdir, "serve_ref"))
+    want = _crcs(ref)
+    assert len(want) == SERVE_REQUESTS, ref[-2000:]
+
+    # The crash run: the injector hard-kills the engine mid-batch.
+    jdir = os.path.join(workdir, "serve_crash")
+    out = _run("crash", jdir, fault=f"engine_crash@step={SERVE_CRASH_STEP}",
+               want_rc=res.CRASH_EXIT_CODE)
+    assert "simulating engine crash" in out, out[-2000:]
+    print(f"  serve: engine hard-killed mid-batch at step "
+          f"{SERVE_CRASH_STEP} by injection (exit {res.CRASH_EXIT_CODE})",
+          flush=True)
+
+    # The restart: replay the journal, finish the batch, compare CRCs.
+    out = _run("restart", jdir, resume=True)
+    resumed = [ln for ln in out.splitlines()
+               if ln.startswith("DRILL_SERVE_RESUMED")]
+    assert resumed, out[-2000:]
+    fields = dict(kv.split("=") for kv in resumed[0].split()[1:])
+    nrec = int(fields["recovered"])
+    assert nrec >= 1, resumed[0]
+    got = _crcs(out)
+    assert got == want, (
+        f"recovered outputs differ from the uninterrupted run — replay "
+        f"is not bit-identical:\n  want {want}\n  got  {got}")
+    print(f"  serve: restart replayed {nrec} journaled request(s) "
+          f"(recover() {float(fields['seconds']) * 1e3:.1f} ms), finished "
+          f"the batch; all {len(got)} outputs CRC-identical to the "
+          f"uninterrupted run, pool invariants clean", flush=True)
+    return {"recovered": nrec, "recover_s": float(fields["seconds"]),
+            "children_s": timings, "crcs": got}
+
+
 # -- the preflights -------------------------------------------------------------
 
 
@@ -471,14 +600,26 @@ def preflight_model() -> int:
     return worlds
 
 
-SCENARIOS = ("kv_timeout", "liveness", "torn_write", "crash", "elastic")
+SCENARIOS = ("kv_timeout", "liveness", "torn_write", "crash", "elastic",
+             "serve")
+
+
+def _scenarios(raw: str) -> tuple[str, ...]:
+    names = SCENARIOS if raw == "all" else tuple(raw.split(","))
+    bad = [n for n in names if n not in SCENARIOS]
+    if bad:
+        raise argparse.ArgumentTypeError(
+            f"unknown scenario(s) {bad}: choose 'all' or names from "
+            f"{list(SCENARIOS)}, comma-separated")
+    return names
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
-    ap.add_argument("--scenario", default="all",
-                    choices=("all",) + SCENARIOS)
+    ap.add_argument("--scenario", default=SCENARIOS, type=_scenarios,
+                    help="all, or names of " + ", ".join(SCENARIOS)
+                         + " separated by commas")
     ap.add_argument("--lint", action="store_true",
                     help="preflight: verify the drill's training-step "
                          "schedule and sweep the protocol checker before "
@@ -486,6 +627,7 @@ def main(argv=None) -> int:
     ap.add_argument("--plant-lint-fault", action="store_true",
                     help=argparse.SUPPRESS)  # the preflight's own check
     ap.add_argument("--crash-worker", metavar="CKDIR")
+    ap.add_argument("--serve-worker", metavar="JDIR")
     ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
     if args.device == "cuda":
@@ -497,13 +639,15 @@ def main(argv=None) -> int:
     if args.crash_worker:
         _crash_worker(args.crash_worker, args.resume, args.device)
         return 0
+    if args.serve_worker:
+        _serve_worker(args.serve_worker, args.resume, args.device)
+        return 0
     if args.lint:
         print("[drill] lint preflight", flush=True)
         preflight_lint(args.device, plant=args.plant_lint_fault)
         preflight_model()
-    todo = SCENARIOS if args.scenario == "all" else (args.scenario,)
     with tempfile.TemporaryDirectory(prefix="hvd_drill_") as workdir:
-        for name in todo:
+        for name in args.scenario:
             print(f"[{name}]", flush=True)
             fn = globals()[f"scenario_{name}"]
             if name in ("kv_timeout", "liveness"):

@@ -24,7 +24,19 @@ and 13 call them):
   preemptions;
 * :func:`profile_decode` — where a decode step's time goes: its wall time
   beside the device's kernel time (``torch.profiler``), the kernels a step
-  launches, and the kernels that take the most device time.
+  launches, and the kernels that take the most device time;
+* :func:`bench_recovery` — the crash-recovery drill as a measurement
+  (``tools/serve_bench.py::bench_recovery``): a journaled batch abandoned
+  mid-decode, a fresh engine's ``recover()`` timed
+  (``serve_recovery_ms``), the batch finished and held bit for bit
+  against an uninterrupted run (``bit_identical``);
+* :func:`split_rank` — one rank of the prefill/decode split
+  (``Engine(prefill_group=1, decode_group=2)`` in a world initialised
+  with ``[[0], [1]]``): the decode rank serves each case, the prefill
+  rank answers its admissions. ``--split`` runs it over two ranks
+  (:func:`horovod_tpu_torch.run.run`), each case beside the unsplit
+  engine on the decode rank's device, with prefill and decode tokens/s
+  of both and the bytes the split moves per admission.
 
 Every time is the host's clock around engine steps; each step ends with a
 host sync (the sampled tokens are read back), so the times cover the
@@ -38,10 +50,19 @@ Run on one GPU (bench.py's LM at full width, random weights):
     python tools/serve_bench_torch.py --num-requests 300 --arrival-rate 0.5 \
         --prompt-range 32 128 --output-range 16 64
     python tools/serve_bench_torch.py --speculate 4   # + B=1 speculation
+    python tools/serve_bench_torch.py --split --layers 8  # two GPUs
 
 and on the CPU, a seconds-long drill of a tiny model:
 
     python tools/serve_bench_torch.py --smoke --device cpu
+    python tools/serve_bench_torch.py --split --smoke --device cpu
+
+``--fault SPEC`` arms ``HOROVOD_FAULT_INJECT`` for the run (parsed first,
+so a malformed spec refuses before anything runs); ``--max-requests N``
+caps the load's requests and ``--duration S`` truncates its arrival trace
+to the first S seconds. Every run ends with the recovery row
+(:func:`bench_recovery`): ``serve_recovery_ms`` and ``bit_identical`` on
+a line of their own, beside the card's name and power limit.
 
 Decode is measured as ``chip_smoke.py`` phase 9 measures it: a 128-token
 prompt behind every slot, ``WINDOWS`` windows of 32 steps, each reported,
@@ -57,6 +78,7 @@ name and power limit (``nvidia-smi``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -101,6 +123,23 @@ def _positive(raw, flag: str, unit: str) -> float:
 def positive_rate(raw) -> float:
     """Parse an arrival rate (requests/second)."""
     return _positive(raw, "--arrival-rate", "requests/second")
+
+
+def positive_duration(raw) -> float:
+    """Parse a trace duration (seconds): the open-loop arrival trace is
+    truncated to arrivals within this window."""
+    return _positive(raw, "--duration", "seconds")
+
+
+def positive_count(raw) -> int:
+    """Parse a request cap: a positive INTEGER (12.5 requests is as
+    much a typo as NaN requests)."""
+    val = _positive(raw, "--max-requests", "requests")
+    if val != int(val):
+        raise ValueError(
+            f"--max-requests must be a whole number of requests, "
+            f"got {raw!r}")
+    return int(val)
 
 
 def tiny_config(max_seq_len: int = 64):
@@ -480,6 +519,311 @@ def profile_decode(config, params, batch: int, steps: int = 16,
     return out
 
 
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def bench_recovery(config, model, journal_path: str, *,
+                   num_requests: int = 4, interrupt_steps: int = 3,
+                   prompt_len: int = 6, max_new: int = 10,
+                   block_size: int = 16, kv_dtype: str | None = None,
+                   seed: int = 0, device="cuda") -> dict:
+    """Crash-recovery drill as a measurement, as
+    ``tools/serve_bench.py::bench_recovery`` runs it: an uninterrupted
+    batch; the same batch journaled and abandoned after
+    ``interrupt_steps`` steps (no close, no flush beyond the per-step one:
+    what a dead process leaves); a fresh engine's ``recover()`` timed; the
+    batch finished. ``bit_identical`` says whether the outputs equal the
+    uninterrupted run's, ``serve_recovery_ms`` what the replay took (the
+    device synchronized before each clock read)."""
+    from horovod_tpu_torch.serving import Engine
+
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, config.vocab_size,
+                            size=prompt_len).astype(np.int32)
+               for _ in range(num_requests)]
+
+    def _engine(journal=None):
+        return Engine(config, model, block_size=block_size,
+                      max_batch=num_requests,
+                      max_prompt_len=prompt_len + max_new,
+                      kv_dtype=kv_dtype, journal=journal, device=device)
+
+    def _drain(eng, outputs):
+        while eng.has_work():
+            for done in eng.step():
+                outputs[done.request_id] = list(done.output)
+
+    reference: dict[int, list[int]] = {}
+    ref = _engine()
+    for p in prompts:
+        ref.submit(p, max_new)
+    _drain(ref, reference)
+    del ref
+
+    outputs: dict[int, list[int]] = {}
+    interrupted = _engine(journal=journal_path)
+    for p in prompts:
+        interrupted.submit(p, max_new)
+    for _ in range(interrupt_steps):
+        for done in interrupted.step():
+            outputs[done.request_id] = list(done.output)
+    # The simulated crash: the engine is abandoned here.
+    del interrupted
+
+    restarted = _engine(journal=journal_path)
+    _sync(device)
+    t0 = time.monotonic()
+    recovered = restarted.recover()
+    _sync(device)
+    recovery_ms = (time.monotonic() - t0) * 1e3
+    _drain(restarted, outputs)
+
+    return {
+        "requests": num_requests,
+        "recovered": len(recovered),
+        "interrupt_steps": interrupt_steps,
+        "serve_recovery_ms": round(recovery_ms, 3),
+        "bit_identical": outputs == reference,
+        "kv_dtype": restarted.kv_dtype,
+    }
+
+
+# -- the prefill/decode split -------------------------------------------------
+# A case is plain data, so that it pickles into the ranks: ``name``,
+# ``engine`` (Engine keywords beside the split's), ``prompts`` (lists of
+# token ids, served in ``batches`` submit-and-drain rounds), ``max_new``,
+# and optionally ``forget`` (the decode rank forgets which pages the
+# prefill rank holds between rounds, so it ships them), ``interrupt``
+# (journaled: the decode-side engine is abandoned after that many steps,
+# the session closed, and a new engine pair recovers the batch),
+# ``record`` (the wire rows of the case, recorded on each rank),
+# ``timed`` (prefill and decode tokens/s of the rounds) and ``groups``
+# (the prefill and decode group indices, default 1 and 2).
+
+SPLIT_GROUPS = [[0], [1]]  # group 1 leads at rank 0, group 2 at rank 1
+SPLIT_HANG_DUMP_S = 150
+
+
+def serve_case(make_engine, case: dict, journal: str | None = None) -> dict:
+    """Run one case on this rank's engine(s) from ``make_engine(**kw)``:
+    the prefill rank answers admissions until each session closes; the
+    decode rank (or an unsplit engine) serves the prompts. Returns the
+    role, the ranks, each request's output by id, the trace counts, the
+    split's byte counts, with ``record`` this rank's wire rows, and on a
+    rank that does not serve, the text ``submit`` raises there."""
+    from horovod_tpu_torch.core.state import HorovodError
+    from horovod_tpu_torch.ops import wire
+
+    kw = dict(case.get("engine", {}))
+    interrupt = case.get("interrupt")
+    if interrupt is not None:
+        kw["journal"] = journal
+    eng = make_engine(**kw)
+    out = {"role": eng.role, "prefill_rank": eng.prefill_rank,
+           "decode_rank": eng.decode_rank, "outputs": {}}
+    if eng.role in ("prefill", "idle"):
+        try:
+            eng.submit(np.zeros((1,), np.int32), 1)
+        except HorovodError as e:
+            out["refusal"] = str(e)
+    if eng.role == "idle":  # it builds nothing to report on
+        return out
+    with (wire.recording() if case.get("record")
+          else contextlib.nullcontext()) as rec:
+        if eng.role == "prefill":
+            out["served"] = eng.serve_prefill()
+            if interrupt is not None:
+                eng = None
+                eng = make_engine(**kw)
+                out["served"] += eng.serve_prefill()
+        else:
+            eng = _drive(eng, make_engine, kw, case, out)
+    if rec is not None:
+        out["rows"] = [(i.opcode, i.element_type, list(i.shape))
+                       for i in rec.instrs]
+    out.update(prefill_traces=eng.prefill_trace_count,
+               decode_traces=eng.decode_trace_count,
+               captures=dict(eng._captures), split=dict(eng.split_stats),
+               stats={k: eng.stats[k] for k in (
+                   "preemptions", "prefix_hit_tokens", "recovered",
+                   "prefill_calls", "prefill_steps")})
+    return out
+
+
+def _drive(eng, make_engine, kw, case, out):
+    """The decode rank's (or an unsplit engine's) side of a case; returns
+    the engine that finished it. The session is closed on any way out, so
+    a failure here never leaves the prefill rank waiting."""
+    device = eng.device
+    prompts = [np.asarray(p, np.int32) for p in case["prompts"]]
+    rounds = case.get("batches", 1)
+    per = -(-len(prompts) // rounds)
+    prefill_s = decode_s = 0.0
+    prefill_tok = decode_tok = 0
+    try:
+        if case.get("timed"):
+            # One untimed request first: the captures and, split, the
+            # pair's first NCCL call (its communicator) are one-time
+            # costs. Its prompt is the first one reversed, so it shares
+            # no prefix.
+            eng.submit(prompts[0][::-1].copy(), 2)
+            eng.run_until_idle()
+        for r in range(rounds):
+            if r and case.get("forget"):
+                eng._remote_valid.clear()
+            for p in prompts[r * per:(r + 1) * per]:
+                eng.submit(p, case["max_new"])
+            steps = 0
+            while eng.has_work():
+                if steps == case.get("interrupt"):
+                    # The decode-side engine is abandoned mid-batch; its
+                    # journal is what the next engine pair recovers.
+                    eng.close()
+                    eng = None
+                    eng = make_engine(**kw)
+                    eng.recover()
+                    out["recovered"] = eng.stats["recovered"]
+                _sync(device)
+                t0 = time.monotonic()
+                before = (eng.stats["prefill_tokens"], eng._prefill_time_s,
+                          eng.stats["tokens_generated"])
+                for done in eng.step():
+                    out["outputs"][done.request_id] = list(done.output)
+                _sync(device)
+                dt = time.monotonic() - t0
+                pre = eng._prefill_time_s - before[1]
+                if eng.stats["prefill_tokens"] > before[0]:
+                    prefill_s += pre
+                    prefill_tok += eng.stats["prefill_tokens"] - before[0]
+                else:
+                    decode_s += dt
+                    decode_tok += eng.stats["tokens_generated"] - before[2]
+                steps += 1
+    finally:
+        if eng is not None:
+            eng.close()
+    if case.get("timed"):
+        out["prefill_tokens_per_sec"] = prefill_tok / prefill_s
+        out["decode_tokens_per_sec"] = decode_tok / decode_s
+    return eng
+
+
+def split_rank(config, state: dict | None, cases: list, workdir: str,
+               device: str = "cuda", seed: int = 0) -> dict:
+    """One rank of a two-rank world (:func:`horovod_tpu_torch.run.run`):
+    ``hvd.init(SPLIT_GROUPS)``, the model from ``state`` (a state dict;
+    None: ``init_params(config, seed)``), then every case through the
+    split engine. Returns ``{case name: serve_case's result}``."""
+    import faulthandler
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import transformer
+    from horovod_tpu_torch.serving import Engine
+
+    # A rank still here after SPLIT_HANG_DUMP_S prints every thread's
+    # stack: a transfer that hangs says where.
+    faulthandler.dump_traceback_later(SPLIT_HANG_DUMP_S)
+    hvd.init(SPLIT_GROUPS, device="cpu" if device == "cpu" else None)
+    dev = hvd.device()
+    if state is None:
+        model = transformer.init_params(config, seed=seed, device=dev)
+    else:
+        model = transformer.Transformer(config).to(dev)
+        model.load_state_dict(state)
+    results = {}
+    for case in cases:
+        groups = case.get("groups", (1, 2))
+
+        def make(**kw):
+            return Engine(config, model, prefill_group=groups[0],
+                          decode_group=groups[1], device=dev, **kw)
+        results[case["name"]] = serve_case(make, case, os.path.join(
+            workdir, f"{case['name']}.split.journal.json"))
+    faulthandler.cancel_dump_traceback_later()
+    return results
+
+
+def unsplit_case(config, model, case: dict, workdir: str, device) -> dict:
+    """The same case through the unsplit engine, in this process."""
+    from horovod_tpu_torch.serving import Engine
+
+    def make(**kw):
+        return Engine(config, model, device=device, **kw)
+    return serve_case(make, case, os.path.join(
+        workdir, f"{case['name']}.serve.journal.json"))
+
+
+def split_cases(config, block_size: int = 16, smoke: bool = False) -> list:
+    """``--split``'s cases at ``config``: four requests that share a
+    two-block prefix, served in two rounds with the prefix cache (timed),
+    the same under ``int8_block``, the same with the decode rank
+    forgetting what the prefill rank holds between the rounds (so the
+    second round ships the prefix's pages), and the journaled recovery."""
+    rng = np.random.default_rng(0)
+    lens = (6, 9, 12, 15) if smoke else (96, 160, 224, 288)
+    shared = rng.integers(0, config.vocab_size, 2 * block_size)
+    prompts = [np.concatenate([shared, rng.integers(
+        0, config.vocab_size, n)]).astype(np.int32).tolist() for n in lens]
+    new = 8 if smoke else 64
+    base = dict(block_size=block_size, max_batch=4,
+                max_prompt_len=max(map(len, prompts)) + new)
+    return [
+        dict(name="prefix", engine=dict(base, prefix_cache=True),
+             prompts=prompts, batches=2, max_new=new, timed=True),
+        dict(name="int8_block", engine=dict(base, prefix_cache=True,
+                                            kv_dtype="int8_block"),
+             prompts=prompts, batches=2, max_new=new),
+        dict(name="ship", engine=dict(base, prefix_cache=True),
+             prompts=prompts, batches=2, max_new=new, forget=True),
+        dict(name="recover", engine=base, prompts=prompts, max_new=new,
+             interrupt=3),
+    ]
+
+
+def bench_split(config, cases: list, device: str = "cuda",
+                seed: int = 0) -> dict:
+    """The split over two ranks (two GPUs, or two gloo ranks with
+    ``device='cpu'``) against the unsplit engine in this process on the
+    same weights (``init_params(config, seed)``): per case, whether every
+    request's output equals, the bytes moved per admission, and for the
+    timed cases prefill and decode tokens/s of both."""
+    import tempfile
+
+    from horovod_tpu_torch.models import transformer
+    from horovod_tpu_torch.run import run
+
+    with tempfile.TemporaryDirectory(prefix="serve_split_") as workdir:
+        ranks = run(split_rank, 2, device=device,
+                    args=(config, None, cases, workdir, device, seed),
+                    timeout=1200)
+        dev = torch.device("cuda", 0) if device != "cpu" else "cpu"
+        model = transformer.init_params(config, seed=seed, device=dev)
+        rows = {}
+        for case in cases:
+            ref = unsplit_case(config, model, case, workdir, dev)
+            pre, dec = ranks[0][case["name"]], ranks[1][case["name"]]
+            sp = dec["split"]
+            row = {"equal": dec["outputs"] == ref["outputs"],
+                   "requests": len(ref["outputs"]),
+                   "admissions": sp["admissions"],
+                   "bytes_per_admission": (sp["bytes_sent"]
+                                           + sp["bytes_received"])
+                   / max(1, sp["admissions"]),
+                   "pages_shipped": sp["pages_shipped"],
+                   "pages_written": sp["pages_written"],
+                   "prefill_captures": pre["captures"],
+                   "decode_captures": dec["captures"]}
+            if case.get("timed"):
+                row.update({f"split_{k}": dec[k] for k in (
+                    "prefill_tokens_per_sec", "decode_tokens_per_sec")})
+                row.update({f"unsplit_{k}": ref[k] for k in (
+                    "prefill_tokens_per_sec", "decode_tokens_per_sec")})
+            rows[case["name"]] = row
+    return rows
+
+
 def warm_engine(engine) -> None:
     """Serve one throwaway request so the first request of a measured load
     pays no one-time cost (allocator growth, library handles)."""
@@ -497,7 +841,10 @@ def card_identity() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def main() -> None:
+def parse_args(argv=None):
+    """The command line, validated: a malformed ``--fault`` spec refuses
+    here, before anything runs; a valid one is armed
+    (``HOROVOD_FAULT_INJECT``, the injector re-read)."""
     from horovod_tpu_torch.serving.kv_cache import KV_DTYPES
 
     parser = argparse.ArgumentParser(description=__doc__)
@@ -511,6 +858,17 @@ def main() -> None:
     parser.add_argument("--arrival-rate", type=positive_rate, default=4.0,
                         help="open-loop Poisson arrival rate, requests/s")
     parser.add_argument("--num-requests", type=int, default=16)
+    parser.add_argument("--max-requests", type=positive_count, default=None,
+                        help="hard cap on the load's requests (a positive "
+                             "whole number)")
+    parser.add_argument("--duration", type=positive_duration, default=None,
+                        help="truncate the open-loop trace to arrivals "
+                             "within this many seconds")
+    parser.add_argument("--fault", default=None,
+                        help="fault spec for HOROVOD_FAULT_INJECT "
+                             "(core/resilience.py grammar, e.g. "
+                             "'stuck_decode@step=3,ms=9000'), parsed first "
+                             "so that a malformed spec refuses")
     parser.add_argument("--max-batch", type=int, default=8)
     parser.add_argument("--block-size", type=int, default=16)
     parser.add_argument("--prompt-range", type=int, nargs=2,
@@ -528,16 +886,35 @@ def main() -> None:
     parser.add_argument("--speculate", type=int, default=0, metavar="K",
                         help="also measure B=1 speculative decoding at draft "
                              "length K with the distilled pair (0 = off)")
-    args = parser.parse_args()
+    parser.add_argument("--split", action="store_true",
+                        help="only the prefill/decode split: two ranks "
+                             "(two GPUs, or gloo with --device cpu) against "
+                             "the unsplit engine")
+    args = parser.parse_args(argv)
     if 0 < args.shared_prefix_len < args.block_size:
         raise SystemExit(
             f"--shared-prefix-len {args.shared_prefix_len} is shorter "
             f"than one block (--block-size {args.block_size}): a prefix "
             f"shares as full blocks only. Use 0 (off) or >= block_size.")
+    if args.max_requests is not None:
+        args.num_requests = min(args.num_requests, args.max_requests)
+    if args.fault is not None:
+        from horovod_tpu_torch.analysis import protocol
+        from horovod_tpu_torch.core import resilience
+
+        protocol.parse_fault_spec(args.fault)  # a malformed spec refuses
+        os.environ["HOROVOD_FAULT_INJECT"] = args.fault
+        resilience.reset_injector()
+    return args
+
+
+def main(argv=None) -> int:
+    import tempfile
 
     from horovod_tpu_torch.models import transformer
     from horovod_tpu_torch.serving import Engine
 
+    args = parse_args(argv)
     if args.smoke:
         cfg = tiny_config(max_seq_len=max(64, args.shared_prefix_len + 32))
         prange, orange = args.prompt_range or (4, 12), args.output_range or (4, 16)
@@ -545,13 +922,35 @@ def main() -> None:
         cfg = lm_config(args.layers)
         prange = args.prompt_range or (128, 512)
         orange = args.output_range or (32, 128)
+    card = card_identity() if args.device != "cpu" else None
+    if args.split:
+        cases = split_cases(cfg, args.block_size, args.smoke)
+        rows = bench_split(cfg, cases, device=args.device, seed=args.seed)
+        print(json.dumps({"metric": "serve_bench_torch_split",
+                          "device": args.device, "layers": cfg.num_layers,
+                          "card": card, "cases": rows}))
+        shipped = all(rows[c["name"]]["pages_shipped"] > 0
+                      for c in cases if c.get("forget"))
+        return 0 if shipped and all(
+            r["equal"] for r in rows.values()) else 1
+    workload = sample_workload(
+        args.num_requests, args.arrival_rate, prompt_range=prange,
+        output_range=orange, vocab=cfg.vocab_size, seed=args.seed,
+        shared_prefix_len=args.shared_prefix_len)
+    if args.duration is not None:
+        workload = [w for w in workload if w["arrival"] <= args.duration]
+        if not workload:
+            raise SystemExit(
+                f"--duration {args.duration}s truncates the trace to zero "
+                f"arrivals at --arrival-rate {args.arrival_rate}/s — "
+                f"nothing to measure")
     params = transformer.init_params(cfg, seed=args.seed, device=args.device)
     kvd = None if args.kv_dtype == "model" else args.kv_dtype
     result = {"metric": "serve_bench_torch", "device": args.device,
               "layers": cfg.num_layers, "arrival_rate_per_sec":
               args.arrival_rate}
-    if args.device != "cpu":
-        result["card"] = card_identity()
+    if card is not None:
+        result["card"] = card
     steps, dprompt = ((4, 8) if args.smoke
                       else (DECODE_STEPS, DECODE_PROMPT))
     for b in args.decode_batches:
@@ -596,10 +995,6 @@ def main() -> None:
     warm_engine(engine)
     if args.device != "cpu":
         torch.cuda.reset_peak_memory_stats()
-    workload = sample_workload(
-        args.num_requests, args.arrival_rate, prompt_range=prange,
-        output_range=orange, vocab=cfg.vocab_size, seed=args.seed,
-        shared_prefix_len=args.shared_prefix_len)
     # Twice the arrivals' span and five minutes: a load the engine keeps up
     # with ends well inside it, and a run that falls behind without end
     # stops.
@@ -607,8 +1002,25 @@ def main() -> None:
         2 * workload[-1]["arrival"] + 300)))
     if args.device != "cpu":
         result["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del engine
     print(json.dumps(result))
+
+    with tempfile.TemporaryDirectory(prefix="serve_bench_") as td:
+        rec = bench_recovery(cfg, params,
+                             os.path.join(td, "serve_bench.journal.json"),
+                             block_size=args.block_size, kv_dtype=kvd,
+                             seed=args.seed, device=args.device)
+    print(json.dumps({"metric": "serve_bench_torch_recovery",
+                      "serve_recovery_ms": rec["serve_recovery_ms"],
+                      "bit_identical": rec["bit_identical"],
+                      "recovered": rec["recovered"], "card": card}))
+    if not rec["bit_identical"]:
+        raise SystemExit(
+            "serve_bench_recovery: journal replay produced outputs that "
+            "differ from the uninterrupted run — recovery is not "
+            "bit-identical")
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())
