@@ -404,17 +404,34 @@ Phases, one line of output each:
     side (prefill: ``prefill``, ``first``; decode: ``decode``), the bytes
     per admission printed.
 
+26. the gradient exchange overlapped with backward, on the one card:
+    phase 8's LM (full width and depth, B=2, T=8192, bf16, AdamW on A1)
+    through ``Trainer`` under ``schedule="priority"`` at a fusion threshold
+    of ``OVERLAP_THRESHOLD`` bytes, in two arms: the Trainer's step (armed
+    from its second call, so the capture's backward runs the
+    post-accumulate-grad hooks, which issue buckets on the wrapper's
+    exchange stream while backward still owes gradients, forked from the
+    capture stream and joined as backward ends) and the same step with gradients from
+    ``torch.autograd.grad`` (``tools/overlap_torch.py::unoverlapped``: no
+    hook fires). At world 1 the collective is the identity, so this
+    guards the capture: one hook a parameter in the capture and none in
+    the eager first call, buckets issued from backward, the 3 calls'
+    losses and the parameters' CRC equal between the arms bit for bit, a
+    replay launching B3 and B4 8 times and A1 once, within
+    ``OVERLAP_BUDGET_S`` seconds.
+
 Each main path (5, 8 and 10, each example of 14, each run of 17, each
 arm of 18, of 19 (b), of 20, of 22 (a) and (b), of 23 (a) and (b), of 24
-(a) and phase 25) runs with its kernels' launch counts set
-to 0 just before it and read just after; the kernels line's
+(a), phase 25 and each arm of 26) runs with its kernels' launch counts
+set to 0 just before it and read just after; the kernels line's
 ``launches`` are phases 5 and 8's counts (the eager step and the 9
 replays), ``launches_phase18``, ``launches_phase19`` and
 ``launches_phase20`` each arm's count in phases 18, 19 and 20, and
 ``launches_phase21`` the launches the device timeline of phase 21 (d)
 shows in its 3 sampled calls, ``launches_phase22`` each arm's count in
 phase 22 (a) and (b), ``launches_phase23`` each fit's count in phase
-23 (a) and (b), and ``launches_phase24`` each arm's count in phase 24 (a).
+23 (a) and (b), ``launches_phase24`` each arm's count in phase 24 (a),
+and ``launches_phase26`` each arm's count over phase 26's 3 calls.
 Then a JSON line with each kernel's
 record, and last the result line ``{"ok": true, "device": {...}}``. Any failed phase raises: the script then
 exits non-zero and prints no result. It also fails without CUDA, and when
@@ -475,6 +492,7 @@ from horovod_tpu_torch.training.callbacks import (Callback,
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "tools"))
 import serve_bench_torch  # noqa: E402  (tools/serve_bench_torch.py)
+import overlap_torch  # noqa: E402  (tools/overlap_torch.py)
 import profile_torch_step  # noqa: E402  (tools/profile_torch_step.py)
 
 SEED = 0
@@ -6570,6 +6588,127 @@ def serve_split_line(ss: dict, ident: str) -> str:
         f"launched; phase {ss['seconds']:.1f} s, on {ident}")
 
 
+# -- the exchange overlapped with backward (phase 26) -------------------------
+
+OVERLAP_CALLS = 3                 # the eager call, the capture, one replay
+OVERLAP_THRESHOLD = 16 << 20      # bytes: the LM's gradients in ~20 buckets
+OVERLAP_BUDGET_S = 45.0
+
+
+def overlap_arm(model, init, cfg, tokens, arm: str) -> dict:
+    """Phase 8's LM (``model``, from the weights ``init``) through
+    ``Trainer`` under ``schedule="priority"``: ``armed`` is the Trainer's
+    own step (armed from its second call, the capture), ``unarmed`` the
+    same step with gradients from ``torch.autograd.grad``
+    (``overlap_torch.unoverlapped``: no hook fires, so ``step()`` issues
+    every bucket after backward)."""
+    with torch.no_grad():
+        for p, t in zip(model.parameters(), init):
+            p.copy_(t)
+            p.grad = None
+    opt = hvd.DistributedOptimizer(
+        AdamW(model.parameters(), 3e-4, weight_decay=0.1),
+        schedule="priority", fusion_threshold=OVERLAP_THRESHOLD)
+    trainer = hvd.Trainer(model, transformer.make_loss_fn(cfg,
+                                                          fused_head=True),
+                          opt)
+    run = (trainer.train_step if arm == "armed"
+           else overlap_torch.unoverlapped(trainer))
+    reset_launch_counts()
+    losses, hooks, per_call = [], [], []
+    for _ in range(OVERLAP_CALLS):
+        before = (launch_counts(), opt.hooks_fired, opt.buckets_in_backward)
+        out = run(tokens)
+        losses.append((out[0] if isinstance(out, tuple) else out).clone())
+        hooks.append((opt.hooks_fired - before[1],
+                      opt.buckets_in_backward - before[2]))
+        per_call.append({k: v - before[0].get(k, 0)
+                         for k, v in launch_counts().items() if v})
+    torch.cuda.synchronize()
+    got = {"losses": [_bits(v).cpu() for v in losses],
+           "loss_values": [float(v) for v in losses],
+           "crc": overlap_torch.param_crc(model),
+           "params": sum(1 for p in model.parameters() if p.requires_grad),
+           "hooks": hooks, "replay_launches": per_call[-1],
+           "launches": {k: v for k, v in launch_counts().items() if v},
+           "buckets": len(opt._allreduce.plan.buckets)}
+    del opt, trainer, run
+    free_cuda()
+    return got
+
+
+def phase_overlap(device) -> dict:
+    """Phase 26: the armed step's capture on one card. At world 1 the
+    collective is the identity, so what this guards is the capture: the
+    exchange stream (made in the capture, at the first armed step) forks
+    from the capture stream in the hooks and joins it as backward ends;
+    the replays' losses and parameters equal the unarmed
+    arm's bit for bit after 3 calls; a replay still launches B3 and B4 8
+    times and A1 once."""
+    t0 = time.perf_counter()
+    cfg = lm_config(torch.bfloat16)
+    tokens = transformer.synthetic_tokens(LM_BATCH, LM_T, cfg.vocab_size,
+                                          seed=SEED, device=device)
+    model = transformer.init_params(cfg, seed=SEED, device=device)
+    init = [p.detach().clone() for p in model.parameters()]
+    arms = {arm: overlap_arm(model, init, cfg, tokens, arm)
+            for arm in ("armed", "unarmed")}
+    del model, init
+    free_cuda()
+    armed, unarmed = arms["armed"], arms["unarmed"]
+    # The eager first call has no .grad to arm on; the capture is armed.
+    if armed["hooks"][0] != (0, 0) or armed["hooks"][1][0] != armed["params"]:
+        raise RuntimeError(
+            f"phase 26: hooks a call {armed['hooks']}, expected none in the "
+            f"eager call and {armed['params']} (one a parameter) in the "
+            f"capture")
+    if armed["hooks"][1][1] < 1:
+        raise RuntimeError(
+            f"phase 26: the capture issued no bucket from backward; under "
+            f"priority the last layers' buckets go out during backward")
+    if any(h != (0, 0) for h in unarmed["hooks"]):
+        raise RuntimeError(f"phase 26: the unarmed arm took hooks "
+                           f"{unarmed['hooks']}")
+    same = all(torch.equal(a, b) for a, b in zip(armed["losses"],
+                                                 unarmed["losses"]))
+    if not same or armed["crc"] != unarmed["crc"]:
+        raise RuntimeError(
+            f"phase 26: the armed capture differs from the unarmed one: "
+            f"losses {armed['loss_values']} vs {unarmed['loss_values']}, "
+            f"parameter CRCs {armed['crc']:08x} vs {unarmed['crc']:08x}")
+    for arm, r in arms.items():
+        if r["replay_launches"] != REPLAY_COUNTS["lm"]:
+            raise RuntimeError(
+                f"phase 26 {arm}: a replay launched {r['replay_launches']}, "
+                f"expected {REPLAY_COUNTS['lm']}")
+    seconds = time.perf_counter() - t0
+    if seconds > OVERLAP_BUDGET_S:
+        raise RuntimeError(f"phase 26 took {seconds:.1f} s, over its "
+                           f"{OVERLAP_BUDGET_S:.0f}-s budget")
+    return {"arms": arms, "seconds": seconds}
+
+
+def overlap_line(ov: dict, ident: str) -> str:
+    a, u = ov["arms"]["armed"], ov["arms"]["unarmed"]
+    return (
+        f"phase 26 overlap: ok; phase 8's LM ({LM_LAYERS} layers, B="
+        f"{LM_BATCH} T={LM_T}, bf16, AdamW on A1) through Trainer under "
+        f"schedule=priority, fusion threshold {OVERLAP_THRESHOLD} bytes "
+        f"({a['buckets']} buckets), world 1: the capture's defining pass "
+        f"took {a['hooks'][1][0]} hooks (one a parameter) and issued "
+        f"{a['hooks'][1][1]} buckets from backward (the exchange stream "
+        f"while gradients were still owed) "
+        f"(the eager first call, with no .grad yet, none); after "
+        f"{OVERLAP_CALLS} calls the losses "
+        + ", ".join(f"{v:.6f}" for v in a["loss_values"])
+        + f" and the parameter CRC {a['crc']:08x} equal the unarmed "
+        f"arm's (torch.autograd.grad, no hook) bit for bit; a replay "
+        f"launches {a['replay_launches']} in both arms; launches over the "
+        f"{OVERLAP_CALLS} calls: armed {a['launches']}, unarmed "
+        f"{u['launches']}; phase {ov['seconds']:.1f} s (budget "
+        f"{OVERLAP_BUDGET_S:.0f} s), on {ident}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -6886,6 +7025,15 @@ def main() -> int:
     ss = phase_serve_split(device)
     say(serve_split_line(ss, ident) + f"; total "
         f"{time.perf_counter() - t_start:.0f} s")
+
+    ov = phase_overlap(device)
+    say(overlap_line(ov, ident) + f"; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+    for k in kernels:
+        if k["name"] in REPLAY_COUNTS["lm"]:
+            k["launches_phase26"] = {
+                arm: r["launches"][k["name"]]
+                for arm, r in ov["arms"].items()}
 
     say(json.dumps({"kernels": kernels}))
     hvd.shutdown()

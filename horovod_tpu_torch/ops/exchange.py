@@ -7,8 +7,11 @@ a captured step replays them in that order.
 
 **Priority ordering**: backward produces gradients in reverse layer order,
 so issuing buckets in *reverse enumeration* order lets each bucket's
-collective start while the rest of the backward pass is still computing
-(once the exchange overlaps backward). An optional ``priority_fn(label,
+collective start while the rest of the backward pass is still computing:
+``DistributedOptimizer``'s armed step issues each bucket from backward
+once its gradients are accumulated and the buckets before it have gone
+(``parallel/optimizer.py``), so under ``enum`` the first layers' bucket,
+ready last, holds every bucket to the end of backward. An optional ``priority_fn(label,
 index) -> key`` re-ranks the gradients (lower key = issued earlier; ties
 keep reverse enumeration). Pure and deterministic: identical on every
 rank for identical shapes.

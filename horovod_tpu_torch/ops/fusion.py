@@ -9,7 +9,9 @@ threshold of 0 gives every tensor its own bucket. The whole-step planner
 resizes the buckets, and :func:`fused_apply_` issues a plan's buckets in
 the plan's order. Each bucket is packed into one flat buffer
 (``MEMCPY_IN_FUSION_BUFFER``), reduced by ONE collective, and unpacked
-(``MEMCPY_OUT_FUSION_BUFFER``).
+(``MEMCPY_OUT_FUSION_BUFFER``): :func:`apply_bucket_` is that step for one
+bucket, which the overlapped exchange (``parallel/optimizer.py``) issues
+from backward one bucket at a time.
 
 Wire compression and the decomposition annotate a bucket (its wire dtype,
 its algorithm, its channel count, and the per-phase wire of a
@@ -341,15 +343,10 @@ def plan_buckets_py(leaves: Sequence[torch.Tensor],
     return buckets
 
 
-def fused_apply_(leaves: Sequence[torch.Tensor], schedule,
-                 collective: Callable[[torch.Tensor, int], torch.Tensor],
-                 names: Sequence[str]) -> None:
-    """Run ``collective(flat, b) -> flat`` once per bucket of ``schedule``
-    (an :class:`~horovod_tpu_torch.ops.exchange.ExchangeSchedule`), ``b``
-    its issue position, in the schedule's order, and write the results
-    back into ``leaves`` in place. ``names[b]`` labels bucket ``b`` on the
-    timeline, whose SCHEDULE activity (row ``_fusion_buffer``) records the
-    plan's hash and mode and each bucket, as the reference's does."""
+def record_schedule(schedule) -> None:
+    """Write ``schedule``'s SCHEDULE activity on the timeline (row
+    ``_fusion_buffer``): the plan's hash and mode and each bucket, as the
+    reference's does; once a step, before its buckets."""
     tl = _tl.session()
     if tl.active:
         tl.start_activity("_fusion_buffer", "SCHEDULE")
@@ -358,21 +355,41 @@ def fused_apply_(leaves: Sequence[torch.Tensor], schedule,
         for bucket in schedule.buckets:
             tl.event("_fusion_buffer", bucket.describe(), "X")
         tl.end_activity("_fusion_buffer", "SCHEDULE")
+
+
+def apply_bucket_(leaves: Sequence[torch.Tensor], bucket: Bucket,
+                  collective: Callable[[torch.Tensor], torch.Tensor],
+                  name: str) -> None:
+    """One bucket's step: its members of ``leaves`` packed into one flat
+    buffer, ``collective(flat) -> flat``, and the result written back
+    into them in place."""
+    with _tl.activity(name, "MEMCPY_IN_FUSION_BUFFER"):
+        if len(bucket.indices) == 1:
+            flat = leaves[bucket.indices[0]].reshape(-1).clone()
+        else:
+            flat = torch.cat([leaves[i].reshape(-1) for i in bucket.indices])
+    flat = collective(flat)
+    with _tl.activity(name, "MEMCPY_OUT_FUSION_BUFFER"):
+        offset = 0
+        for i in bucket.indices:
+            n = leaves[i].numel()
+            leaves[i].copy_(flat[offset: offset + n].view_as(leaves[i]))
+            offset += n
+
+
+def fused_apply_(leaves: Sequence[torch.Tensor], schedule,
+                 collective: Callable[[torch.Tensor, int], torch.Tensor],
+                 names: Sequence[str]) -> None:
+    """Run ``collective(flat, b) -> flat`` once per bucket of ``schedule``
+    (an :class:`~horovod_tpu_torch.ops.exchange.ExchangeSchedule`), ``b``
+    its issue position, in the schedule's order, and write the results
+    back into ``leaves`` in place. ``names[b]`` labels bucket ``b`` on the
+    timeline, after the schedule's SCHEDULE activity
+    (:func:`record_schedule`)."""
+    record_schedule(schedule)
     for b, bucket in enumerate(schedule.buckets):
-        name = names[b]
-        with _tl.activity(name, "MEMCPY_IN_FUSION_BUFFER"):
-            if len(bucket.indices) == 1:
-                flat = leaves[bucket.indices[0]].reshape(-1).clone()
-            else:
-                flat = torch.cat([leaves[i].reshape(-1)
-                                  for i in bucket.indices])
-        flat = collective(flat, b)
-        with _tl.activity(name, "MEMCPY_OUT_FUSION_BUFFER"):
-            offset = 0
-            for i in bucket.indices:
-                n = leaves[i].numel()
-                leaves[i].copy_(flat[offset: offset + n].view_as(leaves[i]))
-                offset += n
+        apply_bucket_(leaves, bucket,
+                      lambda flat, b=b: collective(flat, b), names[b])
 
 
 def fused_tree_apply(tree, collective: Callable[[torch.Tensor],

@@ -18,7 +18,33 @@ the program's one schedule validation checks across the ranks, as the JAX
 package validates once per trace. Each gradient exchange registers its
 plan: ``exchange.last_plan()`` is the most recent one.
 :func:`broadcast_variables` syncs parameters, buffers and optimizer state
-from a root rank. Overlapping the allreduce with backward is not done yet.
+from a root rank.
+
+The exchange overlaps backward, as the reference's background thread does
+(its replicated path only). ``zero_grad(set_to_none=False)``, when every
+parameter that requires a gradient already holds a dense one (the
+Trainer's step from its second call), arms the step: the plan is built,
+registered and negotiated there, on the calling thread and inside the
+program's context. Each parameter's post-accumulate-grad hook then marks
+its gradient ready, and a bucket is issued as soon as all its members are
+ready and every bucket before it in the plan's order has been issued:
+the wire order is the plan's on every rank, whatever order autograd fires
+the hooks in, and the results are bit for bit those of the exchange
+after backward. When the backward pass ends, what is left is issued and
+waited for, so ``.grad`` holds the averaged gradients when ``backward()``
+returns, for whatever reads them before ``step()``; a second backward
+pass before ``step()`` raises. On the card a bucket issued while backward
+still owes gradients runs on an exchange stream of the wrapper's, which
+forks from the backward stream at each such bucket and joins the stream
+that called ``backward()`` as that pass ends (inside a captured step:
+before the capture ends); the buckets issued once every gradient is in
+run on the calling stream, as the exchange after backward does. Under the
+``enum`` plan the first layers' bucket, whose gradients come last, is
+issued first, so everything still goes out at the end of backward;
+``schedule="priority"`` (reverse-layer issue order) is what overlaps. A
+first step (no ``.grad`` yet), ``zero_grad()`` with ``set_to_none=True``,
+a COO gradient and a group family stay unarmed and exchange after
+backward, in ``synchronize()``; so do the sharded modes.
 
 The exchange's knobs are the reference's, each resolved as there
 (argument, then its environment default, then off): ``compression``
@@ -47,7 +73,9 @@ eagerly only: inside a captured step program it raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
+import weakref
 from typing import Mapping
 
 import torch
@@ -260,6 +288,21 @@ class FusedAllreduce:
         """The buckets of ``tensors``' plan, in issue order."""
         return list(self.plan_of(tensors).buckets)
 
+    def exchange(self, tensors, residuals=None,
+                 compression_key=None) -> "_Exchange | None":
+        """``tensors``' exchange planned, registered and negotiated (one
+        group, not a family): an :class:`_Exchange` whose buckets then
+        issue one at a time, moving data only; None where nothing moves
+        (this rank outside the group). ``residuals`` and
+        ``compression_key`` as in :meth:`__call__`."""
+        g = self._group()
+        sched, names, wire, restricted = self._plan(tensors, g)
+        _refuse_residuals(residuals, restricted)
+        if g.pg is None:
+            return None
+        return _Exchange(self, g, sched, names, wire, residuals,
+                         compression_key)
+
     def __call__(self, tensors: list[torch.Tensor], residuals=None,
                  compression_key=None) -> list[torch.Tensor]:
         """Reduce ``tensors`` in place. ``residuals`` (error feedback): one
@@ -270,20 +313,14 @@ class FusedAllreduce:
         if not tensors:
             return tensors
         g = self._group()
-        if g is None and _ctx.current() is None:
-            raise HorovodError(
-                "Group-family allreduce is only available inside hvd.spmd "
-                "traced code; eagerly, issue one allreduce per group.")
-        sched, names, (comp, cross_spec, topo), restricted = self._plan(
-            tensors, g)
-        buckets = sched.buckets
-        if residuals is not None and restricted:
-            raise HorovodError(
-                "error_residual requires the full-axis single group: a "
-                "subset-group or group-family exchange masks non-member "
-                "contributions, which would corrupt the residual algebra. "
-                "Use group=0 (the global group) or drop error feedback.")
         if g is None:
+            if _ctx.current() is None:
+                raise HorovodError(
+                    "Group-family allreduce is only available inside "
+                    "hvd.spmd traced code; eagerly, issue one allreduce "
+                    "per group.")
+            sched, names, (comp, _, _), restricted = self._plan(tensors, g)
+            _refuse_residuals(residuals, restricted)
             # Each bucket is one family allreduce: it reduces on this
             # rank's family group (a rank in none keeps its values) and
             # refuses compression with the reference's text. Its name is
@@ -295,51 +332,92 @@ class FusedAllreduce:
                     members=sched.members[b], compression=comp),
                 names)
             return tensors
-        if g.pg is None:
-            return tensors
-
-        def reduce(flat, b):
-            bk = buckets[b]
-            members = sched.members[b]
-            with _tl.activity(names[b], "ALLREDUCE"):
-                if comp is None and cross_spec is None \
-                        and bk.algo == "flat" and bk.channels == 1:
-                    _compression.record_local(None)
-                    out = _coll.sum_into(flat, g)
-                else:
-                    out = _coll.compressed_sum(
-                        flat, g, comp, compression_key, names[b], members,
-                        algo=bk.algo, topo=topo, cross_spec=cross_spec,
-                        channels=bk.channels)
-            return _coll.divide_avg(out, g.size) if self.average else out
-
-        if residuals is None:
-            _fusion.fused_apply_(tensors, sched, reduce, names)
-            return tensors
-
-        def reduce_keeping_residuals(flat, b):
-            with _compression.collect_local_contributions() as sink:
-                out = reduce(flat, b)
-            local = sink[0]
-            # The residual is computed before the reduced value replaces
-            # the contribution: the compressed lowerings leave ``flat``
-            # as it was.
-            resid = None if local is None else local.residual(flat)
-            offset = 0
-            for i in buckets[b].indices:
-                n = tensors[i].numel()
-                r = residuals[i]
-                if r is not None:
-                    if resid is None:
-                        r.zero_()
-                    else:
-                        r.copy_(resid[offset:offset + n].view_as(r))
-                offset += n
-            return out
-
-        _fusion.fused_apply_(tensors, sched, reduce_keeping_residuals,
-                             names)
+        ex = self.exchange(tensors, residuals, compression_key)
+        if ex is not None:
+            _fusion.record_schedule(ex.sched)
+            for b in range(len(ex.sched.buckets)):
+                ex.issue(tensors, b)
         return tensors
+
+
+def _refuse_residuals(residuals, restricted: bool) -> None:
+    if residuals is not None and restricted:
+        raise HorovodError(
+            "error_residual requires the full-axis single group: a "
+            "subset-group or group-family exchange masks non-member "
+            "contributions, which would corrupt the residual algebra. "
+            "Use group=0 (the global group) or drop error feedback.")
+
+
+class _Exchange:
+    """One exchange of a :class:`FusedAllreduce` over one group, planned,
+    registered and negotiated: :meth:`issue` packs, reduces and unpacks
+    one bucket, moving data only, so a caller may issue the buckets one at
+    a time (in the plan's order, ``sched.buckets``) while backward still
+    runs."""
+
+    def __init__(self, fused: FusedAllreduce, g: _state.Group, sched,
+                 names, wire, residuals, compression_key) -> None:
+        self.fused = fused
+        self.g = g
+        self.sched = sched
+        self.names = names
+        self.comp, self.cross_spec, self.topo = wire
+        self.residuals = residuals
+        self.key = compression_key
+
+    def _reduce(self, flat: torch.Tensor, b: int) -> torch.Tensor:
+        bk = self.sched.buckets[b]
+        name = self.names[b]
+        with _tl.activity(name, "ALLREDUCE"):
+            if self.comp is None and self.cross_spec is None \
+                    and bk.algo == "flat" and bk.channels == 1:
+                _compression.record_local(None)
+                out = _coll.sum_into(flat, self.g)
+            else:
+                out = _coll.compressed_sum(
+                    flat, self.g, self.comp, self.key, name,
+                    self.sched.members[b], algo=bk.algo, topo=self.topo,
+                    cross_spec=self.cross_spec, channels=bk.channels)
+        return (_coll.divide_avg(out, self.g.size) if self.fused.average
+                else out)
+
+    def _reduce_keeping_residuals(self, tensors, flat: torch.Tensor,
+                                  b: int) -> torch.Tensor:
+        with _compression.collect_local_contributions() as sink:
+            out = self._reduce(flat, b)
+        local = sink[0]
+        # The residual is computed before the reduced value replaces the
+        # contribution: the compressed lowerings leave ``flat`` as it was.
+        resid = None if local is None else local.residual(flat)
+        offset = 0
+        for i in self.sched.buckets[b].indices:
+            n = tensors[i].numel()
+            r = self.residuals[i]
+            if r is not None:
+                if resid is None:
+                    r.zero_()
+                else:
+                    r.copy_(resid[offset:offset + n].view_as(r))
+            offset += n
+        return out
+
+    def issue(self, tensors, b: int) -> None:
+        """Bucket ``b`` of ``tensors`` (the exchange's signature) reduced
+        in place: pack, reduce, unpack. With error feedback the members'
+        residuals are added first: ``grad + residual`` is what is
+        compressed."""
+        if self.residuals is None:
+            fn = functools.partial(self._reduce, b=b)
+        else:
+            for i in self.sched.buckets[b].indices:
+                r = self.residuals[i]
+                if r is not None:
+                    tensors[i].add_(r.to(tensors[i].dtype))
+            fn = functools.partial(self._reduce_keeping_residuals, tensors,
+                                   b=b)
+        _fusion.apply_bucket_(tensors, self.sched.buckets[b], fn,
+                              self.names[b])
 
 
 def _restricted_group(group) -> bool:
@@ -445,7 +523,6 @@ def allreduce_gradients(grads: list, group: int = 0, average: bool = True,
         for i in dense:
             r = new_resid[i]
             if r is not None and grads[i].dtype.is_floating_point:
-                grads[i].add_(error_residual[i].to(grads[i].dtype))
                 outs.append(r)
             else:
                 if r is not None:
@@ -461,11 +538,147 @@ def allreduce_gradients(grads: list, group: int = 0, average: bool = True,
     return grads if error_residual is None else (grads, new_resid)
 
 
+class _Overlap:
+    """One armed step of a :class:`_DistributedOptimizer`: the exchange of
+    ``params``' gradients (an :class:`_Exchange`, planned, registered and
+    negotiated when the step was armed), whose buckets are issued from
+    backward. A parameter's post-accumulate-grad hook calls
+    :meth:`accumulated`; a bucket is issued once all its members'
+    gradients are accumulated and every bucket before it in the plan's
+    order has been issued, so the wire order is the plan's whatever order
+    the hooks fire in. The first hook of a backward pass queues
+    :meth:`finish` on autograd's engine, which runs it when that pass
+    ends: it issues what is left and joins, so ``.grad`` holds the
+    averaged gradients when ``backward()`` returns (as DDP's do), for
+    whatever reads them before ``step()`` (gradient clipping, a scaler's
+    unscale, logging). Where no hook fired (gradients written by
+    ``torch.autograd.grad``), ``step()`` finishes instead.
+
+    On the card a bucket issued while backward still owes gradients of
+    the exchange runs on ``stream`` (the wrapper's exchange stream), after
+    the work the calling stream has queued: a collective on the backward
+    stream would stall backward. Once every gradient is in (the last hook,
+    :meth:`finish`) nothing is left to overlap, and the buckets left run
+    on the calling stream, as an unarmed step's do: a bucket on the
+    exchange stream costs the step time (PERF.md §6). :meth:`finish` runs
+    on the stream that called ``backward()`` and makes it wait for the
+    exchange stream; inside a capture the exchange stream forks from the
+    capture stream and joins it there. ``ctx`` is the program context the
+    step was armed in, made current again for each bucket (autograd runs
+    a CUDA backward on a thread of its own)."""
+
+    def __init__(self, ex: _Exchange, params: list, stream, ctx) -> None:
+        self.ex = ex
+        self.params = params
+        self.stream = stream
+        self.ctx = ctx
+        self.slot = {id(p): i for i, p in enumerate(params)}
+        self.bucket_of = [0] * len(params)
+        for b, bk in enumerate(ex.sched.buckets):
+            for i in bk.indices:
+                self.bucket_of[i] = b
+        self.waiting = [len(bk.indices) for bk in ex.sched.buckets]
+        self.done = [False] * len(params)
+        self.pending = len(params)      # gradients backward still owes
+        self.issued = 0
+        self.forked = False
+        self.queued = False
+        self.finished = False
+
+    def accumulated(self, p) -> int:
+        """``p``'s gradient is accumulated: issue every bucket now ready
+        (the first call of a backward pass queues :meth:`finish` for its
+        end). Returns the buckets issued."""
+        i = self.slot[id(p)]
+        if self.done[i] or self.finished:
+            when = ("twice since zero_grad()" if self.done[i] else
+                    "after the backward pass that finished the exchange")
+            raise HorovodError(
+                f"DistributedOptimizer: the gradient of parameter {i} of "
+                f"the exchange was accumulated {when}. An armed step "
+                f"issues each bucket's allreduce from backward as soon as "
+                f"its gradients are accumulated, and finishes the exchange "
+                f"when backward ends, so a second backward pass would "
+                f"change gradients already on the wire. Call step() (or "
+                f"synchronize()) between backward passes, or "
+                f"zero_grad(set_to_none=True) for a step that exchanges "
+                f"after backward.")
+        if not self.queued:
+            torch.autograd.Variable._execution_engine.queue_callback(
+                self.finish)
+            self.queued = True
+        self.done[i] = True
+        self.pending -= 1
+        self.waiting[self.bucket_of[i]] -= 1
+        return self._issue_ready(everything=False)
+
+    def finish(self) -> None:
+        """Issue the buckets not yet issued, in order, and :meth:`join`;
+        a second call only joins."""
+        self.pending = 0        # backward is over (or never ran)
+        self._issue_ready(everything=True)
+        self.finished = True
+        self.join()
+
+    def join(self) -> None:
+        """Make the calling stream wait for the buckets issued so far."""
+        if self.forked:
+            torch.cuda.current_stream(self.stream.device).wait_stream(
+                self.stream)
+
+    def _issue_ready(self, everything: bool) -> int:
+        start = self.issued
+        n = len(self.waiting)
+        with _ctx.resume(self.ctx):
+            while self.issued < n and (everything
+                                       or self.waiting[self.issued] == 0):
+                self._issue(self.issued)
+                self.issued += 1
+        return self.issued - start
+
+    def _issue(self, b: int) -> None:
+        grads = [p.grad for p in self.params]
+        with torch.no_grad():
+            if self.stream is None or self.pending == 0:
+                self.ex.issue(grads, b)
+                return
+            self.stream.wait_stream(torch.cuda.current_stream(
+                self.stream.device))
+            self.forked = True
+            with torch.cuda.stream(self.stream):
+                self.ex.issue(grads, b)
+
+
+def _remove_hooks(hooks: list) -> None:
+    for h in hooks:
+        h.remove()
+
+
+def _accumulated(ref, p) -> None:
+    """A parameter's post-accumulate-grad hook: ``ref`` is a weak
+    reference to its wrapper, whose armed step (if any) takes it."""
+    opt = ref()
+    if opt is not None and opt._armed is not None:
+        opt.buckets_in_backward += opt._armed.accumulated(p)
+        opt.hooks_fired += 1
+
+
 class _DistributedOptimizer:
     """The wrapper :func:`DistributedOptimizer` returns. ``param_groups``
     and ``state`` are the inner optimizer's, so LR schedules and momentum
     correction act on it directly; with error feedback, ``residual`` maps
-    each float parameter's position to its residual tensor."""
+    each float parameter's position to its residual tensor.
+
+    The overlap: :meth:`zero_grad` with ``set_to_none=False``, when every
+    parameter that requires a gradient already holds a dense one, arms the
+    step (:class:`_Overlap`): the exchange is planned, registered and
+    negotiated there, on the calling thread, each parameter's
+    post-accumulate-grad hook issues the buckets that become ready during
+    backward, and the pass's end issues the rest and waits for them.
+    ``hooks_fired`` and ``buckets_in_backward`` count the hooks
+    that an armed step took and the buckets they issued. Unarmed (a first
+    step, ``set_to_none=True``, a COO gradient, a group family) the step
+    exchanges after backward, in :meth:`synchronize`."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, group: int,
                  average: bool, fusion_threshold: int | None,
@@ -481,6 +694,18 @@ class _DistributedOptimizer:
         self.sparse_algo = sparse_algo
         self.error_feedback = error_feedback
         self.residual: dict[int, torch.Tensor] = {}
+        self._armed: _Overlap | None = None
+        # The exchange stream, made at the first armed step on the card.
+        self._stream = None
+        self.hooks_fired = 0
+        self.buckets_in_backward = 0
+        ref = weakref.ref(self)
+        hooks = [p.register_post_accumulate_grad_hook(
+                     functools.partial(_accumulated, ref))
+                 for p in self._params() if p.requires_grad and p.is_leaf]
+        # The hooks go with the wrapper: wrapping the parameters again
+        # (an elastic rebuild) does not stack them.
+        weakref.finalize(self, _remove_hooks, hooks)
         if error_feedback:
             # Zero on every rank; each then keeps its own residual.
             with torch.no_grad():
@@ -505,21 +730,24 @@ class _DistributedOptimizer:
         (with error feedback, ``grad + residual`` is what is compressed,
         and the residual is updated in place), and a sparse COO one
         (``nn.Embedding(sparse=True)``) through the sparse exchange,
-        replaced by a COO gradient of the merged rows."""
+        replaced by a COO gradient of the merged rows. An armed step
+        whose backward has ended has nothing left to issue; one whose
+        gradients no hook saw (``torch.autograd.grad`` written into
+        ``.grad``) issues every bucket here."""
+        armed, self._armed = self._armed, None
+        if armed is not None:
+            armed.finish()
+            _exchange.register_live_plan(armed.ex.sched)
+            return
         params = [(i, p) for i, p in enumerate(self._params())
                   if p.grad is not None]
         dense = [(i, p) for i, p in params if not p.grad.is_sparse]
         coo = [p for _, p in params if p.grad.is_sparse]
         grads = [p.grad for _, p in dense]
-        if self.error_feedback:
-            residuals = [self.residual.get(i) for i, _ in dense]
-            with torch.no_grad():
-                for g, r in zip(grads, residuals):
-                    if r is not None:
-                        g.add_(r)
-            self._allreduce(grads, residuals=residuals)
-        else:
-            self._allreduce(grads)
+        with torch.no_grad():
+            self._allreduce(grads, residuals=(
+                [self.residual.get(i) for i, _ in dense]
+                if self.error_feedback else None))
         if grads:
             _exchange.register_live_plan(self._allreduce.plan)
         for i, p in enumerate(coo):
@@ -558,7 +786,41 @@ class _DistributedOptimizer:
         return self.optimizer.step(closure)
 
     def zero_grad(self, set_to_none: bool = True) -> None:
+        """The inner optimizer's ``zero_grad``; with ``set_to_none=False``
+        it also arms the step (class docstring). A step armed before and
+        not stepped (its backward raised, or the caller dropped it) is
+        dropped: the buckets it issued are waited for, the rest never
+        go out."""
+        armed, self._armed = self._armed, None
+        if armed is not None:
+            armed.join()
         self.optimizer.zero_grad(set_to_none=set_to_none)
+        if not set_to_none:
+            self._arm()
+
+    def _arm(self) -> None:
+        params = self._params()
+        dense = [(i, p) for i, p in enumerate(params) if p.grad is not None]
+        restricted = _restricted_group(self._allreduce.group)
+        if (not dense or not _coll._is_group_index(self._allreduce.group)
+                or (self.error_feedback and restricted)
+                or any(p.grad.is_sparse for _, p in dense)
+                or any(p.requires_grad and p.grad is None for p in params)):
+            return
+        grads = [p.grad for _, p in dense]
+        residuals = ([self.residual.get(i) for i, _ in dense]
+                     if self.error_feedback else None)
+        ex = self._allreduce.exchange(grads, residuals)
+        if ex is None:
+            return
+        stream = None
+        if grads[0].device.type == "cuda":
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(grads[0].device)
+            stream = self._stream
+        _fusion.record_schedule(ex.sched)
+        self._armed = _Overlap(ex, [p for _, p in dense], stream,
+                               _ctx.current())
 
     def state_dict(self) -> dict:
         """The inner optimizer's ``state_dict`` (what a checkpoint saves);

@@ -11,7 +11,12 @@ reference's ResNet step does after its update.
 The step runs through :func:`~horovod_tpu_torch.parallel.spmd.spmd`, as the
 reference's runs through ``hvd.spmd``: on the card its first call is eager
 and its second is captured as a CUDA graph that every later call replays;
-on the CPU it runs eagerly under a schedule validated once.
+on the CPU it runs eagerly under a schedule validated once. The step
+zeroes the gradients with ``set_to_none=False``, so from its second call
+on the optimizer's step is armed and the gradient exchange overlaps
+backward (``parallel/optimizer.py``; ``schedule="priority"`` is the plan
+whose buckets go out while backward still runs); on the card the capture
+records the exchange stream's fork and join.
 ``steps_per_call=K`` makes the program K steps (the reference's
 ``lax.scan``), and ``fit`` then feeds K batches a call.
 

@@ -50,7 +50,8 @@ def _port_sources():
                     REPO / "tools" / "allreduce_bench_torch.py",
                     REPO / "tools" / "cost_model_torch.py",
                     REPO / "tools" / "hvd_lint_torch.py",
-                    REPO / "tools" / "hvd_model_torch.py"]
+                    REPO / "tools" / "hvd_model_torch.py",
+                    REPO / "tools" / "overlap_torch.py"]
 
 
 def _imported_roots(path):
