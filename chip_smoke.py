@@ -420,10 +420,30 @@ Phases, one line of output each:
     replay launching B3 and B4 8 times and A1 once, within
     ``OVERLAP_BUDGET_S`` seconds.
 
+27. the sharded modes' exchange overlapped with compute, on the one card:
+    phase 8's LM (full width and depth, B=2, T=8192, bf16, AdamW on A1
+    over the shards) through ``Trainer(sharding="zero2"|"zero3")``, each
+    in two arms: the Trainer's step (armed from its second call, the
+    capture: backward's post-accumulate-grad hooks issue each tensor's
+    reduce-scatter in reverse gather order on the wrapper's exchange
+    stream, forked from the capture stream and joined as backward ends;
+    zero3's gathers run on a gather stream forked before the forward,
+    one event a parameter, which the capture stream waits for where the
+    forward first reads the parameter) and the same step with the
+    module's gradients zeroed in place and nothing armed
+    (``tools/overlap_torch.py::unarmed``: no hook, no wait). At world 1
+    every exchange is the identity (zero3's gather a copy), so this
+    guards the capture's forks and joins and the counts:
+    one hook a parameter in the capture and none in the eager first call,
+    units issued from backward, one gather wait a parameter (zero3), the 3
+    calls' losses and the parameters and shards' CRC equal between the
+    arms bit for bit, a replay launching B3 and B4 8 times and A1 once,
+    within ``SHARDED_OVERLAP_BUDGET_S`` seconds.
+
 Each main path (5, 8 and 10, each example of 14, each run of 17, each
 arm of 18, of 19 (b), of 20, of 22 (a) and (b), of 23 (a) and (b), of 24
-(a), phase 25 and each arm of 26) runs with its kernels' launch counts
-set to 0 just before it and read just after; the kernels line's
+(a), phase 25 and each arm of 26 and of 27) runs with its kernels' launch
+counts set to 0 just before it and read just after; the kernels line's
 ``launches`` are phases 5 and 8's counts (the eager step and the 9
 replays), ``launches_phase18``, ``launches_phase19`` and
 ``launches_phase20`` each arm's count in phases 18, 19 and 20, and
@@ -431,7 +451,8 @@ replays), ``launches_phase18``, ``launches_phase19`` and
 shows in its 3 sampled calls, ``launches_phase22`` each arm's count in
 phase 22 (a) and (b), ``launches_phase23`` each fit's count in phase
 23 (a) and (b), ``launches_phase24`` each arm's count in phase 24 (a),
-and ``launches_phase26`` each arm's count over phase 26's 3 calls.
+``launches_phase26`` each arm's count over phase 26's 3 calls, and
+``launches_phase27`` each mode and arm's count over phase 27's 3 calls.
 Then a JSON line with each kernel's
 record, and last the result line ``{"ok": true, "device": {...}}``. Any failed phase raises: the script then
 exits non-zero and prints no result. It also fails without CUDA, and when
@@ -6709,6 +6730,145 @@ def overlap_line(ov: dict, ident: str) -> str:
         f"{OVERLAP_BUDGET_S:.0f} s), on {ident}")
 
 
+# -- the sharded modes' exchange overlapped with compute (phase 27) -----------
+
+SHARDED_OVERLAP_CALLS = 3         # the eager call, the capture, one replay
+SHARDED_OVERLAP_BUDGET_S = 40.0
+SHARDED_OVERLAP_MODES = ("zero2", "zero3")
+
+
+def sharded_overlap_arm(model, init, cfg, tokens, mode: str,
+                        arm: str) -> dict:
+    """Phase 8's LM (``model``, from the weights ``init``) through
+    ``Trainer(sharding=mode)``: ``armed`` is the Trainer's own step (armed
+    from its second call, the capture), ``unarmed`` the same step with
+    nothing armed (``overlap_torch.unarmed``)."""
+    with torch.no_grad():
+        for p, t in zip(model.parameters(), init):
+            p.data = t.clone()      # zero3 released the last arm's
+            p.grad = None
+    trainer = hvd.Trainer(model, transformer.make_loss_fn(cfg,
+                                                          fused_head=True),
+                          AdamW(model.parameters(), 3e-4, weight_decay=0.1),
+                          sharding=mode)
+    opt = trainer.optimizer
+    run = (trainer.train_step if arm == "armed"
+           else overlap_torch.unarmed(trainer))
+    reset_launch_counts()
+    losses, hooks, per_call = [], [], []
+    for _ in range(SHARDED_OVERLAP_CALLS):
+        before = (launch_counts(), opt.hooks_fired, opt.buckets_in_backward,
+                  getattr(opt, "gather_waits", 0))
+        out = run(tokens)
+        losses.append((out[0] if isinstance(out, tuple) else out).clone())
+        hooks.append((opt.hooks_fired - before[1],
+                      opt.buckets_in_backward - before[2],
+                      getattr(opt, "gather_waits", 0) - before[3]))
+        per_call.append({k: v - before[0].get(k, 0)
+                         for k, v in launch_counts().items() if v})
+    torch.cuda.synchronize()
+    got = {"losses": [_bits(v).cpu() for v in losses],
+           "loss_values": [float(v) for v in losses],
+           "crc": overlap_torch.param_crc(model, opt.shards),
+           "params": len(opt.shards), "hooks": hooks,
+           "replay_launches": per_call[-1],
+           "launches": {k: v for k, v in launch_counts().items() if v}}
+    del opt, trainer, run
+    free_cuda()
+    return got
+
+
+def phase_sharded_overlap(device) -> dict:
+    """Phase 27: the armed zero2 and zero3 steps' captures on one card. At
+    world 1 every exchange is the identity, so what this guards is the
+    capture: the exchange stream (zero2, zero3) and the gather stream
+    (zero3) fork from the capture stream and join it; one hook a parameter
+    in the capture and none in the eager call; one gather wait a
+    parameter; the replays' losses, parameters and shards equal the
+    unarmed arm's bit for bit after 3 calls; a replay still launches B3
+    and B4 8 times and A1 once."""
+    t0 = time.perf_counter()
+    cfg = lm_config(torch.bfloat16)
+    tokens = transformer.synthetic_tokens(LM_BATCH, LM_T, cfg.vocab_size,
+                                          seed=SEED, device=device)
+    model = transformer.init_params(cfg, seed=SEED, device=device)
+    init = [p.detach().clone() for p in model.parameters()]
+    runs = {mode: {arm: sharded_overlap_arm(model, init, cfg, tokens, mode,
+                                            arm)
+                   for arm in ("armed", "unarmed")}
+            for mode in SHARDED_OVERLAP_MODES}
+    del model, init
+    free_cuda()
+    for mode, arms in runs.items():
+        armed, unarmed = arms["armed"], arms["unarmed"]
+        n = armed["params"]
+        waits = n if mode == "zero3" else 0
+        if armed["hooks"][0] != (0, 0, 0) or armed["hooks"][1][0] != n \
+                or armed["hooks"][1][2] != waits:
+            raise RuntimeError(
+                f"phase 27 {mode}: (hooks, units from backward, gather "
+                f"waits) a call {armed['hooks']}, expected none in the eager "
+                f"call and {n} hooks (one a parameter) and {waits} waits in "
+                f"the capture")
+        if armed["hooks"][1][1] < 1:
+            raise RuntimeError(f"phase 27 {mode}: the capture issued no "
+                               f"reduce-scatter from backward")
+        if any(h != (0, 0, 0) for h in unarmed["hooks"]):
+            raise RuntimeError(f"phase 27 {mode}: the unarmed arm took "
+                               f"hooks or waits {unarmed['hooks']}")
+        same = all(torch.equal(a, b) for a, b in zip(armed["losses"],
+                                                     unarmed["losses"]))
+        if not same or armed["crc"] != unarmed["crc"]:
+            raise RuntimeError(
+                f"phase 27 {mode}: the armed capture differs from the "
+                f"unarmed one: losses {armed['loss_values']} vs "
+                f"{unarmed['loss_values']}, CRCs {armed['crc']:08x} vs "
+                f"{unarmed['crc']:08x}")
+        for arm, r in arms.items():
+            if r["replay_launches"] != REPLAY_COUNTS["lm"]:
+                raise RuntimeError(
+                    f"phase 27 {mode} {arm}: a replay launched "
+                    f"{r['replay_launches']}, expected {REPLAY_COUNTS['lm']}")
+    seconds = time.perf_counter() - t0
+    if seconds > SHARDED_OVERLAP_BUDGET_S:
+        raise RuntimeError(f"phase 27 took {seconds:.1f} s, over its "
+                           f"{SHARDED_OVERLAP_BUDGET_S:.0f}-s budget")
+    return {"runs": runs, "seconds": seconds}
+
+
+def sharded_overlap_line(so: dict, ident: str) -> str:
+    def mode_text(mode, arms):
+        a, u = arms["armed"], arms["unarmed"]
+        return (
+            f"{mode}: the capture's defining pass took {a['hooks'][1][0]} "
+            f"hooks (one a parameter) and issued {a['hooks'][1][1]} "
+            f"reduce-scatter units from backward (forked to the exchange "
+            f"stream while gradients were still owed, joined as backward "
+            f"ended)"
+            + (f" and waited {a['hooks'][1][2]} times for a gather (the "
+               f"gather stream forked before the forward, each event "
+               f"waited for at the parameter's first read)"
+               if mode == "zero3" else "")
+            + f" (the eager first call none); after "
+            f"{SHARDED_OVERLAP_CALLS} calls the losses "
+            + ", ".join(f"{v:.6f}" for v in a["loss_values"])
+            + f" and the CRC {a['crc']:08x} of the parameters and shards "
+            f"equal the unarmed arm's (nothing armed, no hook, no wait) "
+            f"bit for bit; a replay launches {a['replay_launches']} in both "
+            f"arms; launches over the {SHARDED_OVERLAP_CALLS} calls: armed "
+            f"{a['launches']}, unarmed {u['launches']}")
+
+    return (
+        f"phase 27 sharded overlap: ok; phase 8's LM ({LM_LAYERS} layers, "
+        f"B={LM_BATCH} T={LM_T}, bf16, AdamW on A1 over the shards) through "
+        f"Trainer(sharding=zero2|zero3), world 1 (fsdp 1: each reduce-"
+        f"scatter and gather the identity, zero3's gather a copy on the "
+        f"gather stream); "
+        + "; ".join(mode_text(m, r) for m, r in so["runs"].items())
+        + f"; phase {so['seconds']:.1f} s (budget "
+        f"{SHARDED_OVERLAP_BUDGET_S:.0f} s), on {ident}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -7034,6 +7194,16 @@ def main() -> int:
             k["launches_phase26"] = {
                 arm: r["launches"][k["name"]]
                 for arm, r in ov["arms"].items()}
+
+    so = phase_sharded_overlap(device)
+    say(sharded_overlap_line(so, ident) + f"; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+    for k in kernels:
+        if k["name"] in REPLAY_COUNTS["lm"]:
+            k["launches_phase27"] = {
+                f"{mode}/{arm}": r["launches"][k["name"]]
+                for mode, arms in so["runs"].items()
+                for arm, r in arms.items()}
 
     say(json.dumps({"kernels": kernels}))
     hvd.shutdown()

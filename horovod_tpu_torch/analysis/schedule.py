@@ -1737,16 +1737,28 @@ def gradient_step(algo: str | None = None, compression=None,
 
 
 def fsdp_step(sharding: str = "zero3", compression=None,
-              nleaves: int = 3, elems: int = 64, device=None):
+              nleaves: int = 3, elems: int = 64, device=None,
+              armed: bool = False):
     """An unfused ``nleaves``-leaf sharded gradient exchange through the
     ZeRO-2/3 ``DistributedOptimizer`` (gather-on-use + gradient
     reduce-scatter, per leaf): ``(fn, args)`` for :func:`~horovod_tpu_
     torch.analysis.hlo.step_wire`, the workload behind the ``zero3``
     golden-schedule section. Leaves have distinct sizes
-    (``elems * (i+1)``) so shard padding and gather order stay visible."""
+    (``elems * (i+1)``) so shard padding and gather order stay visible.
+
+    ``armed``: the step the Trainer takes from its second call
+    (``parallel/sharded.py``): the leaves are a module's parameters, the
+    gradients (the same values) come from backward through the
+    post-accumulate-grad hooks, which issue the reduce-scatters in reverse
+    gather order, and zero3's gathers are waited for at their reads. One
+    step is run first, dry (nothing moves and nothing is kept), so the
+    step ``fn`` takes is armed."""
     import torch
 
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.core import context as _ctx
+    from horovod_tpu_torch.ops import collectives as _coll
+    from horovod_tpu_torch.ops import wire as _wire
     from horovod_tpu_torch.training import loop
 
     dev = _device(device)
@@ -1754,15 +1766,28 @@ def fsdp_step(sharding: str = "zero3", compression=None,
         0.0, 1.0, elems * (i + 1), dtype=torch.float32, device=dev))
         for i in range(nleaves)]
     x = torch.arange(elems, dtype=torch.float32, device=dev) / elems
+    holder = torch.nn.Module()
+    for i, p in enumerate(params):
+        holder.register_parameter(f"leaf{i}", p)
 
     def fake_grads(x):
         return [x.repeat(i + 1) * (i + 1) for i in range(nleaves)]
+
+    def backward(x, leaves):
+        # d/dt_i of sum(t_i * g_i) is g_i: backward yields fake_grads(x).
+        sum((t * g).sum() for t, g in zip(leaves, fake_grads(x))).backward()
+
+    def primed(fn):
+        with _coll.preserve_auto_names(), _wire.recording(dry=True), \
+                _ctx.enter(0):
+            fn(x)
+        return fn
 
     if sharding == "zero3":
         dopt = hvd.DistributedOptimizer(loop.SGD(params, 0.1),
                                         compression=compression,
                                         sharding="zero3")
-        dopt.bind(params)
+        dopt.bind(holder if armed else params)
         shards = dopt.init_shards()
         dopt.init(shards)
 
@@ -1772,7 +1797,16 @@ def fsdp_step(sharding: str = "zero3", compression=None,
             return (sum(t.sum() for t in full)
                     + sum(t.sum() for t in new))
 
-        return fn3, [x]
+        def armed3(x):
+            dopt.zero_grad(set_to_none=False)
+            full = dopt.gather_params(shards)
+            with dopt.swapped(holder, full):
+                backward(x, [getattr(holder, f"leaf{i}")
+                             for i in range(nleaves)])
+            new = dopt.apply_gradients([t.grad for t in full], shards)
+            return sum(t.sum() for t in new)
+
+        return (primed(armed3) if armed else fn3), [x]
 
     dopt = hvd.DistributedOptimizer(loop.SGD(params, 0.1),
                                     compression=compression,
@@ -1784,7 +1818,13 @@ def fsdp_step(sharding: str = "zero3", compression=None,
         dopt.step()
         return sum(p.detach().sum() for p in params)
 
-    return fn2, [x]
+    def armed2(x):
+        dopt.zero_grad(set_to_none=False)
+        backward(x, params)
+        dopt.step()
+        return sum(p.detach().sum() for p in params)
+
+    return (primed(armed2) if armed else fn2), [x]
 
 
 def sparse_step(algo: str | None = None, compression=None,

@@ -403,6 +403,22 @@ def allreduce(x: torch.Tensor, group=0, average: bool = True,
     stochastic formats), ``algo`` (``flat``/``rs_ag``/``hierarchical``/
     ``auto``; None = flat), ``cross_compression`` (the hierarchical
     cross-host hop's format) and ``channels`` (None = 1)."""
+    return prepare_allreduce(
+        x, group, average, name, members, compression, algo,
+        cross_compression, channels)(x, compression_key)
+
+
+def prepare_allreduce(x: torch.Tensor, group=0, average: bool = True,
+                      name: str | None = None,
+                      members: tuple[str, ...] | None = None,
+                      compression=None, algo=None, cross_compression=None,
+                      channels=None):
+    """The first half of :func:`allreduce`, on the calling thread: the
+    name, the refusals, the registration in the program and the
+    negotiation, all from ``x``'s dtype and shape (a ``meta`` tensor will
+    do). Returns the second half, ``run(x, compression_key=None)``, which
+    moves the data of a tensor of that dtype and shape and nothing
+    else."""
     name = _auto_name("HorovodAllreduce", name)
     ch = _strategy.resolve_channels(channels)
     comp = (None if compression is None
@@ -430,7 +446,9 @@ def allreduce(x: torch.Tensor, group=0, average: bool = True,
         check_restricted_channels(ch, name)
     g, negotiating = _target(name, op, x, group, members=members)
     if g is None:
-        return None if _is_group_index(group) else x.clone()
+        member = _is_group_index(group)
+        return lambda x, compression_key=None: (None if member
+                                                else x.clone())
     if negotiating:
         _negotiate_one(g, name, op, x)
     concrete, topo = "flat", None
@@ -441,15 +459,20 @@ def allreduce(x: torch.Tensor, group=0, average: bool = True,
             False, name, _compression.wire_bytes(
                 x.numel(), x.dtype, comp if applies else None,
                 sum_width=g.size))
-    with _tl.activity(name, "ALLREDUCE"):
-        if comp is None and cross_compression is None \
-                and concrete == "flat" and ch == 1:
-            out = sum_into(x.clone(), g)
-        else:
-            out = compressed_sum(x, g, comp, compression_key, name, members,
-                                 algo=concrete, topo=topo,
-                                 cross_spec=cross_compression, channels=ch)
-    return divide_avg(out, g.size) if average else out
+
+    def run(x: torch.Tensor, compression_key=None) -> torch.Tensor:
+        with _tl.activity(name, "ALLREDUCE"):
+            if comp is None and cross_compression is None \
+                    and concrete == "flat" and ch == 1:
+                out = sum_into(x.clone(), g)
+            else:
+                out = compressed_sum(x, g, comp, compression_key, name,
+                                     members, algo=concrete, topo=topo,
+                                     cross_spec=cross_compression,
+                                     channels=ch)
+        return divide_avg(out, g.size) if average else out
+
+    return run
 
 
 def _allgather_padded(x: torch.Tensor, g: _state.Group,

@@ -662,6 +662,22 @@ def lower_fsdp_param_gather(shard, fmesh, name: str, g, topo):
     fsdp size 1 the shard is the whole tensor and is returned as it is."""
     if fmesh.fsdp_size <= 1:
         return shard
+    out = shard.new_empty((fmesh.fsdp_size * shard.numel(),))
+    issue_fsdp_param_gather(out, shard, fmesh, name, g, topo)
+    return out
+
+
+def issue_fsdp_param_gather(out, shard, fmesh, name: str, g, topo,
+                            async_op: bool = False):
+    """The gather of :func:`lower_fsdp_param_gather` into ``out`` (the
+    padded flat layout, ``fsdp_size × len(shard)`` elements), issued
+    only: with ``async_op`` it returns the call's work, to wait for before
+    ``out`` is read (None where nothing is in flight). At fsdp size 1 the
+    shard is copied."""
+    if fmesh.fsdp_size <= 1:
+        out.copy_(shard)
+        return None
     fpg, _ = fsdp_exchange_groups(fmesh, g, topo)
     with _phase(name, "FSDP_GATHER"):
-        return _all_gather(shard, fpg, fmesh.fsdp_size)
+        return _wire.all_gather_into(out, shard.contiguous(), fpg,
+                                     async_op=async_op)

@@ -202,6 +202,26 @@ def all_gather(parts: list, t: torch.Tensor, pg) -> None:
     dist.all_gather(parts, t, group=pg)
 
 
+# torch 2.13 renames all_gather_into_tensor (and warns on the old name).
+_gather_into = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+
+
+def all_gather_into(out: torch.Tensor, t: torch.Tensor, pg,
+                    async_op: bool = False):
+    """``out``, dim 0 cut into one block a member of ``pg``, = every
+    member's ``t``, in ``pg`` order. ``async_op``: return the call's work,
+    which the caller waits for before reading ``out`` (None where nothing
+    is in flight: a dry pass)."""
+    rec = _active
+    if rec is not None:
+        _note(rec, "all-gather", t.dtype, out.shape, pg)
+        if rec.dry:
+            out.view((-1,) + tuple(t.shape)).copy_(t)
+            return None
+    return _gather_into(out, t, group=pg, async_op=async_op)
+
+
 def all_to_all_single(out: torch.Tensor, t: torch.Tensor, pg) -> None:
     """Tiled all-to-all of ``t`` along dim 0 into ``out``."""
     rec = _active

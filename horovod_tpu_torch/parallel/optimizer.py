@@ -42,9 +42,15 @@ run on the calling stream, as the exchange after backward does. Under the
 ``enum`` plan the first layers' bucket, whose gradients come last, is
 issued first, so everything still goes out at the end of backward;
 ``schedule="priority"`` (reverse-layer issue order) is what overlaps. A
-first step (no ``.grad`` yet), ``zero_grad()`` with ``set_to_none=True``,
-a COO gradient and a group family stay unarmed and exchange after
-backward, in ``synchronize()``; so do the sharded modes.
+first step (no ``.grad`` yet), ``zero_grad()`` with ``set_to_none=True``
+and a COO gradient stay unarmed and exchange after backward, in
+``synchronize()``. A group family arms too: its buckets, each one family
+allreduce under its auto name, are registered and negotiated when the
+step is armed, and the hooks move their data. The sharded modes
+(``parallel/sharded.py``) arm on the same mechanism
+(``parallel/overlap.py``): ZeRO-2/3 issue each tensor's reduce-scatter
+from backward, in reverse gather order; ZeRO-1, one reduce-scatter a
+dtype, stays unarmed.
 
 The exchange's knobs are the reference's, each resolved as there
 (argument, then its environment default, then off): ``compression``
@@ -75,7 +81,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
-import weakref
 from typing import Mapping
 
 import torch
@@ -93,6 +98,7 @@ from horovod_tpu_torch.ops import mesh as _mesh
 from horovod_tpu_torch.ops import sparse as _sparse
 from horovod_tpu_torch.ops import strategy as _strategy
 from horovod_tpu_torch.ops import topology as _topology
+from horovod_tpu_torch.parallel import overlap as _overlap
 from horovod_tpu_torch.parallel import sharded as _sharded
 from horovod_tpu_torch.tune import apply as _tune_apply
 from horovod_tpu_torch.utils import costs as _costs
@@ -253,8 +259,9 @@ class FusedAllreduce:
             plan = (sched, names, (comp, cross_spec, topo), None)
         sched, names, wire, negotiated = plan
         if g is None:
-            # A family's buckets register and negotiate one by one, in the
-            # family allreduce (ops/collectives.py), as the reference's do.
+            # A family's buckets register and negotiate one by one, each
+            # as a family allreduce (ops/collectives.py), as the
+            # reference's do: _FamilyExchange.
             self._plans[sig] = plan
             self.plan = sched
             return sched, names, wire, restricted
@@ -290,14 +297,21 @@ class FusedAllreduce:
 
     def exchange(self, tensors, residuals=None,
                  compression_key=None) -> "_Exchange | None":
-        """``tensors``' exchange planned, registered and negotiated (one
-        group, not a family): an :class:`_Exchange` whose buckets then
-        issue one at a time, moving data only; None where nothing moves
-        (this rank outside the group). ``residuals`` and
+        """``tensors``' exchange planned, registered and negotiated: an
+        :class:`_Exchange` (a family's: a :class:`_FamilyExchange`) whose
+        buckets then issue one at a time, moving data only; None where
+        nothing moves (this rank outside the group). ``residuals`` and
         ``compression_key`` as in :meth:`__call__`."""
         g = self._group()
+        if g is None and _ctx.current() is None:
+            raise HorovodError(
+                "Group-family allreduce is only available inside "
+                "hvd.spmd traced code; eagerly, issue one allreduce "
+                "per group.")
         sched, names, wire, restricted = self._plan(tensors, g)
         _refuse_residuals(residuals, restricted)
+        if g is None:
+            return _FamilyExchange(self, sched, names, wire[0])
         if g.pg is None:
             return None
         return _Exchange(self, g, sched, names, wire, residuals,
@@ -311,26 +325,6 @@ class FusedAllreduce:
         was exact). ``compression_key``: the stochastic formats' per-step
         key."""
         if not tensors:
-            return tensors
-        g = self._group()
-        if g is None:
-            if _ctx.current() is None:
-                raise HorovodError(
-                    "Group-family allreduce is only available inside "
-                    "hvd.spmd traced code; eagerly, issue one allreduce "
-                    "per group.")
-            sched, names, (comp, _, _), restricted = self._plan(tensors, g)
-            _refuse_residuals(residuals, restricted)
-            # Each bucket is one family allreduce: it reduces on this
-            # rank's family group (a rank in none keeps its values) and
-            # refuses compression with the reference's text. Its name is
-            # the collective's auto name, as the reference's buckets'.
-            _fusion.fused_apply_(
-                tensors, sched,
-                lambda flat, b: _coll.allreduce(
-                    flat, group=self.group, average=self.average,
-                    members=sched.members[b], compression=comp),
-                names)
             return tensors
         ex = self.exchange(tensors, residuals, compression_key)
         if ex is not None:
@@ -417,6 +411,31 @@ class _Exchange:
             fn = functools.partial(self._reduce_keeping_residuals, tensors,
                                    b=b)
         _fusion.apply_bucket_(tensors, self.sched.buckets[b], fn,
+                              self.names[b])
+
+
+class _FamilyExchange:
+    """One exchange of a :class:`FusedAllreduce` over a group family. Each
+    bucket is one family allreduce (``ops/collectives.py``): it reduces on
+    this rank's family group (a rank in none keeps its values) and refuses
+    compression with the reference's text; its name is the collective's
+    auto name, as the reference's buckets'. Every bucket is registered and
+    negotiated here, in the plan's order, on the calling thread
+    (``collectives.prepare_allreduce``); :meth:`issue` moves one bucket's
+    data only."""
+
+    def __init__(self, fused: FusedAllreduce, sched, names, comp) -> None:
+        self.sched = sched
+        self.names = names
+        self.runs = [_coll.prepare_allreduce(
+            torch.empty((bk.elems,), dtype=bk.dtype, device="meta"),
+            group=fused.group, average=fused.average,
+            members=sched.members[b], compression=comp)
+            for b, bk in enumerate(sched.buckets)]
+
+    def issue(self, tensors, b: int) -> None:
+        """Bucket ``b`` of ``tensors`` reduced in place on the family."""
+        _fusion.apply_bucket_(tensors, self.sched.buckets[b], self.runs[b],
                               self.names[b])
 
 
@@ -538,131 +557,6 @@ def allreduce_gradients(grads: list, group: int = 0, average: bool = True,
     return grads if error_residual is None else (grads, new_resid)
 
 
-class _Overlap:
-    """One armed step of a :class:`_DistributedOptimizer`: the exchange of
-    ``params``' gradients (an :class:`_Exchange`, planned, registered and
-    negotiated when the step was armed), whose buckets are issued from
-    backward. A parameter's post-accumulate-grad hook calls
-    :meth:`accumulated`; a bucket is issued once all its members'
-    gradients are accumulated and every bucket before it in the plan's
-    order has been issued, so the wire order is the plan's whatever order
-    the hooks fire in. The first hook of a backward pass queues
-    :meth:`finish` on autograd's engine, which runs it when that pass
-    ends: it issues what is left and joins, so ``.grad`` holds the
-    averaged gradients when ``backward()`` returns (as DDP's do), for
-    whatever reads them before ``step()`` (gradient clipping, a scaler's
-    unscale, logging). Where no hook fired (gradients written by
-    ``torch.autograd.grad``), ``step()`` finishes instead.
-
-    On the card a bucket issued while backward still owes gradients of
-    the exchange runs on ``stream`` (the wrapper's exchange stream), after
-    the work the calling stream has queued: a collective on the backward
-    stream would stall backward. Once every gradient is in (the last hook,
-    :meth:`finish`) nothing is left to overlap, and the buckets left run
-    on the calling stream, as an unarmed step's do: a bucket on the
-    exchange stream costs the step time (PERF.md §6). :meth:`finish` runs
-    on the stream that called ``backward()`` and makes it wait for the
-    exchange stream; inside a capture the exchange stream forks from the
-    capture stream and joins it there. ``ctx`` is the program context the
-    step was armed in, made current again for each bucket (autograd runs
-    a CUDA backward on a thread of its own)."""
-
-    def __init__(self, ex: _Exchange, params: list, stream, ctx) -> None:
-        self.ex = ex
-        self.params = params
-        self.stream = stream
-        self.ctx = ctx
-        self.slot = {id(p): i for i, p in enumerate(params)}
-        self.bucket_of = [0] * len(params)
-        for b, bk in enumerate(ex.sched.buckets):
-            for i in bk.indices:
-                self.bucket_of[i] = b
-        self.waiting = [len(bk.indices) for bk in ex.sched.buckets]
-        self.done = [False] * len(params)
-        self.pending = len(params)      # gradients backward still owes
-        self.issued = 0
-        self.forked = False
-        self.queued = False
-        self.finished = False
-
-    def accumulated(self, p) -> int:
-        """``p``'s gradient is accumulated: issue every bucket now ready
-        (the first call of a backward pass queues :meth:`finish` for its
-        end). Returns the buckets issued."""
-        i = self.slot[id(p)]
-        if self.done[i] or self.finished:
-            when = ("twice since zero_grad()" if self.done[i] else
-                    "after the backward pass that finished the exchange")
-            raise HorovodError(
-                f"DistributedOptimizer: the gradient of parameter {i} of "
-                f"the exchange was accumulated {when}. An armed step "
-                f"issues each bucket's allreduce from backward as soon as "
-                f"its gradients are accumulated, and finishes the exchange "
-                f"when backward ends, so a second backward pass would "
-                f"change gradients already on the wire. Call step() (or "
-                f"synchronize()) between backward passes, or "
-                f"zero_grad(set_to_none=True) for a step that exchanges "
-                f"after backward.")
-        if not self.queued:
-            torch.autograd.Variable._execution_engine.queue_callback(
-                self.finish)
-            self.queued = True
-        self.done[i] = True
-        self.pending -= 1
-        self.waiting[self.bucket_of[i]] -= 1
-        return self._issue_ready(everything=False)
-
-    def finish(self) -> None:
-        """Issue the buckets not yet issued, in order, and :meth:`join`;
-        a second call only joins."""
-        self.pending = 0        # backward is over (or never ran)
-        self._issue_ready(everything=True)
-        self.finished = True
-        self.join()
-
-    def join(self) -> None:
-        """Make the calling stream wait for the buckets issued so far."""
-        if self.forked:
-            torch.cuda.current_stream(self.stream.device).wait_stream(
-                self.stream)
-
-    def _issue_ready(self, everything: bool) -> int:
-        start = self.issued
-        n = len(self.waiting)
-        with _ctx.resume(self.ctx):
-            while self.issued < n and (everything
-                                       or self.waiting[self.issued] == 0):
-                self._issue(self.issued)
-                self.issued += 1
-        return self.issued - start
-
-    def _issue(self, b: int) -> None:
-        grads = [p.grad for p in self.params]
-        with torch.no_grad():
-            if self.stream is None or self.pending == 0:
-                self.ex.issue(grads, b)
-                return
-            self.stream.wait_stream(torch.cuda.current_stream(
-                self.stream.device))
-            self.forked = True
-            with torch.cuda.stream(self.stream):
-                self.ex.issue(grads, b)
-
-
-def _remove_hooks(hooks: list) -> None:
-    for h in hooks:
-        h.remove()
-
-
-def _accumulated(ref, p) -> None:
-    """A parameter's post-accumulate-grad hook: ``ref`` is a weak
-    reference to its wrapper, whose armed step (if any) takes it."""
-    opt = ref()
-    if opt is not None and opt._armed is not None:
-        opt.buckets_in_backward += opt._armed.accumulated(p)
-        opt.hooks_fired += 1
-
-
 class _DistributedOptimizer:
     """The wrapper :func:`DistributedOptimizer` returns. ``param_groups``
     and ``state`` are the inner optimizer's, so LR schedules and momentum
@@ -671,14 +565,15 @@ class _DistributedOptimizer:
 
     The overlap: :meth:`zero_grad` with ``set_to_none=False``, when every
     parameter that requires a gradient already holds a dense one, arms the
-    step (:class:`_Overlap`): the exchange is planned, registered and
-    negotiated there, on the calling thread, each parameter's
+    step (:class:`~horovod_tpu_torch.parallel.overlap.Overlap`): the
+    exchange is planned, registered and negotiated there, on the calling
+    thread, each parameter's
     post-accumulate-grad hook issues the buckets that become ready during
     backward, and the pass's end issues the rest and waits for them.
     ``hooks_fired`` and ``buckets_in_backward`` count the hooks
     that an armed step took and the buckets they issued. Unarmed (a first
-    step, ``set_to_none=True``, a COO gradient, a group family) the step
-    exchanges after backward, in :meth:`synchronize`."""
+    step, ``set_to_none=True``, a COO gradient) the step exchanges after
+    backward, in :meth:`synchronize`."""
 
     def __init__(self, optimizer: torch.optim.Optimizer, group: int,
                  average: bool, fusion_threshold: int | None,
@@ -694,18 +589,12 @@ class _DistributedOptimizer:
         self.sparse_algo = sparse_algo
         self.error_feedback = error_feedback
         self.residual: dict[int, torch.Tensor] = {}
-        self._armed: _Overlap | None = None
+        self._armed: _overlap.Overlap | None = None
         # The exchange stream, made at the first armed step on the card.
         self._stream = None
         self.hooks_fired = 0
         self.buckets_in_backward = 0
-        ref = weakref.ref(self)
-        hooks = [p.register_post_accumulate_grad_hook(
-                     functools.partial(_accumulated, ref))
-                 for p in self._params() if p.requires_grad and p.is_leaf]
-        # The hooks go with the wrapper: wrapping the parameters again
-        # (an elastic rebuild) does not stack them.
-        weakref.finalize(self, _remove_hooks, hooks)
+        _overlap.hook_params(self, self._params())
         if error_feedback:
             # Zero on every rank; each then keeps its own residual.
             with torch.no_grad():
@@ -737,7 +626,7 @@ class _DistributedOptimizer:
         armed, self._armed = self._armed, None
         if armed is not None:
             armed.finish()
-            _exchange.register_live_plan(armed.ex.sched)
+            _exchange.register_live_plan(armed.plan)
             return
         params = [(i, p) for i, p in enumerate(self._params())
                   if p.grad is not None]
@@ -793,7 +682,7 @@ class _DistributedOptimizer:
         go out."""
         armed, self._armed = self._armed, None
         if armed is not None:
-            armed.join()
+            armed.close()
         self.optimizer.zero_grad(set_to_none=set_to_none)
         if not set_to_none:
             self._arm()
@@ -802,25 +691,26 @@ class _DistributedOptimizer:
         params = self._params()
         dense = [(i, p) for i, p in enumerate(params) if p.grad is not None]
         restricted = _restricted_group(self._allreduce.group)
-        if (not dense or not _coll._is_group_index(self._allreduce.group)
-                or (self.error_feedback and restricted)
+        if (not dense or (self.error_feedback and restricted)
                 or any(p.grad.is_sparse for _, p in dense)
                 or any(p.requires_grad and p.grad is None for p in params)):
             return
+        if not _coll._is_group_index(self._allreduce.group) \
+                and _ctx.current() is None:
+            return      # a family exchanges in a program only: step() says
         grads = [p.grad for _, p in dense]
         residuals = ([self.residual.get(i) for i, _ in dense]
                      if self.error_feedback else None)
         ex = self._allreduce.exchange(grads, residuals)
         if ex is None:
             return
-        stream = None
-        if grads[0].device.type == "cuda":
-            if self._stream is None:
-                self._stream = torch.cuda.Stream(grads[0].device)
-            stream = self._stream
         _fusion.record_schedule(ex.sched)
-        self._armed = _Overlap(ex, [p for _, p in dense], stream,
-                               _ctx.current())
+        ps = [p for _, p in dense]
+        self._armed = _overlap.Overlap(
+            ps, [list(bk.indices) for bk in ex.sched.buckets],
+            lambda b: ex.issue([p.grad for p in ps], b),
+            _overlap.exchange_stream(self, grads[0].device), _ctx.current(),
+            plan=ex.sched)
 
     def state_dict(self) -> dict:
         """The inner optimizer's ``state_dict`` (what a checkpoint saves);

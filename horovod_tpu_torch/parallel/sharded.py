@@ -40,6 +40,28 @@ the shards: the module's parameters are released after
 the gathered tensors (:meth:`~Zero3Optimizer.swapped`) and updates shard to
 shard (:meth:`~Zero3Optimizer.apply_gradients`). Elementwise inner
 optimizers only: one that reads a parameter's shape would see a flat shard.
+
+The exchange overlaps compute, as the reference's XLA scheduler overlaps
+its per-leaf collectives, once a step is armed: ``zero_grad(set_to_none=
+False)`` inside the step's program (the Trainer's step from its second
+call; ``parallel/overlap.py``). ZeRO-2 arms when every parameter that
+requires a gradient holds one, ZeRO-3 once a step has been applied. The
+step's plan and reduce rows are registered there, on the calling thread,
+and each parameter's post-accumulate-grad hook marks its gradient ready:
+a tensor's reduce-scatter prefix is issued once its gradient is in and
+every tensor after it in the gather order has gone, so the wire order is
+reverse gather order (the order backward produces the gradients) on
+every rank, whatever order the hooks fire in; the end of backward issues
+the rest and joins. An armed ZeRO-3 step also leaves its gathers in
+flight: :meth:`~Zero3Optimizer.gather_params` issues them in the plan's
+gather order (on the card on a gather stream forked from the calling
+stream, an event a parameter; on gloo asynchronously), and
+:meth:`~Zero3Optimizer.swapped` waits for each where the forward first
+reads the parameter, once. The results are bit for bit the unarmed
+step's. ZeRO-1 (one reduce-scatter a dtype, which needs every gradient,
+in the reference too) never arms. Unarmed steps (a first step,
+``set_to_none=True``, a step whose shape skips ``zero_grad``) exchange
+after backward and gather before the forward.
 """
 
 from __future__ import annotations
@@ -47,6 +69,8 @@ from __future__ import annotations
 import contextlib
 import functools
 import inspect
+import math
+import weakref
 
 import torch
 
@@ -61,6 +85,7 @@ from horovod_tpu_torch.ops import mesh as _mesh
 from horovod_tpu_torch.ops import sparse as _sparse
 from horovod_tpu_torch.ops import strategy as _strategy
 from horovod_tpu_torch.ops import topology as _topology
+from horovod_tpu_torch.parallel import overlap as _overlap
 
 #: Label prefix of the gradients (``<name>.<index>``), as the replicated
 #: path's.
@@ -151,6 +176,11 @@ class _Sharded:
         self._source = optimizer
         self.optimizer: torch.optim.Optimizer | None = None
         self.shards: list[torch.Tensor] = []
+        # The armed step (ZeRO-2/3; ZeRO-1 never arms) and what armed
+        # steps took: the hooks and the units they issued.
+        self._armed: _overlap.Overlap | None = None
+        self.hooks_fired = 0
+        self.buckets_in_backward = 0
 
     @property
     def param_groups(self):
@@ -415,7 +445,10 @@ def fsdp_plan(mode: str, leaves, labels, comp, fmesh, topo,
 class _Fsdp(_Sharded):
     """ZeRO-2 and ZeRO-3's shared layout and exchange: one flat shard a
     parameter, ``[f·L, (f+1)·L)`` of its zero-padded flat layout for fsdp
-    index ``f``."""
+    index ``f``; a tensor's reduce-scatter issued after backward, or from
+    backward in reverse gather order once the step is armed (module
+    docstring). ``hooks_fired`` and ``buckets_in_backward`` count the
+    hooks armed steps took and the reduce-scatters they issued."""
 
     mode = "zero2"
 
@@ -436,6 +469,7 @@ class _Fsdp(_Sharded):
         self.labels = [f"{NAME}.{i}" for i in range(len(self._params))]
         self._plans: dict = {}
         self._negotiated: set = set()
+        self._stream = None     # the exchange stream, made when first armed
 
     def mesh(self) -> _mesh.FsdpMesh:
         return self.fmesh
@@ -493,12 +527,12 @@ class _Fsdp(_Sharded):
         return [(f"{label}.gather", _neg.CollectiveOp.ALLGATHER, s.dtype,
                  (s.numel(),)) for label, s in zip(self.labels, self.shards)]
 
-    def _reduce(self, grads, gather_order) -> None:
-        """Each gradient reduced to this rank's shard, divided by the group
-        size for the average, into the shard's gradient buffer; the step's
-        plan registered (:func:`~horovod_tpu_torch.ops.exchange.
-        last_plan`)."""
-        g = _state.get_group(self.group)
+    def _plan_reduce(self, grads, gather_order):
+        """The step's plan (:func:`fsdp_plan`, cached per signature),
+        registered live (:func:`~horovod_tpu_torch.ops.exchange.
+        last_plan`), and its reduce rows registered in the program
+        (negotiated in a program's first call). ``grads`` may be ``meta``
+        tensors: only their dtypes and shapes are read."""
         sig = tuple((t.dtype, tuple(t.shape)) for t in grads)
         plan = self._plans.get(sig)
         if plan is None:
@@ -509,12 +543,57 @@ class _Fsdp(_Sharded):
         self._register(("reduce", sig), [
             (label, _neg.CollectiveOp.ALLREDUCE, t.dtype, tuple(t.shape))
             for label, t in zip(self.labels, grads)])
+        return plan
+
+    def _reduce_one(self, i: int, t: torch.Tensor) -> None:
+        """Gradient ``i`` reduced to this rank's shard, divided by the
+        group size for the average, into the shard's gradient buffer."""
+        shard, _ = _strategy.lower_fsdp_grad_exchange(
+            t, self.fmesh, self.labels[i], self.comp, None,
+            _state.get_group(self.group), self.topo)
+        if self.average:
+            shard = _coll.divide_avg(shard, self.fmesh.group_size)
+        self.shards[i].grad.copy_(shard)
+
+    def _reduce(self, grads, gather_order) -> None:
+        """Each gradient reduced to this rank's shard (:meth:`_reduce_one`),
+        in enumeration order, after the step's plan is registered."""
+        self._plan_reduce(grads, gather_order)
         for i, t in enumerate(grads):
-            shard, _ = _strategy.lower_fsdp_grad_exchange(
-                t, self.fmesh, self.labels[i], self.comp, None, g, self.topo)
-            if self.average:
-                shard = _coll.divide_avg(shard, self.fmesh.group_size)
-            self.shards[i].grad.copy_(shard)
+            self._reduce_one(i, t)
+
+    def _arm_reduce(self, params, grads, gather_order, grad_of):
+        """Arm the step's reduce-scatters: the plan registered now (on
+        the calling thread, inside the program's context), and an
+        :class:`~horovod_tpu_torch.parallel.overlap.Overlap` whose unit k
+        reduces tensor ``n-1-k`` (reverse gather order: the order backward
+        produces them, the same wire order on every rank), reading its
+        gradient from ``grad_of(i)`` when issued. ``params``: the leaves
+        whose hooks mark the gradients accumulated."""
+        plan = self._plan_reduce(grads, gather_order)
+        n = len(grads)
+
+        def issue(k: int) -> None:
+            self._reduce_one(n - 1 - k, grad_of(n - 1 - k))
+
+        self._armed = _overlap.Overlap(
+            params, [[i] for i in reversed(range(n))], issue,
+            _overlap.exchange_stream(self, self.shards[0].device),
+            _ctx.current(), plan=plan)
+        return self._armed
+
+    def _drop_armed(self) -> None:
+        """A step armed and not stepped (its backward raised, or the
+        caller dropped it) is dropped: the units it issued are waited for,
+        the rest never go out."""
+        armed, self._armed = self._armed, None
+        if armed is not None:
+            armed.close()
+
+    def _in_program(self) -> bool:
+        tctx = _ctx.current()
+        return (tctx is not None and _coll._is_group_index(self.group)
+                and int(self.group) == tctx.group_index)
 
 
 class Zero2Optimizer(_Fsdp):
@@ -534,6 +613,31 @@ class Zero2Optimizer(_Fsdp):
         super().__init__(optimizer, group, average, compression, fsdp_size,
                          params)
         self._build_inner(self._per_group(self._make_shards()))
+        _overlap.hook_params(self, self._params)
+
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        """Zero the module's gradients; with ``set_to_none=False`` inside
+        the step's program, when every parameter that requires a gradient
+        already holds a dense one (the Trainer's step from its second
+        call), it also arms the step: the plan is registered here and each
+        parameter's post-accumulate-grad hook issues reduce-scatters from
+        backward, in reverse gather order (class docstring)."""
+        self._drop_armed()
+        super().zero_grad(set_to_none)
+        params = self._params
+        if (set_to_none or not self._in_program()
+                or any(p.grad is None and p.requires_grad for p in params)
+                or any(p.grad is not None and p.grad.is_sparse
+                       for p in params)):
+            return
+        grads = [p.grad if p.grad is not None else p.detach().new_empty(
+            p.shape, device="meta") for p in params]
+
+        def grad_of(i: int) -> torch.Tensor:
+            g = params[i].grad
+            return torch.zeros_like(params[i]) if g is None else g
+
+        self._arm_reduce(params, grads, (), grad_of)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -542,8 +646,12 @@ class Zero2Optimizer(_Fsdp):
             with torch.enable_grad():
                 loss = closure()
         _fsdp_check_ctx("zero2", self.group)
-        grads = _grads_of(self._params, "zero2", "sharding='off'")
-        self._reduce(grads, gather_order=())
+        armed, self._armed = self._armed, None
+        if armed is not None:
+            armed.finish()
+        else:
+            grads = _grads_of(self._params, "zero2", "sharding='off'")
+            self._reduce(grads, gather_order=())
         self.optimizer.step()
         self._register("gather", self._gather_rows())
         for i, p in enumerate(self._params):
@@ -554,11 +662,15 @@ class Zero2Optimizer(_Fsdp):
 class Zero3Optimizer(_Fsdp):
     """ZeRO-3 on the ``data × fsdp`` mesh: parameters AND optimizer state
     live sharded; each step all-gathers every parameter's shard on use
-    (:meth:`gather_params`, in the plan's gather order: first needed
-    first), runs forward and backward on the gathered tensors
-    (:meth:`swapped`), reduces the gradients to shards by the replicated
-    lowerings' reduce-scatter prefix and updates shard to shard
-    (:meth:`apply_gradients`) with no parameter all-gather at all.
+    (:meth:`gather_params`, in the plan's gather order), runs forward and
+    backward on the gathered tensors (:meth:`swapped`), reduces the
+    gradients to shards by the replicated lowerings' reduce-scatter
+    prefix and updates shard to shard (:meth:`apply_gradients`) with no
+    parameter all-gather at all. An armed step (:meth:`zero_grad` with
+    ``set_to_none=False``, once a step has been applied) gathers beside
+    the forward, each parameter waited for at its first read, and
+    reduce-scatters beside backward (module docstring); ``gathers`` holds
+    the newest armed step's waits, ``gather_waits`` counts them all.
 
     Its step shape differs from an optimizer's, so ``Trainer(sharding=
     'zero3')`` drives it::
@@ -568,6 +680,7 @@ class Zero3Optimizer(_Fsdp):
         shards = opt.init_shards()       # eager: the module's params go
         opt.init(shards)                 # the inner optimizer on shards
         # inside hvd.spmd:
+        opt.zero_grad(set_to_none=False) # arms the step from the second
         full = opt.gather_params(shards)
         with opt.swapped(model, full):
             loss_fn(model, batch).backward()
@@ -587,6 +700,14 @@ class Zero3Optimizer(_Fsdp):
         self._bound = False
         self._sites: list[list[tuple[torch.nn.Module, str]]] = []
         self._order = tuple(range(len(self._params)))
+        self._steps = 0             # apply_gradients calls so far
+        self._arm_next = False      # zero_grad(set_to_none=False) armed it
+        self._full: list | None = None   # the armed step's gathered leaves
+        self._gather_stream = None  # made at the first armed step (card)
+        #: The newest armed step's gathers (:class:`_Gathers`), and the
+        #: gathers waited for over every armed step.
+        self.gathers: _Gathers | None = None
+        self.gather_waits = 0
 
     # -- eager (host-side) layout -------------------------------------------
 
@@ -658,37 +779,125 @@ class Zero3Optimizer(_Fsdp):
 
     # -- the step (inside hvd.spmd) -----------------------------------------
 
+    def zero_grad(self, set_to_none: bool = True) -> None:
+        """Drop a step armed and not stepped; with ``set_to_none=False``
+        inside the step's program, once a step has been applied (the
+        Trainer's step from its second call), arm the next one: its
+        :meth:`gather_params` leaves the gathers in flight and hooks the
+        gathered leaves (class docstring)."""
+        self._drop_armed()
+        super().zero_grad(set_to_none)
+        self._arm_next = (not set_to_none and self._steps > 0
+                          and self._in_program())
+
+    def _drop_armed(self) -> None:
+        super()._drop_armed()
+        self._arm_next = False
+        if self._full is not None:
+            self.gather_waits += self.gathers.wait_all()
+            self._full = None
+
     def gather_params(self, param_shards=None) -> list[torch.Tensor]:
         """Gather-on-use: every parameter all-gathered over the fsdp
         process group, in the plan's gather order, as a full tensor that
-        is a leaf and requires grad as its parameter does."""
+        is a leaf and requires grad as its parameter does. An armed step
+        (:meth:`zero_grad`) leaves the gathers in flight: :meth:`swapped`
+        waits for each at its first read."""
         self._require_bound()
         _fsdp_check_ctx("zero3", self.group)
         shards = self.shards if param_shards is None else list(param_shards)
         self._register("gather", self._gather_rows())
+        if self._arm_next:
+            self._arm_next = False
+            return self._gather_armed(shards)
         out: list = [None] * len(shards)
         for i in self._order:
             out[i] = self._gather(i, shards[i]).detach().requires_grad_(
                 self._params[i].requires_grad)
         return out
 
+    def _gather_armed(self, shards) -> list[torch.Tensor]:
+        """The armed step's gathers, issued in the plan's gather order and
+        left in flight, and its reduce-scatters armed on the gathered
+        leaves' post-accumulate-grad hooks. The full tensors are allocated
+        on the calling stream before the gather stream forks from it, so
+        the caching allocator cannot hand them out again while a gather
+        still writes them; on the card each gather records an event, on
+        gloo it is an asynchronous call whose work is kept."""
+        g = _state.get_group(self.group)
+        dev = shards[0].device
+        F = self.fmesh.fsdp_size
+        outs = [torch.empty(F * s.numel(), dtype=s.dtype, device=dev)
+                for s in shards]
+        waiters: list = [None] * len(shards)
+
+        def issue(i, async_op=False):
+            return _strategy.issue_fsdp_param_gather(
+                outs[i], shards[i], self.fmesh, self.labels[i], g, self.topo,
+                async_op=async_op)
+
+        if dev.type == "cuda":
+            if self._gather_stream is None:
+                self._gather_stream = torch.cuda.Stream(dev)
+            gs = self._gather_stream
+            gs.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(gs):
+                for i in self._order:
+                    issue(i)
+                    waiters[i] = torch.cuda.Event()
+                    waiters[i].record(gs)
+        else:
+            for i in self._order:
+                waiters[i] = issue(i, async_op=True)
+        self.gathers = _Gathers(waiters, dev)
+        full = [out[:math.prod(shape)].view(shape).detach().requires_grad_(
+                    p.requires_grad)
+                for out, shape, p in zip(outs, self._shapes, self._params)]
+        metas = [torch.empty(shape, dtype=s.dtype, device="meta")
+                 for shape, s in zip(self._shapes, shards)]
+
+        def grad_of(i: int) -> torch.Tensor:
+            t = full[i].grad
+            return torch.zeros_like(full[i]) if t is None else t
+
+        armed = self._arm_reduce(full, metas, self._order, grad_of)
+        ref = weakref.ref(self)
+        for t in full:
+            if t.requires_grad:
+                t.register_post_accumulate_grad_hook(functools.partial(
+                    _overlap.accumulated, ref, armed=armed))
+        self._full = full
+        return full
+
     @contextlib.contextmanager
     def swapped(self, model: torch.nn.Module, full):
         """Within the block ``model``'s parameters are the gathered
         tensors ``full`` (the module's attributes read them); the released
-        parameters come back after."""
+        parameters come back after. ``full`` of an armed step: each
+        holding module's ``_parameters`` is a :class:`_WaitingParameters`
+        for the block, so a parameter's gather is waited for where the
+        forward first reads it (``lm_head``, which the LM's root holds and
+        reads last, last), once."""
         if not self._sites:
             self._sites = self._find_sites(model)
+        gathers = self.gathers if full is self._full else None
+        holders: dict[int, tuple] = {}
+        for i, sites in enumerate(self._sites):
+            for mod, name in sites:
+                holders.setdefault(id(mod), (mod, {}))[1][name] = i
         saved = []
         try:
-            for sites, t in zip(self._sites, full):
-                for mod, name in sites:
-                    saved.append((mod, name, mod._parameters[name]))
-                    mod._parameters[name] = t
+            for mod, index in holders.values():
+                own = mod.__dict__["_parameters"]
+                items = {**own, **{name: full[i] for name, i in index.items()}}
+                saved.append((mod, own))
+                mod.__dict__["_parameters"] = (
+                    items if gathers is None
+                    else _WaitingParameters(items, index, gathers))
             yield model
         finally:
-            for mod, name, p in reversed(saved):
-                mod._parameters[name] = p
+            for mod, own in reversed(saved):
+                mod.__dict__["_parameters"] = own
 
     @torch.no_grad()
     def apply_gradients(self, grads, param_shards=None,
@@ -711,9 +920,89 @@ class Zero3Optimizer(_Fsdp):
             raise HorovodError(
                 "Zero3Optimizer.apply_gradients updates the shards it "
                 "holds (init_shards); pass those or none.")
-        grads = [torch.zeros(s, dtype=p.dtype, device=p.device)
-                 if t is None else t
-                 for t, s, p in zip(grads, self._shapes, self.shards)]
-        self._reduce(grads, gather_order=self._order)
+        armed, full, gathers = self._armed, self._full, self.gathers
+        self._armed, self._full = None, None
+        if armed is not None:
+            if any(t is not None and t is not f.grad
+                   for t, f in zip(grads, full)):
+                raise HorovodError(
+                    "Zero3Optimizer.apply_gradients: an armed step "
+                    "(zero_grad(set_to_none=False) before gather_params) "
+                    "reduces the gathered tensors' own gradients as "
+                    "backward produces them; pass [t.grad for t in full], "
+                    "or zero_grad(set_to_none=True) for a step that "
+                    "reduces the gradients given here.")
+            # Every gather is waited for before the update writes the
+            # shards it reads (an unused parameter's too).
+            self.gather_waits += gathers.wait_all()
+            armed.finish()
+            _exchange.register_live_plan(armed.plan)
+        else:
+            grads = [torch.zeros(s, dtype=p.dtype, device=p.device)
+                     if t is None else t
+                     for t, s, p in zip(grads, self._shapes, self.shards)]
+            self._reduce(grads, gather_order=self._order)
         self.optimizer.step()
+        self._steps += 1
         return self.shards
+
+
+class _Gathers:
+    """An armed zero3 step's parameter gathers in flight: a waiter a
+    parameter (an event of the gather stream on the card, the call's work
+    on gloo, None where nothing is in flight). :meth:`wait` waits for one
+    the first time it is asked, and never again; ``waits[i]`` counts the
+    waits of parameter ``i`` and ``order`` lists them as they came."""
+
+    def __init__(self, waiters: list, device) -> None:
+        self.waiters = waiters
+        self.device = device
+        self.waits = [0] * len(waiters)
+        self.order: list[int] = []
+
+    def wait(self, i: int) -> int:
+        if self.waits[i]:
+            return 0
+        w, self.waiters[i] = self.waiters[i], None   # a work holds buffers
+        if isinstance(w, torch.cuda.Event):
+            torch.cuda.current_stream(self.device).wait_event(w)
+        elif w is not None:
+            w.wait()
+        self.waits[i] += 1
+        self.order.append(i)
+        return 1
+
+    def wait_all(self) -> int:
+        """Wait for every gather not yet waited for; returns the count of
+        waits of the whole step."""
+        for i in range(len(self.waiters)):
+            self.wait(i)
+        return sum(self.waits)
+
+
+class _WaitingParameters(dict):
+    """A module's ``_parameters`` while an armed zero3 step runs: looking
+    up a gathered parameter (``module.weight``, ``named_parameters()``)
+    first makes the calling stream wait for its gather (gloo: waits for
+    the call), once a step. ``index`` maps the module's names of the
+    gathered parameters to their positions in the optimizer."""
+
+    def __init__(self, items: dict, index: dict, gathers: _Gathers) -> None:
+        super().__init__(items)
+        self._index = index
+        self._gathers = gathers
+
+    def __getitem__(self, name):
+        i = self._index.get(name)
+        if i is not None:
+            self._gathers.wait(i)
+        return super().__getitem__(name)
+
+    def get(self, name, default=None):
+        return self[name] if name in self else default
+
+    def items(self):
+        return [(k, self[k]) for k in self]
+
+    def values(self):
+        return [self[k] for k in self]

@@ -34,7 +34,11 @@ fsdp`` mesh (``parallel/sharded.py``). ZeRO-1 and zero2 keep the step's
 shape: the wrapper's ``step()`` reduces the gradients to shards, updates
 them and gathers the new parameters. zero3 changes it: the module's
 parameters live as shards, and each step gathers them, runs forward and
-backward on the gathered tensors, and updates shard to shard. Sharded
+backward on the gathered tensors, and updates shard to shard. From the
+second call zero2's and zero3's steps are armed as the replicated one
+is: backward's hooks issue the reduce-scatters, and zero3's gathers run
+beside the forward, each waited for at its first read (ZeRO-1 never
+arms). Sharded
 state persists through ``checkpoint.save_sharded``/``load_sharded``:
 ``restore`` and ``sync_state`` refuse it, as the reference's do.
 
@@ -497,8 +501,12 @@ class Trainer(LRControlMixin):
 
     def _zero3_grads(self, batch):
         """The zero3 step shape: gather the parameters, forward and
-        backward on the gathered tensors, update shard to shard."""
+        backward on the gathered tensors, update shard to shard. From the
+        second call the step is armed (``parallel/sharded.py``): the
+        gathers run beside the forward, each waited for at its first
+        read, and backward's hooks issue the reduce-scatters."""
         opt = self.optimizer
+        opt.zero_grad(set_to_none=False)
         full = opt.gather_params()
         with opt.swapped(self.model, full):
             out = self.loss_fn(self.model, batch)
