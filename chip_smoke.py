@@ -7,9 +7,9 @@ Phases, one line of output each:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA source of the main paths (``horovod_tpu_torch/csrc``:
-   ``adamw.cu``, ``batchnorm.cu``, ``bn_sums.cu``, ``flash_fwd.cu``,
-   ``flash_bwd.cu``) with ``nvcc`` for ``sm_90a``, all builds started
-   together;
+   ``adamw.cu``, ``batchnorm.cu``, ``bn_sums.cu``, ``ce_head.cu``,
+   ``flash_fwd.cu``, ``flash_bwd.cu``) with ``nvcc`` for ``sm_90a``, all
+   builds started together;
 3. each kernel against its plain PyTorch version on the card, in bf16 and
    fp32, at every distinct (N, C) the main path gives it (ResNet-50, batch
    128, 224 px — read off the model's BatchNorm inputs) plus one ragged N;
@@ -53,8 +53,8 @@ Phases, one line of output each:
    fused head), ``DistributedOptimizer(AdamW(3e-4, weight_decay=0.1))``,
    ``Trainer.fit`` for 10 steps on a repeated seeded batch, captured as in
    5; the loss must be finite and fall, B3 and B4 must launch exactly 8
-   times a step and the AdamW kernel A1 once, in the eager step and the
-   capture;
+   times a step, the AdamW kernel A1 once and the head's kernel A2 4 + 4
+   times (``LM_CHUNKS`` a direction), in the eager step and the capture;
 9. LM serving: bench.py's LM at full width and depth (bf16 weights from
    ``init_params``, bf16 KV pages, block size 16, ``max_seq_len`` 2048 =
    the engine's view length) through ``serving.Engine``, whose forwards
@@ -114,8 +114,8 @@ Phases, one line of output each:
     momentum=0.9)``) and (b) the LM (phase 8's, AdamW with its LR in a
     device tensor, on A1) must match every loss and every parameter,
     buffer and optimizer state tensor bit for bit; (c) the profiled
-    replays must run B1 and B2 53 times a step, B3 and B4 8 times and A1
-    once; (d) the same ResNet-50 trainer with a Python float LR, a planted
+    replays must run B1 and B2 53 times a step, B3 and B4 8 times, A1
+    once and A2 4 + 4 times; (d) the same ResNet-50 trainer with a Python float LR, a planted
     fault: ``set_lr`` must refuse once the step is captured, and the LR
     written into ``param_groups`` after the capture, which the graph
     ignores, must fail the bit-equality check while the calls before it
@@ -227,7 +227,7 @@ Phases, one line of output each:
     head, ``AdamW(3e-4, weight_decay=0.1)``), 10 captured ``Trainer``
     steps under ``sharding="off"``, ``"zero2"`` and ``"zero3"``: losses
     and final parameters bit-identical across the arms, B3 and B4 8 times
-    a step and A1 once in each, and each arm's step ms; (b) phase 5's
+    a step, A1 once and A2 4 + 4 times in each, and each arm's step ms; (b) phase 5's
     ResNet-50 (bf16, fused BN, batch 128, ``SGD(0.1, momentum=0.9)``),
     ``Trainer(sharded=True)`` (ZeRO-1) against ``sharded=False``, 10
     captured steps: losses, parameters, BN buffers and momenta
@@ -417,7 +417,7 @@ Phases, one line of output each:
     guards the capture: one hook a parameter in the capture and none in
     the eager first call, buckets issued from backward, the 3 calls'
     losses and the parameters' CRC equal between the arms bit for bit, a
-    replay launching B3 and B4 8 times and A1 once, within
+    replay launching B3 and B4 8 times, A1 once and A2 4 + 4 times, within
     ``OVERLAP_BUDGET_S`` seconds.
 
 27. the sharded modes' exchange overlapped with compute, on the one card:
@@ -437,8 +437,21 @@ Phases, one line of output each:
     one hook a parameter in the capture and none in the eager first call,
     units issued from backward, one gather wait a parameter (zero3), the 3
     calls' losses and the parameters and shards' CRC equal between the
-    arms bit for bit, a replay launching B3 and B4 8 times and A1 once,
-    within ``SHARDED_OVERLAP_BUDGET_S`` seconds.
+    arms bit for bit, a replay launching B3 and B4 8 times, A1 once and
+    A2 4 + 4 times, within ``SHARDED_OVERLAP_BUDGET_S`` seconds.
+
+28. kernel A2 (``csrc/ce_head.cu``), the fused cross-entropy head's work
+    on each fp32 logit tile, at the LM's head (``CE_SHAPE``: N = 16,382,
+    E = 1,024, V = 32,768, chunk 8,192, bf16): (a) the head's loss, dx and
+    dW through A2 against the same head with each chunk's fold and dlogits
+    taken by the plain versions on the card (``CE_LOSS_TOL``,
+    ``CE_GRAD_TOL`` of the largest entry); (b) rerun bit for bit, and
+    4 + 4 launches; (c) each kernel on one chunk (CUDA events, a dirty
+    flush of L2 before each launch) beside its byte bound, its plain
+    version and, for the forward, ``torch.logsumexp`` over the tile (no
+    library call computes the backward's function), and the head's
+    forward and backward with A2 and with the plain versions, within
+    ``CE_BUDGET_S`` seconds.
 
 Each main path (5, 8 and 10, each example of 14, each run of 17, each
 arm of 18, of 19 (b), of 20, of 22 (a) and (b), of 23 (a) and (b), of 24
@@ -451,8 +464,10 @@ replays), ``launches_phase18``, ``launches_phase19`` and
 shows in its 3 sampled calls, ``launches_phase22`` each arm's count in
 phase 22 (a) and (b), ``launches_phase23`` each fit's count in phase
 23 (a) and (b), ``launches_phase24`` each arm's count in phase 24 (a),
-``launches_phase26`` each arm's count over phase 26's 3 calls, and
-``launches_phase27`` each mode and arm's count over phase 27's 3 calls.
+``launches_phase26`` each arm's count over phase 26's 3 calls,
+``launches_phase27`` each mode and arm's count over phase 27's 3 calls,
+and, for A2, ``launches_phase28`` its count in phase 28's first head call
+(A2's ``launches`` are phase 8's, like B3, B4 and A1's).
 Then a JSON line with each kernel's
 record, and last the result line ``{"ok": true, "device": {...}}``. Any failed phase raises: the script then
 exits non-zero and prints no result. It also fails without CUDA, and when
@@ -495,6 +510,7 @@ from horovod_tpu_torch.models.layers import FusedBatchNorm
 from horovod_tpu_torch.ops import _build
 from horovod_tpu_torch.ops import batchnorm as bn
 from horovod_tpu_torch.ops import flash_attention as fa
+from horovod_tpu_torch.ops import losses as xent
 from horovod_tpu_torch.ops import optim
 from horovod_tpu_torch.ops import (compression, exchange, fusion, sparse,
                                    strategy)
@@ -591,6 +607,7 @@ FLASH_REPS = 10
 LM_LAYERS = 8
 LM_BATCH = 2
 LM_T = 8192
+LM_CHUNKS = 4  # the fused head's vocabulary chunks: 32,768 / 8,192
 # The card-vs-CPU LM step: depth cut to 2 layers, one row of 2304 tokens
 # (above local_attention's 2048 switch).
 LM_STEP_LAYERS = 2
@@ -1431,21 +1448,20 @@ def phase_lm_main_path(device):
                                           seed=SEED, device=device)
     timer = StepTimer()
     torch.cuda.reset_peak_memory_stats(device)
-    fa.reset_launch_counts()
-    optim.reset_launch_counts()
+    reset_launch_counts()
     history = trainer.fit(
         [tokens], epochs=STEPS, steps_per_epoch=1, verbose=False,
         callbacks=[hvd.BroadcastGlobalVariablesCallback(0),
                    hvd.MetricAverageCallback(), timer])
     torch.cuda.synchronize()
-    launches = {**fa.LAUNCHES, **optim.LAUNCHES}
+    launches = {k: v for k, v in launch_counts().items()
+                if k in REPLAY_COUNTS["lm"]}
     losses = history["loss"]
     if not all(math.isfinite(v) for v in losses):
         raise RuntimeError(f"non-finite LM loss: {losses}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"LM loss did not fall: {losses}")
-    check_captured(trainer, launches, {"flash_fwd": LM_LAYERS,
-                                       "flash_bwd": LM_LAYERS, "adamw": 1})
+    check_captured(trainer, launches, REPLAY_COUNTS["lm"])
     steady = timer.times[2:]
     tokens_per_s = LM_BATCH * LM_T * len(steady) / sum(steady)
     peak_gib = torch.cuda.max_memory_allocated(device) / 2 ** 30
@@ -1925,23 +1941,26 @@ REPLAY_KERNELS = {
     "resnet50": {"channel_sums_ring_kernel": BN_LAYERS,
                  "channel_grad_sums_kernel": BN_LAYERS},
     "lm": {"flash_fwd_kernel": LM_LAYERS, "flash_bwd_dq_kernel": LM_LAYERS,
-           "flash_bwd_dkdv_kernel": LM_LAYERS, "adamw_kernel": 1},
+           "flash_bwd_dkdv_kernel": LM_LAYERS, "adamw_kernel": 1,
+           "ce_chunk_fwd_kernel": LM_CHUNKS,
+           "ce_chunk_bwd_kernel": LM_CHUNKS},
 }
 # The same, as the wrappers count them (LAUNCHES).
 REPLAY_COUNTS = {
     "resnet50": {"channel_sums": BN_LAYERS, "channel_grad_sums": BN_LAYERS},
-    "lm": {"flash_fwd": LM_LAYERS, "flash_bwd": LM_LAYERS, "adamw": 1},
+    "lm": {"flash_fwd": LM_LAYERS, "flash_bwd": LM_LAYERS, "adamw": 1,
+           "ce_chunk_fwd": LM_CHUNKS, "ce_chunk_bwd": LM_CHUNKS},
 }
 RULES_CALLS = 8  # (f): the inner optimizer's state is loaded after call 4
 
 
 def launch_counts() -> dict:
-    return {**bn.LAUNCHES, **fa.LAUNCHES, **optim.LAUNCHES}
+    return {**bn.LAUNCHES, **fa.LAUNCHES, **optim.LAUNCHES, **xent.LAUNCHES}
 
 
 def reset_launch_counts() -> None:
     for reset in (bn.reset_launch_counts, fa.reset_launch_counts,
-                  optim.reset_launch_counts):
+                  optim.reset_launch_counts, xent.reset_launch_counts):
         reset()
 
 
@@ -4161,9 +4180,8 @@ def zero_lm_arm(device, sharding: str, tokens, keep: bool = False) -> dict:
     losses, ms = _timed_steps(lambda b: trainer.train_step(b)[0], tokens,
                               ZERO_STEPS)
     launches = {k: v for k, v in launch_counts().items()
-                if k in ("flash_fwd", "flash_bwd", "adamw")}
-    check_captured(trainer, launches, {"flash_fwd": LM_LAYERS,
-                                       "flash_bwd": LM_LAYERS, "adamw": 1})
+                if k in REPLAY_COUNTS["lm"]}
+    check_captured(trainer, launches, REPLAY_COUNTS["lm"])
     out = {"losses": losses, "ms": ms, "launches": launches,
            "params": _zero_params(trainer), "plan": exchange.last_plan()}
     if keep:
@@ -5065,7 +5083,8 @@ TUNED_KNOBS = {"HOROVOD_COMPRESSION": "bf16",
 # (b): the candidate measure_lm_ab holds against the defaults.
 AB_KNOBS = {"HOROVOD_EXCHANGE_SCHEDULE": "priority",
             "HOROVOD_COMPRESSION": "bf16"}
-TIMELINE_KERNELS = {"lm": ("flash_fwd", "flash_bwd", "adamw"),
+TIMELINE_KERNELS = {"lm": ("flash_fwd", "flash_bwd", "adamw", "ce_chunk_fwd",
+                           "ce_chunk_bwd"),
                     "resnet50": ("channel_sums", "channel_grad_sums")}
 
 
@@ -5347,8 +5366,8 @@ def timeline_run(name: str, device) -> dict:
                            f"{sampled} sampled calls")
     if any(e["name"] == "NO_DEVICE_PLANE" for e in tl):
         raise RuntimeError(f"{name}: a sampled call saw no CUDA event")
-    per_step = {"flash_fwd": LM_LAYERS, "flash_bwd": LM_LAYERS, "adamw": 1,
-                "channel_sums": BN_LAYERS, "channel_grad_sums": BN_LAYERS}
+    per_step = {**REPLAY_COUNTS["lm"], "channel_sums": BN_LAYERS,
+                "channel_grad_sums": BN_LAYERS}
     counts, records = {}, {}
     for wrapper in TIMELINE_KERNELS[name]:
         fn = launches.KERNELS[wrapper][0]
@@ -6869,6 +6888,139 @@ def sharded_overlap_line(so: dict, ident: str) -> str:
         f"{SHARDED_OVERLAP_BUDGET_S:.0f} s), on {ident}")
 
 
+# -- phase 28: kernel A2, the fused head's logit tiles -------------------------
+
+CE_SHAPE = (16_382, 1_024, 32_768, 8_192)  # N, E, V, chunk: the LM's head
+CE_LOSS_TOL = 2e-6         # relative: the sums of exp in another order
+CE_GRAD_TOL = 2.0 ** -7    # of the largest entry: one bf16 ulp bounds it
+CE_HEAD_REPS = 5           # (c): head calls timed a side
+CE_BUDGET_S = 30.0
+
+
+def ce_head_call(x, w, t, chunk):
+    """One forward and backward of the fused head: (loss, dx, dW)."""
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    loss = xent.fused_cross_entropy(xg, wg, t, chunk)
+    loss.backward()
+    return loss.detach(), xg.grad, wg.grad
+
+
+def phase_ce_head(device) -> dict:
+    """Phase 28: A2 (``csrc/ce_head.cu``) at the LM's head, (a) against the
+    plain versions, (b) rerun bit for bit and counted 4 + 4, (c) each kernel
+    a chunk timed (dirty-L2 flush) beside its byte bound, its plain version
+    and, for the forward, ``torch.logsumexp`` over the tile, and the whole
+    head's forward and backward with A2 and with the plain versions."""
+    t0 = time.perf_counter()
+    n, e, v, chunk = CE_SHAPE
+    g = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn(n, e, generator=g, device=device).bfloat16()
+    w = (torch.randn(e, v, generator=g, device=device) * e ** -0.5).bfloat16()
+    t = torch.randint(0, v, (n,), generator=g, device=device)
+    xent.reset_launch_counts()
+    got = ce_head_call(x, w, t, chunk)
+    torch.cuda.synchronize()
+    launches = dict(xent.LAUNCHES)
+    again = ce_head_call(x, w, t, chunk)
+    with xent.plain_chunks():
+        want = ce_head_call(x, w, t, chunk)
+    torch.cuda.synchronize()
+    out = {
+        "launches": launches,
+        "identical": all(torch.equal(a, b) for a, b in zip(got, again)),
+        "loss": want[0].item(),
+        "loss_rel": abs(got[0].item() - want[0].item()) / abs(
+            want[0].item())}
+    for name, a, b in (("dx", got[1], want[1]), ("dw", got[2], want[2])):
+        out[f"{name}_err"] = ((a.float() - b.float()).abs().max()
+                              / b.float().abs().max()).item()
+    bad = []
+    if launches != {"ce_chunk_fwd": LM_CHUNKS, "ce_chunk_bwd": LM_CHUNKS}:
+        bad.append(f"launches {launches}, expected {LM_CHUNKS} + "
+                   f"{LM_CHUNKS}")
+    if not out["identical"]:
+        bad.append("a rerun gave other bits")
+    if not out["loss_rel"] <= CE_LOSS_TOL:
+        bad.append(f"loss rel err {out['loss_rel']:.3e}")
+    for name in ("dx", "dw"):
+        if not out[f"{name}_err"] <= CE_GRAD_TOL:
+            bad.append(f"{name} err {out[f'{name}_err']:.3e}")
+    if bad:
+        raise RuntimeError("phase 28: A2 against the plain versions: "
+                           + "; ".join(bad))
+    del got, again, want
+
+    # (c) One chunk at the LM's shape, against the full rows' LSE.
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
+    logits = xent._mm_f32(x, w[:, :chunk])
+    lse = torch.logsumexp(xent._mm_f32(x, w), -1)
+    scale = torch.full((), 1.0 / n, device=device)
+    m = torch.full((n,), float("-inf"), device=device)
+    s, tl = torch.zeros(n, device=device), torch.zeros(n, device=device)
+    tile = n * chunk * 4
+    runs = {
+        "ce_chunk_fwd": (
+            lambda: xent.fold_kernel(m, s, tl, logits, t, 0),
+            lambda: xent.fold_plain(m, s, tl, logits, t, 0),
+            lambda: torch.logsumexp(logits, -1),
+            tile + n * (8 + 8 + 12)),  # targets, m and s; m, s and tl
+        "ce_chunk_bwd": (
+            lambda: xent.dlogits_kernel(logits, t, 0, lse, scale,
+                                          torch.bfloat16),
+            lambda: xent.dlogits_plain(logits, t, 0, lse, scale,
+                                         torch.bfloat16),
+            None,
+            tile + n * chunk * 2 + n * (8 + 4) + 4),  # targets, lse, scale
+    }
+    out["kernels"] = {}
+    for name, (kernel, plain, library, nbytes) in runs.items():
+        times = cuda_times(kernel, flush)
+        rec = {"ms": sum(times) / len(times),
+               "ms_median": statistics.median(times),
+               "plain_ms": cuda_time_ms(plain, flush),
+               "library_ms": (cuda_time_ms(library, flush)
+                              if library is not None else None),
+               "bytes": nbytes,
+               "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+               "bound_by": "bytes"}
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        out["kernels"][name] = rec
+    del logits, lse
+    free_cuda()
+    for side in ("a2", "plain"):
+        with xent.plain_chunks() if side == "plain" else contextlib.nullcontext():
+            out[f"head_{side}_ms"] = statistics.median(cuda_times(
+                lambda: ce_head_call(x, w, t, chunk), flush,
+                reps=CE_HEAD_REPS))
+    out["seconds"] = time.perf_counter() - t0
+    if out["seconds"] > CE_BUDGET_S:
+        raise RuntimeError(f"phase 28 took {out['seconds']:.1f} s (budget "
+                           f"{CE_BUDGET_S:.0f} s)")
+    return out
+
+
+def ce_head_line(ce: dict, ident: str) -> str:
+    n, e, v, chunk = CE_SHAPE
+    return (
+        f"phase 28 fused head (A2): ok; N={n} E={e} V={v} chunk {chunk}, "
+        f"bf16: A2 against the plain versions: loss {ce['loss']:.6f}, rel "
+        f"err {ce['loss_rel']:.2e} (limit {CE_LOSS_TOL}), dx "
+        f"{ce['dx_err']:.2e} and dW {ce['dw_err']:.2e} of the largest entry "
+        f"(limit {CE_GRAD_TOL}); rerun bit-identical; launches "
+        f"{ce['launches']}; per chunk: " + "; ".join(
+            f"{k} {r['ms']:.4f} ms (median {r['ms_median']:.4f}), plain "
+            f"{r['plain_ms']:.4f} ms"
+            + (f", torch.logsumexp {r['library_ms']:.4f} ms"
+               if r["library_ms"] is not None else "")
+            + f", bound {r['bound_ms']:.4f} ms ({r['bytes']} bytes), "
+            f"{100 * r['bound_share']:.1f}% of the bound"
+            for k, r in ce["kernels"].items())
+        + f"; the head's forward and backward (median of {CE_HEAD_REPS}): "
+        f"A2 {ce['head_a2_ms']:.3f} ms, plain {ce['head_plain_ms']:.3f} ms; "
+        f"phase {ce['seconds']:.1f} s (budget {CE_BUDGET_S:.0f} s), on "
+        f"{ident}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the port "
@@ -6972,7 +7124,8 @@ def main() -> int:
         f"{LM_LAYERS} layers, B={LM_BATCH} T={LM_T} bf16 fused head, "
         f"AdamW(3e-4, wd 0.1, bf16 moments), {STEPS} steps; loss "
         f"{lm_losses[0]:.4f} -> {lm_losses[-1]:.4f}; launches {lm_launches} "
-        f"(flash {LM_LAYERS} a step each, A1 1 a step: the eager call and "
+        f"(flash {LM_LAYERS} a step each, A1 1 a step, A2 {LM_CHUNKS} + "
+        f"{LM_CHUNKS} a step: the eager call and "
         f"{STEPS - 1} replays); smoke throughput "
         f"{tps:.1f} tokens/s "
         f"(steps 3-{STEPS}, mean step "
@@ -7092,6 +7245,13 @@ def main() -> int:
                             if k.startswith(("ms_", "library_ms_"))
                             or k in ("library_bwd_ms",
                                      "nearest_library_ms")})
+    for name, line in (("ce_chunk_fwd", 90), ("ce_chunk_bwd", 167)):
+        # A2: launches from phase 8's main path; times from phase 28.
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "horovod_tpu_torch/csrc/ce_head.cu",
+            "replaces": f"horovod_tpu/ops/losses.py:{line}",
+            "launches": lm_launches[name], "max_abs_err": None})
     cs = phase_captured_step(device)
     say(captured_step_line(cs, ident) + f"; total "
         f"{time.perf_counter() - t_start:.0f} s")
@@ -7122,8 +7282,8 @@ def main() -> int:
     say(zero_line(zr, ident) + f"; total "
         f"{time.perf_counter() - t_start:.0f} s")
     for k in kernels:
-        runs = zr["lm"] if k["name"] in ("flash_fwd", "flash_bwd",
-                                         "adamw") else zr["resnet50"]
+        runs = zr["lm"] if k["name"] in REPLAY_COUNTS["lm"] \
+            else zr["resnet50"]
         k["launches_phase18"] = {arm: r["launches"][k["name"]]
                                  for arm, r in runs.items()}
 
@@ -7204,6 +7364,17 @@ def main() -> int:
                 f"{mode}/{arm}": r["launches"][k["name"]]
                 for mode, arms in so["runs"].items()
                 for arm, r in arms.items()}
+
+    ce = phase_ce_head(device)
+    say(ce_head_line(ce, ident) + f"; total "
+        f"{time.perf_counter() - t_start:.0f} s")
+    for k in kernels:
+        r = ce["kernels"].get(k["name"])
+        if r is not None:
+            k.update({f: r[f] for f in ("ms", "ms_median", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")})
+            k["launches_phase28"] = ce["launches"][k["name"]]
 
     say(json.dumps({"kernels": kernels}))
     hvd.shutdown()

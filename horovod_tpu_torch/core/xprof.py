@@ -30,7 +30,7 @@ opcode the reference's rules speak of, so :func:`map_device_spans` and
 * the whole call is ``DEVICE_STEP`` on the ``_device`` row.
 
 Beyond the reference, :func:`kernel_spans` writes each launch of the
-port's own kernels (``ops/launches.py::KERNELS``: B1-B4 and A1) on the
+port's own kernels (``ops/launches.py::KERNELS``: B1-B4, A1, A2) on the
 ``_kernels`` row, named by its device function.
 
 Times are µs from the profiler session's start.

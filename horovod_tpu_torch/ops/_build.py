@@ -25,9 +25,11 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # Every source the port builds, by name (``csrc/<name>.cu``): A1 the AdamW
-# update, B2 BatchNorm's gradient sums, B1 its forward sums, B4 and B3 the
-# flash-attention backward and forward.
-SOURCES = ("adamw", "batchnorm", "bn_sums", "flash_bwd", "flash_fwd")
+# update, B2 BatchNorm's gradient sums, B1 its forward sums, A2 the fused
+# cross-entropy head's logit tiles, B4 and B3 the flash-attention backward
+# and forward.
+SOURCES = ("adamw", "batchnorm", "bn_sums", "ce_head", "flash_bwd",
+           "flash_fwd")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

@@ -23,6 +23,8 @@ KERNELS = {
     "flash_fwd": ("flash_fwd_kernel",),
     "flash_bwd": ("flash_bwd_dkdv_kernel", "flash_bwd_dq_kernel"),
     "adamw": ("adamw_kernel",),
+    "ce_chunk_fwd": ("ce_chunk_fwd_kernel",),
+    "ce_chunk_bwd": ("ce_chunk_bwd_kernel",),
 }
 
 _recorded: list | None = None

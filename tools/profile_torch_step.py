@@ -54,6 +54,7 @@ _OWN = (  # the port's kernels, by category
     ("flash_attention", ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
                          "flash_bwd_dq_kernel")),
     ("adamw", ("adamw_kernel",)),
+    ("ce_head", ("ce_chunk_fwd_kernel", "ce_chunk_bwd_kernel")),
 )
 _SPLIT = ("elementwise", "copy_and_cast")  # split op by op
 _CATEGORIES = (  # first match wins
